@@ -1,0 +1,115 @@
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+
+Each source `csrc/<name>.cu` is compiled on its own into
+`_build/lib<name>-<hash>.so`, a shared library with a plain C interface
+(no PyTorch headers, so a build takes seconds). The hash covers the source
+and every header in `csrc/`, so an edited source builds anew and a stale
+library is never loaded. Libraries are built at first use; `build()` builds
+several at once, one nvcc process per source, all started together.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# source name -> (C entry point, argument types); every entry point returns
+# the cudaError_t of its launch as an int
+ENTRY_POINTS = {
+    "attention_plain": ("excel_plain_attention_f32",
+                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "attention_surgery": ("excel_surgery_attention_f32",
+                          [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                           _P]),
+    "par_diffuse": ("excel_par_diffuse_f32",
+                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+}
+
+_loaded: dict = {}
+_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    path = shutil.which("nvcc") or (
+        os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None)
+    if not path or not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                           "toolkit (set CUDA_HOME or put nvcc on PATH)")
+    return path
+
+
+def library_path(name: str) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for fn in sorted(os.listdir(CSRC)):
+        if fn == name + ".cu" or fn.endswith(".cuh"):
+            with open(os.path.join(CSRC, fn), "rb") as f:
+                h.update(fn.encode() + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+
+
+def build(names=tuple(ENTRY_POINTS)) -> dict[str, float]:
+    """Compile every named source whose library is missing, in parallel.
+
+    Returns {name: seconds} (0.0 for a library already built). The
+    compiler's resource report (-Xptxas -v) is kept beside each library as
+    `<library>.log`. Raises with nvcc's output when a build fails."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+               os.path.join(CSRC, name + ".cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    seconds = {name: 0.0 for name in names}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        with open(out + ".log", "w") as f:
+            f.write(log)
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return seconds
+
+
+def load(name: str):
+    """The C entry point of `csrc/<name>.cu` as a ctypes function, building
+    its library first if needed."""
+    with _lock:
+        if name not in _loaded:
+            build((name,))
+            symbol, argtypes = ENTRY_POINTS[name]
+            fn = getattr(ctypes.CDLL(library_path(name)), symbol)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            _loaded[name] = fn
+        return _loaded[name]
+
+
+def check(rc: int, name: str) -> None:
+    """Raise when a launch returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError_t {rc}")

@@ -1,0 +1,184 @@
+"""Fused attention for the encoder: CUDA kernels and their plain versions.
+
+Counterpart of excel_tpu/models/attention_pallas.py. Two wrappers:
+
+- `fused_plain_attention` runs csrc/attention_plain.cu, which replaces the
+  Pallas `_plain_kernel` and `_plain_kernel_rows_hb`;
+- `fused_surgery_attention` runs csrc/attention_surgery.cu, which replaces
+  the Pallas `_kernel` and computes what `_kernel_rows` computes.
+
+Both kernels are bound by fp32 arithmetic; the sources say how they are
+laid out. The weights output has the TPU kernels' three modes: "out" (own
+output), "acc" (added in place onto an accumulator, the cross-block mean of
+the training-free path) and "none" (never written).
+
+On a CPU tensor a wrapper computes its plain PyTorch version; on a CUDA
+tensor it launches its kernel or raises. Each wrapper counts its kernel
+launches in its `launches` attribute.
+"""
+from __future__ import annotations
+
+import torch
+
+from .. import build
+
+_MODES = {"none": 0, "out": 1, "acc": 2}
+_KERNEL_HEAD_DIMS = (32, 64)
+
+
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"q, k, v must share one [B, H, N, D] shape, got "
+                         f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    for t in (q, k, v):
+        if t.dtype != torch.float32:
+            raise NotImplementedError(
+                f"{t.dtype} attention belongs to the bf16 (fast preset) "
+                "slice; this slice's kernels are fp32")
+        if t.device != q.device:
+            raise ValueError("q, k, v must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("q, k, v must be contiguous")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {q.device}")
+    if q.device.type == "cuda":
+        if q.shape[-1] not in _KERNEL_HEAD_DIMS:
+            raise ValueError(f"the attention kernels take head dims "
+                             f"{_KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
+        if any(t.data_ptr() % 16 for t in (q, k, v)):
+            raise ValueError("the attention kernels read q, k, v as float4: "
+                             "they must start on a 16-byte boundary")
+
+
+def _check_nn(t: torch.Tensor, q: torch.Tensor, name: str) -> None:
+    b, _, n, _ = q.shape
+    if (t.shape != (b, n, n) or t.dtype != torch.float32
+            or t.device != q.device or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous float32 [B, N, N] = "
+                         f"{(b, n, n)} tensor on {q.device}, got "
+                         f"{tuple(t.shape)} {t.dtype} {t.device}")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# plain attention
+# ---------------------------------------------------------------------------
+
+def plain_attention_reference(q, k, v, acc=None, need_weights=True):
+    """Plain version of `fused_plain_attention`, same arguments and
+    results."""
+    b, heads, n, d = q.shape
+    scale = d ** -0.5
+    attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
+    ctx = torch.matmul(attn, v)
+    if acc is None and not need_weights:
+        return ctx, None
+    w = acc if acc is not None else q.new_zeros((b, n, n))
+    for h in range(heads):
+        w += attn[:, h] / heads
+    return ctx, w
+
+
+def fused_plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          acc: torch.Tensor | None = None,
+                          need_weights: bool = True):
+    """softmax(q k^T D^-1/2) v per (image, head) with the head-MEAN weights.
+
+    q/k/v: contiguous [B, H, N, D] float32. Returns (ctx [B, H, N, D],
+    weights): the head-mean [B, N, N] ("out"), `acc` with the head-mean
+    added in place when an accumulator is given ("acc"; the caller must not
+    reuse `acc`), or None with need_weights=False ("none")."""
+    _check_qkv(q, k, v)
+    mode = "acc" if acc is not None else ("out" if need_weights else "none")
+    if acc is not None:
+        _check_nn(acc, q, "acc")
+    if q.device.type == "cpu":
+        return plain_attention_reference(q, k, v, acc, need_weights)
+    b, heads, n, d = q.shape
+    ctx = torch.empty_like(q)
+    weights = acc if mode == "acc" else (
+        q.new_empty((b, n, n)) if mode == "out" else None)
+    fn = build.load("attention_plain")
+    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
+                   _ptr(weights), b, heads, n, d, _MODES[mode], _stream(q)),
+                "attention_plain")
+    fused_plain_attention.launches += 1
+    return ctx, weights
+
+
+fused_plain_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# surgery attention
+# ---------------------------------------------------------------------------
+
+def surgery_attention_reference(q, k, v, ex_attn=None, acc=None,
+                                need_attn=True):
+    """Plain version of `fused_surgery_attention`, same arguments and
+    results."""
+    b, heads, n, d = q.shape
+    scale = d ** -0.5
+
+    def sim(a, c):
+        return torch.softmax(torch.matmul(a, c.transpose(-1, -2)) * scale,
+                             dim=-1)
+
+    attn_ori = sim(q, k)
+    mix = (sim(q, q) + sim(k, k) + sim(v, v)) / 3.0
+    if ex_attn is not None:
+        mix = mix + ex_attn[:, None]
+    shared = q.new_zeros((b, n, n))
+    for h in range(heads):
+        shared += mix[:, h]
+    ctx_ori = torch.matmul(attn_ori, v)
+    if acc is None and not need_attn:
+        return shared, None, ctx_ori
+    attn_sum = acc if acc is not None else q.new_zeros((b, n, n))
+    for h in range(heads):
+        attn_sum += attn_ori[:, h]
+    return shared, attn_sum, ctx_ori
+
+
+def fused_surgery_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            ex_attn: torch.Tensor | None = None,
+                            acc: torch.Tensor | None = None,
+                            need_attn: bool = True):
+    """ExCEL dual-path attention per (image, head), reduced over heads.
+
+    q/k/v: contiguous [B, H, N, D] float32; ex_attn: optional [B, N, N]
+    additive calibration (zero over the CLS row/column). Returns
+    (shared [B, N, N] — head-sum of the dense mix,
+     attn_sum — head-sum of softmax(q k^T) [B, N, N] ("out"), `acc` with it
+                added in place ("acc"), or None with need_attn=False,
+     ctx_ori [B, H, N, D] — softmax(q k^T) v per head)."""
+    _check_qkv(q, k, v)
+    mode = "acc" if acc is not None else ("out" if need_attn else "none")
+    if acc is not None:
+        _check_nn(acc, q, "acc")
+    if ex_attn is not None:
+        _check_nn(ex_attn, q, "ex_attn")
+    if q.device.type == "cpu":
+        return surgery_attention_reference(q, k, v, ex_attn, acc, need_attn)
+    b, heads, n, d = q.shape
+    shared = q.new_empty((b, n, n))
+    ctx_ori = torch.empty_like(q)
+    attn_sum = acc if mode == "acc" else (
+        q.new_empty((b, n, n)) if mode == "out" else None)
+    fn = build.load("attention_surgery")
+    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ex_attn),
+                   shared.data_ptr(), _ptr(attn_sum), ctx_ori.data_ptr(),
+                   b, heads, n, d, _MODES[mode], _stream(q)),
+                "attention_surgery")
+    fused_surgery_attention.launches += 1
+    return shared, attn_sum, ctx_ori
+
+
+fused_surgery_attention.launches = 0

@@ -1,0 +1,176 @@
+"""Frozen CLIP ViT-B/16 with ExCEL architecture surgery, vision side
+(counterpart of excel_tpu/models/clip.py; the text encoder belongs to a
+later slice).
+
+"Surgery" is a static property of the forward: the last
+`cfg.surgery_blocks` blocks run the dual-path value-value attention. The
+JAX package's effective behaviour is carried over, quirks included: the CLS
+token from the original path, the per-block feature stack that replicates
+the reference's aliased views, and the token-dim L2 norm of encode_image.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..config import ClipConfig
+from ..ops.labels import scale_and_translate
+from .layers import attention_fused, layer_norm, mlp, surgery_attention_fused
+
+
+def interpolate_pos_embedding(pos: torch.Tensor,
+                              new_side: int) -> torch.Tensor:
+    """Bilinearly resize the grid part of a [1+S*S, C] positional table
+    (half-pixel sampling, as jax.image.resize 'linear' and torch
+    F.interpolate(align_corners=False) do when upsampling).
+
+    Downsampling (a grid below the pretrained one, e.g. MSC scale 0.5) is
+    not ported: jax.image.resize antialiases there and the reference's
+    F.interpolate does not, so the choice belongs to the MSC slice."""
+    cls_tok, grid = pos[:1], pos[1:]
+    side = int(round(float(grid.shape[0]) ** 0.5))
+    c = grid.shape[-1]
+    if side == new_side:
+        return pos
+    if new_side < side:
+        raise NotImplementedError(
+            f"positional-table downsampling {side}->{new_side} belongs to "
+            "the MSC slice (antialias choice, ROADMAP §3)")
+    grid = grid.reshape(side, side, c).permute(2, 0, 1)[None]  # [1,C,S,S]
+    scale = torch.full((1, 2), new_side / side, dtype=torch.float32,
+                       device=pos.device)
+    grid = scale_and_translate(grid, (new_side, new_side), scale,
+                               torch.zeros_like(scale))
+    return torch.cat([cls_tok, grid[0].permute(1, 2, 0).reshape(-1, c)],
+                     dim=0)
+
+
+def _patch_embed(images: torch.Tensor, w: torch.Tensor,
+                 patch: int) -> torch.Tensor:
+    """16x16 stride-16 convolution as an exact im2col product (no cuDNN, so
+    no TF32): images [B, H, W, 3] NHWC, w [width, 3, P, P] ->
+    [B, gh, gw, width]."""
+    b, h, wd, c = images.shape
+    gh, gw = h // patch, wd // patch
+    x = images[:, :gh * patch, :gw * patch]
+    x = x.reshape(b, gh, patch, gw, patch, c).permute(0, 1, 3, 5, 2, 4)
+    x = x.reshape(b, gh, gw, c * patch * patch)
+    return torch.matmul(x, w.reshape(w.shape[0], -1).t())
+
+
+def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
+                   ex_feats: torch.Tensor | None = None,
+                   attn_mode: str = "stack"):
+    """Surgery ViT forward.
+
+    images: [B, H, W, 3] (NHWC, already normalised).
+    attn_mode:
+      "stack" — attn = [L, B, N, N] per-block weights (head-mean for
+                single-path blocks, head-sum for surgery blocks), L =
+                cfg.attn_out_layers (or all);
+      "mean"  — attn = [B, N, N] fp32, the mean over those L blocks,
+                accumulated in place across blocks by the kernels;
+      "none"  — attn = None.
+    Returns {"projected": [B, N, embed_dim], "attn": see attn_mode,
+             "feats": [L_all, B, N, width]}.
+    """
+    if attn_mode not in ("stack", "mean", "none"):
+        raise ValueError(attn_mode)
+    if attn_mode == "mean" and cfg.attn_out_layers is None:
+        raise ValueError("attn_mode='mean' needs an explicit attn_out_layers "
+                         "window")
+    if ex_feats is not None:
+        raise NotImplementedError("LVC-calibrated attention (ex_feats) "
+                                  "belongs to the trained-forward slice")
+    if cfg.compute_dtype != torch.float32:
+        raise NotImplementedError("a bf16 encoder (fast preset) belongs to "
+                                  "the fast-preset slice")
+    p = params["visual"]
+    heads = cfg.vision_heads
+    n_single = cfg.vision_layers - cfg.surgery_blocks
+
+    x = _patch_embed(images.float(), p["patch_embed"], cfg.patch_size)
+    b, gh, gw, c = x.shape
+    x = x.reshape(b, gh * gw, c)
+    cls = p["class_embedding"].to(x.dtype).expand(b, 1, c)
+    x = torch.cat([cls, x], dim=1)
+    x = x + interpolate_pos_embedding(p["positional_embedding"], gh)
+    x = layer_norm(x, p["ln_pre"])
+
+    window = cfg.attn_out_layers or cfg.vision_layers
+    win_start = cfg.vision_layers - window
+
+    attn_list = []          # "stack": per-block weights
+    attn_acc = None         # "mean": the kernels' in-place accumulator
+    single_feats, ori_feats, ori_residuals = [], [], []
+    x_ori = None
+    for i, blk in enumerate(p["blocks"]):
+        in_win = i >= win_start and attn_mode != "none"
+        fused_acc = attn_acc if attn_mode == "mean" and in_win else None
+        if i < n_single:
+            y, attn_w = attention_fused(layer_norm(x, blk["ln_1"]),
+                                        blk["attn"], heads,
+                                        attn_acc=fused_acc,
+                                        need_weights=in_win)
+            x = x + y
+            x = x + mlp(layer_norm(x, blk["ln_2"]), blk["mlp"])
+            single_feats.append(x)
+        else:
+            # dual path: both streams attend over ln_1 of the ORIGINAL stream
+            src = x if x_ori is None else x_ori
+            dense_res, ori_res, attn_w = surgery_attention_fused(
+                layer_norm(src, blk["ln_1"]), blk["attn"], heads,
+                attn_acc=fused_acc, need_attn=in_win)
+            x_ori = src + ori_res
+            x_ori = x_ori + mlp(layer_norm(x_ori, blk["ln_2"]), blk["mlp"])
+            x = x + dense_res          # dense stream skips the FFN
+            ori_feats.append(x_ori)
+            ori_residuals.append(ori_res)
+        if in_win:
+            if attn_mode == "mean":
+                attn_acc = attn_w          # the kernel added the prior acc
+            else:
+                attn_list.append(attn_w)
+
+    # CLS token from the original path
+    if x_ori is not None:
+        x = torch.cat([x_ori[:, :1], x[:, 1:]], dim=1)
+
+    # per-block feature stack with the reference's effective values (its
+    # appended views are mutated by later in-place updates):
+    #   blocks 0..n_single-2: clean single-path outputs
+    #   block  n_single-1:    the FINAL dense stream (CLS already swapped)
+    #   surgery blocks i<last: x_ori after block i + block i+1's attention
+    #                          residual (pre-MLP)
+    #   last surgery block:   clean x_ori
+    if ori_feats:
+        feat_list = single_feats[:-1] + [x]
+        for j in range(len(ori_feats) - 1):
+            feat_list.append(ori_feats[j] + ori_residuals[j + 1])
+        feat_list.append(ori_feats[-1])
+    else:
+        feat_list = single_feats
+
+    x = layer_norm(x, p["ln_post"])
+    projected = torch.matmul(x, p["proj"].to(x.dtype))
+
+    if attn_mode == "none":
+        attn_out = None
+    elif attn_mode == "mean":
+        attn_out = attn_acc / window
+    else:
+        attn_out = torch.stack(attn_list, dim=0)
+
+    return {"projected": projected, "attn": attn_out,
+            "feats": torch.stack(feat_list, dim=0)}
+
+
+def encode_image(params: dict, images: torch.Tensor, cfg: ClipConfig,
+                 ex_feats: torch.Tensor | None = None,
+                 attn_mode: str = "stack"):
+    """vision_forward, then the reference's L2 norm over the TOKEN dimension
+    (dim 1 of [B, N, C]), not the feature dimension."""
+    out = vision_forward(params, images, cfg, ex_feats, attn_mode=attn_mode)
+    feats = out["projected"]
+    out["projected"] = feats / torch.linalg.vector_norm(feats, dim=1,
+                                                        keepdim=True)
+    return out

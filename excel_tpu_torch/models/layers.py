@@ -1,0 +1,138 @@
+"""Functional building blocks of the CLIP encoder (counterpart of
+excel_tpu/models/layers.py).
+
+Numerics as in the JAX package:
+- LayerNorm always computes in float32 and casts back;
+- QuickGELU is x * sigmoid(1.702 x);
+- standard attention returns the head-MEAN of its softmax weights (torch
+  nn.MultiheadAttention need_weights semantics), while the surgery attention
+  returns the head-SUM of its original-path weights; SVC consumes a mix of
+  both, so the distinction matters.
+
+Parameters are the torch-layout tree of models/params.py: linear weights
+[out, in], applied as x @ w^T + b.
+"""
+from __future__ import annotations
+
+import torch
+
+from .attention_kernels import fused_plain_attention, fused_surgery_attention
+
+
+def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
+    orig = x.dtype
+    x32 = x.float()
+    mean = x32.mean(-1, keepdim=True)
+    var = x32.var(-1, keepdim=True, correction=0)
+    out = (x32 - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    return out.to(orig)
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
+    out = torch.matmul(x, p["w"].to(x.dtype).t())
+    if "b" in p:
+        out = out + p["b"].to(x.dtype)
+    return out
+
+
+def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
+    return linear(quick_gelu(linear(x, p["fc"])), p["proj"])
+
+
+def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
+    """[B, N, C] -> contiguous [B, heads, N, C//heads]."""
+    b, n, c = x.shape
+    return x.reshape(b, n, heads, c // heads).permute(0, 2, 1, 3).contiguous()
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """[B, heads, N, D] -> [B, N, heads*D]."""
+    b, h, n, d = x.shape
+    return x.permute(0, 2, 1, 3).reshape(b, n, h * d)
+
+
+def qkv_projection(y: torch.Tensor, p: dict, heads: int):
+    """Fused qkv projection -> per-head q, k, v ([B, H, N, D] each)."""
+    q, k, v = linear(y, p["qkv"]).chunk(3, dim=-1)
+    return split_heads(q, heads), split_heads(k, heads), split_heads(v, heads)
+
+
+def _cpu_only(y: torch.Tensor, name: str) -> None:
+    if y.device.type != "cpu":
+        raise ValueError(f"{name} is the per-head plain version for CPU "
+                         f"tensors; on {y.device} use {name}_fused")
+
+
+def attention(y: torch.Tensor, p: dict, heads: int):
+    """Standard multi-head self-attention over pre-normed input, per head
+    in plain PyTorch, for CPU tensors only (the encoder calls
+    `attention_fused`). Returns (output [B, N, C], head-mean weights
+    [B, N, N]). (The text encoder's causal mask belongs to the text
+    slice.)"""
+    _cpu_only(y, "attention")
+    q, k, v = qkv_projection(y, p, heads)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.matmul(q * scale, k.transpose(-1, -2))
+    weights = torch.softmax(logits, dim=-1)
+    ctx = torch.matmul(weights, v)
+    return linear(merge_heads(ctx), p["out"]), weights.mean(dim=1)
+
+
+def surgery_attention(y: torch.Tensor, p: dict, heads: int):
+    """ExCEL dual-path attention per head in plain PyTorch: the original
+    q k^T path and the dense value-value path (mean of softmax(q q^T),
+    softmax(k k^T), softmax(v v^T)), the latter summed over heads so every
+    head aggregates v with one shared matrix. For CPU tensors only (the
+    encoder calls `surgery_attention_fused`). (The LVC calibration term
+    ex_attn belongs to the trained-forward slice.)
+
+    Returns (dense_out, ori_out, head-summed original weights [B, N, N])."""
+    _cpu_only(y, "surgery_attention")
+    q, k, v = qkv_projection(y, p, heads)
+    scale = q.shape[-1] ** -0.5
+
+    def self_sim(t):
+        return torch.softmax(torch.matmul(t * scale, t.transpose(-1, -2)),
+                             dim=-1)
+
+    attn_ori = torch.softmax(torch.matmul(q * scale, k.transpose(-1, -2)),
+                             dim=-1)
+    attn = (self_sim(q) + self_sim(k) + self_sim(v)) / 3.0
+    shared = attn.sum(dim=1, keepdim=True)                 # [B,1,N,N]
+    ctx_dense = torch.matmul(shared, v)
+    ctx_ori = torch.matmul(attn_ori, v)
+    dense_out = linear(merge_heads(ctx_dense), p["out"])
+    ori_out = linear(merge_heads(ctx_ori), p["out"])
+    return dense_out, ori_out, attn_ori.sum(dim=1)
+
+
+def attention_fused(y: torch.Tensor, p: dict, heads: int,
+                    attn_acc: torch.Tensor | None = None,
+                    need_weights: bool = True):
+    """`attention` (no mask) through the plain attention kernel. attn_acc:
+    optional [B, N, N] fp32 accumulator the kernel adds its head-mean onto
+    in place; need_weights=False skips the weights output."""
+    q, k, v = qkv_projection(y, p, heads)
+    ctx, w = fused_plain_attention(q, k, v, acc=attn_acc,
+                                   need_weights=need_weights)
+    return linear(merge_heads(ctx), p["out"]), w
+
+
+def surgery_attention_fused(y: torch.Tensor, p: dict, heads: int,
+                            attn_acc: torch.Tensor | None = None,
+                            need_attn: bool = True):
+    """`surgery_attention` through the surgery attention kernel; attn_acc /
+    need_attn control the head-summed original weights as in
+    `attention_fused`. The dense context shared @ v is one product outside
+    the kernel."""
+    q, k, v = qkv_projection(y, p, heads)
+    shared, attn_sum, ctx_ori = fused_surgery_attention(
+        q, k, v, acc=attn_acc, need_attn=need_attn)
+    ctx_dense = torch.matmul(shared[:, None].to(v.dtype), v)
+    dense_out = linear(merge_heads(ctx_dense), p["out"])
+    ori_out = linear(merge_heads(ctx_ori), p["out"])
+    return dense_out, ori_out, attn_sum

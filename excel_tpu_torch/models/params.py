@@ -1,0 +1,172 @@
+"""CLIP parameters in torch layout: random init, conversion from the JAX
+package's parameter tree, and reading its `save_params_npz` files.
+
+The tree keeps the JAX package's keys ({"visual": ..., "text": ...,
+"logit_scale": ...}); the leaves change layout:
+- linear weights ("w" under qkv/out/fc/proj) go from [in, out] to torch's
+  [out, in]; the fused qkv projection stays one [3*width, width] weight;
+- the patch embedding goes from HWIO to OIHW [width, 3, P, P];
+- embeddings, LayerNorms, `visual.proj` and `text.text_projection`
+  ([width, embed], applied as x @ proj) keep their layout.
+"""
+from __future__ import annotations
+
+import math
+import re
+
+import numpy as np
+import torch
+
+from ..config import ClipConfig
+from ..device import resolve_device
+
+_LINEAR_KEYS = ("qkv", "out", "fc", "proj")
+
+
+# ---------------------------------------------------------------------------
+# random init (tests, smoke runs)
+# ---------------------------------------------------------------------------
+
+def _normal(g: torch.Generator, shape, std: float) -> torch.Tensor:
+    return torch.randn(shape, generator=g, dtype=torch.float32) * std
+
+
+def _init_block(g: torch.Generator, width: int, scale_attn: float,
+                scale_proj: float, scale_fc: float) -> dict:
+    def ln():
+        return {"scale": torch.ones(width), "bias": torch.zeros(width)}
+
+    return {
+        "ln_1": ln(),
+        "attn": {
+            "qkv": {"w": _normal(g, (3 * width, width), scale_attn),
+                    "b": torch.zeros(3 * width)},
+            "out": {"w": _normal(g, (width, width), scale_proj),
+                    "b": torch.zeros(width)},
+        },
+        "ln_2": ln(),
+        "mlp": {
+            "fc": {"w": _normal(g, (4 * width, width), scale_fc),
+                   "b": torch.zeros(4 * width)},
+            "proj": {"w": _normal(g, (width, 4 * width), scale_proj),
+                     "b": torch.zeros(width)},
+        },
+    }
+
+
+def init_clip_params(cfg: ClipConfig, generator: torch.Generator | None = None,
+                     device="cuda") -> dict:
+    """Random CLIP parameters with the JAX package's init scales, drawn on
+    the CPU from `generator` (seed 0 when None) and moved to `device`."""
+    device = resolve_device(device)
+    g = generator if generator is not None else torch.Generator().manual_seed(0)
+    vw, tw = cfg.vision_width, cfg.text_width
+    v_scale = vw ** -0.5
+    attn_std = tw ** -0.5
+    visual = {
+        "patch_embed": _normal(g, (vw, 3, cfg.patch_size, cfg.patch_size),
+                               v_scale),
+        "class_embedding": _normal(g, (vw,), v_scale),
+        "positional_embedding": _normal(g, (cfg.pretrain_grid ** 2 + 1, vw),
+                                        v_scale),
+        "ln_pre": {"scale": torch.ones(vw), "bias": torch.zeros(vw)},
+        "blocks": [_init_block(g, vw, v_scale,
+                               v_scale * (2 * cfg.vision_layers) ** -0.5,
+                               (2 * vw) ** -0.5)
+                   for _ in range(cfg.vision_layers)],
+        "ln_post": {"scale": torch.ones(vw), "bias": torch.zeros(vw)},
+        "proj": _normal(g, (vw, cfg.embed_dim), v_scale),
+    }
+    text = {
+        "token_embedding": _normal(g, (cfg.vocab_size, tw), 0.02),
+        "positional_embedding": _normal(g, (cfg.context_length, tw), 0.01),
+        "blocks": [_init_block(g, tw, attn_std,
+                               attn_std * (2 * cfg.text_layers) ** -0.5,
+                               (2 * tw) ** -0.5)
+                   for _ in range(cfg.text_layers)],
+        "ln_final": {"scale": torch.ones(tw), "bias": torch.zeros(tw)},
+        "text_projection": _normal(g, (tw, cfg.embed_dim), attn_std),
+    }
+    params = {"visual": visual, "text": text,
+              "logit_scale": torch.tensor(math.log(1 / 0.07),
+                                          dtype=torch.float32)}
+    return _to_device(params, device)
+
+
+def _to_device(tree, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# conversion from the JAX layout
+# ---------------------------------------------------------------------------
+
+def _convert(tree, path: tuple, device: torch.device):
+    if isinstance(tree, dict):
+        return {k: _convert(v, path + (k,), device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_convert(v, path + (i,), device) for i, v in enumerate(tree)]
+    a = np.asarray(tree)
+    if path[-1] == "patch_embed":
+        a = a.transpose(3, 2, 0, 1)                    # HWIO -> OIHW
+    elif path[-1] == "w" and path[-2] in _LINEAR_KEYS:
+        a = a.T                                        # [in,out] -> [out,in]
+    return torch.from_numpy(np.array(a, order="C")).to(device)
+
+
+def from_jax_params(tree: dict, cfg: ClipConfig, device="cuda") -> dict:
+    """The JAX package's CLIP parameter tree (numpy or array leaves, as
+    `jax.device_get` returns it) -> the port's torch tree on `device`."""
+    device = resolve_device(device)
+    n = len(tree["visual"]["blocks"])
+    if n != cfg.vision_layers:
+        raise ValueError(f"tree has {n} vision blocks, config "
+                         f"{cfg.vision_layers}")
+    return _convert(tree, (), device)
+
+
+_KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
+
+
+def _keystr_path(key: str) -> list:
+    parts = [m.group(1) if m.group(1) is not None else int(m.group(2))
+             for m in _KEY.finditer(key)]
+    if "".join(f"['{p}']" if isinstance(p, str) else f"[{p}]"
+               for p in parts) != key:
+        raise ValueError(f"unrecognised parameter key {key!r}")
+    return parts
+
+
+def _insert(tree: dict, parts: list, value) -> None:
+    node = tree
+    for part, nxt in zip(parts[:-1], parts[1:]):
+        child = {} if isinstance(nxt, str) else []
+        if isinstance(part, int):
+            while len(node) <= part:
+                node.append(None)
+            if node[part] is None:
+                node[part] = child
+            node = node[part]
+        else:
+            node = node.setdefault(part, child)
+    last = parts[-1]
+    if isinstance(last, int):
+        while len(node) <= last:
+            node.append(None)
+    node[last] = value
+
+
+def load_params_npz(path: str, cfg: ClipConfig, device="cuda") -> dict:
+    """Read a file written by excel_tpu.models.params.save_params_npz (one
+    array per leaf, keyed by jax.tree_util.keystr of its path) without
+    importing JAX, and convert it with `from_jax_params`."""
+    device = resolve_device(device)
+    tree: dict = {}
+    with np.load(path) as data:
+        for key in data.files:
+            _insert(tree, _keystr_path(key), data[key])
+    return from_jax_params(tree, cfg, device)

@@ -1,0 +1,131 @@
+"""Pseudo-label utilities on fixed canvases (counterpart of
+excel_tpu/ops/labels.py, the parts the LAM eval path uses).
+
+The per-image resizes reproduce `jax.image.scale_and_translate` with the
+linear kernel and no antialiasing, which the JAX package uses: each output
+sample takes the triangle-kernel weights of its input neighbours,
+renormalised where the kernel is cut by the input's edge, and samples whose
+position falls outside the input ([-0.5, in - 0.5]) get weight 0. So a map
+upscaled onto a canvas is 0 beyond its image's valid extent, not an edge
+continuation.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_EPS32 = float(np.finfo(np.float32).eps)
+
+
+def linear_weight_mat(in_size: int, out_size: int, scale: torch.Tensor,
+                      translation: torch.Tensor) -> torch.Tensor:
+    """[..., in_size, out_size] float32 weights of scale_and_translate's
+    linear kernel (antialias off) for float32 `scale`/`translation` of any
+    batch shape: output o samples input position
+    (o + 0.5) / scale - translation / scale - 0.5."""
+    inv = 1.0 / scale.float()[..., None]
+    translation = translation.float()[..., None]
+    dev = inv.device
+    sample = ((torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5)
+              * inv - translation * inv - 0.5)                    # [..., out]
+    pos = torch.arange(in_size, dtype=torch.float32, device=dev)[:, None]
+    weights = torch.clamp(1 - torch.abs(sample[..., None, :] - pos), min=0)
+    total = weights.sum(dim=-2, keepdim=True)
+    weights = torch.where(
+        torch.abs(total) > 1000.0 * _EPS32,
+        weights / torch.where(total != 0, total, torch.ones_like(total)),
+        torch.zeros_like(weights))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[..., None, :], weights,
+                       torch.zeros_like(weights))
+
+
+def scale_and_translate(x: torch.Tensor, out_hw: tuple[int, int],
+                        scale: torch.Tensor,
+                        translation: torch.Tensor) -> torch.Tensor:
+    """Per-image linear resize of x [B, C, h, w] to [B, C, *out_hw].
+    scale, translation: [B, 2] float32 (y, x)."""
+    _, _, h, w = x.shape
+    wy = linear_weight_mat(h, out_hw[0], scale[:, 0], translation[:, 0])
+    wx = linear_weight_mat(w, out_hw[1], scale[:, 1], translation[:, 1])
+    t = torch.einsum("bchw,bwx->bchx", x.float(), wx)
+    return torch.einsum("bchx,bhy->bcyx", t, wy)
+
+
+def _minmax_per_map(cams: torch.Tensor) -> torch.Tensor:
+    """scale_cam_image norm: x - min over the map, / (1e-7 + max)."""
+    lo = cams.amin(dim=(-2, -1), keepdim=True)
+    x = cams - lo
+    return x / (1e-7 + x.amax(dim=(-2, -1), keepdim=True))
+
+
+def upscale_to_canvas(x: torch.Tensor, valid_hw: torch.Tensor,
+                      canvas_hw: tuple[int, int]) -> torch.Tensor:
+    """Bilinearly resize each image's [C, h, w] maps to its own valid extent
+    on a fixed [C, H, W] canvas (half-pixel sampling); 0 beyond the extent.
+    x: [B, C, h, w], valid_hw: [B, 2] int target extents."""
+    _, _, h, w = x.shape
+    hw = valid_hw.float()
+    scale = torch.stack([hw[:, 0] / h, hw[:, 1] / w], dim=1)
+    return scale_and_translate(x, canvas_hw, scale, torch.zeros_like(scale))
+
+
+def upscale_to_canvas_align(x: torch.Tensor, valid_hw: torch.Tensor,
+                            canvas_hw: tuple[int, int]) -> torch.Tensor:
+    """`upscale_to_canvas` with align_corners=True sampling (out position o
+    reads input o * (in-1)/(out-1)), the convention of the reference PAR's
+    guidance-image resize."""
+    _, _, h, w = x.shape
+    hw = valid_hw.float()
+    scale = torch.stack([(hw[:, 0] - 1.0) / (h - 1.0),
+                         (hw[:, 1] - 1.0) / (w - 1.0)], dim=1)
+    return scale_and_translate(x, canvas_hw, scale, 0.5 * (1.0 - scale))
+
+
+def cams_with_background_canvas(refined: torch.Tensor,
+                                cls_label: torch.Tensor,
+                                valid_hw: torch.Tensor,
+                                canvas_hw: tuple[int, int]) -> torch.Tensor:
+    """refined [B, C, h, w] SVC outputs -> [B, 1+C, *canvas] scores: per map
+    min-max normalised at grid resolution, upscaled to the image's extent,
+    absent classes zeroed, background = 1 - max over classes."""
+    x = upscale_to_canvas(_minmax_per_map(refined), valid_hw, canvas_hw)
+    x = x * cls_label[:, :, None, None]
+    bg = 1.0 - x.amax(dim=1, keepdim=True)
+    return torch.cat([bg, x], dim=1)
+
+
+def class_slot_index(cls_label: torch.Tensor, slots: int):
+    """Compact per-image present classes into `slots` fixed channel slots:
+    bg + the first `slots` present classes in ascending class order.
+
+    Returns (idx [B, slots] int64 fg-class indices — present classes first,
+    absent-class padding after — and mask [B, slots], 1 for present).
+    Exact iff every image has <= `slots` present classes."""
+    c = cls_label.shape[1]
+    present = (cls_label > 0).long()
+    key = (1 - present) * c + torch.arange(c, device=cls_label.device)[None]
+    idx = torch.argsort(key, dim=1, stable=True)[:, :slots]
+    mask = torch.gather(cls_label, 1, idx)
+    return idx, (mask > 0).to(cls_label.dtype)
+
+
+def slot_label_to_class(slot_label: torch.Tensor,
+                        idx: torch.Tensor) -> torch.Tensor:
+    """[B, H, W] argmax over (bg + slots) -> dataset label ids (bg=0, fg
+    class i -> i+1)."""
+    out = torch.zeros_like(slot_label)
+    for s in range(idx.shape[1]):
+        cls_id = (idx[:, s] + 1).to(slot_label.dtype)[:, None, None]
+        out = torch.where(slot_label == s + 1, cls_id, out)
+    return out
+
+
+def argmax_label(cams: torch.Tensor, cls_label: torch.Tensor) -> torch.Tensor:
+    """[B, 1+C_fg, H, W] scores -> [B, H, W] int32 labels, absent classes
+    excluded (set to -inf before the argmax; ties take the first index).
+    (The training path's box mask belongs to the training slice.)"""
+    full = torch.cat([torch.ones_like(cls_label[:, :1]), cls_label], dim=1)
+    scores = torch.where(full[:, :, None, None] > 0, cams,
+                         torch.full_like(cams, -torch.inf))
+    return scores.argmax(dim=1).to(torch.int32)

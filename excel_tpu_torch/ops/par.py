@@ -1,0 +1,120 @@
+"""PAR — pixel-adaptive refinement, fp32 (counterpart of excel_tpu/ops/par.py).
+
+The affinity is computed once with a streaming two-pass over the 48
+neighbour shifts (mean/variance accumulators, then per-shift logits and a
+softmax over shifts, plus the constant position term); the diffusion then
+runs `num_iter` steps of `ops/par_kernels.par_diffuse`, the CUDA kernel on
+CUDA tensors. With per-image valid extents on a padded canvas, the pad
+region is re-replicated from the valid border before the affinity pass and
+after every step, which makes the valid region exactly the per-size result.
+
+The bf16 storage of the fast preset (and its three kernels) belongs to a
+later slice.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from .par_kernels import offsets_tensor, par_diffuse
+
+
+def _offsets(dilations) -> list[tuple[int, int]]:
+    offs = []
+    for d in dilations:
+        for dy in (-d, 0, d):
+            for dx in (-d, 0, d):
+                if dy == 0 and dx == 0:
+                    continue
+                offs.append((dy, dx))
+    return offs
+
+
+def _pos_weight(dilations) -> np.ndarray:
+    """softmax over the constant position affinity: per dilation the 8
+    neighbours in row-major order, diagonals weighted sqrt(2)*d, axial d."""
+    pos = []
+    for d in dilations:
+        for i in range(8):
+            diag = i in (0, 2, 5, 7)
+            pos.append((np.sqrt(2.0) if diag else 1.0) * d)
+    pos = np.asarray(pos, dtype=np.float64)
+    std = pos.std(ddof=1)
+    w1 = 0.3
+    aff = -((pos / (std + 1e-8) / w1) ** 2)
+    e = np.exp(aff - aff.max())
+    return (e / e.sum()).astype(np.float32)
+
+
+def _replicate_valid(x: torch.Tensor, valid_hw: torch.Tensor) -> torch.Tensor:
+    """Overwrite the region outside each image's valid [h, w] extent with the
+    clamped border value. x: [B, C, H, W], valid_hw: [B, 2] int."""
+    b, c, h, w = x.shape
+    vh = valid_hw[:, 0:1].long()
+    vw = valid_hw[:, 1:2].long()
+    rows = torch.minimum(torch.arange(h, device=x.device)[None], vh - 1)
+    x = torch.gather(x, 2, rows[:, None, :, None].expand(b, c, h, w))
+    cols = torch.minimum(torch.arange(w, device=x.device)[None], vw - 1)
+    return torch.gather(x, 3, cols[:, None, None, :].expand(b, c, h, w))
+
+
+def _shift(padded: torch.Tensor, dy: int, dx: int, h: int, w: int,
+           pad: int) -> torch.Tensor:
+    return padded[..., pad + dy:pad + dy + h, pad + dx:pad + dx + w]
+
+
+def _affinity(imgs: torch.Tensor, dilations, w1: float,
+              w2: float) -> torch.Tensor:
+    """PAR appearance affinity [B, K, H, W] of (already valid-replicated)
+    images [B, 3, H, W]: unbiased std over the K shifts, per-shift logits
+    -mean_c((|n - x| / ((std + 1e-8) w1))^2), softmax over shifts, plus
+    w2 * the position softmax."""
+    h, w = imgs.shape[-2:]
+    offs = _offsets(dilations)
+    k = len(offs)
+    pad = max(max(abs(dy), abs(dx)) for dy, dx in offs)
+    ip = F.pad(imgs, (pad, pad, pad, pad), mode="replicate")
+    s1 = torch.zeros_like(imgs)
+    s2 = torch.zeros_like(imgs)
+    for dy, dx in offs:
+        n = _shift(ip, dy, dx, h, w, pad)
+        s1 = s1 + n
+        s2 = s2 + n * n
+    mean = s1 / k
+    var = torch.clamp(s2 / k - mean * mean, min=0.0) * (k / (k - 1.0))
+    inv = 1.0 / ((torch.sqrt(var) + 1e-8) * w1)
+    logits = torch.stack(
+        [(-torch.square(torch.abs(_shift(ip, dy, dx, h, w, pad) - imgs) * inv)
+          ).mean(dim=1) for dy, dx in offs], dim=1)
+    aff = torch.softmax(logits, dim=1)
+    pos = torch.from_numpy(_pos_weight(dilations)).to(imgs.device)
+    return aff + w2 * pos[None, :, None, None]
+
+
+def par_refine(imgs: torch.Tensor, masks: torch.Tensor,
+               dilations=(1, 2, 4, 8, 12, 24), num_iter: int = 20,
+               w1: float = 0.3, w2: float = 0.01,
+               valid_hw: torch.Tensor | None = None,
+               dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Diffuse `masks` [B, C, H, W] along the affinities of `imgs`
+    [B, 3, H, W] (same spatial size). valid_hw: optional [B, 2] per-image
+    valid extents on a padded canvas. Returns [B, C, H, W] float32."""
+    if dtype is not None and dtype != torch.float32:
+        raise NotImplementedError(
+            "PAR with bf16 storage (par_bf16=True) belongs to the fast-preset "
+            "slice, with par_affinity, par_diffuse_valid_resident and "
+            "pad_replicate_valid")
+    imgs = imgs.float()
+    masks = masks.float()
+    if valid_hw is not None:
+        masks = _replicate_valid(masks, valid_hw)
+        imgs = _replicate_valid(imgs, valid_hw)
+    aff = _affinity(imgs, dilations, w1, w2).contiguous()
+    offsets = offsets_tensor(_offsets(dilations), masks.device)
+    m = masks.contiguous()
+    for _ in range(num_iter):
+        m = par_diffuse(m, aff, offsets)
+        if valid_hw is not None:
+            m = _replicate_valid(m, valid_hw)
+    return m

@@ -1,0 +1,75 @@
+"""Port encoder (excel_tpu_torch.models.clip.encode_image) against the JAX
+package's on one tiny-config input, in every attention mode. The port has
+one route (the kernel wrappers, plain versions on CPU tensors); it is held
+against both JAX routes, the per-head jnp path and the Pallas kernels in
+interpret mode."""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from excel_tpu.config import tiny_config
+from excel_tpu.models.clip import encode_image as jax_encode
+from excel_tpu_torch.config import tiny_config as port_tiny_config
+from excel_tpu_torch.models.clip import encode_image, interpolate_pos_embedding
+from torch_port_common import jax_clip_tree, n, port_params, t
+
+# fp32 through 4 blocks in another summation order: observed max |diff|
+# 2.9e-6 on features up to 4.7 in magnitude; 2e-5 leaves ~7x margin
+ATOL = 2e-5
+
+
+@pytest.fixture(scope="module")
+def inputs():
+    tree = jax_clip_tree(tiny_config().clip, seed=0)
+    img = np.random.default_rng(1).standard_normal((2, 64, 64, 3)).astype(
+        np.float32)
+    return tree, img
+
+
+# jax_fused: the JAX route the port is held against
+@pytest.mark.parametrize("jax_fused", [False, True])
+@pytest.mark.parametrize("attn_mode", ["stack", "mean", "none"])
+def test_encode_image_matches_jax(inputs, jax_fused, attn_mode):
+    tree, img = inputs
+    jcfg = dataclasses.replace(
+        tiny_config().clip,
+        fused_attention="interpret" if jax_fused else False)
+    pcfg = port_tiny_config().clip
+    ref = jax_encode(tree, jnp.asarray(img), jcfg, attn_mode=attn_mode)
+    with torch.inference_mode():
+        got = encode_image(port_params(tree, pcfg), t(img), pcfg,
+                           attn_mode=attn_mode)
+    for key in ("projected", "feats", "attn"):
+        if attn_mode == "none" and key == "attn":
+            assert got["attn"] is None and ref["attn"] is None
+            continue
+        assert got[key].shape == ref[key].shape, key
+        np.testing.assert_allclose(n(got[key]), np.asarray(ref[key]),
+                                   atol=ATOL, err_msg=key)
+
+
+def test_pos_embedding_upsample_matches_jax():
+    from excel_tpu.models.clip import interpolate_pos_embedding as jax_interp
+
+    pos = np.random.default_rng(4).standard_normal((14 * 14 + 1, 8)).astype(
+        np.float32)
+    np.testing.assert_allclose(n(interpolate_pos_embedding(t(pos), 20)),
+                               np.asarray(jax_interp(jnp.asarray(pos), 20)),
+                               atol=1e-6)
+    with pytest.raises(NotImplementedError):
+        interpolate_pos_embedding(t(pos), 10)
+
+
+def test_unported_modes_raise():
+    tree = jax_clip_tree(tiny_config().clip)
+    pcfg = port_tiny_config().clip
+    params = port_params(tree, pcfg)
+    img = torch.zeros((1, 64, 64, 3))
+    with pytest.raises(NotImplementedError):
+        encode_image(params, img, pcfg, ex_feats=torch.zeros((1, 64, 4, 4)))
+    with pytest.raises(NotImplementedError):
+        encode_image(params, img, dataclasses.replace(
+            pcfg, compute_dtype=torch.bfloat16))

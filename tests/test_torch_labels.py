@@ -1,0 +1,78 @@
+"""Port label utilities (excel_tpu_torch.ops.labels) against the JAX
+package's, including the zeros that scale_and_translate writes beyond each
+image's valid extent."""
+import jax.numpy as jnp
+import numpy as np
+
+from excel_tpu.ops import labels as jlab
+from excel_tpu_torch.ops import labels as plab
+from torch_port_common import n, t
+
+# one-step bilinear weights renormalised in another order: 1e-6 abs on
+# values in [0, 1]
+ATOL = 1e-6
+
+
+def test_upscale_writes_zero_beyond_extent():
+    """1x4 -> a 1x12 canvas at scale 1.5: edge taps renormalise inside the
+    extent, and everything beyond it is 0 (not an edge continuation)."""
+    x = np.asarray([1, 2, 3, 4], np.float32).reshape(1, 1, 1, 4)
+    valid = np.asarray([[1, 6]], np.int32)
+    got = n(plab.upscale_to_canvas(t(x), t(valid), (1, 12)))[0, 0, 0]
+    ref = np.asarray(jlab.upscale_to_canvas(jnp.asarray(x),
+                                            jnp.asarray(valid), (1, 12)))
+    np.testing.assert_allclose(got, ref[0, 0, 0], atol=ATOL)
+    np.testing.assert_allclose(
+        got, [1, 1.5, 2.1666667, 2.8333333, 3.5, 4, 0, 0, 0, 0, 0, 0],
+        atol=1e-6)
+
+
+def test_upscale_to_canvas_both_conventions_match():
+    rng = np.random.default_rng(0)
+    x = rng.random((3, 4, 20, 20), dtype=np.float32)
+    valid = np.asarray([[375, 500], [333, 500], [200, 150]], np.int32)
+    # half-pixel sampling ends at the extent; the align_corners mapping
+    # still reaches the last input row up to half a scale step beyond it
+    for port_fn, jax_fn, margin in (
+            (plab.upscale_to_canvas, jlab.upscale_to_canvas, 0),
+            (plab.upscale_to_canvas_align, jlab.upscale_to_canvas_align, 6)):
+        got = n(port_fn(t(x), t(valid), (384, 512)))
+        ref = np.asarray(jax_fn(jnp.asarray(x), jnp.asarray(valid),
+                                (384, 512)))
+        np.testing.assert_allclose(got, ref, atol=ATOL)
+        assert not got[2, :, 200 + margin:].any()
+        assert not got[2, :, :, 150 + margin:].any()
+        assert got[2, :, 199, :150].all() and got[2, :, :200, 149].all()
+
+
+def test_cams_with_background_canvas_matches():
+    rng = np.random.default_rng(1)
+    refined = rng.random((2, 3, 5, 5), dtype=np.float32)
+    cls = np.asarray([[1, 0, 1], [0, 1, 0]], np.float32)
+    valid = np.asarray([[60, 80], [64, 50]], np.int32)
+    got = plab.cams_with_background_canvas(t(refined), t(cls), t(valid),
+                                           (64, 128))
+    ref = jlab.cams_with_background_canvas(
+        jnp.asarray(refined), jnp.asarray(cls), jnp.asarray(valid),
+        (64, 128))
+    np.testing.assert_allclose(n(got), np.asarray(ref), atol=ATOL)
+
+
+def test_slots_and_argmax_exact():
+    rng = np.random.default_rng(2)
+    cls = np.zeros((4, 20), np.float32)
+    for i, k in enumerate((1, 2, 3, 0)):
+        cls[i, rng.choice(20, size=k, replace=False)] = 1
+    for slots in (2, 3):
+        pidx, pmask = plab.class_slot_index(t(cls), slots)
+        jidx, jmask = jlab.class_slot_index(jnp.asarray(cls), slots)
+        np.testing.assert_array_equal(n(pidx), np.asarray(jidx))
+        np.testing.assert_array_equal(n(pmask), np.asarray(jmask))
+        cams = rng.random((4, 1 + slots, 8, 8), dtype=np.float32)
+        cams[0, 1] = cams[0, 0]                  # a tie: first index wins
+        pl = plab.argmax_label(t(cams), pmask)
+        jl = jlab.argmax_label(jnp.asarray(cams), jmask)
+        np.testing.assert_array_equal(n(pl), np.asarray(jl))
+        np.testing.assert_array_equal(
+            n(plab.slot_label_to_class(pl, pidx)),
+            np.asarray(jlab.slot_label_to_class(jl, jidx)))
