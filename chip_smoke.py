@@ -8,15 +8,23 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives them;
 2. build: every CUDA kernel of the port, compiled from excel_tpu_torch/csrc;
 3. kernels: each kernel against its plain PyTorch version on the card at the
-   main path's shapes (plus the surgery kernel at N=901), with the stated
-   tolerances; CUDA-event median times of kernel, plain version and, where
-   one PyTorch call computes the same function, that call;
-4. the slice: `run_lam_eval` (training-free LAM eval, fp32 voc_config at full
-   ViT-B/16 width, seeded random weights) over synthetic VOC-sized samples,
-   with every kernel's launch count over that run checked against the
-   number of batches;
-5. card against CPU: one batch of 2 through `lam_eval_step` on the card and
-   on the CPU (plain versions), labels compared over the valid pixels.
+   main paths' shapes (plus the fp32 surgery kernel at N=901), with the
+   stated tolerances; CUDA-event median times of kernel, plain version and,
+   where one PyTorch call computes the same function, that call. The fp32
+   preset's kernels, then the fast preset's: the bf16 attention entry
+   points, pad-clamp, affinity, the fused-valid step and the resident
+   diffusion (and 20 step launches against one resident launch);
+4. the fp32 slice: `run_lam_eval` (training-free LAM eval, fp32 voc_config
+   at full ViT-B/16 width, seeded random weights) over synthetic VOC-sized
+   samples, with every kernel's launch count over that run checked against
+   the number of batches;
+5. the fast slice: the same over `fast(voc_config())` (bf16 encoder with
+   its matmul weights cast once, bf16 PAR), launch counts checked the same
+   way;
+6. a device-time profile of one batch of each slice;
+7. card against CPU: one batch of 2 of each slice through `lam_eval_step`
+   on the card and on the CPU (plain versions), labels compared over the
+   valid pixels.
 
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": N}}.
@@ -38,24 +46,51 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the
-# tensor cores and HBM3 bandwidth. The kernels of this slice are fp32 FMA.
+# tensor cores, bf16 on the tensor cores, and HBM3 bandwidth. The fp32
+# kernels and the PAR kernels (bf16 products formed and summed in fp32
+# units) are held to the fp32 rate; the bf16 attention entry points to the
+# bf16 tensor-core rate, the least time a bf16 attention could take.
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # main-path shapes: voc_config() encoder at batch 16 and its PAR canvas
 B, HEADS, N_TOK, HEAD_DIM = 16, 12, 401, 64
 PAR_C, PAR_H, PAR_W = 4, 384, 512
 DILATIONS = (1, 2, 4, 8, 12, 24)
+PAR_PAD, PAR_ITERS = 24, 20
 # tolerances against the plain versions on the card: fp32 sums taken in
 # another order (a wrong tile or a dropped key chunk is off by > 1e-3)
 TOL_ATTN = 1e-4
 TOL_PAR_STEP = 0.0      # same arithmetic, same order: bit for bit
 TOL_PAR_CHAIN = 0.0
+# bf16 outputs (the bf16 attention contexts, the PAR affinity) against
+# their plain versions: at most one bf16 ulp of the reference's own size,
+# |got - ref| <= 2^-7 |ref| + TINY. The contexts round fp32 sums taken in
+# another order; the affinity keeps the plain version's order of rounding,
+# but expf and PyTorch's division by a Python scalar (a product with the
+# reciprocal on the card) differ by an fp32 ulp. Either may land on the
+# neighbouring bf16 value, no further. TINY, the smallest normal fp32, is
+# for subnormal values (far offsets' affinities), whose bf16 ulp is coarser
+# than 2^-7 of them. An affinity without its position term (w2 * pos_w, up
+# to 7.6e-4 against affinities of about 0.02) is off by far more.
+TOL_BF16_REL = 2.0 ** -7
+TINY = torch.finfo(torch.float32).tiny
+# pad-clamp, fused-valid step and resident diffusion: bit for bit against
+# their plain versions, and 20 step launches against one resident launch
+TOL_PAR_BF16 = 0.0
 # share of valid pixels whose labels the card and the CPU must agree on:
 # every run so far read 1.0; the 0.1% margin (the CPU slice test's bound)
 # is for SVC's uint8 truncation, which can flip a box on a 1-ulp
 # difference upstream
 MIN_LABEL_AGREEMENT = 0.999
+# the same for the fast preset: bf16 GEMMs on the card (cuBLAS) and on the
+# CPU sum in other orders before rounding to bf16, and the LAMs' min-max
+# normalisation and SVC's uint8 truncation can carry such an ulp into a
+# label. The first run read 0.999984 (6 of 370,500 pixels); the CPU tests
+# see 0.7% of labels move between the JAX package's bf16 eval and the
+# port's, where XLA's fusions round differently too. Bound: 99.5%
+MIN_FAST_LABEL_AGREEMENT = 0.995
 
 
 def log(msg: str) -> None:
@@ -78,8 +113,9 @@ def time_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+def bound_ms(flops: float, nbytes: float,
+             peak_flops: float = PEAK_FP32_FLOPS) -> tuple[float, str]:
+    t_ops = flops / peak_flops * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -105,6 +141,9 @@ def phase_environment() -> str:
     log(smi)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # bf16 GEMMs accumulate in fp32 all the way (JAX's
+    # preferred_element_type=float32)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     torch.set_float32_matmul_precision("highest")
     return smi
 
@@ -123,105 +162,116 @@ def phase_build() -> None:
                     log(f"build[{name}]: {line.strip()}")
 
 
-def _qkv(gen, b, n):
+def _qkv(gen, b, n, dtype):
     shape = (b, HEADS, n, HEAD_DIM)
-    return [torch.randn(shape, device="cuda", generator=gen)
+    return [torch.randn(shape, device="cuda", generator=gen).to(dtype)
             for _ in range(3)]
 
 
-def phase_kernels() -> dict:
-    """Each kernel against its plain version at the main path's shapes.
-    Returns {kernel name: record} for the JSON table."""
+def bf16_within_ulp(got, ref) -> bool:
+    """|got - ref| <= 2^-7 |ref| + the smallest normal fp32 everywhere: at
+    most one bf16 ulp of the reference's own size."""
+    g, r = got.float(), ref.float()
+    return bool(((g - r).abs() <= TOL_BF16_REL * r.abs() + TINY).all())
+
+
+def check_outputs(got, ref, what: str) -> float:
+    """Max abs error of a kernel's outputs against its plain version's; fp32
+    outputs within TOL_ATTN, bf16 ones within one bf16 ulp of their size."""
+    err = 0.0
+    for g, r in zip(got, ref):
+        if (g is None) != (r is None):
+            raise AssertionError(f"{what}: outputs differ in presence")
+        if g is None:
+            continue
+        e = max_err(g.float(), r.float())
+        err = max(err, e)
+        ok = (bf16_within_ulp(g, r) if g.dtype == torch.bfloat16
+              else e <= TOL_ATTN)
+        if not ok:
+            raise AssertionError(f"{what}: {g.dtype} output off by {e}")
+    return err
+
+
+def check_attention(gen, dtype) -> dict:
+    """The plain and surgery attention kernels against their plain versions
+    at the main path's shapes in `dtype` (float32 also runs the surgery
+    kernel at N=901 with ex, MSC's shape). Returns {kernel name: record}
+    for the JSON table: the plain kernel timed in mode none (blocks 0-5),
+    the surgery kernel in mode acc (blocks 7-11)."""
     import torch.nn.functional as F
 
     from excel_tpu_torch.models.attention_kernels import (
         fused_plain_attention, fused_surgery_attention,
         plain_attention_reference, surgery_attention_reference)
+
+    bf16 = dtype == torch.bfloat16
+    suffix = "_bf16" if bf16 else ""
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
+    el = torch.empty((), dtype=dtype).element_size()
+    tol = (f"fp32 <= {TOL_ATTN}, bf16 <= 2^-7 |ref| + 2^-126" if bf16
+           else f"<= {TOL_ATTN}")
+    records = {}
+    # (kernel, mode, N, B, with ex): plain none (blocks 0-5), out (block 6)
+    # and acc; surgery acc (blocks 7-11), out and none
+    cases = [("plain", m, N_TOK, B, False) for m in ("none", "out", "acc")]
+    cases += [("surgery", m, N_TOK, B, False) for m in ("acc", "out", "none")]
+    if not bf16:
+        cases += [("surgery", "out", 901, 8, True),
+                  ("surgery", "none", 901, 8, True)]
+    for kind, mode, n, b, with_ex in cases:
+        q, k, v = _qkv(gen, b, n, dtype)
+        acc0 = torch.rand((b, n, n), device="cuda", generator=gen)
+        nn = b * n * n * 4
+        nbytes = (4 * b * HEADS * n * HEAD_DIM * el
+                  + {"none": 0, "out": nn, "acc": 2 * nn}[mode])
+        if kind == "plain":
+            kw = dict(need_weights=mode != "none")
+            fused, plain = fused_plain_attention, plain_attention_reference
+            flops = 2 * 2 * n * n * HEAD_DIM * HEADS * b
+        else:
+            ex = (torch.rand((b, n, n), device="cuda", generator=gen) / n
+                  if with_ex else None)
+            kw = dict(ex_attn=ex, need_attn=mode != "none")
+            fused, plain = fused_surgery_attention, surgery_attention_reference
+            flops = 5 * 2 * n * n * HEAD_DIM * HEADS * b
+            nbytes += nn + (nn if with_ex else 0)   # shared out, ex in
+        name = f"{kind}_attention{suffix}"
+        what = f"{name} mode={mode} B={b} H={HEADS} N={n} D={HEAD_DIM}"
+        err = check_outputs(
+            fused(q, k, v, acc=acc0.clone() if mode == "acc" else None, **kw),
+            plain(q, k, v, acc=acc0.clone() if mode == "acc" else None, **kw),
+            what)
+        acc = acc0.clone()
+        kernel_ms = time_ms(lambda: fused(
+            q, k, v, acc=acc if mode == "acc" else None, **kw), 10)
+        plain_ms = time_ms(lambda: plain(
+            q, k, v, acc=acc if mode == "acc" else None, **kw),
+            5 if kind == "plain" else 3)
+        library = (time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
+                           10) if (kind, mode) == ("plain", "none") else None)
+        bnd, by = bound_ms(flops, nbytes, peak)
+        log(f"kernel {what} ex={with_ex}: max_abs_err={err:.3g} ({tol}) "
+            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={library} bound_ms={bnd:.4f} ({by})")
+        rec = records.setdefault(name, dict(max_abs_err=0.0))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        if mode == ("none" if kind == "plain" else "acc") and n == N_TOK:
+            rec.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library,
+                       bound_ms=bnd, bound_by=by)
+    return records
+
+
+def phase_kernels() -> dict:
+    """Each fp32 kernel against its plain version at the main path's shapes.
+    Returns {kernel name: record} for the JSON table."""
     from excel_tpu_torch.ops.par import _offsets, _replicate_valid
     from excel_tpu_torch.ops.par_kernels import (
         offsets_tensor, par_diffuse, par_diffuse_reference)
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    records = {}
+    records = check_attention(gen, torch.float32)
     f32 = 4
-
-    # -- plain attention: none (blocks 0-5), out (block 6), acc -----------
-    q, k, v = _qkv(gen, B, N_TOK)
-    acc0 = torch.rand((B, N_TOK, N_TOK), device="cuda", generator=gen)
-    qkv_bytes = 4 * B * HEADS * N_TOK * HEAD_DIM * f32
-    nn_bytes = B * N_TOK * N_TOK * f32
-    flops = 2 * 2 * N_TOK * N_TOK * HEAD_DIM * HEADS * B
-    errs = []
-    for mode in ("none", "out", "acc"):
-        kw = dict(need_weights=mode != "none")
-        got = fused_plain_attention(
-            q, k, v, acc=acc0.clone() if mode == "acc" else None, **kw)
-        ref = plain_attention_reference(
-            q, k, v, acc=acc0.clone() if mode == "acc" else None, **kw)
-        err = max(max_err(got[0], ref[0]), max_err(got[1], ref[1]))
-        errs.append(err)
-        if not err <= TOL_ATTN:
-            raise AssertionError(f"plain attention {mode}: max err {err}")
-        acc = acc0.clone()
-        kernel = time_ms(lambda: fused_plain_attention(
-            q, k, v, acc=acc if mode == "acc" else None, **kw), 10)
-        plain = time_ms(lambda: plain_attention_reference(
-            q, k, v, acc=acc if mode == "acc" else None, **kw), 5)
-        library = (time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
-                           10) if mode == "none" else None)
-        nbytes = qkv_bytes + {"none": 0, "out": nn_bytes,
-                              "acc": 2 * nn_bytes}[mode]
-        bnd, by = bound_ms(flops, nbytes)
-        log(f"kernel plain_attention mode={mode} B={B} H={HEADS} N={N_TOK} "
-            f"D={HEAD_DIM}: max_abs_err={err:.3g} (tol {TOL_ATTN}) "
-            f"kernel_ms={kernel:.4f} plain_ms={plain:.4f} "
-            f"library_ms={library} bound_ms={bnd:.4f} ({by})")
-        if mode == "none":
-            records["plain_attention"] = dict(
-                ms=kernel, plain_ms=plain, library_ms=library, bound_ms=bnd,
-                bound_by=by)
-    records["plain_attention"]["max_abs_err"] = max(errs)
-
-    # -- surgery attention: acc (blocks 7-11), out, none; N=901 with ex ----
-    errs = []
-    cases = [("acc", N_TOK, B, False), ("out", N_TOK, B, False),
-             ("none", N_TOK, B, False), ("out", 901, 8, True),
-             ("none", 901, 8, True)]
-    for mode, n, b, with_ex in cases:
-        q, k, v = _qkv(gen, b, n)
-        acc0 = torch.rand((b, n, n), device="cuda", generator=gen)
-        ex = (torch.rand((b, n, n), device="cuda", generator=gen) / n
-              if with_ex else None)
-        kw = dict(ex_attn=ex, need_attn=mode != "none")
-        got = fused_surgery_attention(
-            q, k, v, acc=acc0.clone() if mode == "acc" else None, **kw)
-        ref = surgery_attention_reference(
-            q, k, v, acc=acc0.clone() if mode == "acc" else None, **kw)
-        err = max(max_err(g, r) for g, r in zip(got, ref))
-        errs.append(err)
-        if not err <= TOL_ATTN:
-            raise AssertionError(f"surgery attention {mode} N={n}: "
-                                 f"max err {err}")
-        acc = acc0.clone()
-        kernel = time_ms(lambda: fused_surgery_attention(
-            q, k, v, acc=acc if mode == "acc" else None, **kw), 10)
-        plain = time_ms(lambda: surgery_attention_reference(
-            q, k, v, acc=acc if mode == "acc" else None, **kw), 3)
-        flops = 5 * 2 * n * n * HEAD_DIM * HEADS * b
-        nn = b * n * n * f32
-        nbytes = (4 * b * HEADS * n * HEAD_DIM * f32 + nn
-                  + {"none": 0, "out": nn, "acc": 2 * nn}[mode]
-                  + (nn if with_ex else 0))
-        bnd, by = bound_ms(flops, nbytes)
-        log(f"kernel surgery_attention mode={mode} B={b} H={HEADS} N={n} "
-            f"D={HEAD_DIM} ex={with_ex}: max_abs_err={err:.3g} "
-            f"(tol {TOL_ATTN}) kernel_ms={kernel:.4f} plain_ms={plain:.4f} "
-            f"library_ms=None bound_ms={bnd:.4f} ({by})")
-        if mode == "acc":
-            records["surgery_attention"] = dict(
-                ms=kernel, plain_ms=plain, library_ms=None, bound_ms=bnd,
-                bound_by=by)
-    records["surgery_attention"]["max_abs_err"] = max(errs)
 
     # -- PAR diffusion: one step, and 20 chained steps with the clamp -----
     k_off = 8 * len(DILATIONS)
@@ -256,6 +306,133 @@ def phase_kernels() -> dict:
     records["par_diffuse"] = dict(
         ms=kernel, plain_ms=plain, library_ms=None, bound_ms=bnd,
         bound_by=by, max_abs_err=max(err_step, err_chain))
+    return records
+
+
+def phase_kernels_fast() -> dict:
+    """The fast preset's kernels against their plain versions at the fast
+    main path's shapes. Returns {kernel name: record}."""
+    from excel_tpu_torch.ops import par_kernels as pk
+    from excel_tpu_torch.ops.par import _offsets, _pos_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    records = check_attention(gen, torch.bfloat16)
+    bf16, f32 = 2, 4
+
+    # -- PAR inputs at the fast path's shapes -----------------------------
+    offsets = _offsets(DILATIONS)      # (dy, dx) pairs, as the JAX API
+    k_off = len(offsets)
+    pos_w = [float(p) for p in _pos_weight(DILATIONS)]
+    valid = torch.tensor([[375, 500], [333, 500], [384, 512], [300, 450]]
+                         * (B // 4), device="cuda", dtype=torch.int32)
+    valid_px = int((valid[:, 0] * valid[:, 1]).sum())
+    images = torch.randn((B, 3, PAR_H, PAR_W), device="cuda", generator=gen)
+    masks = torch.rand((B, PAR_C, PAR_H, PAR_W), device="cuda",
+                       generator=gen).bfloat16()
+
+    # -- pad-clamp: the images (fp32) and the masks (bf16), per batch ------
+    rec = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, max_abs_err=0.0)
+    for x in (images, masks):
+        got = pk.pad_replicate_valid(x, valid, PAR_PAD)
+        err = max_err(got.float(),
+                      pk.pad_replicate_valid_reference(x, valid,
+                                                       PAR_PAD).float())
+        if not err <= TOL_PAR_BF16:
+            raise AssertionError(f"pad_replicate_valid {x.dtype}: {err}")
+        kernel = time_ms(lambda: pk.pad_replicate_valid(x, valid, PAR_PAD),
+                         20)
+        plain = time_ms(lambda: pk.pad_replicate_valid_reference(
+            x, valid, PAR_PAD), 5)
+        bnd, by = bound_ms(0, x.numel() * x.element_size()
+                           + got.numel() * got.element_size())
+        log(f"kernel pad_replicate_valid {tuple(x.shape)} {x.dtype} -> "
+            f"{tuple(got.shape)}: max_abs_err={err:.3g} (tol "
+            f"{TOL_PAR_BF16}) kernel_ms={kernel:.4f} plain_ms={plain:.4f} "
+            f"library_ms=None bound_ms={bnd:.4f} ({by})")
+        rec["ms"] += kernel
+        rec["plain_ms"] += plain
+        rec["bound_ms"] += bnd
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    records["pad_replicate_valid"] = dict(rec, bound_by="bytes",
+                                          library_ms=None)
+
+    # -- affinity: padded fp32 image -> bf16 [B, 48, 384, 512] ------------
+    ip = pk.pad_replicate_valid(images, valid, PAR_PAD)
+    aff = pk.par_affinity(ip, offsets, pos_w, PAR_H, PAR_W)
+    aff_ref = pk.par_affinity_reference(ip, offsets, pos_w, PAR_H, PAR_W)
+    err = max_err(aff.float(), aff_ref.float())
+    if not bf16_within_ulp(aff, aff_ref):
+        raise AssertionError(f"par_affinity: beyond one bf16 ulp (max abs "
+                             f"err {err})")
+    kernel = time_ms(lambda: pk.par_affinity(ip, offsets, pos_w, PAR_H,
+                                             PAR_W), 10)
+    plain = time_ms(lambda: pk.par_affinity_reference(
+        ip, offsets, pos_w, PAR_H, PAR_W), 3)
+    # per pixel: moments 3 x K x 3, logits K x (3 x 4 + 2), softmax and
+    # position term K x 4, per-channel statistics ~30
+    flops = B * PAR_H * PAR_W * (k_off * (9 + 14 + 4) + 30)
+    bnd, by = bound_ms(flops, ip.numel() * f32 + aff.numel() * bf16)
+    log(f"kernel par_affinity {tuple(ip.shape)} -> {tuple(aff.shape)} "
+        f"bf16: max_abs_err={err:.3g} (tol 2^-7 |ref| + 2^-126) kernel_ms="
+        f"{kernel:.4f} plain_ms={plain:.4f} library_ms=None bound_ms="
+        f"{bnd:.4f} ({by})")
+    records["par_affinity"] = dict(ms=kernel, plain_ms=plain, library_ms=None,
+                                   bound_ms=bnd, bound_by=by, max_abs_err=err)
+
+    # -- fused-valid step (row 7) and resident diffusion (row 9) ----------
+    mp = pk.pad_replicate_valid(masks, valid, PAR_PAD)
+    step = pk.par_diffuse_padded_valid(mp, aff, valid, offsets, PAR_H, PAR_W)
+    err_step = max_err(step.float(), pk.par_diffuse_padded_valid_reference(
+        mp, aff, valid, offsets, PAR_H, PAR_W).float())
+    if not err_step <= TOL_PAR_BF16:
+        raise AssertionError(f"par_diffuse_padded_valid: max err {err_step}")
+    kernel = time_ms(lambda: pk.par_diffuse_padded_valid(
+        mp, aff, valid, offsets, PAR_H, PAR_W), 20)
+    plain = time_ms(lambda: pk.par_diffuse_padded_valid_reference(
+        mp, aff, valid, offsets, PAR_H, PAR_W), 3)
+    # the products and sums of the valid pixels (the rest are copies)
+    step_flops = 2 * k_off * PAR_C * valid_px
+    canvas_bytes = mp.numel() * bf16
+    bnd, by = bound_ms(step_flops, aff.numel() * bf16 + 2 * canvas_bytes)
+    log(f"kernel par_diffuse_padded_valid {tuple(mp.shape)} K={k_off} bf16: "
+        f"max_abs_err={err_step:.3g} (tol {TOL_PAR_BF16}) kernel_ms="
+        f"{kernel:.4f} plain_ms={plain:.4f} library_ms=None bound_ms="
+        f"{bnd:.4f} ({by})")
+    records["par_diffuse_padded_valid"] = dict(
+        ms=kernel, plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by,
+        max_abs_err=err_step)
+
+    res = pk.par_diffuse_valid_resident(mp, aff, valid, offsets, PAR_H, PAR_W,
+                                        PAR_ITERS)
+    m = mp
+    for _ in range(PAR_ITERS):
+        m = pk.par_diffuse_padded_valid(m, aff, valid, offsets, PAR_H, PAR_W)
+    err_steps = max_err(res.float(), m.float())
+    err_res = max_err(res.float(), pk.par_diffuse_valid_resident_reference(
+        mp, aff, valid, offsets, PAR_H, PAR_W, PAR_ITERS).float())
+    if not (err_steps <= TOL_PAR_BF16 and err_res <= TOL_PAR_BF16):
+        raise AssertionError(f"par_diffuse_valid_resident: max err against "
+                             f"{PAR_ITERS} step launches {err_steps}, "
+                             f"against its plain version {err_res}")
+    kernel = time_ms(lambda: pk.par_diffuse_valid_resident(
+        mp, aff, valid, offsets, PAR_H, PAR_W, PAR_ITERS), 10)
+    steps_ms = time_ms(lambda: [pk.par_diffuse_padded_valid(
+        mp, aff, valid, offsets, PAR_H, PAR_W) for _ in range(PAR_ITERS)], 5)
+    plain = time_ms(lambda: pk.par_diffuse_valid_resident_reference(
+        mp, aff, valid, offsets, PAR_H, PAR_W, PAR_ITERS), 2)
+    # each input read once and the output written once (the card cannot
+    # hold the 302 MB affinity stack between steps, so this bound is far
+    # below what any 20-step kernel reaches; a step's bound is above)
+    bnd, by = bound_ms(PAR_ITERS * step_flops,
+                       aff.numel() * bf16 + 2 * canvas_bytes)
+    log(f"kernel par_diffuse_valid_resident {tuple(mp.shape)} K={k_off} "
+        f"iters={PAR_ITERS} bf16: max_abs_err vs {PAR_ITERS} step launches="
+        f"{err_steps:.3g} vs plain={err_res:.3g} (tol {TOL_PAR_BF16}) "
+        f"kernel_ms={kernel:.4f} step_launches_ms={steps_ms:.4f} plain_ms="
+        f"{plain:.4f} library_ms=None bound_ms={bnd:.4f} ({by})")
+    records["par_diffuse_valid_resident"] = dict(
+        ms=kernel, plain_ms=plain, library_ms=None, bound_ms=bnd, bound_by=by,
+        max_abs_err=max(err_steps, err_res))
     return records
 
 
@@ -305,30 +482,54 @@ def text_bank(cfg, seed: int) -> torch.Tensor:
 def _kernel_wrappers():
     from excel_tpu_torch.models.attention_kernels import (
         fused_plain_attention, fused_surgery_attention)
-    from excel_tpu_torch.ops.par_kernels import par_diffuse
+    from excel_tpu_torch.ops import par_kernels as pk
     return {"plain_attention": fused_plain_attention,
             "surgery_attention": fused_surgery_attention,
-            "par_diffuse": par_diffuse}
+            "par_diffuse": pk.par_diffuse,
+            "pad_replicate_valid": pk.pad_replicate_valid,
+            "par_affinity": pk.par_affinity,
+            "par_diffuse_padded_valid": pk.par_diffuse_padded_valid,
+            "par_diffuse_valid_resident": pk.par_diffuse_valid_resident}
 
 
-# launches of each kernel per batch of the main path: blocks 0-6 (plain),
-# blocks 7-11 (surgery), 20 PAR steps
-LAUNCHES_PER_BATCH = {"plain_attention": 7, "surgery_attention": 5,
-                      "par_diffuse": 20}
+# launches of each kernel wrapper per batch of each slice's main path:
+# blocks 0-6 (plain attention), blocks 7-11 (surgery attention), then PAR:
+# fp32, 20 steps; fast, pad-clamp of the images and of the masks, the
+# affinity, and one resident launch of all 20 steps
+LAUNCHES_PER_BATCH = {
+    "fp32": {"plain_attention": 7, "surgery_attention": 5, "par_diffuse": 20,
+             "pad_replicate_valid": 0, "par_affinity": 0,
+             "par_diffuse_padded_valid": 0, "par_diffuse_valid_resident": 0},
+    "fast": {"plain_attention": 7, "surgery_attention": 5, "par_diffuse": 0,
+             "pad_replicate_valid": 2, "par_affinity": 1,
+             "par_diffuse_padded_valid": 0, "par_diffuse_valid_resident": 1},
+}
 
 
-def phase_slice(n_samples: int = 32, batch: int = 16):
-    """run_lam_eval at full voc_config() width; returns (launch counts,
-    params, text bank, cfg, samples)."""
-    from excel_tpu_torch.config import voc_config
-    from excel_tpu_torch.engine.evaluate import _bucketed_batches, run_lam_eval
-    from excel_tpu_torch.models.params import init_clip_params
+def slice_setup(preset: str, n_samples: int):
+    """(cfg, params, text bank, samples) of a slice: seeded random weights
+    at full voc_config() width; under the fast preset the matmul weights
+    are cast to bf16 once, as the JAX package's CLIs and bench do."""
+    from excel_tpu_torch.config import fast, voc_config
+    from excel_tpu_torch.models.params import (cast_matmul_weights,
+                                               init_clip_params)
 
-    cfg = voc_config()
-    params = {"clip": init_clip_params(
-        cfg.clip, torch.Generator().manual_seed(0), device="cuda")}
+    cfg = voc_config() if preset == "fp32" else fast(voc_config())
+    clip = init_clip_params(cfg.clip, torch.Generator().manual_seed(0),
+                            device="cuda")
+    if preset == "fast":
+        clip = cast_matmul_weights(clip, torch.bfloat16)
     text = text_bank(cfg, seed=0).cuda()
-    samples = synthetic_samples(n_samples, cfg.num_fg, seed=0)
+    return cfg, {"clip": clip}, text, synthetic_samples(n_samples,
+                                                        cfg.num_fg, seed=0)
+
+
+def phase_slice(preset: str, n_samples: int = 32, batch: int = 16):
+    """run_lam_eval of one preset at full voc_config() width; returns
+    (launch counts, params, text bank, cfg, samples)."""
+    from excel_tpu_torch.engine.evaluate import _bucketed_batches, run_lam_eval
+
+    cfg, params, text, samples = slice_setup(preset, n_samples)
     n_batches = sum(1 for _ in _bucketed_batches(
         samples, batch, cfg.data.eval_pad, cfg.refine.slot_buckets,
         cfg.num_fg))
@@ -345,23 +546,27 @@ def phase_slice(n_samples: int = 32, batch: int = 16):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     counts = {name: fn.launches for name, fn in wrappers.items()}
-    log(f"slice: run_lam_eval voc_config fp32 ViT-B/16 N={cfg.clip.tokens} "
-        f"samples={n_samples} batch={batch} batches={n_batches} "
-        f"seconds={dt:.3f} img_per_s={n_samples / dt:.3f} "
+    name = "fast(voc_config())" if preset == "fast" else "voc_config()"
+    log(f"slice {preset}: run_lam_eval {name} encoder "
+        f"{str(cfg.clip.compute_dtype).split('.')[-1]} PAR "
+        f"{'bf16' if cfg.refine.par_bf16 else 'fp32'} ViT-B/16 "
+        f"N={cfg.clip.tokens} samples={n_samples} batch={batch} batches="
+        f"{n_batches} seconds={dt:.3f} img_per_s={n_samples / dt:.3f} "
         f"(padded slots {n_batches * batch}) miou={scores['miou']:.4f} "
         f"pAcc={scores['pAcc']:.4f}")
-    log("slice launches: " + json.dumps(counts))
-    for name, per_batch in LAUNCHES_PER_BATCH.items():
+    log(f"slice {preset} launches: " + json.dumps(counts))
+    for name, per_batch in LAUNCHES_PER_BATCH[preset].items():
         if counts[name] != per_batch * n_batches:
             raise AssertionError(
-                f"{name}: {counts[name]} launches, expected {per_batch} x "
-                f"{n_batches} batches")
+                f"{preset} slice, {name}: {counts[name]} launches, expected "
+                f"{per_batch} x {n_batches} batches")
     if not (0.0 <= scores["miou"] <= 1.0 and np.isfinite(scores["pAcc"])):
         raise AssertionError(f"bad scores {scores['miou']} {scores['pAcc']}")
     return counts, params, text, cfg, samples
 
 
-def phase_profile(params, text, cfg, samples, batch: int = 16) -> None:
+def phase_profile(preset, params, text, cfg, samples,
+                  batch: int = 16) -> None:
     """Device time by kernel over one main-path batch (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -402,15 +607,15 @@ def phase_profile(params, text, cfg, samples, batch: int = 16) -> None:
     events = [e for e in prof.key_averages()
               if e.device_type == DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in events)
-    log(f"profile: one batch of {batch} canvas={canvas} slots={slots} "
-        f"wall_ms={wall:.2f} (median of 3, profiler off) device_ms="
+    log(f"profile {preset}: one batch of {batch} canvas={canvas} "
+        f"slots={slots} wall_ms={wall:.2f} (median of 3, profiler off) device_ms="
         f"{device_us / 1e3:.2f} (profiled run) busy_share="
         f"{device_us / 1e3 / wall:.3f} host_prep_ms={prep_ms:.2f} "
         f"(_prep_batch: numpy resize of the batch's images)")
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:12]
     for e in top:
-        log(f"profile: {e.self_device_time_total / 1e3:9.3f} ms "
+        log(f"profile {preset}: {e.self_device_time_total / 1e3:9.3f} ms "
             f"x{e.count:<5d} {e.key[:90]}")
 
 
@@ -422,7 +627,8 @@ def _tree_to(tree, device):
     return tree.to(device)
 
 
-def phase_card_vs_cpu(params, text, cfg, samples) -> float:
+def phase_card_vs_cpu(preset, params, text, cfg, samples,
+                      bound: float) -> float:
     """One batch of 2 through lam_eval_step on the card (kernels) and on
     the CPU (plain versions); share of valid pixels with equal labels."""
     from excel_tpu_torch.engine.evaluate import (
@@ -443,22 +649,39 @@ def phase_card_vs_cpu(params, text, cfg, samples) -> float:
     t2 = time.perf_counter()
     mask = torch.from_numpy(labels != 255)
     agree = float((on_card == on_cpu)[mask].float().mean())
-    log(f"card_vs_cpu: batch=2 canvas={canvas} slots={slots} valid_pixels="
-        f"{int(mask.sum())} label_agreement={agree:.6f} (bound "
-        f">= {MIN_LABEL_AGREEMENT}) card_s={t1 - t0:.2f} cpu_s={t2 - t1:.2f}")
-    if not agree >= MIN_LABEL_AGREEMENT:
+    log(f"card_vs_cpu {preset}: batch=2 canvas={canvas} slots={slots} "
+        f"valid_pixels={int(mask.sum())} label_agreement={agree:.6f} (bound "
+        f">= {bound}) card_s={t1 - t0:.2f} cpu_s={t2 - t1:.2f}")
+    if not agree >= bound:
         raise AssertionError(f"card and CPU labels agree on {agree:.4f} of "
                              f"the valid pixels")
     return agree
 
 
+# kernel -> (source, the TPU kernel it replaces, the slice whose run gives
+# its launch count)
 SOURCES = {
     "plain_attention": ("excel_tpu_torch/csrc/attention_plain.cu",
-                        "excel_tpu/models/attention_pallas.py:52"),
+                        "excel_tpu/models/attention_pallas.py:52", "fp32"),
     "surgery_attention": ("excel_tpu_torch/csrc/attention_surgery.cu",
-                          "excel_tpu/models/attention_pallas.py:244"),
+                          "excel_tpu/models/attention_pallas.py:244", "fp32"),
     "par_diffuse": ("excel_tpu_torch/csrc/par_diffuse.cu",
-                    "excel_tpu/ops/par_pallas.py:31"),
+                    "excel_tpu/ops/par_pallas.py:31", "fp32"),
+    "plain_attention_bf16": ("excel_tpu_torch/csrc/attention_plain.cu",
+                             "excel_tpu/models/attention_pallas.py:52",
+                             "fast"),
+    "surgery_attention_bf16": ("excel_tpu_torch/csrc/attention_surgery.cu",
+                               "excel_tpu/models/attention_pallas.py:244",
+                               "fast"),
+    "pad_replicate_valid": ("excel_tpu_torch/csrc/par_pad_clamp.cu",
+                            "excel_tpu/ops/par_pallas.py:845", "fast"),
+    "par_affinity": ("excel_tpu_torch/csrc/par_affinity.cu",
+                     "excel_tpu/ops/par_pallas.py:931", "fast"),
+    "par_diffuse_padded_valid": ("excel_tpu_torch/csrc/par_diffuse_valid.cu",
+                                 "excel_tpu/ops/par_pallas.py:342", "fast"),
+    "par_diffuse_valid_resident": (
+        "excel_tpu_torch/csrc/par_diffuse_valid.cu",
+        "excel_tpu/ops/par_pallas.py:654", "fast"),
 }
 
 
@@ -471,14 +694,21 @@ def main() -> int:
     phase_environment()
     phase_build()
     records = phase_kernels()
-    counts, params, text, cfg, samples = phase_slice()
-    phase_profile(params, text, cfg, samples)
-    phase_card_vs_cpu(params, text, cfg, samples)
+    records.update(phase_kernels_fast())
+    counts = {}
+    for preset, bound in (("fp32", MIN_LABEL_AGREEMENT),
+                          ("fast", MIN_FAST_LABEL_AGREEMENT)):
+        counts[preset], params, text, cfg, samples = phase_slice(preset)
+        phase_profile(preset, params, text, cfg, samples)
+        phase_card_vs_cpu(preset, params, text, cfg, samples, bound)
+        del params
     table = []
-    for name, (source, replaces) in SOURCES.items():
+    for name, (source, replaces, preset) in SOURCES.items():
         r = records[name]
+        wrapper = name[:-len("_bf16")] if name.endswith("_bf16") else name
         table.append({"name": name, "route": "cuda", "source": source,
-                      "replaces": replaces, "launches": counts[name],
+                      "replaces": replaces,
+                      "launches": counts[preset][wrapper],
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],

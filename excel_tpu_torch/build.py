@@ -22,17 +22,29 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
-# source name -> (C entry point, argument types); every entry point returns
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_PLAIN_ATTN = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_SURGERY_ATTN = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_PAD_CLAMP = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+_AFFINITY = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
+_VALID_STEP = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
+_VALID_RESIDENT = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                   _I, _P]
+# source name -> {C entry point: argument types}; every entry point returns
 # the cudaError_t of its launch as an int
 ENTRY_POINTS = {
-    "attention_plain": ("excel_plain_attention_f32",
-                        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "attention_surgery": ("excel_surgery_attention_f32",
-                          [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                           _P]),
-    "par_diffuse": ("excel_par_diffuse_f32",
-                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "attention_plain": {"excel_plain_attention_f32": _PLAIN_ATTN,
+                        "excel_plain_attention_bf16": _PLAIN_ATTN},
+    "attention_surgery": {"excel_surgery_attention_f32": _SURGERY_ATTN,
+                          "excel_surgery_attention_bf16": _SURGERY_ATTN},
+    "par_diffuse": {"excel_par_diffuse_f32":
+                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "par_pad_clamp": {"excel_pad_clamp_f32": _PAD_CLAMP,
+                      "excel_pad_clamp_bf16": _PAD_CLAMP},
+    "par_affinity": {"excel_par_affinity_bf16": _AFFINITY},
+    "par_diffuse_valid": {
+        "excel_par_diffuse_valid_step_bf16": _VALID_STEP,
+        "excel_par_diffuse_valid_resident_bf16": _VALID_RESIDENT},
 }
 
 _loaded: dict = {}
@@ -94,18 +106,17 @@ def build(names=tuple(ENTRY_POINTS)) -> dict[str, float]:
     return seconds
 
 
-def load(name: str):
-    """The C entry point of `csrc/<name>.cu` as a ctypes function, building
-    its library first if needed."""
+def load(name: str, symbol: str):
+    """The C entry point `symbol` of `csrc/<name>.cu` as a ctypes function,
+    building its library first if needed."""
     with _lock:
-        if name not in _loaded:
+        if (name, symbol) not in _loaded:
             build((name,))
-            symbol, argtypes = ENTRY_POINTS[name]
             fn = getattr(ctypes.CDLL(library_path(name)), symbol)
-            fn.argtypes = argtypes
+            fn.argtypes = ENTRY_POINTS[name][symbol]
             fn.restype = ctypes.c_int
-            _loaded[name] = fn
-        return _loaded[name]
+            _loaded[name, symbol] = fn
+        return _loaded[name, symbol]
 
 
 def check(rc: int, name: str) -> None:

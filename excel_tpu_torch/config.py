@@ -5,8 +5,8 @@ jax.numpy ones (the JAX module imports jax.numpy, so the port keeps its own
 copy). The JAX package's `fused_attention` switch has no counterpart: the
 encoder always calls the attention kernels' wrappers, which launch the CUDA
 kernels on CUDA tensors and take their plain versions on CPU tensors.
-`fast()` is kept for the config tree, but its bf16 settings raise
-NotImplementedError where they are used: they belong to a later slice.
+`fast()` gives the production preset: a bf16 encoder and bf16 PAR storage
+(the CRF's `msg_bf16` is kept for the config tree; the CRF is not ported).
 """
 from __future__ import annotations
 

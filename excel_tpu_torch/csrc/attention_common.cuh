@@ -1,13 +1,18 @@
-// Shared pieces of the fp32 attention kernels (attention_plain.cu,
-// attention_surgery.cu).
+// Shared pieces of the attention kernels (attention_plain.cu,
+// attention_surgery.cu), for fp32 and bf16 q/k/v.
 //
 // One block owns TQ query rows of one image. The [TQ, N] logits of one head
 // live in shared memory (a 401-token f32 row is 1.6 KB); keys and values
-// are staged through shared memory in chunks of kTK rows. Products run as
-// CUDA-core FMA in fp32 (no TF32): both kernels are bound by fp32
-// arithmetic at the encoder's shapes, and the slice's numerics are fp32.
+// are staged through shared memory in chunks of kTK rows, as fp32 whatever
+// the element type T of q/k/v. Products run as CUDA-core FMA in fp32 (no
+// TF32). With bf16 inputs every product of two bf16 values is exact in
+// fp32, so the logits are the fp32-accumulated dot products the TPU's
+// `preferred_element_type=float32` asks for; softmax stays fp32, P is
+// rounded to bf16 before P V (the TPU kernels' `attn.astype(v.dtype)`) and
+// the context is stored as bf16.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -36,8 +41,15 @@ __host__ __device__ constexpr int tile_stride() {
   return D + 4;
 }
 
+// p as the P V product sees it: unchanged for fp32, rounded to bf16 for bf16.
+__device__ inline float round_p(float p, const float*) { return p; }
+__device__ inline float round_p(float p, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(p));
+}
+
 // Stage rows [r0, r0 + rows) of a row-major [n, D] matrix into shared memory
-// (row stride tile_stride<D>()), float4 at a time; rows past n are zero.
+// (row stride tile_stride<D>()) as fp32, 16 bytes per thread and load (four
+// floats or eight bf16); rows past n are zero.
 template <int D>
 __device__ inline void stage_rows(float* dst, const float* src, int r0,
                                   int rows, int n) {
@@ -53,6 +65,34 @@ __device__ inline void stage_rows(float* dst, const float* src, int r0,
   }
 }
 
+template <int D>
+__device__ inline void stage_rows(float* dst, const __nv_bfloat16* src,
+                                  int r0, int rows, int n) {
+  constexpr int V = D / 8;
+  for (int i = threadIdx.x; i < rows * V; i += kThreads) {
+    const int r = i / V;
+    const int c = i - r * V;
+    const int g = r0 + r;
+    float f[8];
+    if (g < n) {
+      const uint4 x = reinterpret_cast<const uint4*>(src + (size_t)g * D)[c];
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 t = __bfloat1622float2(h[j]);
+        f[2 * j] = t.x;
+        f[2 * j + 1] = t.y;
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) f[j] = 0.f;
+    }
+    float4* d = reinterpret_cast<float4*>(dst + r * tile_stride<D>() + c * 8);
+    d[0] = make_float4(f[0], f[1], f[2], f[3]);
+    d[1] = make_float4(f[4], f[5], f[6], f[7]);
+  }
+}
+
 __device__ inline float dot4(float4 a, float4 b, float acc) {
   acc = fmaf(a.x, b.x, acc);
   acc = fmaf(a.y, b.y, acc);
@@ -64,9 +104,9 @@ __device__ inline float dot4(float4 a, float4 b, float acc) {
 // of the global [n, D] matrix Bg; -inf for padded keys j >= n, so a
 // softmax over the padded row gives them weight 0. Each thread holds a
 // (TQ/16) x 4 tile of the product and reads A and B as float4 along d.
-template <int D, int TQ>
+template <int D, int TQ, typename T>
 __device__ void logits_rows(float* S, int stride, const float* As, float* Bs,
-                            const float* Bg, int n, float scale) {
+                            const T* Bg, int n, float scale) {
   constexpr int RT = TQ / kTY;
   constexpr int TS = tile_stride<D>();
   const int tx = threadIdx.x % kTX;
@@ -110,10 +150,11 @@ __device__ void logits_rows(float* S, int stride, const float* As, float* Bs,
 // Row softmax of the TQ rows of S over their n_pad (= padded) columns:
 // exp(x - max) / sum, one warp per row. The final pass hands each
 // probability p of a real column (j < n) to epi(r, j, p) and, with kStore,
-// writes it back into S (padded columns hold 0 either way). Every call maps
-// a given (r, j) to the same thread, so an epilogue that updates its own
-// elements of device memory needs no synchronisation.
-template <int TQ, bool kStore, typename Epi>
+// writes it back into S as P V will use it (round_p for element type T;
+// padded columns hold 0 either way). Every call maps a given (r, j) to the
+// same thread, so an epilogue that updates its own elements of device
+// memory needs no synchronisation.
+template <int TQ, bool kStore, typename T, typename Epi>
 __device__ void softmax_rows(float* S, int stride, int n, Epi epi) {
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -135,7 +176,7 @@ __device__ void softmax_rows(float* S, int stride, int n, Epi epi) {
     for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
     for (int j = lane; j < n; j += 32) {
       const float p = row[j] / s;
-      if (kStore) row[j] = p;
+      if (kStore) row[j] = round_p(p, (const T*)nullptr);
       epi(r, j, p);
     }
   }
@@ -154,6 +195,11 @@ struct VecCols<4> {
   __device__ static void store(float* p, const float* v) {
     *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
   }
+  __device__ static void store(__nv_bfloat16* p, const float* v) {
+    __nv_bfloat162 x[2] = {__floats2bfloat162_rn(v[0], v[1]),
+                           __floats2bfloat162_rn(v[2], v[3])};
+    *reinterpret_cast<uint2*>(p) = *reinterpret_cast<const uint2*>(x);
+  }
 };
 template <>
 struct VecCols<2> {
@@ -164,16 +210,20 @@ struct VecCols<2> {
   __device__ static void store(float* p, const float* v) {
     *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
   }
+  __device__ static void store(__nv_bfloat16* p, const float* v) {
+    *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(v[0], v[1]);
+  }
 };
 
-// out[r0 + r, :] = P[r, :] @ V for the block's TQ rows (rows < n written);
+// out[r0 + r, :] = P[r, :] @ V for the block's TQ rows (rows < n written,
+// rounded to T);
 // V is the global [n, D] value matrix of one (image, head), staged through
 // Vs in chunks. P's padded columns are 0 and padded V rows are staged as 0.
 // Each thread holds rows ty + 16 i and the D/16 consecutive columns from
 // tx * D/16, reading P as float4 along keys and V as vectors along d.
-template <int D, int TQ>
-__device__ void pv_rows(float* out, int r0, int n, const float* P, int stride,
-                        float* Vs, const float* Vg) {
+template <int D, int TQ, typename T>
+__device__ void pv_rows(T* out, int r0, int n, const float* P, int stride,
+                        float* Vs, const T* Vg) {
   constexpr int RT = TQ / kTY;
   constexpr int CT = D / kTX;
   constexpr int TS = tile_stride<D>();

@@ -1,4 +1,5 @@
-// Plain softmax attention with an optional head-mean of the weights, fp32.
+// Plain softmax attention with an optional head-mean of the weights, for
+// fp32 and bf16 q/k/v (fp32 weights either way).
 //
 // Replaces the TPU kernels excel_tpu/models/attention_pallas.py
 // `_plain_kernel` (:52, called by fused_plain_attention) and
@@ -10,7 +11,10 @@
 //
 // What bounds it: fp32 arithmetic. At the encoder's shapes (B=16, H=12,
 // N=401, D=64) one launch does 2 * 2*N^2*D*H*B = 7.9 GFLOP against 79 MB of
-// q/k/v/ctx. Design: one block owns TQ query rows of one image; the [TQ, N]
+// q/k/v/ctx (40 MB in bf16). The bf16 entry point stages q/k/v as fp32 in
+// shared memory and runs the same fp32 FMA loops (attention_common.cuh says
+// how it rounds), so it is bound the same way: far from the bf16 tensor-core
+// rate its time is measured against. Design: one block owns TQ query rows of one image; the [TQ, N]
 // logits of a head stay in shared memory from the q k^T product through the
 // softmax to the P v product, so no [N, N] matrix of a head reaches device
 // memory. With weights, the block loops over all heads and adds each head's
@@ -24,11 +28,10 @@
 
 namespace excel {
 
-template <int D, int TQ>
+template <int D, int TQ, typename T>
 __global__ void __launch_bounds__(kThreads)
-    plain_attention_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ ctx,
+    plain_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, T* __restrict__ ctx,
                            float* weights, int H, int N, int mode,
                            int heads_per_block, float scale) {
   extern __shared__ float smem[];
@@ -49,7 +52,7 @@ __global__ void __launch_bounds__(kThreads)
     stage_rows<D>(As, q + base, r0, TQ, N);
     logits_rows<D, TQ>(S, stride, As, Bs, k + base, N, scale);
     // head-mean rows, updated by the same thread for every head, in order
-    softmax_rows<TQ, true>(S, stride, N, [&](int r, int j, float p) {
+    softmax_rows<TQ, true, T>(S, stride, N, [&](int r, int j, float p) {
       if (mode && r < rows) {
         float* w = wrows + (size_t)r * N + j;
         *w = ((h == 0 && mode == 1) ? 0.f : *w) + p / (float)H;
@@ -59,11 +62,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, int TQ>
-static cudaError_t launch(const float* q, const float* k, const float* v,
-                          float* ctx, float* weights, int B, int H, int N,
-                          int mode, size_t smem, cudaStream_t stream) {
-  auto kern = plain_attention_kernel<D, TQ>;
+template <int D, int TQ, typename T>
+static cudaError_t launch(const T* q, const T* k, const T* v, T* ctx,
+                          float* weights, int B, int H, int N, int mode,
+                          size_t smem, cudaStream_t stream) {
+  auto kern = plain_attention_kernel<D, TQ, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -74,15 +77,10 @@ static cudaError_t launch(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-}  // namespace excel
-
-// mode: 0 none (weights unused), 1 out (weights written), 2 acc (weights
-// read and updated in place). Returns a cudaError_t (0 on success).
-extern "C" int excel_plain_attention_f32(const float* q, const float* k,
-                                         const float* v, float* ctx,
-                                         float* weights, int B, int H, int N,
-                                         int D, int mode, void* stream) {
-  using namespace excel;
+template <typename T>
+static int dispatch(const T* q, const T* k, const T* v, T* ctx,
+                    float* weights, int B, int H, int N, int D, int mode,
+                    void* stream) {
   size_t smem = 0;
   const int tq = pick_tile(N, D, &smem);
   cudaStream_t s = (cudaStream_t)stream;
@@ -95,4 +93,25 @@ extern "C" int excel_plain_attention_f32(const float* q, const float* k,
   if (D == 32 && tq == 16)
     return launch<32, 16>(q, k, v, ctx, weights, B, H, N, mode, smem, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace excel
+
+// q, k, v, ctx: [B, H, N, D] of the entry point's type; weights [B, N, N]
+// fp32. mode: 0 none (weights unused), 1 out (weights written), 2 acc
+// (weights read and updated in place). Returns a cudaError_t (0 on success).
+extern "C" int excel_plain_attention_f32(const float* q, const float* k,
+                                         const float* v, float* ctx,
+                                         float* weights, int B, int H, int N,
+                                         int D, int mode, void* stream) {
+  return excel::dispatch(q, k, v, ctx, weights, B, H, N, D, mode, stream);
+}
+
+extern "C" int excel_plain_attention_bf16(const __nv_bfloat16* q,
+                                          const __nv_bfloat16* k,
+                                          const __nv_bfloat16* v,
+                                          __nv_bfloat16* ctx, float* weights,
+                                          int B, int H, int N, int D,
+                                          int mode, void* stream) {
+  return excel::dispatch(q, k, v, ctx, weights, B, H, N, D, mode, stream);
 }

@@ -1,4 +1,5 @@
-// ExCEL surgery (dual-path) attention, fp32.
+// ExCEL surgery (dual-path) attention, for fp32 and bf16 q/k/v (fp32 head
+// sums either way).
 //
 // Replaces the TPU kernel excel_tpu/models/attention_pallas.py `_kernel`
 // (:244, called by fused_surgery_attention for N <= 640); it takes any N the
@@ -16,7 +17,8 @@
 //
 // What bounds it: fp32 arithmetic, 5 products of 2*N^2*D per head (19.8
 // GFLOP per launch at B=16, H=12, N=401, D=64) against about 110 MB of
-// inputs and outputs. Design: as the plain kernel, one block owns TQ query
+// inputs and outputs. The bf16 entry point runs the same fp32 loops on
+// bf16 inputs staged as fp32 (attention_common.cuh). Design: as the plain kernel, one block owns TQ query
 // rows of one image and loops over the heads, adding each head's rows onto
 // its own rows of the two head sums in device memory (L2-resident), so one
 // [TQ, N] shared-memory buffer suffices and two blocks fit on an SM. The
@@ -28,14 +30,14 @@
 
 namespace excel {
 
-template <int D, int TQ>
+template <int D, int TQ, typename T>
 __global__ void __launch_bounds__(kThreads)
-    surgery_attention_kernel(const float* __restrict__ q,
-                             const float* __restrict__ k,
-                             const float* __restrict__ v,
+    surgery_attention_kernel(const T* __restrict__ q,
+                             const T* __restrict__ k,
+                             const T* __restrict__ v,
                              const float* __restrict__ ex,
                              float* __restrict__ shared, float* attn_sum,
-                             float* __restrict__ ctx_ori, int H, int N,
+                             T* __restrict__ ctx_ori, int H, int N,
                              int mode, float scale) {
   extern __shared__ float smem[];
   const int stride = row_stride(N);
@@ -61,7 +63,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     stage_rows<D>(As, q + base, r0, TQ, N);
     logits_rows<D, TQ>(S, stride, As, Bs, k + base, N, scale);
-    softmax_rows<TQ, true>(S, stride, N, [&](int r, int j, float p) {
+    softmax_rows<TQ, true, T>(S, stride, N, [&](int r, int j, float p) {
       if (mode && r < rows) {
         float* a = asrows + (size_t)r * N + j;
         *a = ((h == 0 && mode == 1) ? 0.f : *a) + p;
@@ -70,13 +72,13 @@ __global__ void __launch_bounds__(kThreads)
     pv_rows<D, TQ>(ctx_ori + base, r0, N, S, stride, Bs, v + base);
     // dense path: q q^T (As still holds the q rows), k k^T, v v^T
     for (int t = 0; t < 3; ++t) {
-      const float* src = t == 0 ? q + base : (t == 1 ? k + base : v + base);
+      const T* src = t == 0 ? q + base : (t == 1 ? k + base : v + base);
       if (t > 0) {
         __syncthreads();
         stage_rows<D>(As, src, r0, TQ, N);
       }
       logits_rows<D, TQ>(S, stride, As, Bs, src, N, scale);
-      softmax_rows<TQ, false>(S, stride, N, [&](int r, int j, float p) {
+      softmax_rows<TQ, false, T>(S, stride, N, [&](int r, int j, float p) {
         if (r < rows) {
           const size_t i = (size_t)r * N + j;
           float add = p / 3.0f;
@@ -88,12 +90,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int D, int TQ>
-static cudaError_t launch(const float* q, const float* k, const float* v,
+template <int D, int TQ, typename T>
+static cudaError_t launch(const T* q, const T* k, const T* v,
                           const float* ex, float* shared, float* attn_sum,
-                          float* ctx_ori, int B, int H, int N, int mode,
+                          T* ctx_ori, int B, int H, int N, int mode,
                           size_t smem, cudaStream_t stream) {
-  auto kern = surgery_attention_kernel<D, TQ>;
+  auto kern = surgery_attention_kernel<D, TQ, T>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -104,16 +106,10 @@ static cudaError_t launch(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-}  // namespace excel
-
-// mode: 0 none (attn_sum unused), 1 out (attn_sum written), 2 acc (attn_sum
-// read and updated in place). ex may be null. Returns a cudaError_t.
-extern "C" int excel_surgery_attention_f32(const float* q, const float* k,
-                                           const float* v, const float* ex,
-                                           float* shared, float* attn_sum,
-                                           float* ctx_ori, int B, int H, int N,
-                                           int D, int mode, void* stream) {
-  using namespace excel;
+template <typename T>
+static int dispatch(const T* q, const T* k, const T* v, const float* ex,
+                    float* shared, float* attn_sum, T* ctx_ori, int B, int H,
+                    int N, int D, int mode, void* stream) {
   size_t smem = 0;
   const int tq = pick_tile(N, D, &smem);
   cudaStream_t s = (cudaStream_t)stream;
@@ -130,4 +126,27 @@ extern "C" int excel_surgery_attention_f32(const float* q, const float* k,
     return launch<32, 16>(q, k, v, ex, shared, attn_sum, ctx_ori, B, H, N,
                           mode, smem, s);
   return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace excel
+
+// q, k, v, ctx_ori: [B, H, N, D] of the entry point's type; ex, shared,
+// attn_sum: [B, N, N] fp32. mode: 0 none (attn_sum unused), 1 out (attn_sum
+// written), 2 acc (attn_sum read and updated in place). ex may be null.
+// Returns a cudaError_t (0 on success).
+extern "C" int excel_surgery_attention_f32(const float* q, const float* k,
+                                           const float* v, const float* ex,
+                                           float* shared, float* attn_sum,
+                                           float* ctx_ori, int B, int H, int N,
+                                           int D, int mode, void* stream) {
+  return excel::dispatch(q, k, v, ex, shared, attn_sum, ctx_ori, B, H, N, D,
+                         mode, stream);
+}
+
+extern "C" int excel_surgery_attention_bf16(
+    const __nv_bfloat16* q, const __nv_bfloat16* k, const __nv_bfloat16* v,
+    const float* ex, float* shared, float* attn_sum, __nv_bfloat16* ctx_ori,
+    int B, int H, int N, int D, int mode, void* stream) {
+  return excel::dispatch(q, k, v, ex, shared, attn_sum, ctx_ori, B, H, N, D,
+                         mode, stream);
 }

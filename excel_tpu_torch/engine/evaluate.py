@@ -4,10 +4,12 @@ parts of excel_tpu/engine/evaluate.py).
 Per batch: normalise, encode (block-mean attention accumulated in the
 attention kernels), feature-surgery LAMs, class-slot compaction, SVC, the
 refined maps plus background upscaled to each image's valid extent on a
-fixed canvas, PAR with per-image valid extents (the diffusion kernel),
-argmax, and the confusion hist, all on the device. The host sweep groups
-samples by canvas bucket and class-slot bucket, resizes them in a
-background thread and can checkpoint its hist to resume a killed sweep.
+fixed canvas, PAR with per-image valid extents (fp32: the diffusion
+kernel; bf16 under `fast()`: the pad-clamp, affinity and resident
+diffusion kernels), argmax, and the confusion hist, all on the device.
+The host sweep groups samples by canvas bucket and class-slot bucket,
+resizes them in a background thread and can checkpoint its hist to resume
+a killed sweep.
 
 The trained mode, in-training validation, MSC segmentation eval and the CRF
 branches belong to later slices.
@@ -48,9 +50,6 @@ def _pseudo_on_canvas(lams, attn_weights, guide_images, cls_label, valid_hw,
     class_slots: compact to bg + `class_slots` present-class channels before
     SVC/upscale/PAR; exact when every image has <= class_slots present
     classes (callers bucket it from the batch's label cardinality)."""
-    if cfg.refine.par_bf16:
-        raise NotImplementedError("par_bf16=True (bf16 PAR) belongs to the "
-                                  "fast-preset slice")
     b, hw, c = lams.shape
     grid = int(round(hw ** 0.5))
     lams = lams.transpose(1, 2)                           # [B, C, hw]
@@ -70,7 +69,8 @@ def _pseudo_on_canvas(lams, attn_weights, guide_images, cls_label, valid_hw,
     guide = upscale_to_canvas_align(guide_images, valid_hw, canvas)
     cams = par_refine(guide, normed,
                       dilations=tuple(cfg.refine.par_dilations),
-                      num_iter=cfg.refine.par_iters, valid_hw=valid_hw)
+                      num_iter=cfg.refine.par_iters, valid_hw=valid_hw,
+                      dtype=torch.bfloat16 if cfg.refine.par_bf16 else None)
     if class_slots is not None:
         return slot_label_to_class(argmax_label(cams, cls_sel), idx), normed
     return argmax_label(cams, cls_label), normed

@@ -7,10 +7,13 @@ Counterpart of excel_tpu/models/attention_pallas.py. Two wrappers:
 - `fused_surgery_attention` runs csrc/attention_surgery.cu, which replaces
   the Pallas `_kernel` and computes what `_kernel_rows` computes.
 
-Both kernels are bound by fp32 arithmetic; the sources say how they are
-laid out. The weights output has the TPU kernels' three modes: "out" (own
-output), "acc" (added in place onto an accumulator, the cross-block mean of
-the training-free path) and "none" (never written).
+Both kernels take fp32 or bf16 q/k/v (one entry point each) and are bound
+by fp32 arithmetic; the sources say how they are laid out. With bf16 inputs
+the arithmetic is the TPU kernels': fp32 logits, softmax and weight sums,
+P rounded to bf16 before P V, a bf16 context. The weights output has the
+TPU kernels' three modes: "out" (own output), "acc" (added in place onto an
+accumulator, the cross-block mean of the training-free path) and "none"
+(never written); it is fp32 for either input type.
 
 On a CPU tensor a wrapper computes its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises. Each wrapper counts its kernel
@@ -24,17 +27,19 @@ from .. import build
 
 _MODES = {"none": 0, "out": 1, "acc": 2}
 _KERNEL_HEAD_DIMS = (32, 64)
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one [B, H, N, D] shape, got "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
+    if q.dtype not in _SUFFIX:
+        raise NotImplementedError(f"{q.dtype} attention: the kernels take "
+                                  "float32 and bfloat16")
     for t in (q, k, v):
-        if t.dtype != torch.float32:
-            raise NotImplementedError(
-                f"{t.dtype} attention belongs to the bf16 (fast preset) "
-                "slice; this slice's kernels are fp32")
+        if t.dtype != q.dtype:
+            raise ValueError("q, k, v must share one dtype")
         if t.device != q.device:
             raise ValueError("q, k, v must be on one device")
         if not t.is_contiguous():
@@ -46,8 +51,8 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
             raise ValueError(f"the attention kernels take head dims "
                              f"{_KERNEL_HEAD_DIMS}, got {q.shape[-1]}")
         if any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError("the attention kernels read q, k, v as float4: "
-                             "they must start on a 16-byte boundary")
+            raise ValueError("the attention kernels read q, k, v 16 bytes at "
+                             "a time: they must start on a 16-byte boundary")
 
 
 def _check_nn(t: torch.Tensor, q: torch.Tensor, name: str) -> None:
@@ -71,16 +76,29 @@ def _stream(t: torch.Tensor):
 # plain attention
 # ---------------------------------------------------------------------------
 
+def _softmax_sim(a: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """softmax(a c^T D^-1/2) in fp32: the products of bf16 inputs are exact
+    in fp32, so this is the fp32-accumulated logit of either type."""
+    scale = a.shape[-1] ** -0.5
+    return torch.softmax(
+        torch.matmul(a.float(), c.float().transpose(-1, -2)) * scale, dim=-1)
+
+
+def _pv(attn: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """attn v with attn rounded to v's type first, accumulated in fp32 and
+    returned in v's type."""
+    return torch.matmul(attn.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
 def plain_attention_reference(q, k, v, acc=None, need_weights=True):
     """Plain version of `fused_plain_attention`, same arguments and
     results."""
     b, heads, n, d = q.shape
-    scale = d ** -0.5
-    attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
-    ctx = torch.matmul(attn, v)
+    attn = _softmax_sim(q, k)
+    ctx = _pv(attn, v)
     if acc is None and not need_weights:
         return ctx, None
-    w = acc if acc is not None else q.new_zeros((b, n, n))
+    w = acc if acc is not None else attn.new_zeros((b, n, n))
     for h in range(heads):
         w += attn[:, h] / heads
     return ctx, w
@@ -91,8 +109,9 @@ def fused_plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           need_weights: bool = True):
     """softmax(q k^T D^-1/2) v per (image, head) with the head-MEAN weights.
 
-    q/k/v: contiguous [B, H, N, D] float32. Returns (ctx [B, H, N, D],
-    weights): the head-mean [B, N, N] ("out"), `acc` with the head-mean
+    q/k/v: contiguous [B, H, N, D], all float32 or all bfloat16. Returns
+    (ctx [B, H, N, D] in q's type, weights): the fp32 head-mean [B, N, N]
+    ("out"), `acc` with the head-mean
     added in place when an accumulator is given ("acc"; the caller must not
     reuse `acc`), or None with need_weights=False ("none")."""
     _check_qkv(q, k, v)
@@ -104,8 +123,10 @@ def fused_plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, heads, n, d = q.shape
     ctx = torch.empty_like(q)
     weights = acc if mode == "acc" else (
-        q.new_empty((b, n, n)) if mode == "out" else None)
-    fn = build.load("attention_plain")
+        q.new_empty((b, n, n), dtype=torch.float32) if mode == "out"
+        else None)
+    fn = build.load("attention_plain",
+                    f"excel_plain_attention_{_SUFFIX[q.dtype]}")
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
                    _ptr(weights), b, heads, n, d, _MODES[mode], _stream(q)),
                 "attention_plain")
@@ -125,23 +146,17 @@ def surgery_attention_reference(q, k, v, ex_attn=None, acc=None,
     """Plain version of `fused_surgery_attention`, same arguments and
     results."""
     b, heads, n, d = q.shape
-    scale = d ** -0.5
-
-    def sim(a, c):
-        return torch.softmax(torch.matmul(a, c.transpose(-1, -2)) * scale,
-                             dim=-1)
-
-    attn_ori = sim(q, k)
-    mix = (sim(q, q) + sim(k, k) + sim(v, v)) / 3.0
+    attn_ori = _softmax_sim(q, k)
+    mix = (_softmax_sim(q, q) + _softmax_sim(k, k) + _softmax_sim(v, v)) / 3.0
     if ex_attn is not None:
         mix = mix + ex_attn[:, None]
-    shared = q.new_zeros((b, n, n))
+    shared = mix.new_zeros((b, n, n))
     for h in range(heads):
         shared += mix[:, h]
-    ctx_ori = torch.matmul(attn_ori, v)
+    ctx_ori = _pv(attn_ori, v)
     if acc is None and not need_attn:
         return shared, None, ctx_ori
-    attn_sum = acc if acc is not None else q.new_zeros((b, n, n))
+    attn_sum = acc if acc is not None else mix.new_zeros((b, n, n))
     for h in range(heads):
         attn_sum += attn_ori[:, h]
     return shared, attn_sum, ctx_ori
@@ -153,12 +168,13 @@ def fused_surgery_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                             need_attn: bool = True):
     """ExCEL dual-path attention per (image, head), reduced over heads.
 
-    q/k/v: contiguous [B, H, N, D] float32; ex_attn: optional [B, N, N]
-    additive calibration (zero over the CLS row/column). Returns
-    (shared [B, N, N] — head-sum of the dense mix,
-     attn_sum — head-sum of softmax(q k^T) [B, N, N] ("out"), `acc` with it
-                added in place ("acc"), or None with need_attn=False,
-     ctx_ori [B, H, N, D] — softmax(q k^T) v per head)."""
+    q/k/v: contiguous [B, H, N, D], all float32 or all bfloat16; ex_attn:
+    optional fp32 [B, N, N] additive calibration (zero over the CLS
+    row/column). Returns
+    (shared [B, N, N] fp32 — head-sum of the dense mix,
+     attn_sum — fp32 head-sum of softmax(q k^T) [B, N, N] ("out"), `acc`
+                with it added in place ("acc"), or None with need_attn=False,
+     ctx_ori [B, H, N, D] in q's type — softmax(q k^T) v per head)."""
     _check_qkv(q, k, v)
     mode = "acc" if acc is not None else ("out" if need_attn else "none")
     if acc is not None:
@@ -168,11 +184,13 @@ def fused_surgery_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return surgery_attention_reference(q, k, v, ex_attn, acc, need_attn)
     b, heads, n, d = q.shape
-    shared = q.new_empty((b, n, n))
+    shared = q.new_empty((b, n, n), dtype=torch.float32)
     ctx_ori = torch.empty_like(q)
     attn_sum = acc if mode == "acc" else (
-        q.new_empty((b, n, n)) if mode == "out" else None)
-    fn = build.load("attention_surgery")
+        q.new_empty((b, n, n), dtype=torch.float32) if mode == "out"
+        else None)
+    fn = build.load("attention_surgery",
+                    f"excel_surgery_attention_{_SUFFIX[q.dtype]}")
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ex_attn),
                    shared.data_ptr(), _ptr(attn_sum), ctx_ori.data_ptr(),
                    b, heads, n, d, _MODES[mode], _stream(q)),

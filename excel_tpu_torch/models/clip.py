@@ -7,6 +7,12 @@ later slice).
 JAX package's effective behaviour is carried over, quirks included: the CLS
 token from the original path, the per-block feature stack that replicates
 the reference's aliased views, and the token-dim L2 norm of encode_image.
+
+`cfg.compute_dtype` is float32 or bfloat16 (the fast preset). In bf16 the
+JAX package's flow is kept: the patch embedding, the residual streams, the
+projections (fp32 accumulation, rounded to bf16) and `projected` are bf16;
+LayerNorm runs in fp32 and casts back; the attention kernels keep their
+softmax and the fp32 head-mean accumulator of the "mean" mode.
 """
 from __future__ import annotations
 
@@ -47,8 +53,8 @@ def interpolate_pos_embedding(pos: torch.Tensor,
 def _patch_embed(images: torch.Tensor, w: torch.Tensor,
                  patch: int) -> torch.Tensor:
     """16x16 stride-16 convolution as an exact im2col product (no cuDNN, so
-    no TF32): images [B, H, W, 3] NHWC, w [width, 3, P, P] ->
-    [B, gh, gw, width]."""
+    no TF32) in the inputs' type: images [B, H, W, 3] NHWC, w [width, 3, P,
+    P] -> [B, gh, gw, width]."""
     b, h, wd, c = images.shape
     gh, gw = h // patch, wd // patch
     x = images[:, :gh * patch, :gw * patch]
@@ -81,19 +87,22 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
     if ex_feats is not None:
         raise NotImplementedError("LVC-calibrated attention (ex_feats) "
                                   "belongs to the trained-forward slice")
-    if cfg.compute_dtype != torch.float32:
-        raise NotImplementedError("a bf16 encoder (fast preset) belongs to "
-                                  "the fast-preset slice")
+    dtype = cfg.compute_dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"compute_dtype {dtype}: the encoder runs "
+                                  "in float32 or bfloat16")
     p = params["visual"]
     heads = cfg.vision_heads
     n_single = cfg.vision_layers - cfg.surgery_blocks
 
-    x = _patch_embed(images.float(), p["patch_embed"], cfg.patch_size)
+    x = _patch_embed(images.to(dtype), p["patch_embed"].to(dtype),
+                     cfg.patch_size)
     b, gh, gw, c = x.shape
     x = x.reshape(b, gh * gw, c)
     cls = p["class_embedding"].to(x.dtype).expand(b, 1, c)
     x = torch.cat([cls, x], dim=1)
-    x = x + interpolate_pos_embedding(p["positional_embedding"], gh)
+    pos = interpolate_pos_embedding(p["positional_embedding"], gh)
+    x = x + pos.to(x.dtype)
     x = layer_norm(x, p["ln_pre"])
 
     window = cfg.attn_out_layers or cfg.vision_layers
@@ -171,6 +180,8 @@ def encode_image(params: dict, images: torch.Tensor, cfg: ClipConfig,
     (dim 1 of [B, N, C]), not the feature dimension."""
     out = vision_forward(params, images, cfg, ex_feats, attn_mode=attn_mode)
     feats = out["projected"]
-    out["projected"] = feats / torch.linalg.vector_norm(feats, dim=1,
-                                                        keepdim=True)
+    # jnp.linalg.norm's program: squares in the features' type, summed in
+    # fp32, the root in the features' type
+    sq = (feats * feats).float().sum(dim=1, keepdim=True)
+    out["projected"] = feats / torch.sqrt(sq.to(feats.dtype))
     return out

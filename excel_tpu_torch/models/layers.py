@@ -1,9 +1,16 @@
 """Functional building blocks of the CLIP encoder (counterpart of
 excel_tpu/models/layers.py).
 
-Numerics as in the JAX package:
+Numerics as in the JAX package, for float32 and bfloat16 activations:
+- `linear` casts the weight to the activation type, accumulates the product
+  in fp32, rounds it to that type and then adds the bias in that type (two
+  roundings in bf16, as the JAX package's `dot(...).astype(x.dtype) + b`);
 - LayerNorm always computes in float32 and casts back;
-- QuickGELU is x * sigmoid(1.702 x);
+- QuickGELU is x * sigmoid(1.702 x) in the activation type, written as
+  JAX lowers it: 1.702 rounded to that type first (a weak-typed Python
+  scalar), and the sigmoid as 1 / (1 + exp(-z)) with each op rounded
+  (`torch.sigmoid` rounds once, and `1.702 * x` keeps the constant in fp32;
+  each moved about a quarter of the bf16 results by an ulp);
 - standard attention returns the head-MEAN of its softmax weights (torch
   nn.MultiheadAttention need_weights semantics), while the surgery attention
   returns the head-SUM of its original-path weights; SVC consumes a mix of
@@ -28,8 +35,14 @@ def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
     return out.to(orig)
 
 
+# 1.702 rounded to each activation type on the host: a Python float that
+# the product takes as is (a device tensor would cost a blocking copy)
+_GELU_ALPHA = {dt: float(torch.tensor(1.702, dtype=dt))
+               for dt in (torch.float32, torch.bfloat16)}
+
+
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.sigmoid(1.702 * x)
+    return x * (1.0 / (1.0 + torch.exp(-(_GELU_ALPHA[x.dtype] * x))))
 
 
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:

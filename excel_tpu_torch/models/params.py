@@ -1,5 +1,6 @@
 """CLIP parameters in torch layout: random init, conversion from the JAX
-package's parameter tree, and reading its `save_params_npz` files.
+package's parameter tree, reading its `save_params_npz` files, and the
+one-time bf16 copy of the matmul weights for the fast preset.
 
 The tree keeps the JAX package's keys ({"visual": ..., "text": ...,
 "logit_scale": ...}); the leaves change layout:
@@ -170,3 +171,22 @@ def load_params_npz(path: str, cfg: ClipConfig, device="cuda") -> dict:
         for key in data.files:
             _insert(tree, _keystr_path(key), data[key])
     return from_jax_params(tree, cfg, device)
+
+
+def cast_matmul_weights(params: dict, dtype: torch.dtype) -> dict:
+    """One-time copy of the matmul weights ('w'/'b' leaves) in `dtype`.
+
+    layers.linear casts weights to the activation type at every use; with
+    fp32-stored weights in bf16 compute mode that reads and converts every
+    frozen weight at every forward. Casting once up front makes the per-use
+    cast a no-op with the same results. Only apply alongside a bf16
+    compute_dtype; LayerNorm, embedding and projection leaves stay fp32."""
+    def walk(d):
+        if isinstance(d, dict):
+            return {k: (v.to(dtype) if k in ("w", "b")
+                        and isinstance(v, torch.Tensor) else walk(v))
+                    for k, v in d.items()}
+        if isinstance(d, (list, tuple)):
+            return type(d)(walk(x) for x in d)
+        return d
+    return walk(params)

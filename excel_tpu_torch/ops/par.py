@@ -1,15 +1,22 @@
-"""PAR — pixel-adaptive refinement, fp32 (counterpart of excel_tpu/ops/par.py).
+"""PAR — pixel-adaptive refinement (counterpart of excel_tpu/ops/par.py).
 
-The affinity is computed once with a streaming two-pass over the 48
-neighbour shifts (mean/variance accumulators, then per-shift logits and a
-softmax over shifts, plus the constant position term); the diffusion then
-runs `num_iter` steps of `ops/par_kernels.par_diffuse`, the CUDA kernel on
-CUDA tensors. With per-image valid extents on a padded canvas, the pad
-region is re-replicated from the valid border before the affinity pass and
-after every step, which makes the valid region exactly the per-size result.
+fp32 (the default): the affinity is computed once with a streaming two-pass
+over the 48 neighbour shifts (mean/variance accumulators, then per-shift
+logits and a softmax over shifts, plus the constant position term); the
+diffusion then runs `num_iter` steps of `ops/par_kernels.par_diffuse`, the
+CUDA kernel on CUDA tensors. With per-image valid extents on a padded
+canvas, the pad region is re-replicated from the valid border before the
+affinity pass and after every step, which makes the valid region exactly
+the per-size result.
 
-The bf16 storage of the fast preset (and its three kernels) belongs to a
-later slice.
+bf16 storage (the fast preset): the route of the JAX package's Pallas
+kernels. The images go through `pad_replicate_valid` and `par_affinity`
+(fp32 moments and softmax, bf16 affinities); the masks go to bf16,
+through `pad_replicate_valid`, and `par_diffuse_valid_resident` runs every
+step in one launch (bf16 products, fp32 sums in chunks of 8 offsets, the
+valid clamp fused in). The JAX package splits the channels into groups
+that fit the TPU's VMEM; channels diffuse independently, so the port
+diffuses them all at once.
 """
 from __future__ import annotations
 
@@ -17,7 +24,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .par_kernels import offsets_tensor, par_diffuse
+from .par_kernels import (offsets_tensor, pad_replicate_valid, par_affinity,
+                          par_diffuse, par_diffuse_valid_resident)
 
 
 def _offsets(dilations) -> list[tuple[int, int]]:
@@ -98,13 +106,15 @@ def par_refine(imgs: torch.Tensor, masks: torch.Tensor,
                valid_hw: torch.Tensor | None = None,
                dtype: torch.dtype | None = None) -> torch.Tensor:
     """Diffuse `masks` [B, C, H, W] along the affinities of `imgs`
-    [B, 3, H, W] (same spatial size). valid_hw: optional [B, 2] per-image
-    valid extents on a padded canvas. Returns [B, C, H, W] float32."""
+    [B, 3, H, W] (same spatial size). valid_hw: optional [B, 2] int32
+    per-image valid extents on a padded canvas. dtype: None or float32, or
+    bfloat16 for the fast preset's bf16 storage. Returns [B, C, H, W]
+    float32."""
+    if dtype == torch.bfloat16:
+        return _par_refine_bf16(imgs, masks, dilations, num_iter, w1, w2,
+                                valid_hw)
     if dtype is not None and dtype != torch.float32:
-        raise NotImplementedError(
-            "PAR with bf16 storage (par_bf16=True) belongs to the fast-preset "
-            "slice, with par_affinity, par_diffuse_valid_resident and "
-            "pad_replicate_valid")
+        raise NotImplementedError(f"PAR storage {dtype}: float32 or bfloat16")
     imgs = imgs.float()
     masks = masks.float()
     if valid_hw is not None:
@@ -118,3 +128,31 @@ def par_refine(imgs: torch.Tensor, masks: torch.Tensor,
         if valid_hw is not None:
             m = _replicate_valid(m, valid_hw)
     return m
+
+
+def _par_refine_bf16(imgs, masks, dilations, num_iter, w1, w2, valid_hw):
+    offs = _offsets(dilations)
+    pad = max(max(abs(dy), abs(dx)) for dy, dx in offs)
+    if pad % 8:
+        raise NotImplementedError(
+            f"bf16 PAR with a pad of {pad} (not a multiple of 8): the JAX "
+            "package takes other bf16 routes there, whose sums round to bf16 "
+            "between chunks of offsets (its per-step _diffuse_kernel with a "
+            "bf16 output on a TPU, the XLA loop elsewhere); the port has "
+            "only the fused-valid route with fp32 sums, and computes nothing "
+            "else in its place")
+    b, _, h, w = imgs.shape
+    if valid_hw is None:
+        # full extents: the valid clamp is plain edge padding
+        valid_hw = torch.tensor([h, w], dtype=torch.int32).expand(b, 2)
+    valid_hw = valid_hw.to(device=masks.device, dtype=torch.int32).contiguous()
+    pos_w = [float(x) for x in _pos_weight(dilations)]
+    ip = pad_replicate_valid(imgs.float().contiguous(), valid_hw, pad)
+    aff = par_affinity(ip, offs, pos_w, h, w, w1=w1, w2=w2,
+                       out_dtype=torch.bfloat16)
+    mp = pad_replicate_valid(masks.to(torch.bfloat16).contiguous(), valid_hw,
+                             pad)
+    if num_iter >= 1:
+        mp = par_diffuse_valid_resident(mp, aff, valid_hw, offs, h, w,
+                                        num_iter)
+    return mp[:, :, pad:pad + h, pad:pad + w].float()

@@ -1,26 +1,58 @@
-"""One PAR diffusion step: the CUDA kernel and its plain version.
+"""PAR kernels: the CUDA kernels and their plain versions.
 
-Counterpart of excel_tpu/ops/par_pallas.py `par_diffuse`: csrc/par_diffuse.cu
-replaces the Pallas `_diffuse_kernel`. The step is
+Counterparts of excel_tpu/ops/par_pallas.py, one wrapper per Pallas
+function, with its name and its array shapes:
 
-    new[b, c, y, x] = sum_k aff[b, k, y, x] * m[b, c, y + dy_k, x + dx_k]
+- `par_diffuse` (csrc/par_diffuse.cu, the Pallas `_diffuse_kernel`): one
+  fp32 step over unpadded masks, reads clamped to the canvas
 
-with reads clamped to the canvas (edge replication). It is bound by device
-memory (the affinity stack is read once per step); the source says how.
+      new[b, c, y, x] = sum_k aff[b, k, y, x] * m[b, c, y + dy_k, x + dx_k];
 
-On a CPU tensor `par_diffuse` computes the plain version; on a CUDA tensor
-it launches the kernel or raises. `par_diffuse.launches` counts launches.
+- `pad_replicate_valid` (csrc/par_pad_clamp.cu, `_pad_clamp_kernel`): the
+  valid-extent clamp and edge pad of a canvas, [B, C, H, W] ->
+  [B, C, H + 2P + 8, roundup128(W + 2P)], slack included;
+- `par_affinity` (csrc/par_affinity.cu, `_affinity_kernel`): the appearance
+  affinity [B, K, h, w] from such a padded image;
+- `par_diffuse_padded_valid` and `par_diffuse_valid_resident`
+  (csrc/par_diffuse_valid.cu, `_diffuse_padded_valid_kernel` and
+  `_diffuse_resident_kernel`): one fused-valid step on the padded canvas,
+  and `num_iter` of them in one cooperative launch.
+
+All are bound by device memory; the sources say how. The plain versions
+take fp32 and bf16 and follow the Pallas kernels' arithmetic (products
+rounded to the storage type, sums in fp32 in chunks of 8 offsets); the
+kernels take the types the paths run: pad-clamp fp32 and bf16, the
+affinity with a bf16 output, the fused-valid diffusion in bf16.
+
+On CPU tensors a wrapper computes its plain version; on CUDA tensors it
+launches its kernel or raises. Each wrapper counts its kernel launches in
+its `launches` attribute. The slice-2 wrappers take the offsets as (dy, dx)
+pairs on the host, as the JAX functions do, so that they read their pad
+without waiting for the device; the kernels' [K, 2] device copy is made
+once per configuration (`offsets_tensor`).
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from .. import build
 
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+_CHUNK = 8      # offsets per fp32 partial sum, as in the Pallas kernels
+
 
 def offsets_tensor(offsets, device) -> torch.Tensor:
-    """[(dy, dx), ...] -> the [K, 2] int32 tensor `par_diffuse` takes."""
+    """[(dy, dx), ...] -> the [K, 2] int32 tensor the kernels take, made
+    once per (offsets, device) and shared: callers must not write to it."""
+    return _offsets_on(tuple((int(dy), int(dx)) for dy, dx in offsets),
+                       torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _offsets_on(offsets: tuple, device: torch.device) -> torch.Tensor:
     return torch.tensor(offsets, dtype=torch.int32, device=device).reshape(
         -1, 2)
 
@@ -69,7 +101,7 @@ def par_diffuse(masks: torch.Tensor, aff: torch.Tensor,
     if masks.device.type != "cuda":
         raise ValueError(f"unsupported device {masks.device}")
     out = torch.empty_like(masks)
-    fn = build.load("par_diffuse")
+    fn = build.load("par_diffuse", "excel_par_diffuse_f32")
     build.check(fn(masks.data_ptr(), aff.data_ptr(), offsets.data_ptr(),
                    out.data_ptr(), b, c, h, w, k,
                    torch.cuda.current_stream(masks.device).cuda_stream),
@@ -79,3 +111,317 @@ def par_diffuse(masks: torch.Tensor, aff: torch.Tensor,
 
 
 par_diffuse.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# shared checks and the clamped gather
+# ---------------------------------------------------------------------------
+
+def padded_shape(h: int, w: int, pad: int) -> tuple[int, int]:
+    """(Hp, Wp) of a padded PAR canvas: 8 slack rows, lanes to 128."""
+    return h + 2 * pad + 8, -(-(w + 2 * pad) // 128) * 128
+
+
+def _pad_of(offsets) -> int:
+    return max(max(abs(dy), abs(dx)) for dy, dx in offsets)
+
+
+def _check(name: str, tensors: dict, device, dtypes=tuple(_SUFFIX)) -> None:
+    for key, x in tensors.items():
+        if x.device != device:
+            raise ValueError(f"{name}: {key} is on {x.device}, not {device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if key == "valid_hw":
+            if x.dtype != torch.int32:
+                raise ValueError(f"{name}: {key} must be int32")
+        elif x.dtype not in dtypes:
+            raise NotImplementedError(
+                f"{name}: {key} is {x.dtype}; the kernel takes "
+                f"{', '.join(str(d) for d in dtypes)}")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {device}")
+
+
+def _clamped_gather(x: torch.Tensor, valid_hw: torch.Tensor, pad: int,
+                    hp: int, wp: int) -> torch.Tensor:
+    """out[b, c, Y, X] = x[b, c, clamp(Y - pad, 0, vh - 1),
+    clamp(X - pad, 0, vw - 1)] over a [hp, wp] canvas."""
+    b, c, h, w = x.shape
+    vh = valid_hw[:, 0:1].long().clamp(1, h)
+    vw = valid_hw[:, 1:2].long().clamp(1, w)
+    rows = torch.minimum((torch.arange(hp, device=x.device) - pad)
+                         .clamp(min=0)[None], vh - 1)
+    cols = torch.minimum((torch.arange(wp, device=x.device) - pad)
+                         .clamp(min=0)[None], vw - 1)
+    x = torch.gather(x, 2, rows[:, None, :, None].expand(b, c, hp, w))
+    return torch.gather(x, 3, cols[:, None, None, :].expand(b, c, hp, wp))
+
+
+def _stream(t: torch.Tensor):
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# fused valid-extent clamp + edge pad
+# ---------------------------------------------------------------------------
+
+def pad_replicate_valid_reference(x: torch.Tensor, valid_hw: torch.Tensor,
+                                  pad: int) -> torch.Tensor:
+    """Plain version of `pad_replicate_valid`."""
+    return _clamped_gather(x, valid_hw, pad, *padded_shape(*x.shape[2:], pad))
+
+
+def pad_replicate_valid(x: torch.Tensor, valid_hw: torch.Tensor,
+                        pad: int) -> torch.Tensor:
+    """Fused `pad_for_diffuse(_replicate_valid(x, valid_hw), pad)`.
+
+    x: [B, C, H, W] float32 or bfloat16; valid_hw: [B, 2] int32 (h, w) of
+    each image, anchored top-left. Returns [B, C, H + 2P + 8,
+    roundup128(W + 2P)] where every position holds the value of its clamped
+    valid source pixel, the alignment slack included (as the Pallas
+    kernel's output)."""
+    if x.dim() != 4 or valid_hw.shape != (x.shape[0], 2) or pad < 0:
+        raise ValueError(f"pad_replicate_valid: x {tuple(x.shape)}, "
+                         f"valid_hw {tuple(valid_hw.shape)}, pad {pad}")
+    _check("pad_replicate_valid", {"x": x, "valid_hw": valid_hw}, x.device)
+    if x.device.type == "cpu":
+        return pad_replicate_valid_reference(x, valid_hw, pad)
+    b, c, h, w = x.shape
+    out = x.new_empty((b, c, *padded_shape(h, w, pad)))
+    fn = build.load("par_pad_clamp", f"excel_pad_clamp_{_SUFFIX[x.dtype]}")
+    build.check(fn(x.data_ptr(), valid_hw.data_ptr(), out.data_ptr(), b, c, h,
+                   w, pad, _stream(x)), "par_pad_clamp")
+    pad_replicate_valid.launches += 1
+    return out
+
+
+pad_replicate_valid.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# appearance affinity
+# ---------------------------------------------------------------------------
+
+def position_terms(pos_w, w2: float, device) -> torch.Tensor:
+    """[K] fp32 w2 * pos_w[k], each product taken in double and rounded once
+    (the Pallas kernel's Python-float constant); made once per (pos_w, w2,
+    device) and shared: callers must not write to it."""
+    return _position_terms_on(tuple(float(p) for p in pos_w), float(w2),
+                              torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _position_terms_on(pos_w: tuple, w2: float,
+                       device: torch.device) -> torch.Tensor:
+    return torch.tensor([w2 * p for p in pos_w], dtype=torch.float32,
+                        device=device)
+
+
+def par_affinity_reference(img_padded: torch.Tensor, offsets, pos_w, h: int,
+                           w: int, w1: float = 0.3, w2: float = 0.01,
+                           out_dtype: torch.dtype = torch.bfloat16
+                           ) -> torch.Tensor:
+    """Plain version of `par_affinity`, in the kernel's order of rounding."""
+    offs = list(offsets)
+    k = len(offs)
+    pad = _pad_of(offsets)
+
+    def shifted(dy, dx):
+        return img_padded[:, :, pad + dy:pad + dy + h, pad + dx:pad + dx + w]
+
+    centre = shifted(0, 0)
+    s1 = s2 = None
+    for c0 in range(0, k, _CHUNK):
+        p1 = p2 = None
+        for dy, dx in offs[c0:c0 + _CHUNK]:
+            n = shifted(dy, dx)
+            p1 = n if p1 is None else p1 + n
+            p2 = n * n if p2 is None else p2 + n * n
+        s1 = p1 if s1 is None else s1 + p1
+        s2 = p2 if s2 is None else s2 + p2
+    kf = float(k)
+    mean = s1 / kf
+    var = torch.clamp(s2 / kf - mean * mean, min=0.0) * (kf / (kf - 1.0))
+    inv = 1.0 / ((torch.sqrt(var) + 1e-8) * w1)
+    logits = []
+    for dy, dx in offs:
+        d = (shifted(dy, dx) - centre) * inv
+        dd = d * d
+        logits.append(-((dd[:, 0] + dd[:, 1]) + dd[:, 2]) / 3.0)
+    logits = torch.stack(logits, dim=1)                    # [B, K, h, w]
+    e = torch.exp(logits - logits.amax(dim=1, keepdim=True))
+    total = e[:, 0]
+    for i in range(1, k):
+        total = total + e[:, i]
+    pos = position_terms(pos_w, w2, img_padded.device)
+    return (e * (1.0 / total)[:, None]
+            + pos[None, :, None, None]).to(out_dtype)
+
+
+def par_affinity(img_padded: torch.Tensor, offsets, pos_w, h: int, w: int,
+                 w1: float = 0.3, w2: float = 0.01,
+                 out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """PAR affinity from a padded image.
+
+    img_padded: [B, 3, Hp, Wp] float32 with the image at [P, P + h) x
+    [P, P + w) and edge-replicated around it (P = max |offset|, Hp >= h + 2P,
+    Wp >= w + 2P); offsets: the K (dy, dx) pairs, K a multiple of 8 up to
+    64; pos_w: the K position weights. Returns aff [B, K, h, w] in
+    out_dtype: bfloat16 (or float32 on the CPU)."""
+    if img_padded.dim() != 4 or img_padded.shape[1] != 3:
+        raise ValueError(f"par_affinity: img_padded must be [B, 3, Hp, Wp], "
+                         f"got {tuple(img_padded.shape)}")
+    k = len(offsets)
+    pad = _pad_of(offsets)
+    b, _, hp, wp = img_padded.shape
+    if (len(pos_w) != k or k % 8 or not
+            0 < k <= 64 or hp < h + 2 * pad or wp < w + 2 * pad):
+        raise ValueError(f"par_affinity: img_padded {tuple(img_padded.shape)}"
+                         f", {k} offsets, {len(pos_w)} "
+                         f"position weights, h={h} w={w}")
+    if out_dtype not in _SUFFIX:
+        raise NotImplementedError(f"par_affinity: out_dtype {out_dtype}")
+    _check("par_affinity", {"img_padded": img_padded}, img_padded.device,
+           dtypes=(torch.float32,))
+    if img_padded.device.type == "cpu":
+        return par_affinity_reference(img_padded, offsets, pos_w, h, w, w1,
+                                      w2, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise NotImplementedError("par_affinity: the kernel writes bf16 "
+                                  "affinities (the fast preset's)")
+    out = img_padded.new_empty((b, k, h, w), dtype=out_dtype)
+    wpos = position_terms(pos_w, w2, img_padded.device)
+    offsets_t = offsets_tensor(offsets, img_padded.device)
+    fn = build.load("par_affinity", "excel_par_affinity_bf16")
+    build.check(fn(img_padded.data_ptr(), offsets_t.data_ptr(),
+                   wpos.data_ptr(), out.data_ptr(), b, h, w, hp, wp, k, pad,
+                   w1, _stream(img_padded)), "par_affinity")
+    par_affinity.launches += 1
+    return out
+
+
+par_affinity.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused-valid diffusion: one step, and all steps in one launch
+# ---------------------------------------------------------------------------
+
+def _valid_step_reference(mp: torch.Tensor, aff: torch.Tensor,
+                          valid_hw: torch.Tensor, offs: list, pad: int,
+                          h: int, w: int) -> torch.Tensor:
+    """One fused-valid step: each product rounded to the storage type,
+    summed in fp32 within chunks of 8 offsets and chunk by chunk; every
+    canvas position takes its clamped valid source pixel's sum."""
+    acc = None
+    for c0 in range(0, len(offs), _CHUNK):
+        part = None
+        for i in range(c0, min(c0 + _CHUNK, len(offs))):
+            dy, dx = offs[i]
+            m = mp[:, :, pad + dy:pad + dy + h, pad + dx:pad + dx + w]
+            term = (aff[:, i:i + 1] * m).float()
+            part = term if part is None else part + term
+        acc = part if acc is None else acc + part
+    return _clamped_gather(acc, valid_hw, pad, *mp.shape[2:]).to(mp.dtype)
+
+
+def par_diffuse_padded_valid_reference(masks_padded, aff, valid_hw, offsets,
+                                       h: int, w: int) -> torch.Tensor:
+    """Plain version of `par_diffuse_padded_valid`."""
+    return _valid_step_reference(masks_padded, aff, valid_hw, list(offsets),
+                                 _pad_of(offsets), h, w)
+
+
+def par_diffuse_valid_resident_reference(masks_padded, aff, valid_hw,
+                                         offsets, h: int, w: int,
+                                         num_iter: int) -> torch.Tensor:
+    """Plain version of `par_diffuse_valid_resident`: `num_iter` steps."""
+    offs, pad = list(offsets), _pad_of(offsets)
+    m = masks_padded
+    for _ in range(num_iter):
+        m = _valid_step_reference(m, aff, valid_hw, offs, pad, h, w)
+    return m
+
+
+def _check_valid_step(name, masks_padded, aff, valid_hw, offsets, h, w):
+    if masks_padded.dim() != 4 or aff.dim() != 4:
+        raise ValueError(f"{name}: masks_padded and aff must be 4-D")
+    b, c, hp, wp = masks_padded.shape
+    k = len(offsets)
+    pad = _pad_of(offsets)
+    if (aff.shape != (b, k, h, w) or valid_hw.shape != (b, 2)
+            or hp < h + 2 * pad
+            or wp < w + 2 * pad):
+        raise ValueError(f"{name}: masks_padded {tuple(masks_padded.shape)},"
+                         f" aff {tuple(aff.shape)}, valid_hw "
+                         f"{tuple(valid_hw.shape)}, {k} offsets, h={h} "
+                         f"w={w}")
+    if aff.dtype != masks_padded.dtype:
+        raise ValueError(f"{name}: aff and masks_padded must share a dtype")
+    _check(name, {"masks_padded": masks_padded, "aff": aff,
+                  "valid_hw": valid_hw}, masks_padded.device)
+    if (masks_padded.device.type == "cuda"
+            and masks_padded.dtype != torch.bfloat16):
+        raise NotImplementedError(f"{name}: the kernel takes bf16 canvases "
+                                  "(the fast preset's)")
+    return b, c, hp, wp, k, pad
+
+
+def par_diffuse_padded_valid(masks_padded: torch.Tensor, aff: torch.Tensor,
+                             valid_hw: torch.Tensor, offsets, h: int,
+                             w: int) -> torch.Tensor:
+    """One padded diffusion step with the valid-extent clamp fused in.
+
+    masks_padded: [B, C, Hp, Wp] replicate-valid canvas (from
+    `pad_replicate_valid`), bfloat16 (or float32 on the CPU); aff:
+    [B, K, h, w] of the same type; valid_hw: [B, 2] int32; offsets: the K
+    (dy, dx) pairs. Returns the next canvas, same shape and type."""
+    b, c, hp, wp, k, pad = _check_valid_step(
+        "par_diffuse_padded_valid", masks_padded, aff, valid_hw, offsets, h,
+        w)
+    if masks_padded.device.type == "cpu":
+        return par_diffuse_padded_valid_reference(masks_padded, aff, valid_hw,
+                                                  offsets, h, w)
+    out = torch.empty_like(masks_padded)
+    offsets_t = offsets_tensor(offsets, masks_padded.device)
+    fn = build.load("par_diffuse_valid", "excel_par_diffuse_valid_step_bf16")
+    build.check(fn(masks_padded.data_ptr(), aff.data_ptr(),
+                   valid_hw.data_ptr(), offsets_t.data_ptr(), out.data_ptr(),
+                   b, c, h, w, hp, wp, k, pad, _stream(masks_padded)),
+                "par_diffuse_padded_valid")
+    par_diffuse_padded_valid.launches += 1
+    return out
+
+
+par_diffuse_padded_valid.launches = 0
+
+
+def par_diffuse_valid_resident(masks_padded: torch.Tensor, aff: torch.Tensor,
+                               valid_hw: torch.Tensor, offsets, h: int, w: int,
+                               num_iter: int) -> torch.Tensor:
+    """`num_iter` >= 1 steps of `par_diffuse_padded_valid` in one launch (a
+    cooperative kernel with a grid barrier between steps); the same bits as
+    iterating the step. Same arguments and result shape."""
+    b, c, hp, wp, k, pad = _check_valid_step(
+        "par_diffuse_valid_resident", masks_padded, aff, valid_hw, offsets, h,
+        w)
+    if num_iter < 1:
+        raise ValueError(f"par_diffuse_valid_resident: num_iter {num_iter}")
+    if masks_padded.device.type == "cpu":
+        return par_diffuse_valid_resident_reference(
+            masks_padded, aff, valid_hw, offsets, h, w, num_iter)
+    out = torch.empty_like(masks_padded)
+    scratch = torch.empty_like(masks_padded) if num_iter > 1 else out
+    offsets_t = offsets_tensor(offsets, masks_padded.device)
+    fn = build.load("par_diffuse_valid",
+                    "excel_par_diffuse_valid_resident_bf16")
+    build.check(fn(masks_padded.data_ptr(), aff.data_ptr(),
+                   valid_hw.data_ptr(), offsets_t.data_ptr(), out.data_ptr(),
+                   scratch.data_ptr(), b, c, h, w, hp, wp, k, pad, num_iter,
+                   _stream(masks_padded)), "par_diffuse_valid_resident")
+    par_diffuse_valid_resident.launches += 1
+    return out
+
+
+par_diffuse_valid_resident.launches = 0

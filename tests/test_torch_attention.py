@@ -5,6 +5,7 @@ CUDA kernels against."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from excel_tpu.models.attention_pallas import (fused_plain_attention as
                                                jax_plain,
@@ -83,7 +84,74 @@ def test_wrappers_check_inputs():
         ak.fused_plain_attention(q.transpose(2, 3), k.transpose(2, 3),
                                  v.transpose(2, 3))
     with pytest.raises(NotImplementedError):
-        ak.fused_surgery_attention(q.bfloat16(), k.bfloat16(), v.bfloat16())
+        ak.fused_surgery_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError):
+        ak.fused_plain_attention(q.bfloat16(), k, v)
     with pytest.raises(ValueError):
         ak.fused_surgery_attention(q, k, v, acc=t(np.zeros((1, 9, 8),
                                                            np.float32)))
+
+
+# bf16 q/k/v, as the fast preset runs them: fp32 logits, softmax and
+# weights; P rounded to bf16 before P V; a bf16 context. The weights are
+# fp32 sums in another order (1e-6); a context may round to the
+# neighbouring bf16 value (one bf16 ulp of contexts below 4: 2^-6)
+BF16_CTX_ATOL = 2.0 ** -6
+BF16_W_ATOL = 1e-6
+
+
+def _qkv_bf16(seed, b, heads, tokens, d):
+    return [jnp.asarray(x).astype(jnp.bfloat16)
+            for x in _qkv(seed, b, heads, tokens, d)]
+
+
+def _t16(x):
+    return t(np.asarray(x.astype(jnp.float32))).bfloat16()
+
+
+def _close16(got, ref, atol):
+    np.testing.assert_allclose(n(got.float()),
+                               np.asarray(ref.astype(jnp.float32)),
+                               atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("tokens", [17, 300])
+@pytest.mark.parametrize("mode", ["none", "out", "acc"])
+def test_plain_attention_bf16_matches_pallas(tokens, mode):
+    q, k, v = _qkv_bf16(tokens + 1, 2, 3, tokens, 32)
+    acc = np.random.default_rng(4).random((2, tokens, tokens),
+                                          dtype=np.float32)
+    kw = dict(need_weights=mode != "none")
+    jctx, jw = jax_plain(q, k, v, interpret=True,
+                         acc=jnp.asarray(acc) if mode == "acc" else None,
+                         **kw)
+    pctx, pw = ak.fused_plain_attention(
+        _t16(q), _t16(k), _t16(v), acc=t(acc) if mode == "acc" else None,
+        **kw)
+    assert pctx.dtype == torch.bfloat16
+    _close16(pctx, jctx, BF16_CTX_ATOL)
+    if mode == "none":
+        assert jw is None and pw is None
+    else:
+        assert pw.dtype == torch.float32
+        _close16(pw, jw, BF16_W_ATOL)
+
+
+@pytest.mark.parametrize("mode", ["none", "out", "acc"])
+def test_surgery_attention_bf16_matches_pallas(mode):
+    q, k, v = _qkv_bf16(9, 2, 3, 17, 32)
+    acc = np.random.default_rng(5).random((2, 17, 17), dtype=np.float32)
+    kw = dict(need_attn=mode != "none")
+    js, ja, jc = jax_surgery(q, k, v, None, interpret=True,
+                             acc=jnp.asarray(acc) if mode == "acc" else None,
+                             **kw)
+    ps, pa, pc = ak.fused_surgery_attention(
+        _t16(q), _t16(k), _t16(v), acc=t(acc) if mode == "acc" else None,
+        **kw)
+    assert pc.dtype == torch.bfloat16 and ps.dtype == torch.float32
+    _close16(ps, js, BF16_W_ATOL)
+    _close16(pc, jc, BF16_CTX_ATOL)
+    if mode == "none":
+        assert ja is None and pa is None
+    else:
+        _close16(pa, ja, BF16_W_ATOL)

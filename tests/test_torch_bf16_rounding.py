@@ -1,0 +1,166 @@
+"""The port's bf16 paths against the JAX package's with XLA made to round
+every bf16 operation as the program is written.
+
+By default XLA may keep a bf16 product in fp32 where it feeds a
+conversion to fp32 (its `xla_allow_excess_precision`), which skips the
+rounding that the Pallas kernels' `(a * m).astype(f32)` and the encoder's
+bf16 ops write down. Over 20 PAR steps that drift reaches 0.13 on masks
+near 1 (measured on the CPU), so the in-process comparisons of the bf16
+route hold only to loose bounds. Here the JAX side runs in a subprocess
+with `--xla_allow_excess_precision=false`: the bf16 diffusion then agrees
+bit for bit, the whole bf16 PAR route to one bf16 ulp (from the bf16
+rounding of the affinities, whose fp32 logits differ by an ulp: XLA
+contracts some products into FMAs), and the bf16 encoder to one bf16 ulp
+(its GEMMs sum in another order before rounding to bf16)."""
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from excel_tpu_torch.config import fast
+from excel_tpu_torch.config import tiny_config as port_tiny_config
+from excel_tpu_torch.models.clip import encode_image
+from excel_tpu_torch.models.params import cast_matmul_weights, from_jax_params
+from excel_tpu_torch.ops import par_kernels as pk
+from excel_tpu_torch.ops.par import _offsets, par_refine
+from torch_port_common import n
+
+TESTS = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(TESTS)
+DILATIONS = (1, 2, 4, 8, 12, 24)
+
+SCRIPT = r"""
+import dataclasses
+import sys
+
+import numpy as np
+
+sys.path[:0] = [ROOT, TESTS]
+import jax
+import jax.numpy as jnp
+
+from excel_tpu.config import fast, tiny_config
+from excel_tpu.models.clip import encode_image
+from excel_tpu.models.params import cast_matmul_weights
+from excel_tpu.ops import par_pallas as jp
+from excel_tpu.ops.par import _offsets, par_refine
+from torch_port_common import jax_clip_tree
+
+bf = jnp.bfloat16
+rng = np.random.default_rng(0)
+out = {}
+# PAR: 3 images with mixed extents on a 64 x 128 canvas, production set
+img = rng.standard_normal((3, 3, 64, 128)).astype(np.float32)
+masks = rng.random((3, 4, 64, 128), dtype=np.float32)
+valid = np.asarray([[64, 128], [50, 100], [33, 77]], np.int32)
+offs = tuple(_offsets(DILATIONS))
+out.update(img=img, masks=masks, valid=valid)
+out["refine"] = np.asarray(par_refine(
+    jnp.asarray(img), jnp.asarray(masks), dilations=DILATIONS, num_iter=20,
+    valid_hw=jnp.asarray(valid), use_pallas="interpret", dtype=bf))
+aff = rng.random((3, len(offs), 64, 128), dtype=np.float32)
+aff = aff / aff.sum(axis=1, keepdims=True)
+aff = np.asarray(jnp.asarray(aff).astype(bf).astype(jnp.float32))
+mp = jp.pad_replicate_valid(jnp.asarray(masks).astype(bf),
+                            jnp.asarray(valid), 24, interpret=True)
+out.update(aff=aff, mp=np.asarray(mp.astype(jnp.float32)))
+out["step"] = np.asarray(jp.par_diffuse_padded_valid(
+    mp, jnp.asarray(aff).astype(bf), jnp.asarray(valid), offs, 64, 128,
+    interpret=True).astype(jnp.float32))
+out["resident"] = np.asarray(jp.par_diffuse_valid_resident(
+    mp, jnp.asarray(aff).astype(bf), jnp.asarray(valid), offs, 64, 128, 20,
+    interpret=True).astype(jnp.float32))
+# encoder: fast tiny config on its Pallas kernels, inside one jit
+cfg = dataclasses.replace(fast(tiny_config()).clip,
+                          fused_attention="interpret")
+tree = jax_clip_tree(cfg, seed=0)
+images = rng.standard_normal((2, 64, 64, 3)).astype(np.float32)
+enc = jax.jit(lambda p, x: encode_image(p, x, cfg, attn_mode="mean"))(
+    cast_matmul_weights(tree, bf), jnp.asarray(images))
+out.update(images=images,
+           projected=np.asarray(enc["projected"].astype(jnp.float32)),
+           feats=np.asarray(enc["feats"].astype(jnp.float32)),
+           attn=np.asarray(enc["attn"]))
+out.update({"tree/" + jax.tree_util.keystr(k): np.asarray(v)
+            for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]})
+np.savez(OUT, **out)
+"""
+
+
+@pytest.fixture(scope="module")
+def ref(tmp_path_factory):
+    path = str(tmp_path_factory.mktemp("bf16") / "ref.npz")
+    flags = os.environ.get("XLA_FLAGS", "")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS=(flags + " --xla_allow_excess_precision=false"
+                          ).strip())
+    code = (f"ROOT = {ROOT!r}\nTESTS = {TESTS!r}\nOUT = {path!r}\n"
+            f"DILATIONS = {DILATIONS!r}\n" + SCRIPT)
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    with np.load(path) as d:
+        return dict(d)
+
+
+def _bf16(a) -> torch.Tensor:
+    return torch.from_numpy(a).to(torch.bfloat16)
+
+
+def test_bf16_diffusion_equals_pallas_bitwise(ref):
+    offsets = _offsets(DILATIONS)
+    valid = torch.from_numpy(ref["valid"])
+    mp, aff = _bf16(ref["mp"]), _bf16(ref["aff"])
+    step = pk.par_diffuse_padded_valid(mp, aff, valid, offsets, 64, 128)
+    np.testing.assert_array_equal(n(step.float()), ref["step"])
+    res = pk.par_diffuse_valid_resident(mp, aff, valid, offsets, 64, 128, 20)
+    np.testing.assert_array_equal(n(res.float()), ref["resident"])
+
+
+def test_bf16_par_refine_matches_pallas(ref):
+    """pad-clamp, affinity and 20 resident steps at the production
+    dilations: within one bf16 ulp of masks in [1, 2) (values grow past 1:
+    the position term adds w2 to every affinity row)."""
+    got = par_refine(torch.from_numpy(ref["img"]),
+                     torch.from_numpy(ref["masks"]), dilations=DILATIONS,
+                     num_iter=20, valid_hw=torch.from_numpy(ref["valid"]),
+                     dtype=torch.bfloat16)
+    np.testing.assert_allclose(n(got), ref["refine"], atol=2.0 ** -7, rtol=0)
+
+
+def _tree_from(ref) -> dict:
+    from excel_tpu_torch.models.params import _insert, _keystr_path
+
+    tree: dict = {}
+    for key, value in ref.items():
+        if key.startswith("tree/"):
+            _insert(tree, _keystr_path(key[len("tree/"):]), value)
+    return tree
+
+
+def test_bf16_encoder_matches_pallas(ref):
+    """The fast encoder (attention "mean" mode, tiny config, inside one
+    jit on the JAX side): bf16 features within one bf16 ulp of each
+    array's largest magnitude (2^-7 of it: a small output of a cancelling
+    sum moves by an ulp of its terms, not of itself; observed: 2.8% of
+    feats and 10.9% of projected differ, by at most 0.031 and 0.0039,
+    where the two GEMM libraries' sums round to neighbouring bf16 values);
+    the fp32 block-mean attention, whose logits come from those bf16 q/k,
+    within 1e-3 (observed 2.6e-4)."""
+    cfg = fast(port_tiny_config()).clip
+    params = cast_matmul_weights(from_jax_params(_tree_from(ref), cfg,
+                                                 device="cpu"),
+                                 torch.bfloat16)
+    with torch.inference_mode():
+        got = encode_image(params, torch.from_numpy(ref["images"]), cfg,
+                           attn_mode="mean")
+    assert got["projected"].dtype == torch.bfloat16
+    for key in ("projected", "feats"):
+        np.testing.assert_allclose(
+            n(got[key].float()), ref[key], rtol=0,
+            atol=2.0 ** -7 * float(np.abs(ref[key]).max()), err_msg=key)
+    np.testing.assert_allclose(n(got["attn"]), ref["attn"], atol=1e-3,
+                               rtol=0)

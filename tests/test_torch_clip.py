@@ -72,4 +72,39 @@ def test_unported_modes_raise():
         encode_image(params, img, pcfg, ex_feats=torch.zeros((1, 64, 4, 4)))
     with pytest.raises(NotImplementedError):
         encode_image(params, img, dataclasses.replace(
-            pcfg, compute_dtype=torch.bfloat16))
+            pcfg, compute_dtype=torch.float16))
+
+
+@pytest.mark.parametrize("attn_mode", ["stack", "mean", "none"])
+def test_encode_image_bf16_matches_jax(inputs, attn_mode):
+    """The fast preset's bf16 encoder against the JAX package's on its
+    Pallas kernels (interpret mode, run op by op, so XLA rounds each bf16
+    op as the port does), with the matmul weights cast once to bf16 on both
+    sides. bf16 outputs within one bf16 ulp of each array's largest
+    magnitude (observed: equal); the fp32 attention within 1e-6 (fp32 sums
+    in another order; observed 9e-8)."""
+    from excel_tpu.config import fast as jax_fast
+    from excel_tpu.models.params import cast_matmul_weights as jax_cast
+    from excel_tpu_torch.config import fast
+    from excel_tpu_torch.models.params import cast_matmul_weights
+
+    tree, img = inputs
+    jcfg = dataclasses.replace(jax_fast(tiny_config()).clip,
+                               fused_attention="interpret")
+    pcfg = fast(port_tiny_config()).clip
+    ref = jax_encode(jax_cast(tree, jnp.bfloat16), jnp.asarray(img), jcfg,
+                     attn_mode=attn_mode)
+    with torch.inference_mode():
+        got = encode_image(cast_matmul_weights(port_params(tree, pcfg),
+                                               torch.bfloat16),
+                           t(img), pcfg, attn_mode=attn_mode)
+    for key in ("projected", "feats", "attn"):
+        if attn_mode == "none" and key == "attn":
+            assert got["attn"] is None and ref["attn"] is None
+            continue
+        r = np.asarray(ref[key].astype(jnp.float32))
+        assert got[key].dtype == (torch.float32 if key == "attn"
+                                  else torch.bfloat16), key
+        atol = 1e-6 if key == "attn" else 2.0 ** -7 * float(np.abs(r).max())
+        np.testing.assert_allclose(n(got[key].float()), r, atol=atol, rtol=0,
+                                   err_msg=key)

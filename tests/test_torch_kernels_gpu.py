@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from excel_tpu_torch.models import attention_kernels as ak
-from excel_tpu_torch.ops.par import _offsets, _replicate_valid
+from excel_tpu_torch.ops.par import _offsets, _pos_weight, _replicate_valid
 from excel_tpu_torch.ops import par_kernels as pk
 
 pytestmark = pytest.mark.cuda
@@ -71,3 +71,110 @@ def test_par_diffuse_kernel_bitwise(gen):
     ref = pk.par_diffuse_reference(masks, aff, offsets)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+# bf16 outputs against their plain versions: at most one bf16 ulp of the
+# reference's own size, |got - ref| <= 2^-7 |ref| (the contexts round fp32
+# sums taken in another order; the affinity's exp and reciprocal differ by
+# an fp32 ulp); a dropped term or a wrong tile is off by far more. Plus
+# the smallest normal fp32, for subnormal values, whose bf16 ulp is coarser
+# than 2^-7 of them
+BF16_RTOL = 2.0 ** -7
+BF16_ATOL = torch.finfo(torch.float32).tiny
+
+
+@pytest.mark.parametrize("tokens", [17, 197])
+@pytest.mark.parametrize("mode", ["none", "out", "acc"])
+def test_plain_attention_kernel_bf16(gen, tokens, mode):
+    q, k, v = (torch.randn((2, 3, tokens, 64), device="cuda", generator=gen)
+               .bfloat16() for _ in range(3))
+    acc = torch.rand((2, tokens, tokens), device="cuda", generator=gen)
+    kw = dict(need_weights=mode != "none")
+    got = ak.fused_plain_attention(
+        q, k, v, acc=acc.clone() if mode == "acc" else None, **kw)
+    ref = ak.plain_attention_reference(
+        q, k, v, acc=acc.clone() if mode == "acc" else None, **kw)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16
+    torch.testing.assert_close(got[0].float(), ref[0].float(), atol=BF16_ATOL,
+                               rtol=BF16_RTOL)
+    if mode != "none":
+        torch.testing.assert_close(got[1], ref[1], atol=ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("mode", ["none", "out", "acc"])
+def test_surgery_attention_kernel_bf16(gen, mode):
+    q, k, v = (torch.randn((2, 3, 197, 64), device="cuda", generator=gen)
+               .bfloat16() for _ in range(3))
+    acc = torch.rand((2, 197, 197), device="cuda", generator=gen)
+    kw = dict(need_attn=mode != "none")
+    got = ak.fused_surgery_attention(
+        q, k, v, acc=acc.clone() if mode == "acc" else None, **kw)
+    ref = ak.surgery_attention_reference(
+        q, k, v, acc=acc.clone() if mode == "acc" else None, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], ref[0], atol=ATOL, rtol=0)
+    torch.testing.assert_close(got[2].float(), ref[2].float(), atol=BF16_ATOL,
+                               rtol=BF16_RTOL)
+    if mode != "none":
+        torch.testing.assert_close(got[1], ref[1], atol=ATOL, rtol=0)
+
+
+def _canvas(gen, dtype, b=3, c=5, h=40, w=200):
+    x = torch.rand((b, c, h, w), device="cuda", generator=gen).to(dtype)
+    valid = torch.tensor([[40, 200], [25, 170], [9, 31]][:b], device="cuda",
+                         dtype=torch.int32)
+    return x, valid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pad_clamp_kernel_bitwise(gen, dtype):
+    x, valid = _canvas(gen, dtype)
+    got = pk.pad_replicate_valid(x, valid, 24)
+    ref = pk.pad_replicate_valid_reference(x, valid, 24)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+def test_affinity_kernel(gen):
+    """Same order of rounding; exp and the divisions by a Python scalar
+    (which PyTorch's CUDA division takes as a product with the
+    reciprocal) differ by an fp32 ulp, which can move a bf16 affinity by
+    one bf16 ulp of its own size. The kernel writes bf16 only."""
+    dil = (1, 2, 4, 8, 12, 24)
+    img, valid = _canvas(gen, torch.float32, c=3)
+    ip = pk.pad_replicate_valid(img, valid, 24)
+    offsets = _offsets(dil)
+    pos_w = [float(p) for p in _pos_weight(dil)]
+    got = pk.par_affinity(ip, offsets, pos_w, 40, 200)
+    ref = pk.par_affinity_reference(ip, offsets, pos_w, 40, 200)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), ref.float(), atol=BF16_ATOL,
+                               rtol=BF16_RTOL)
+    with pytest.raises(NotImplementedError):
+        pk.par_affinity(ip, offsets, pos_w, 40, 200, out_dtype=torch.float32)
+
+
+def test_diffuse_valid_kernels_bitwise(gen):
+    """The step kernel equals its plain version, and one resident launch of
+    6 steps equals 6 step launches, bit for bit (bf16; 9 channels: two
+    channel groups, the second partial)."""
+    dil = (1, 2, 4, 8, 12, 24)
+    offsets = _offsets(dil)
+    masks, valid = _canvas(gen, torch.bfloat16, c=9)
+    mp = pk.pad_replicate_valid(masks, valid, 24)
+    aff = torch.rand((3, len(dil) * 8, 40, 200), device="cuda", generator=gen)
+    aff = (aff / aff.sum(dim=1, keepdim=True)).bfloat16()
+    step = pk.par_diffuse_padded_valid(mp, aff, valid, offsets, 40, 200)
+    ref = pk.par_diffuse_padded_valid_reference(mp, aff, valid, offsets, 40,
+                                                200)
+    m = mp
+    for _ in range(6):
+        m = pk.par_diffuse_padded_valid(m, aff, valid, offsets, 40, 200)
+    res = pk.par_diffuse_valid_resident(mp, aff, valid, offsets, 40, 200, 6)
+    torch.cuda.synchronize()
+    assert torch.equal(step, ref)
+    assert torch.equal(res, m)
+    with pytest.raises(NotImplementedError):
+        pk.par_diffuse_padded_valid(mp.float(), aff.float(), valid, offsets,
+                                    40, 200)

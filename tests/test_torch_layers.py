@@ -58,3 +58,25 @@ def test_per_head_layers_refuse_non_cpu_tensors(block, name):
     _, pp, _ = block
     with pytest.raises(ValueError, match=f"{name}_fused"):
         getattr(pl, name)(torch.empty((1, 17, 64), device="meta"), pp, HEADS)
+
+
+def test_bf16_elementwise_layers_match_jax(block):
+    """LayerNorm (fp32 inside), QuickGELU and linear in bf16, op by op as
+    the JAX package runs them: equal (the constant 1.702 rounded to bf16
+    and the sigmoid as 1 / (1 + exp(-z)), as JAX writes them)."""
+    _, _, y = block
+    tree = jax_clip_tree(tiny_config().clip, seed=3)
+    blk = tree["visual"]["blocks"][0]
+    pblk = port_params(tree, port_tiny_config().clip)["visual"]["blocks"][0]
+    yj = jnp.asarray(y).astype(jnp.bfloat16)
+    yt = t(np.asarray(yj.astype(jnp.float32))).bfloat16()
+    fc_j = {k: jnp.asarray(v).astype(jnp.bfloat16)
+            for k, v in blk["mlp"]["fc"].items()}
+    fc_t = {k: v.bfloat16() for k, v in pblk["mlp"]["fc"].items()}
+    for got, ref in ((pl.layer_norm(yt, pblk["ln_1"]),
+                      jl.layer_norm(yj, blk["ln_1"])),
+                     (pl.quick_gelu(yt), jl.quick_gelu(yj)),
+                     (pl.linear(yt, fc_t), jl.linear(yj, fc_j))):
+        assert got.dtype == torch.bfloat16
+        np.testing.assert_array_equal(n(got.float()),
+                                      np.asarray(ref.astype(jnp.float32)))

@@ -1,0 +1,166 @@
+"""The fast preset's PAR kernels (excel_tpu_torch.ops.par_kernels:
+pad_replicate_valid, par_affinity, par_diffuse_padded_valid,
+par_diffuse_valid_resident) and the bf16 route of par_refine against the
+JAX package's Pallas functions in interpret mode, in fp32 and in bf16."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from excel_tpu.ops import par_pallas as jp
+from excel_tpu.ops.par import _offsets as jax_offsets
+from excel_tpu_torch.ops import par_kernels as pk
+from excel_tpu_torch.ops.par import _offsets, _pos_weight, par_refine
+from torch_port_common import n, t
+
+# (1, 2, 8): pad 8 and three dilations (K=24) keep interpret mode quick;
+# the production set is (1, 2, 4, 8, 12, 24)
+DILATIONS = (1, 2, 8)
+PAD = 8
+B, C, H, W = 3, 4, 40, 128
+VALID = np.asarray([[40, 128], [33, 100], [17, 61]], np.int32)
+DTYPES = {"f32": (torch.float32, jnp.float32),
+          "bf16": (torch.bfloat16, jnp.bfloat16)}
+# one bf16 ulp of a value in [0.5, 1): XLA on the CPU keeps some bf16
+# products in fp32 (its default excess precision), so a sum can round to
+# the neighbouring bf16 value
+BF16_ULP = 2.0 ** -8
+
+
+def _pair(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of `dtype`."""
+    tdt, jdt = DTYPES[dtype]
+    j = jnp.asarray(a).astype(jdt)
+    return j, t(np.asarray(j.astype(jnp.float32))).to(tdt)
+
+
+def _close(got, ref, atol, rtol=0.0):
+    np.testing.assert_allclose(n(got.float()),
+                               np.asarray(ref.astype(jnp.float32)), atol=atol,
+                               rtol=rtol)
+
+
+def _offsets_t():
+    return _offsets(DILATIONS)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("pad", [8, 24])
+def test_pad_replicate_valid_matches_pallas(dtype, pad):
+    """A clamped copy: equal, element for element, slack included."""
+    x = np.random.default_rng(pad).random((B, C, H, W), dtype=np.float32)
+    xj, xt = _pair(x, dtype)
+    ref = jp.pad_replicate_valid(xj, jnp.asarray(VALID), pad, interpret=True)
+    got = pk.pad_replicate_valid(xt, t(VALID), pad)
+    assert got.shape == ref.shape and got.dtype == xt.dtype
+    np.testing.assert_array_equal(n(got.float()),
+                                  np.asarray(ref.astype(jnp.float32)))
+
+
+# bf16: one bf16 ulp of each affinity's own size (2^-7 |ref|), so that the
+# w2 * position term (up to 1.5e-3 here) cannot go missing unseen, plus the
+# smallest normal fp32 for the far offsets' subnormal affinities, which XLA
+# flushes to zero
+@pytest.mark.parametrize("dtype,atol,rtol", [
+    ("f32", 2e-6, 0.0), ("bf16", float(np.finfo(np.float32).tiny), 2.0 ** -7)])
+def test_par_affinity_matches_pallas(dtype, atol, rtol):
+    """fp32 in both; the TPU kernel's order of rounding, but XLA contracts
+    some products into FMAs and rounds exp differently: observed 1.2e-6 in
+    fp32 on affinities below 1, and one bf16 ulp in bf16."""
+    img = np.random.default_rng(1).standard_normal((B, 3, H, W)).astype(
+        np.float32)
+    ip = np.asarray(jp.pad_replicate_valid(jnp.asarray(img),
+                                           jnp.asarray(VALID), PAD,
+                                           interpret=True))
+    pos_w = tuple(float(v) for v in _pos_weight(DILATIONS))
+    ref = jp.par_affinity(jnp.asarray(ip), tuple(jax_offsets(DILATIONS)),
+                          pos_w, H, W, out_dtype=DTYPES[dtype][1],
+                          interpret=True)
+    got = pk.par_affinity(t(ip), _offsets_t(), pos_w, H, W,
+                          out_dtype=DTYPES[dtype][0])
+    assert got.shape == ref.shape
+    _close(got, ref, atol, rtol)
+
+
+def _diffusion_inputs(seed: int, dtype: str):
+    rng = np.random.default_rng(seed)
+    k = len(_offsets(DILATIONS))
+    aff = rng.random((B, k, H, W), dtype=np.float32)
+    aff /= aff.sum(axis=1, keepdims=True)
+    masks = rng.random((B, C, H, W), dtype=np.float32)
+    affj, afft = _pair(aff, dtype)
+    mj, _ = _pair(masks, dtype)
+    mpj = jp.pad_replicate_valid(mj, jnp.asarray(VALID), PAD, interpret=True)
+    mpt = t(np.asarray(mpj.astype(jnp.float32))).to(DTYPES[dtype][0])
+    return mpj, affj, mpt, afft
+
+
+# fp32: one ulp (XLA contracts products into FMAs); bf16: one bf16 ulp
+@pytest.mark.parametrize("dtype,atol", [("f32", 1e-6), ("bf16", BF16_ULP)])
+def test_par_diffuse_padded_valid_matches_pallas(dtype, atol):
+    mpj, affj, mpt, afft = _diffusion_inputs(2, dtype)
+    ref = jp.par_diffuse_padded_valid(mpj, affj, jnp.asarray(VALID),
+                                      tuple(jax_offsets(DILATIONS)), H, W,
+                                      interpret=True)
+    got = pk.par_diffuse_padded_valid(mpt, afft, t(VALID), _offsets_t(), H, W)
+    assert got.shape == ref.shape and got.dtype == mpt.dtype
+    _close(got, ref, atol)
+
+
+@pytest.mark.parametrize("dtype,atol", [("f32", 1e-6), ("bf16", BF16_ULP)])
+def test_par_diffuse_valid_resident_matches_pallas(dtype, atol):
+    """5 steps; the per-step ulps do not grow beyond one (the diffusion
+    averages)."""
+    mpj, affj, mpt, afft = _diffusion_inputs(3, dtype)
+    ref = jp.par_diffuse_valid_resident(mpj, affj, jnp.asarray(VALID),
+                                        tuple(jax_offsets(DILATIONS)), H, W,
+                                        5, interpret=True)
+    got = pk.par_diffuse_valid_resident(mpt, afft, t(VALID), _offsets_t(), H,
+                                        W, 5)
+    _close(got, ref, atol)
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_resident_equals_iterated_steps(dtype):
+    """The port's resident version is the step version iterated, bit for
+    bit (what the card checks of the two kernels)."""
+    _, _, mpt, afft = _diffusion_inputs(4, dtype)
+    m = mpt
+    for _ in range(4):
+        m = pk.par_diffuse_padded_valid(m, afft, t(VALID), _offsets_t(), H, W)
+    got = pk.par_diffuse_valid_resident(mpt, afft, t(VALID), _offsets_t(), H,
+                                        W, 4)
+    assert torch.equal(got, m)
+
+
+def test_par_refine_bf16_full_extent():
+    """Without valid extents the bf16 route clamps at the full canvas,
+    which is plain edge padding: the same result as explicit extents."""
+    rng = np.random.default_rng(6)
+    img = rng.standard_normal((2, 3, 24, 40)).astype(np.float32)
+    masks = rng.random((2, 3, 24, 40), dtype=np.float32)
+    full = np.asarray([[24, 40]] * 2, np.int32)
+    a = par_refine(t(img), t(masks), dilations=(1, 8), num_iter=3,
+                   dtype=torch.bfloat16)
+    b = par_refine(t(img), t(masks), dilations=(1, 8), num_iter=3,
+                   valid_hw=t(full), dtype=torch.bfloat16)
+    assert torch.equal(a, b)
+
+
+def test_par_wrappers_check_inputs():
+    _, _, mpt, afft = _diffusion_inputs(7, "bf16")
+    offs = _offsets_t()
+    with pytest.raises(ValueError, match="share a dtype"):
+        pk.par_diffuse_padded_valid(mpt, afft.float(), t(VALID), offs, H, W)
+    with pytest.raises(ValueError):
+        pk.par_diffuse_padded_valid(mpt[:, :, :50], afft, t(VALID), offs, H,
+                                    W)
+    with pytest.raises(ValueError, match="int32"):
+        pk.pad_replicate_valid(mpt, t(VALID).long(), PAD)
+    with pytest.raises(NotImplementedError):
+        pk.pad_replicate_valid(mpt.half(), t(VALID), PAD)
+    with pytest.raises(ValueError):
+        pk.par_diffuse_valid_resident(mpt, afft, t(VALID), offs, H, W, 0)
+    with pytest.raises(ValueError):
+        pk.par_affinity(torch.zeros((1, 3, 56, 256)), offs[:20], [0.0] * 20,
+                        H, W)

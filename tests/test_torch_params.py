@@ -72,3 +72,29 @@ def test_from_jax_params_rejects_wrong_depth():
     with pytest.raises(ValueError):
         from_jax_params(tree, dataclasses.replace(cfg, vision_layers=3),
                         device="cpu")
+
+
+def test_cast_matmul_weights_matches_jax():
+    """Only the 'w'/'b' leaves go to bf16 (the same values as the JAX
+    package's cast); LayerNorm, embedding and projection leaves stay
+    fp32."""
+    import jax.numpy as jnp
+    import torch
+
+    from excel_tpu.models.params import cast_matmul_weights as jax_cast
+    from excel_tpu_torch.models.params import cast_matmul_weights
+
+    tree = jax_clip_tree(tiny_config().clip)
+    ref = jax_cast(tree, jnp.bfloat16)
+    got = cast_matmul_weights(
+        from_jax_params(tree, port_tiny_config().clip, device="cpu"),
+        torch.bfloat16)
+    n_bf16 = 0
+    for path, jx, pt in _walk(ref, got):
+        want = torch.bfloat16 if path[-1] in ("w", "b") else torch.float32
+        assert pt.dtype == want, path
+        n_bf16 += pt.dtype == torch.bfloat16
+        np.testing.assert_array_equal(
+            n(pt.float()), _expected(path, np.asarray(jx, np.float32)),
+            err_msg=str(path))
+    assert n_bf16 > 0
