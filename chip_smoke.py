@@ -8,24 +8,40 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives them;
 2. build: every CUDA kernel of the port, compiled from excel_tpu_torch/csrc;
 3. kernels: each kernel against its plain PyTorch version on the card at the
-   main paths' shapes (plus the fp32 surgery kernel at N=901), with the
+   main paths' shapes (plus the fp32 surgery kernel at N=901, and the
+   surgery kernel with ex at the calibrated train pass's B=4), with the
    stated tolerances; CUDA-event median times of kernel, plain version and,
    where one PyTorch call computes the same function, that call. The fp32
    preset's kernels, then the fast preset's: the bf16 attention entry
    points, pad-clamp, affinity, the fused-valid step and the resident
-   diffusion (and 20 step launches against one resident launch);
-4. the fp32 slice: `run_lam_eval` (training-free LAM eval, fp32 voc_config
-   at full ViT-B/16 width, seeded random weights) over synthetic VOC-sized
-   samples, with every kernel's launch count over that run checked against
-   the number of batches;
-5. the fast slice: the same over `fast(voc_config())` (bf16 encoder with
-   its matmul weights cast once, bf16 PAR), launch counts checked the same
-   way;
-6. a device-time profile of one batch of each slice;
-7. card against CPU: one batch of 2 of each slice through `lam_eval_step`
-   on the card and on the CPU (plain versions), labels compared over the
-   valid pixels.
+   diffusion (and 20 step launches against one resident launch); then the
+   full-extent padded steps of training's pseudo-labels (Pallas rows 8 and
+   6) against row 5's and row 7's kernels at [4, 5 | 9, 320, 320], and the
+   fast train step's pad-clamp, affinity and resident diffusion at its
+   shapes;
+4. the eval slices: `run_lam_eval` (training-free LAM eval at full
+   ViT-B/16 width, seeded random weights) over synthetic VOC-sized samples
+   in `voc_config()` (fp32) and `fast(voc_config())` (bf16 encoder with its
+   matmul weights cast once, bf16 PAR), every kernel's launch count over
+   each run checked against the number of batches; a device-time profile
+   of one batch of each; one batch of 2 of each through `lam_eval_step` on
+   the card and on the CPU (plain versions), labels compared over the
+   valid pixels;
+5. the training slice, for each preset: the LVC head's training steps at
+   B=4, crop 320 through the three phases (pre-calibration, calibrated,
+   calibrated + seg affinity), each step's launch counts checked, the head
+   moved and CLIP unchanged, median step times and a profiled step; one
+   calibrated step's forward and backward at B=2 on the card and on the
+   CPU (pseudo-labels, losses, head gradients; the card's pseudo-labels
+   also against the CPU's on the card's own LAMs and attention) and
+   `denormalize_images` on all byte values; then in-training validation (`run_validation`) and the
+   trained LAM sweep (`run_lam_eval(mode="trained")`) with the trained head.
 
+The JSON kernel table has one line per Pallas function (rows 1-3 for each
+dtype); `launches` counts the launches of the route that stands for that
+function (the plain kernel's weights or "none" mode, the fp32 and bf16
+steps on valid or full extents) over all main-path runs: the eval slices,
+the train steps and the two trained sweeps.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": N}}.
 It imports neither jax nor excel_tpu. It exits non-zero without a CUDA
@@ -91,6 +107,27 @@ MIN_LABEL_AGREEMENT = 0.999
 # see 0.7% of labels move between the JAX package's bf16 eval and the
 # port's, where XLA's fusions round differently too. Bound: 99.5%
 MIN_FAST_LABEL_AGREEMENT = 0.995
+
+# the training slice: TrainConfig.batch_size crops of voc_config()'s 320 px,
+# the phase thresholds cut so that the run takes TRAIN_PHASE_STEPS steps in
+# each of the three phases (the first of each untimed: allocations)
+TRAIN_B, TRAIN_CROP, TRAIN_PHASE_STEPS = 4, 320, 4
+# rows 6 and 8 against row 7's and row 5's kernels: masks of 5 channels
+# (VOC's 4-slot bucket + bg) and 9 (COCO's 8 slots)
+PADDED_CHANNELS = (5, 9)
+# row 8 (fp32) against row 5's kernel: the same fp32 sums in the same
+# order; the stated bound over 20 chained steps (a wrong offset or chunk is
+# off by > 1e-3)
+TOL_ROW8 = 1e-5
+# card against CPU on one calibrated train step at B=2: the losses (fp32
+# sums over 2 x 320 x 320 pixels in other orders, plus the pixels whose
+# pseudo-label moves) and the head's gradient (relative to its norm)
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_RTOL = 1e-2
+# the card's pseudo-labels against the CPU's pseudo_labels on the card's
+# own LAMs, attention and attn_pred, any number of classes: only the
+# refinement's fp32 sums differ in order
+MIN_SAME_INPUT_AGREEMENT = 0.999
 
 
 def log(msg: str) -> None:
@@ -193,12 +230,19 @@ def check_outputs(got, ref, what: str) -> float:
     return err
 
 
+# the mode each attention row's record is timed in: the main path's for rows
+# 1-3 (block 6, blocks 0-5, blocks 7-11), MSC's for row 4
+TIMED_MODE = {"plain_attention": "out", "plain_attention_rows_hb": "none",
+              "surgery_attention": "acc", "surgery_attention_rows": "out"}
+
+
 def check_attention(gen, dtype) -> dict:
     """The plain and surgery attention kernels against their plain versions
     at the main path's shapes in `dtype` (float32 also runs the surgery
-    kernel at N=901 with ex, MSC's shape). Returns {kernel name: record}
-    for the JSON table: the plain kernel timed in mode none (blocks 0-5),
-    the surgery kernel in mode acc (blocks 7-11)."""
+    kernel at N=901 with ex, MSC's shape; both run the train step's modes at
+    its B=4, the surgery kernel with ex among them). Returns {kernel name:
+    record} for the JSON table, one per Pallas row, timed in the mode of
+    TIMED_MODE at the eval batch."""
     import torch.nn.functional as F
 
     from excel_tpu_torch.models.attention_kernels import (
@@ -219,6 +263,13 @@ def check_attention(gen, dtype) -> dict:
     if not bf16:
         cases += [("surgery", "out", 901, 8, True),
                   ("surgery", "none", 901, 8, True)]
+    # the train step at its batch: the pre-calibration pass (plain none and
+    # out, surgery acc), the calibrated step's stack pass (surgery out) and
+    # its second pass (plain none, surgery with ex and no weights; its ex:
+    # the compute type's values, carried in fp32)
+    cases += [("plain", m, N_TOK, TRAIN_B, False) for m in ("none", "out")]
+    cases += [("surgery", m, N_TOK, TRAIN_B, False) for m in ("acc", "out")]
+    cases += [("surgery", "none", N_TOK, TRAIN_B, True)]
     for kind, mode, n, b, with_ex in cases:
         q, k, v = _qkv(gen, b, n, dtype)
         acc0 = torch.rand((b, n, n), device="cuda", generator=gen)
@@ -232,11 +283,17 @@ def check_attention(gen, dtype) -> dict:
         else:
             ex = (torch.rand((b, n, n), device="cuda", generator=gen) / n
                   if with_ex else None)
+            if ex is not None:
+                ex = ex.to(dtype).float()
             kw = dict(ex_attn=ex, need_attn=mode != "none")
             fused, plain = fused_surgery_attention, surgery_attention_reference
             flops = 5 * 2 * n * n * HEAD_DIM * HEADS * b
             nbytes += nn + (nn if with_ex else 0)   # shared out, ex in
-        name = f"{kind}_attention{suffix}"
+        # rows 1 (weights out) and 2 (none) of the plain kernel; rows 3 and
+        # 4 (N > 640) of the surgery kernel
+        row = ("_rows_hb" if kind == "plain" and mode == "none" else
+               "_rows" if n > 640 else "")
+        name = f"{kind}_attention{row}{suffix}"
         what = f"{name} mode={mode} B={b} H={HEADS} N={n} D={HEAD_DIM}"
         err = check_outputs(
             fused(q, k, v, acc=acc0.clone() if mode == "acc" else None, **kw),
@@ -256,7 +313,8 @@ def check_attention(gen, dtype) -> dict:
             f"library_ms={library} bound_ms={bnd:.4f} ({by})")
         rec = records.setdefault(name, dict(max_abs_err=0.0))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if mode == ("none" if kind == "plain" else "acc") and n == N_TOK:
+        if (mode == TIMED_MODE[name.removesuffix(suffix)]
+                and b == (8 if n > 640 else B)):
             rec.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library,
                        bound_ms=bnd, bound_by=by)
     return records
@@ -436,23 +494,160 @@ def phase_kernels_fast() -> dict:
     return records
 
 
+def phase_kernels_padded() -> dict:
+    """Pallas rows 8 and 6, the full-extent padded diffusion steps of the
+    train step's pseudo-labels, at their shapes ([4, C, 320, 320], C = 5
+    and 9, K=48, pad 24): row 5's kernel (unpadded, clamped reads) against
+    plain row 8 (fp32, on the edge-padded [B, H+2P, C8, Wp] canvas), and
+    row 7's kernel with full extents against plain row 6 (bf16 products,
+    fp32 sums, on the [B, C, H+2P+8, Wp] canvas), one step and 20 chained.
+    Returns the records of the rows at C=5, the VOC train step's."""
+    from excel_tpu_torch.ops import par_kernels as pk
+    from excel_tpu_torch.ops.par import _offsets
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    offs = _offsets(DILATIONS)
+    k_off = len(offs)
+    offsets = pk.offsets_tensor(offs, "cuda")
+    b, h, w, p = TRAIN_B, TRAIN_CROP, TRAIN_CROP, PAR_PAD
+    full = torch.tensor([[h, w]] * b, device="cuda", dtype=torch.int32)
+    records = {}
+    for c in PADDED_CHANNELS:
+        masks = torch.rand((b, c, h, w), device="cuda", generator=gen)
+        aff = torch.rand((b, k_off, h, w), device="cuda", generator=gen)
+        aff = (aff / aff.sum(dim=1, keepdim=True)).contiguous()
+
+        # -- row 8: fp32, [B, H+2P, C8, Wp] ------------------------------
+        def interior(canvas):
+            return canvas[:, p:p + h, :c, p:p + w].permute(0, 2, 1, 3)
+
+        mp = pk.pad_for_diffuse_hcw(masks, p)
+        m_k, m_r, errs = masks, mp, []
+        for _ in range(PAR_ITERS):
+            m_k = pk.par_diffuse(m_k, aff, offsets)
+            m_r = pk.par_diffuse_padded_hcw_reference(m_r, aff, offs, h, w)
+            errs.append(max_err(m_k, interior(m_r)))
+        if not max(errs) <= TOL_ROW8:
+            raise AssertionError(f"row 8 C={c}: max err per step {errs}")
+        kernel = time_ms(lambda: pk.par_diffuse(masks, aff, offsets), 20)
+        plain = time_ms(lambda: pk.par_diffuse_padded_hcw_reference(
+            mp, aff, offs, h, w), 3)
+        step_flops = 2 * k_off * b * c * h * w
+        bnd, by = bound_ms(step_flops, (aff.numel() + 2 * masks.numel()) * 4)
+        log(f"kernel par_diffuse_padded_hcw (row 8, row 5's kernel) "
+            f"B={b} C={c} K={k_off} {h}x{w} pad={p} fp32: max_abs_err "
+            f"step1={errs[0]:.3g} chain{PAR_ITERS}={errs[-1]:.3g} (max "
+            f"{max(errs):.3g}, tol {TOL_ROW8}) kernel_ms={kernel:.4f} "
+            f"plain_ms={plain:.4f} library_ms=None bound_ms={bnd:.4f} ({by})")
+        if c == PADDED_CHANNELS[0]:
+            records["par_diffuse_padded_hcw"] = dict(
+                ms=kernel, plain_ms=plain, library_ms=None, bound_ms=bnd,
+                bound_by=by, max_abs_err=max(errs))
+
+        # -- row 6: bf16, [B, C, H+2P+8, Wp] -----------------------------
+        m16, a16 = masks.bfloat16(), aff.bfloat16()
+        mp16 = pk.pad_for_diffuse(m16, p)
+        m_k, m_r, errs = mp16, mp16, []
+        for _ in range(PAR_ITERS):
+            m_k = pk.par_diffuse_padded_valid(m_k, a16, full, offs, h, w)
+            m_r = pk.par_diffuse_padded_reference(m_r, a16, offs, h, w)
+            errs.append(max_err(m_k.float(), m_r.float()))
+        if not max(errs) <= TOL_PAR_BF16:
+            raise AssertionError(f"row 6 C={c}: max err per step {errs}")
+        kernel = time_ms(lambda: pk.par_diffuse_padded_valid(
+            mp16, a16, full, offs, h, w), 20)
+        plain = time_ms(lambda: pk.par_diffuse_padded_reference(
+            mp16, a16, offs, h, w), 3)
+        bnd, by = bound_ms(step_flops, a16.numel() * 2 + 2 * mp16.numel() * 2)
+        log(f"kernel par_diffuse_padded (row 6, row 7's kernel at full "
+            f"extents) {tuple(mp16.shape)} K={k_off} bf16: max_abs_err "
+            f"step1={errs[0]:.3g} chain{PAR_ITERS}={errs[-1]:.3g} (tol "
+            f"{TOL_PAR_BF16}) kernel_ms={kernel:.4f} plain_ms={plain:.4f} "
+            f"library_ms=None bound_ms={bnd:.4f} ({by})")
+        if c == PADDED_CHANNELS[0]:
+            records["par_diffuse_padded"] = dict(
+                ms=kernel, plain_ms=plain, library_ms=None, bound_ms=bnd,
+                bound_by=by, max_abs_err=max(errs))
+    return records
+
+
+def check_fast_train_par(records: dict) -> None:
+    """The fast train step's PAR kernels at its shapes, chained as
+    `par_refine` chains them with full extents: pad-clamp of the fp32
+    images [4, 3, 320, 320] and of the bf16 masks [4, 5, 320, 320] onto the
+    [., ., 376, 384] canvas (320 + 2 x 24 is no multiple of 128), the
+    affinity [4, 48, 320, 320] and the resident diffusion of PAR_ITERS
+    steps, each against its plain version on the same inputs: pad-clamp
+    and resident bit for bit, the affinity within one bf16 ulp. Folds each
+    error into the kernel's record (whose times are the eval path's) and
+    logs the kernel times at these shapes."""
+    from excel_tpu_torch.ops import par_kernels as pk
+    from excel_tpu_torch.ops.par import _offsets, _pos_weight
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    offs = _offsets(DILATIONS)
+    pos_w = [float(p) for p in _pos_weight(DILATIONS)]
+    b, c, h, w, p = TRAIN_B, PADDED_CHANNELS[0], TRAIN_CROP, TRAIN_CROP, PAR_PAD
+    full = torch.tensor([[h, w]] * b, device="cuda", dtype=torch.int32)
+    # the denormalised crops (values in [0, 1]) and the CAM stack
+    images = torch.rand((b, 3, h, w), device="cuda", generator=gen)
+    masks = torch.rand((b, c, h, w), device="cuda", generator=gen).bfloat16()
+    ip = pk.pad_replicate_valid(images, full, p)
+    mp = pk.pad_replicate_valid(masks, full, p)
+    aff = pk.par_affinity(ip, offs, pos_w, h, w)
+    res = pk.par_diffuse_valid_resident(mp, aff, full, offs, h, w, PAR_ITERS)
+    aff_ref = pk.par_affinity_reference(ip, offs, pos_w, h, w)
+    errs = {
+        "pad_replicate_valid": max(
+            max_err(ip, pk.pad_replicate_valid_reference(images, full, p)),
+            max_err(mp.float(), pk.pad_replicate_valid_reference(
+                masks, full, p).float())),
+        "par_affinity": max_err(aff.float(), aff_ref.float()),
+        "par_diffuse_valid_resident": max_err(
+            res.float(), pk.par_diffuse_valid_resident_reference(
+                mp, aff, full, offs, h, w, PAR_ITERS).float())}
+    ms = {"pad_replicate_valid": time_ms(lambda: (
+              pk.pad_replicate_valid(images, full, p),
+              pk.pad_replicate_valid(masks, full, p)), 20),
+          "par_affinity": time_ms(lambda: pk.par_affinity(
+              ip, offs, pos_w, h, w), 20),
+          "par_diffuse_valid_resident": time_ms(
+              lambda: pk.par_diffuse_valid_resident(
+                  mp, aff, full, offs, h, w, PAR_ITERS), 10)}
+    log(f"kernel fast train PAR images {tuple(images.shape)} -> "
+        f"{tuple(ip.shape)}, masks {tuple(masks.shape)} -> {tuple(mp.shape)},"
+        f" aff {tuple(aff.shape)}, resident iters={PAR_ITERS}: max_abs_err "
+        + " ".join(f"{k}={v:.3g}" for k, v in errs.items())
+        + f" (tol {TOL_PAR_BF16}; affinity 2^-7 |ref| + 2^-126) kernel_ms "
+        + " ".join(f"{k}={v:.4f}" for k, v in ms.items()))
+    if not (errs["pad_replicate_valid"] <= TOL_PAR_BF16
+            and bf16_within_ulp(aff, aff_ref)
+            and errs["par_diffuse_valid_resident"] <= TOL_PAR_BF16):
+        raise AssertionError(f"fast train PAR kernels off: {errs}")
+    for name, e in errs.items():
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], e)
+
+
 # VOC-typical label extents (h, w): landscape and portrait images
 VOC_EXTENTS = [(375, 500), (333, 500), (500, 375), (375, 500), (366, 500),
                (500, 333), (375, 500), (353, 500)]
 
 
-def synthetic_samples(n: int, num_fg: int, seed: int) -> list[dict]:
-    """Seeded VOC-sized eval samples: textured background with 1-3 coloured
-    elliptical blobs of 1-3 classes, exact labels, image-level labels."""
+def synthetic_samples(n: int, num_fg: int, seed: int,
+                      extents=VOC_EXTENTS, max_classes: int = 3) -> list[dict]:
+    """Seeded VOC-sized eval samples (or train crops, with extents [(320,
+    320)]): textured background with coloured elliptical blobs of 1 to
+    `max_classes` classes, exact labels, image-level labels."""
     rng = np.random.default_rng(seed)
     palette = rng.integers(100, 256, (num_fg + 1, 3))
     samples = []
     for i in range(n):
-        h, w = VOC_EXTENTS[i % len(VOC_EXTENTS)]
+        h, w = extents[i % len(extents)]
         image = rng.integers(0, 80, (h, w, 3), dtype=np.uint8)
         label = np.zeros((h, w), np.int32)
         classes = rng.choice(np.arange(1, num_fg + 1),
-                             size=int(rng.integers(1, 4)), replace=False)
+                             size=int(rng.integers(1, max_classes + 1)),
+                             replace=False)
         ys, xs = np.ogrid[:h, :w]
         for c in classes:
             cy, cx = rng.integers(h // 6, 5 * h // 6), rng.integers(
@@ -490,6 +685,48 @@ def _kernel_wrappers():
             "par_affinity": pk.par_affinity,
             "par_diffuse_padded_valid": pk.par_diffuse_padded_valid,
             "par_diffuse_valid_resident": pk.par_diffuse_valid_resident}
+
+
+def reset_launches() -> None:
+    """Every wrapper's launch count (and the plain kernel's by mode) to 0,
+    just before a main path runs."""
+    wrappers = _kernel_wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    by_mode = wrappers["plain_attention"].launches_by_mode
+    for mode in by_mode:
+        by_mode[mode] = 0
+
+
+# launches per line of the JSON kernel table (per Pallas function) over all
+# main paths, each read just after its path ran
+ROW_LAUNCHES: dict = {}
+
+
+def read_launches(preset: str, training: bool) -> dict:
+    """Each wrapper's launches since `reset_launches` (returned), added to
+    ROW_LAUNCHES under the Pallas function whose route they took: the plain
+    kernel's weights route (out, acc) is row 1 and its "none" route row 2;
+    the fp32 step on valid extents (eval) row 5 and on full extents
+    (training's pseudo-labels) row 8; likewise the bf16 single step, row 7
+    or row 6. Rows 1-3 are counted per dtype; row 4 (N > 640) is on no
+    main path."""
+    wrappers = _kernel_wrappers()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    sfx = "_bf16" if preset == "fast" else ""
+    by_mode = wrappers["plain_attention"].launches_by_mode
+    rows = {f"plain_attention{sfx}": by_mode["out"] + by_mode["acc"],
+            f"plain_attention_rows_hb{sfx}": by_mode["none"],
+            f"surgery_attention{sfx}": counts["surgery_attention"],
+            "par_diffuse_padded_hcw" if training else "par_diffuse":
+                counts["par_diffuse"],
+            "par_diffuse_padded" if training else "par_diffuse_padded_valid":
+                counts["par_diffuse_padded_valid"]}
+    rows.update({name: counts[name] for name in (
+        "pad_replicate_valid", "par_affinity", "par_diffuse_valid_resident")})
+    for name, n in rows.items():
+        ROW_LAUNCHES[name] = ROW_LAUNCHES.get(name, 0) + n
+    return counts
 
 
 # launches of each kernel wrapper per batch of each slice's main path:
@@ -536,16 +773,14 @@ def phase_slice(preset: str, n_samples: int = 32, batch: int = 16):
     # warm-up (cuBLAS handles, allocator) on a part of the data
     run_lam_eval(params, samples[:batch], text, cfg, batch_size=batch,
                  device="cuda")
-    wrappers = _kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     scores = run_lam_eval(params, samples, text, cfg, batch_size=batch,
                           device="cuda")
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts = read_launches(preset, training=False)
     name = "fast(voc_config())" if preset == "fast" else "voc_config()"
     log(f"slice {preset}: run_lam_eval {name} encoder "
         f"{str(cfg.clip.compute_dtype).split('.')[-1]} PAR "
@@ -658,30 +893,335 @@ def phase_card_vs_cpu(preset, params, text, cfg, samples,
     return agree
 
 
-# kernel -> (source, the TPU kernel it replaces, the slice whose run gives
-# its launch count)
+# launches of each kernel wrapper per train step (per batch of the
+# validation and trained-LAM sweeps): pre-calibration (and validation), one
+# encoder pass; calibrated (and the trained LAM sweep, whose batch is
+# [x, flip x]), the head's pass and the calibrated pass; then PAR as in the
+# eval slices (full extents in training)
+TRAIN_LAUNCHES = {
+    (preset, calibrated): {
+        name: (n * (2 if calibrated and "attention" in name else 1))
+        for name, n in LAUNCHES_PER_BATCH[preset].items()}
+    for preset in ("fp32", "fast") for calibrated in (False, True)}
+
+
+def train_setup(preset: str):
+    """(cfg, clip params, head, text bank, crops) of the training slice:
+    voc_config() or its fast preset with the phase thresholds cut to
+    TRAIN_PHASE_STEPS, seeded random CLIP (seed 0) and head (seed 1)
+    weights, 16 synthetic 320 px uint8 crops with 1-3 classes."""
+    import dataclasses
+
+    from excel_tpu_torch.config import fast, voc_config
+    from excel_tpu_torch.models.head import init_head_params
+    from excel_tpu_torch.models.params import (cast_matmul_weights,
+                                               init_clip_params)
+
+    cfg = voc_config() if preset == "fp32" else fast(voc_config())
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, warmup_iters=2, lvc_calibrate_iter=TRAIN_PHASE_STEPS,
+        seg_affinity_iter=2 * TRAIN_PHASE_STEPS,
+        max_iters=3 * TRAIN_PHASE_STEPS))
+    clip = init_clip_params(cfg.clip, torch.Generator().manual_seed(0),
+                            device="cuda")
+    if preset == "fast":
+        clip = cast_matmul_weights(clip, torch.bfloat16)
+    head = init_head_params(cfg.head, cfg.num_classes,
+                            torch.Generator().manual_seed(1), device="cuda")
+    crops = synthetic_samples(4 * TRAIN_B, cfg.num_fg, seed=1,
+                              extents=[(TRAIN_CROP, TRAIN_CROP)])
+    images = torch.from_numpy(np.stack([s["image"] for s in crops]))
+    cls = torch.from_numpy(np.stack([s["cls_label"] for s in crops]))
+    return cfg, clip, head, text_bank(cfg, seed=0).cuda(), images, cls
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def phase_train(preset: str):
+    """The LVC head's training at full ViT-B/16 width, B=4, crop 320, as
+    the JAX package's train loop drives it (per step: the phase, the step
+    function of the (phase, slot bucket) cache, the step), through all
+    three phases. Checks each step's launch counts, finite losses, that
+    every head parameter moved and every CLIP tensor did not; profiles one
+    production-phase step. Returns (cfg, clip, state, text, crops)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from excel_tpu_torch.engine.train import (TrainStepCache, _phase,
+                                              init_train_state,
+                                              step_generator)
+
+    cfg, clip, head, text, images, cls = train_setup(preset)
+    clip_before = [t.clone() for t in _leaves(clip)]
+    head_before = {k: v.clone() for k, v in head.state_dict().items()}
+    state = init_train_state(head, cfg.train)
+    steps = TrainStepCache(cfg)
+    images_d, cls_d = images.cuda(), cls.cuda()
+    total: dict = {}
+    walls: dict = {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def batch(i):
+        s = slice((i % 4) * TRAIN_B, (i % 4 + 1) * TRAIN_B)
+        return images_d[s], cls_d[s], cls[s]
+
+    for n_iter in range(cfg.train.max_iters):
+        imgs, cls_b, cls_host = batch(n_iter)
+        phase = _phase(cfg, n_iter)
+        step_fn = steps(phase, cls_host)
+        gen = step_generator(cfg.train, n_iter, "cuda")
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, clip, imgs, cls_b, text, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = read_launches(preset, training=True)
+        for name, n in counts.items():
+            total[name] = total.get(name, 0) + n
+        walls.setdefault(phase, []).append(wall)
+        log(f"train {preset} step {n_iter} phase={phase} slots="
+            f"{steps.slots_for(cls_host)} wall_ms={wall:.2f} "
+            + " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
+            + " launches=" + json.dumps(
+                {k: v for k, v in counts.items() if v}))
+        if counts != TRAIN_LAUNCHES[preset, phase[0]]:
+            raise AssertionError(f"train {preset} step {n_iter}: launches "
+                                 f"{counts}, expected "
+                                 f"{TRAIN_LAUNCHES[preset, phase[0]]}")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"train {preset}: non-finite {metrics}")
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    moved = [k for k, v in state.head.state_dict().items()
+             if not torch.equal(v, head_before[k])]
+    if len(moved) != len(head_before):
+        raise AssertionError(f"train {preset}: {len(head_before) - len(moved)}"
+                             f" head tensors did not move")
+    if not all(torch.equal(a, b) for a, b in zip(_leaves(clip),
+                                                  clip_before)):
+        raise AssertionError(f"train {preset}: a CLIP tensor changed")
+    del clip_before
+    for phase, w in sorted(walls.items()):
+        log(f"train {preset} phase={phase}: step wall_ms median="
+            f"{statistics.median(w[1:]):.2f} of {len(w) - 1} (first "
+            f"{w[0]:.2f}, allocations)")
+    log(f"train {preset}: {cfg.train.max_iters} steps B={TRAIN_B} crop="
+        f"{TRAIN_CROP} head tensors moved {len(moved)}/{len(head_before)}, "
+        f"CLIP tensors unchanged bit for bit, peak_allocated_gb="
+        f"{peak_gb:.2f}, launches " + json.dumps(total))
+
+    # one production-phase step, profiled
+    imgs, cls_b, cls_host = batch(state.step)
+    phase = (True, True)
+    step_fn = steps(phase, cls_host)
+    gen = step_generator(cfg.train, state.step, "cuda")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, clip, imgs, cls_b, text, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    from torch.autograd import DeviceType
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    wall_off = statistics.median(walls[phase][1:])
+    log(f"profile train {preset}: one step phase={phase} device_ms="
+        f"{device_us / 1e3:.2f} (profiled run, wall_ms={wall:.2f}) busy_share="
+        f"{device_us / 1e3 / wall_off:.3f} (of the phase's median wall_ms="
+        f"{wall_off:.2f}, profiler off)")
+    for e in sorted(events, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:12]:
+        log(f"profile train {preset}: {e.self_device_time_total / 1e3:9.3f} "
+            f"ms x{e.count:<5d} {e.key[:90]}")
+    return cfg, clip, state, text, (images, cls)
+
+
+def same_input_agreement(cfg, clip, head, images_u8, cls, text,
+                         slots) -> float:
+    """Share of pixels on which the card's pseudo-labels of one calibrated
+    step equal the CPU's `pseudo_labels` run on the card's own LAMs,
+    attention stack, attn_pred and PAR guidance."""
+    from excel_tpu_torch.engine.pipeline import (denormalize_images,
+                                                 normalize_images,
+                                                 pseudo_labels)
+    from excel_tpu_torch.models.excel import excel_forward
+
+    images = normalize_images(images_u8.cuda())
+    params = {"clip": clip, "head": head}
+    with torch.no_grad():
+        out = excel_forward(params, images, text, cfg, attn_mode="stack")
+        lams = excel_forward(params, images, text, cfg, ex_feats=out.fused)
+    inputs = (lams, out.attn_weights,
+              denormalize_images(images).permute(0, 3, 1, 2), cls.cuda(),
+              out.attn_pred)
+    labels = []
+    for dev in ("cuda", "cpu"):
+        lam, attn, guide, c, pred = (t.to(dev) for t in inputs)
+        labels.append(pseudo_labels(
+            lam, attn, guide, c, cfg, tuple(images.shape[1:3]),
+            cfg.refine.caa_threshold, seg_attn=pred,
+            class_slots=slots).cpu())
+    return float((labels[0] == labels[1]).float().mean())
+
+
+def phase_train_card_vs_cpu(preset, cfg, clip, state, text, crops,
+                            bound: float) -> None:
+    """One calibrated step's forward and backward at B=2 on the card
+    (kernels) and on the CPU (plain versions) from the same head:
+    pseudo-labels, losses and the head's gradients, on two of the training
+    crops (1-3 classes) and on two crops of one class each; and
+    `denormalize_images` (the PAR guidance of training) on all 256 x 3
+    byte values. The loss and gradient bounds hold on both crop sets, the
+    label bound on the one-class crops in both presets and on the training
+    crops in fp32. Under the fast preset the training crops' label
+    agreement is reported, not bounded: where an image has two or more
+    classes, a random-weight model's class maps tie over whole regions, and
+    the bf16 encoder's rounding differences between cuBLAS and the CPU
+    (about 1% of the LAMs' range) decide those regions. So on both crop
+    sets and in both presets the card's pseudo-labels are also held, within
+    MIN_SAME_INPUT_AGREEMENT, against the CPU's `pseudo_labels` on the
+    card's own LAMs, attention and attn_pred: the slot compaction, the
+    per-class PAR channels and the labels' argmax, the same inputs on both
+    sides."""
+    import copy
+
+    from excel_tpu_torch.engine.pipeline import (denormalize_images,
+                                                 normalize_images)
+    from excel_tpu_torch.engine.train import TrainStepCache, train_losses
+
+    one = synthetic_samples(2, cfg.num_fg, seed=3,
+                            extents=[(TRAIN_CROP, TRAIN_CROP)], max_classes=1)
+    batches = {"training crops": (crops[0][:2], crops[1][:2]),
+               "one-class crops": (
+                   torch.from_numpy(np.stack([s["image"] for s in one])),
+                   torch.from_numpy(np.stack([s["cls_label"] for s in one])))}
+    head_cpu, clip_cpu = copy.deepcopy(state.head).cpu(), _tree_to(clip, "cpu")
+    for what, (images, cls) in batches.items():
+        slots = TrainStepCache(cfg).slots_for(cls)
+        out = {}
+        for dev, head, params in (("cuda", state.head, clip),
+                                  ("cpu", head_cpu, clip_cpu)):
+            t0 = time.perf_counter()
+            head.zero_grad(set_to_none=True)
+            total, l_seg, l_aff, pseudos = train_losses(
+                head, params, images.to(dev), cls.to(dev), text.to(dev),
+                None, cfg, calibrated=True, seg_affinity=True,
+                class_slots=slots)
+            total.backward()
+            grad = torch.cat([p.grad.flatten()
+                              for p in head.parameters()]).cpu()
+            head.zero_grad(set_to_none=True)
+            out[dev] = (l_seg.item(), l_aff.item(), pseudos.cpu(), grad,
+                        time.perf_counter() - t0)
+        (s_c, a_c, p_c, g_c, t_c), (s_h, a_h, p_h, g_h, t_h) = (out["cuda"],
+                                                                out["cpu"])
+        agree = float((p_c == p_h).float().mean())
+        rel = [abs(s_c - s_h) / abs(s_h), abs(a_c - a_h) / abs(a_h)]
+        g_rel = float((g_c - g_h).norm() / g_h.norm())
+        same = same_input_agreement(cfg, clip, state.head, images, cls, text,
+                                    slots)
+        label_bounded = preset == "fp32" or what == "one-class crops"
+        bounds = (f"bounds: labels >= {bound}" if label_bounded
+                  else "labels reported") + (
+            f", same-input labels >= {MIN_SAME_INPUT_AGREEMENT}, losses "
+            f"{TRAIN_LOSS_RTOL}, gradient {TRAIN_GRAD_RTOL}")
+        log(f"train_card_vs_cpu {preset} {what} (classes "
+            f"{cls.sum(1).int().tolist()}): calibrated step B=2 slots={slots} "
+            f"pseudo_label_agreement={agree:.6f} same_input_agreement="
+            f"{same:.6f} seg_loss {s_c:.7g}/"
+            f"{s_h:.7g} rel={rel[0]:.3g} diver_loss {a_c:.7g}/{a_h:.7g} "
+            f"rel={rel[1]:.3g} head_grad rel_norm_diff={g_rel:.3g} "
+            f"({bounds}) card_s={t_c:.2f} cpu_s={t_h:.2f}")
+        if not ((agree >= bound or not label_bounded)
+                and same >= MIN_SAME_INPUT_AGREEMENT
+                and max(rel) <= TRAIN_LOSS_RTOL and g_rel <= TRAIN_GRAD_RTOL):
+            raise AssertionError(f"train card vs CPU ({preset}, {what}) "
+                                 f"out of bounds")
+    u8 = torch.arange(256, dtype=torch.uint8)[None, :, None].expand(
+        1, 256, 3).contiguous()
+    d_cpu = denormalize_images(normalize_images(u8))
+    d_card = denormalize_images(normalize_images(u8.cuda())).cpu()
+    same = int((d_cpu == d_card).sum())
+    back = int((torch.round(d_cpu * 255).to(torch.uint8) == u8).sum())
+    log(f"denormalize_images {preset}: card == CPU on {same}/768 values; "
+        f"{back}/768 recover their byte")
+    if same != 768:
+        raise AssertionError("denormalize_images: card and CPU differ")
+
+
+def phase_trained_eval(preset, cfg, clip, state, text,
+                       n_samples: int = 8, batch: int = 4) -> None:
+    """In-training validation (`run_validation`) and the trained LAM sweep
+    (`run_lam_eval(mode="trained")`) with the trained head over synthetic
+    VOC-sized samples, launch counts per batch checked."""
+    from excel_tpu_torch.engine.evaluate import (_bucketed_batches,
+                                                 run_lam_eval, run_validation)
+
+    params = {"clip": clip, "head": state.head}
+    samples = synthetic_samples(n_samples, cfg.num_fg, seed=2)
+    n_batches = sum(1 for _ in _bucketed_batches(
+        samples, batch, cfg.data.eval_pad, cfg.refine.slot_buckets,
+        cfg.num_fg))
+    sweeps =(("validation", False, lambda s: run_validation(
+                  params, s, text, cfg, batch_size=batch)),
+              ("trained_lam", True, lambda s: run_lam_eval(
+                  params, s, text, cfg, mode="trained", batch_size=batch)))
+    for what, calibrated, run in sweeps:
+        run(samples[:batch])                       # warm-up
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = run(samples)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        counts = read_launches(preset, training=False)
+        for s in scores if isinstance(scores, tuple) else (scores,):
+            if not (0.0 <= s["miou"] <= 1.0 and np.isfinite(s["pAcc"])):
+                raise AssertionError(f"{what} {preset}: bad scores {s}")
+        miou = ([round(s["miou"], 4) for s in scores]
+                if isinstance(scores, tuple) else round(scores["miou"], 4))
+        log(f"{what} {preset}: samples={n_samples} batch={batch} batches="
+            f"{n_batches} seconds={dt:.3f} img_per_s={n_samples / dt:.3f} "
+            f"miou={miou} launches=" + json.dumps(
+                {k: v for k, v in counts.items() if v}))
+        for name, per_batch in TRAIN_LAUNCHES[preset, calibrated].items():
+            if counts[name] != per_batch * n_batches:
+                raise AssertionError(
+                    f"{what} {preset}, {name}: {counts[name]} launches, "
+                    f"expected {per_batch} x {n_batches} batches")
+
+
+_ATT = "excel_tpu/models/attention_pallas.py"
+_PAR = "excel_tpu/ops/par_pallas.py"
+_CSRC = "excel_tpu_torch/csrc/"
+# JSON name -> (source, the Pallas function it replaces): one line per
+# Pallas row (rows 1-3 once per dtype); rows 4, 6 and 8 are computed by the
+# kernels of rows 3, 7 and 5; launches from ROW_LAUNCHES
 SOURCES = {
-    "plain_attention": ("excel_tpu_torch/csrc/attention_plain.cu",
-                        "excel_tpu/models/attention_pallas.py:52", "fp32"),
-    "surgery_attention": ("excel_tpu_torch/csrc/attention_surgery.cu",
-                          "excel_tpu/models/attention_pallas.py:244", "fp32"),
-    "par_diffuse": ("excel_tpu_torch/csrc/par_diffuse.cu",
-                    "excel_tpu/ops/par_pallas.py:31", "fp32"),
-    "plain_attention_bf16": ("excel_tpu_torch/csrc/attention_plain.cu",
-                             "excel_tpu/models/attention_pallas.py:52",
-                             "fast"),
-    "surgery_attention_bf16": ("excel_tpu_torch/csrc/attention_surgery.cu",
-                               "excel_tpu/models/attention_pallas.py:244",
-                               "fast"),
-    "pad_replicate_valid": ("excel_tpu_torch/csrc/par_pad_clamp.cu",
-                            "excel_tpu/ops/par_pallas.py:845", "fast"),
-    "par_affinity": ("excel_tpu_torch/csrc/par_affinity.cu",
-                     "excel_tpu/ops/par_pallas.py:931", "fast"),
-    "par_diffuse_padded_valid": ("excel_tpu_torch/csrc/par_diffuse_valid.cu",
-                                 "excel_tpu/ops/par_pallas.py:342", "fast"),
-    "par_diffuse_valid_resident": (
-        "excel_tpu_torch/csrc/par_diffuse_valid.cu",
-        "excel_tpu/ops/par_pallas.py:654", "fast"),
+    "plain_attention": ("attention_plain.cu", f"{_ATT}:52"),
+    "plain_attention_rows_hb": ("attention_plain.cu", f"{_ATT}:157"),
+    "surgery_attention": ("attention_surgery.cu", f"{_ATT}:244"),
+    "surgery_attention_rows": ("attention_surgery.cu", f"{_ATT}:295"),
+    "par_diffuse": ("par_diffuse.cu", f"{_PAR}:31"),
+    "par_diffuse_padded_hcw": ("par_diffuse.cu", f"{_PAR}:508"),
+    "plain_attention_bf16": ("attention_plain.cu", f"{_ATT}:52"),
+    "plain_attention_rows_hb_bf16": ("attention_plain.cu", f"{_ATT}:157"),
+    "surgery_attention_bf16": ("attention_surgery.cu", f"{_ATT}:244"),
+    "par_diffuse_padded": ("par_diffuse_valid.cu", f"{_PAR}:209"),
+    "par_diffuse_padded_valid": ("par_diffuse_valid.cu", f"{_PAR}:342"),
+    "par_diffuse_valid_resident": ("par_diffuse_valid.cu", f"{_PAR}:654"),
+    "pad_replicate_valid": ("par_pad_clamp.cu", f"{_PAR}:845"),
+    "par_affinity": ("par_affinity.cu", f"{_PAR}:931"),
 }
 
 
@@ -695,20 +1235,26 @@ def main() -> int:
     phase_build()
     records = phase_kernels()
     records.update(phase_kernels_fast())
-    counts = {}
+    records.update(phase_kernels_padded())
+    check_fast_train_par(records)
     for preset, bound in (("fp32", MIN_LABEL_AGREEMENT),
                           ("fast", MIN_FAST_LABEL_AGREEMENT)):
-        counts[preset], params, text, cfg, samples = phase_slice(preset)
+        _, params, text, cfg, samples = phase_slice(preset)
         phase_profile(preset, params, text, cfg, samples)
         phase_card_vs_cpu(preset, params, text, cfg, samples, bound)
         del params
+    for preset, bound in (("fp32", MIN_LABEL_AGREEMENT),
+                          ("fast", MIN_FAST_LABEL_AGREEMENT)):
+        cfg, clip, state, text, crops = phase_train(preset)
+        phase_train_card_vs_cpu(preset, cfg, clip, state, text, crops, bound)
+        phase_trained_eval(preset, cfg, clip, state, text)
+        del clip, state
     table = []
-    for name, (source, replaces, preset) in SOURCES.items():
+    for name, (source, replaces) in SOURCES.items():
         r = records[name]
-        wrapper = name[:-len("_bf16")] if name.endswith("_bf16") else name
-        table.append({"name": name, "route": "cuda", "source": source,
+        table.append({"name": name, "route": "cuda", "source": _CSRC + source,
                       "replaces": replaces,
-                      "launches": counts[preset][wrapper],
+                      "launches": ROW_LAUNCHES.get(name, 0),
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],

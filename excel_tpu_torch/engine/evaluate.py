@@ -1,18 +1,21 @@
-"""Training-free LAM evaluation at label resolution (counterpart of the LAM
-parts of excel_tpu/engine/evaluate.py).
+"""LAM evaluation at label resolution and in-training validation
+(counterpart of the LAM and validation parts of
+excel_tpu/engine/evaluate.py).
 
-Per batch: normalise, encode (block-mean attention accumulated in the
-attention kernels), feature-surgery LAMs, class-slot compaction, SVC, the
+Per batch: normalise, encode, LAMs (training-free: the encoder alone with
+its block-mean attention accumulated in the attention kernels; trained:
+the flip-fused LVC-calibrated LAMs of the full model, with the head's
+feature affinity as SVC's seg_attn), class-slot compaction, SVC, the
 refined maps plus background upscaled to each image's valid extent on a
 fixed canvas, PAR with per-image valid extents (fp32: the diffusion
 kernel; bf16 under `fast()`: the pad-clamp, affinity and resident
 diffusion kernels), argmax, and the confusion hist, all on the device.
 The host sweep groups samples by canvas bucket and class-slot bucket,
 resizes them in a background thread and can checkpoint its hist to resume
-a killed sweep.
+a killed sweep. In-training validation scores the pseudo-labels and the
+head's segmentation in one pass.
 
-The trained mode, in-training validation, MSC segmentation eval and the CRF
-branches belong to later slices.
+MSC segmentation eval and the CRF branches belong to later slices.
 """
 from __future__ import annotations
 
@@ -26,11 +29,11 @@ from ..data.loader import prefetch_iter
 from ..data.resize import resize_bilinear
 from ..device import resolve_device
 from ..models.clip import encode_image
-from ..models.excel import compute_lams
+from ..models.excel import compute_lams, excel_forward
 from ..ops.affinity import refine_lams_batch
 from ..ops.labels import (argmax_label, cams_with_background_canvas,
                           class_slot_index, slot_label_to_class,
-                          upscale_to_canvas_align)
+                          upscale_to_canvas, upscale_to_canvas_align)
 from ..ops.par import par_refine
 from ..utils.metrics import init_hist, scores_from_hist, update_hist
 from .pipeline import attn_mode_for, normalize_images
@@ -39,6 +42,23 @@ from .pipeline import attn_mode_for, normalize_images
 # ---------------------------------------------------------------------------
 # device steps
 # ---------------------------------------------------------------------------
+
+def _flip_fused_calibrated_lams(params, images, text_attr, cfg):
+    """Calibrated LAMs of [x, flip x]: elementwise max after unflipping,
+    per-map min-max normalised. Returns (lams [B, hw, C], the non-flipped
+    half's encoder attention stack and attn_pred), which drive SVC."""
+    b = images.shape[0]
+    grid = images.shape[1] // cfg.clip.patch_size
+    cat = torch.cat([images, images.flip(2)], dim=0)
+    out = excel_forward(params, cat, text_attr, cfg)
+    lams = excel_forward(params, cat, text_attr, cfg, ex_feats=out.fused)
+    maps = lams.transpose(1, 2).reshape(2 * b, -1, grid, grid)
+    fused = torch.maximum(maps[:b], maps[b:].flip(-1))
+    fused = fused - fused.amin(dim=(-2, -1), keepdim=True)
+    fused = fused / (fused.amax(dim=(-2, -1), keepdim=True) + 1e-5)
+    lams = fused.reshape(b, -1, grid * grid).transpose(1, 2)
+    return lams, out.attn_weights[:, :b], out.attn_pred[:b]
+
 
 def _pseudo_on_canvas(lams, attn_weights, guide_images, cls_label, valid_hw,
                       cfg: ExcelConfig, canvas: tuple[int, int], caa: float,
@@ -85,23 +105,27 @@ def lam_eval_step(params: dict, images_u8, cls_label, valid_hw, text_attr,
 
     images_u8: [B, r, r, 3] float32 (host-resized, unnormalised 0-255);
     cls_label [B, num_fg]; valid_hw [B, 2] original label extents;
-    text_attr [T, embed]. Returns labels [B, *canvas] int32 (and the normed
-    pre-PAR bg+class stack with return_cams=True)."""
-    if mode == "trained":
-        raise NotImplementedError("mode='trained' belongs to the "
-                                  "trained-forward slice")
-    if mode != "training_free":
+    text_attr [T, embed]. mode: "training_free" (params["clip"]) or
+    "trained" (params["clip"] and params["head"]). Returns labels
+    [B, *canvas] int32 (and the normed pre-PAR bg+class stack with
+    return_cams=True)."""
+    if mode not in ("training_free", "trained"):
         raise ValueError(mode)
     with torch.inference_mode():
         images = normalize_images(images_u8)
-        nchw = images.permute(0, 3, 1, 2)
-        out = encode_image(params["clip"], images, cfg.clip,
-                           attn_mode=attn_mode_for(cfg))
-        lams = compute_lams(out, text_attr, cfg.num_fg)
+        if mode == "training_free":
+            out = encode_image(params["clip"], images, cfg.clip,
+                               attn_mode=attn_mode_for(cfg))
+            lams = compute_lams(out, text_attr, cfg.num_fg)
+            attn_w, seg_attn = out["attn"], None
+        else:
+            lams, attn_w, seg_attn = _flip_fused_calibrated_lams(
+                params, images, text_attr, cfg)
         # PAR guidance: the NORMALISED resized input
         labels, cams = _pseudo_on_canvas(
-            lams, out["attn"], nchw, cls_label, valid_hw, cfg, canvas,
-            cfg.refine.caa_threshold, None, class_slots=class_slots)
+            lams, attn_w, images.permute(0, 3, 1, 2), cls_label, valid_hw,
+            cfg, canvas, cfg.refine.caa_threshold, seg_attn,
+            class_slots=class_slots)
     return (labels, cams) if return_cams else labels
 
 
@@ -116,8 +140,38 @@ def lam_eval_hist_step(hist, params: dict, images_u8, cls_label, gt_labels,
     return update_hist(hist, gt_labels, preds, cfg.num_classes)
 
 
+def val_step(params: dict, images_u8, cls_label, valid_hw, text_attr,
+             cfg: ExcelConfig, canvas: tuple[int, int],
+             class_slots: int | None = None):
+    """In-training validation of one batch: (pseudo-labels at the
+    validation caa threshold with attn_pred as seg_attn, the head's
+    segmentation argmax), both [B, *canvas] int32."""
+    with torch.inference_mode():
+        images = normalize_images(images_u8)
+        out = excel_forward(params, images, text_attr, cfg)
+        pseudos, _ = _pseudo_on_canvas(
+            out.lams, out.attn_weights, images.permute(0, 3, 1, 2),
+            cls_label, valid_hw, cfg, canvas, cfg.refine.val_caa_threshold,
+            out.attn_pred, class_slots=class_slots)
+        b, hw, c = out.segs.shape
+        grid = int(round(hw ** 0.5))
+        seg_grid = out.segs.transpose(1, 2).reshape(b, c, grid, grid)
+        segs = upscale_to_canvas(seg_grid, valid_hw, canvas).argmax(dim=1)
+    return pseudos, segs.to(torch.int32)
+
+
+def val_hist_step(hist_p, hist_s, params: dict, images_u8, cls_label,
+                  gt_labels, valid_hw, text_attr, cfg: ExcelConfig,
+                  canvas: tuple[int, int], class_slots: int | None = None):
+    """val_step followed by both confusion-hist updates on the device."""
+    pseudos, segs = val_step(params, images_u8, cls_label, valid_hw,
+                             text_attr, cfg, canvas, class_slots=class_slots)
+    return (update_hist(hist_p, gt_labels, pseudos, cfg.num_classes),
+            update_hist(hist_s, gt_labels, segs, cfg.num_classes))
+
+
 # ---------------------------------------------------------------------------
-# host sweep
+# host sweeps
 # ---------------------------------------------------------------------------
 
 def _prep_batch(samples: list[dict], resize: int, canvas: tuple[int, int]):
@@ -264,3 +318,26 @@ def run_lam_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
             last_saved = n_done
     _sweep_done(checkpoint_path)
     return scores_from_hist(hist)
+
+
+def run_validation(params: dict, dataset, text_attr, cfg: ExcelConfig,
+                   batch_size: int = 4, device="cuda"):
+    """In-training validation sweep -> (pseudo-label scores, seg scores).
+    params (clip and head) and text_attr must already be on `device`."""
+    device = resolve_device(device)
+    hist_p = init_hist(cfg.num_classes, device)
+    hist_s = init_hist(cfg.num_classes, device)
+    sb = cfg.refine.slot_buckets
+    prepped = prefetch_iter(
+        (cv, b, _prep_batch(b, cfg.clip.image_size, cv))
+        for cv, b in _bucketed_batches(dataset, batch_size, cfg.data.eval_pad,
+                                       slot_buckets=sb, num_fg=cfg.num_fg))
+    for canvas, _, (images, cls, labels, valid) in prepped:
+        slots = _slots_bucket(cls, cfg.num_fg, sb)
+        images, cls, labels, valid = (
+            torch.from_numpy(a).to(device, non_blocking=True)
+            for a in (images, cls, labels, valid))
+        hist_p, hist_s = val_hist_step(hist_p, hist_s, params, images, cls,
+                                       labels, valid, text_attr, cfg, canvas,
+                                       class_slots=slots)
+    return scores_from_hist(hist_p), scores_from_hist(hist_s)

@@ -131,10 +131,14 @@ def fused_plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    _ptr(weights), b, heads, n, d, _MODES[mode], _stream(q)),
                 "attention_plain")
     fused_plain_attention.launches += 1
+    fused_plain_attention.launches_by_mode[mode] += 1
     return ctx, weights
 
 
 fused_plain_attention.launches = 0
+# the same launches by mode: "out" and "acc" are the weights route of the
+# JAX package's _plain_kernel, "none" that of _plain_kernel_rows_hb
+fused_plain_attention.launches_by_mode = {"out": 0, "acc": 0, "none": 0}
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,8 @@
 """Frozen CLIP ViT-B/16 with ExCEL architecture surgery, vision side
 (counterpart of excel_tpu/models/clip.py; the text encoder belongs to a
-later slice).
+later slice). With `ex_feats` (the LVC head's fused features) the surgery
+blocks' dense path is calibrated by their feature affinity, as in the
+trained forward's second pass.
 
 "Surgery" is a static property of the forward: the last
 `cfg.surgery_blocks` blocks run the dual-path value-value attention. The
@@ -20,7 +22,8 @@ import torch
 
 from ..config import ClipConfig
 from ..ops.labels import scale_and_translate
-from .layers import attention_fused, layer_norm, mlp, surgery_attention_fused
+from .layers import (attention_fused, external_feature_attention, layer_norm,
+                     mlp, surgery_attention_fused)
 
 
 def interpolate_pos_embedding(pos: torch.Tensor,
@@ -69,6 +72,9 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
     """Surgery ViT forward.
 
     images: [B, H, W, 3] (NHWC, already normalised).
+    ex_feats: optional [B, C, h, w] LVC features; their
+      `external_feature_attention`, rounded to the compute type as in the
+      JAX package, is added to every surgery block's patch-patch mix.
     attn_mode:
       "stack" — attn = [L, B, N, N] per-block weights (head-mean for
                 single-path blocks, head-sum for surgery blocks), L =
@@ -84,9 +90,6 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
     if attn_mode == "mean" and cfg.attn_out_layers is None:
         raise ValueError("attn_mode='mean' needs an explicit attn_out_layers "
                          "window")
-    if ex_feats is not None:
-        raise NotImplementedError("LVC-calibrated attention (ex_feats) "
-                                  "belongs to the trained-forward slice")
     dtype = cfg.compute_dtype
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"compute_dtype {dtype}: the encoder runs "
@@ -104,6 +107,10 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
     pos = interpolate_pos_embedding(p["positional_embedding"], gh)
     x = x + pos.to(x.dtype)
     x = layer_norm(x, p["ln_pre"])
+
+    ex_attn = None
+    if ex_feats is not None:
+        ex_attn = external_feature_attention(ex_feats).to(x.dtype)
 
     window = cfg.attn_out_layers or cfg.vision_layers
     win_start = cfg.vision_layers - window
@@ -128,7 +135,7 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
             src = x if x_ori is None else x_ori
             dense_res, ori_res, attn_w = surgery_attention_fused(
                 layer_norm(src, blk["ln_1"]), blk["attn"], heads,
-                attn_acc=fused_acc, need_attn=in_win)
+                ex_attn=ex_attn, attn_acc=fused_acc, need_attn=in_win)
             x_ori = src + ori_res
             x_ori = x_ori + mlp(layer_norm(x_ori, blk["ln_2"]), blk["mlp"])
             x = x + dense_res          # dense stream skips the FFN

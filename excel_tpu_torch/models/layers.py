@@ -80,13 +80,12 @@ def _cpu_only(y: torch.Tensor, name: str) -> None:
                          f"tensors; on {y.device} use {name}_fused")
 
 
-def attention(y: torch.Tensor, p: dict, heads: int):
-    """Standard multi-head self-attention over pre-normed input, per head
-    in plain PyTorch, for CPU tensors only (the encoder calls
-    `attention_fused`). Returns (output [B, N, C], head-mean weights
-    [B, N, N]). (The text encoder's causal mask belongs to the text
-    slice.)"""
-    _cpu_only(y, "attention")
+def multi_head_attention(y: torch.Tensor, p: dict, heads: int):
+    """Standard multi-head self-attention over pre-normed float32 input in
+    plain PyTorch ops, on any device and differentiable: the LVC head's
+    decoder (the JAX package's head calls its plain `attention`, outside
+    any Pallas kernel). Returns (output [B, N, C], head-mean weights
+    [B, N, N])."""
     q, k, v = qkv_projection(y, p, heads)
     scale = q.shape[-1] ** -0.5
     logits = torch.matmul(q * scale, k.transpose(-1, -2))
@@ -95,13 +94,23 @@ def attention(y: torch.Tensor, p: dict, heads: int):
     return linear(merge_heads(ctx), p["out"]), weights.mean(dim=1)
 
 
-def surgery_attention(y: torch.Tensor, p: dict, heads: int):
+def attention(y: torch.Tensor, p: dict, heads: int):
+    """`multi_head_attention` as the encoder's per-head plain version, for
+    CPU tensors only (the encoder calls `attention_fused`). (The text
+    encoder's causal mask belongs to the text slice.)"""
+    _cpu_only(y, "attention")
+    return multi_head_attention(y, p, heads)
+
+
+def surgery_attention(y: torch.Tensor, p: dict, heads: int,
+                      ex_attn: torch.Tensor | None = None):
     """ExCEL dual-path attention per head in plain PyTorch: the original
     q k^T path and the dense value-value path (mean of softmax(q q^T),
-    softmax(k k^T), softmax(v v^T)), the latter summed over heads so every
-    head aggregates v with one shared matrix. For CPU tensors only (the
-    encoder calls `surgery_attention_fused`). (The LVC calibration term
-    ex_attn belongs to the trained-forward slice.)
+    softmax(k k^T), softmax(v v^T)), optionally calibrated by the LVC
+    feature affinity ex_attn [B, M, M] added to every head's patch-patch
+    block, then summed over heads so every head aggregates v with one
+    shared matrix. For CPU tensors only (the encoder calls
+    `surgery_attention_fused`).
 
     Returns (dense_out, ori_out, head-summed original weights [B, N, N])."""
     _cpu_only(y, "surgery_attention")
@@ -115,6 +124,9 @@ def surgery_attention(y: torch.Tensor, p: dict, heads: int):
     attn_ori = torch.softmax(torch.matmul(q * scale, k.transpose(-1, -2)),
                              dim=-1)
     attn = (self_sim(q) + self_sim(k) + self_sim(v)) / 3.0
+    if ex_attn is not None:
+        attn = attn.clone()
+        attn[:, :, 1:, 1:] += ex_attn[:, None].to(attn.dtype)
     shared = attn.sum(dim=1, keepdim=True)                 # [B,1,N,N]
     ctx_dense = torch.matmul(shared, v)
     ctx_ori = torch.matmul(attn_ori, v)
@@ -136,16 +148,39 @@ def attention_fused(y: torch.Tensor, p: dict, heads: int,
 
 
 def surgery_attention_fused(y: torch.Tensor, p: dict, heads: int,
+                            ex_attn: torch.Tensor | None = None,
                             attn_acc: torch.Tensor | None = None,
                             need_attn: bool = True):
     """`surgery_attention` through the surgery attention kernel; attn_acc /
     need_attn control the head-summed original weights as in
-    `attention_fused`. The dense context shared @ v is one product outside
-    the kernel."""
+    `attention_fused`. ex_attn [B, M, M] (in the activation type) reaches
+    the kernel as fp32 [B, N, N] with a zero CLS row and column, which adds
+    it to the patch-patch block only. The dense context shared @ v is one
+    product outside the kernel."""
     q, k, v = qkv_projection(y, p, heads)
+    ex = None
+    if ex_attn is not None:
+        ex = torch.nn.functional.pad(ex_attn.float(), (1, 0, 1, 0))
     shared, attn_sum, ctx_ori = fused_surgery_attention(
-        q, k, v, acc=attn_acc, need_attn=need_attn)
+        q, k, v, ex_attn=ex, acc=attn_acc, need_attn=need_attn)
     ctx_dense = torch.matmul(shared[:, None].to(v.dtype), v)
     dense_out = linear(merge_heads(ctx_dense), p["out"])
     ori_out = linear(merge_heads(ctx_ori), p["out"])
     return dense_out, ori_out, attn_sum
+
+
+def external_feature_attention(ex_feats: torch.Tensor, beta: float = 1.0,
+                               gamma: float = 3.0) -> torch.Tensor:
+    """LVC feature-affinity calibration mask: ex_feats [B, C, H, W] ->
+    softmax over the channel-normalised cosine similarity, centred on its
+    mean over the WHOLE batch tensor, scaled by gamma, entries below 0 set
+    to -inf; [B, HW, HW] float32."""
+    b, c, h, w = ex_feats.shape
+    flat = ex_feats.reshape(b, c, h * w).float()
+    flat = flat / torch.clamp(torch.linalg.vector_norm(flat, dim=1,
+                                                       keepdim=True),
+                              min=1e-12)
+    sim = torch.matmul(flat.transpose(1, 2), flat)
+    sim = (sim - sim.mean() * beta) * gamma
+    sim = torch.where(sim < 0.0, torch.full_like(sim, -torch.inf), sim)
+    return torch.softmax(sim, dim=-1)

@@ -1,6 +1,7 @@
 """CLIP parameters in torch layout: random init, conversion from the JAX
 package's parameter tree, reading its `save_params_npz` files, and the
-one-time bf16 copy of the matmul weights for the fast preset.
+one-time bf16 copy of the matmul weights for the fast preset; and the LVC
+head's conversion from and to the JAX package's head tree.
 
 The tree keeps the JAX package's keys ({"visual": ..., "text": ...,
 "logit_scale": ...}); the leaves change layout:
@@ -18,7 +19,7 @@ import re
 import numpy as np
 import torch
 
-from ..config import ClipConfig
+from ..config import ClipConfig, HeadConfig
 from ..device import resolve_device
 
 _LINEAR_KEYS = ("qkv", "out", "fc", "proj")
@@ -190,3 +191,47 @@ def cast_matmul_weights(params: dict, dtype: torch.dtype) -> dict:
             return type(d)(walk(x) for x in d)
         return d
     return walk(params)
+
+
+# ---------------------------------------------------------------------------
+# the LVC head
+# ---------------------------------------------------------------------------
+
+def _head_path(name: str) -> list:
+    """'decoder.0.attn.qkv.w' -> ['decoder', 0, 'attn', 'qkv', 'w']."""
+    return [int(p) if p.isdigit() else p for p in name.split(".")]
+
+
+def head_from_jax_params(tree: dict, cfg: HeadConfig, num_classes: int,
+                         device="cuda"):
+    """The JAX package's head tree (numpy or array leaves) -> a new
+    `LvcHead` on `device`: the same names, linear weights transposed from
+    [in, out] to [out, in]."""
+    from .head import LvcHead
+
+    head = LvcHead(cfg, num_classes)
+    state = {}
+    for name, ref in head.state_dict().items():
+        node = tree
+        for part in _head_path(name):
+            node = node[part]
+        a = np.asarray(node, dtype=np.float32)
+        if name.endswith(".w"):
+            a = a.T
+        if a.shape != tuple(ref.shape):
+            raise ValueError(f"head parameter {name}: {a.shape}, expected "
+                             f"{tuple(ref.shape)}")
+        state[name] = torch.from_numpy(np.array(a, order="C"))
+    head.load_state_dict(state)
+    return head.to(resolve_device(device))
+
+
+def head_to_jax_tree(head) -> dict:
+    """An `LvcHead` -> the JAX package's head tree with numpy leaves
+    (linear weights back to [in, out])."""
+    tree: dict = {}
+    for name, value in head.state_dict().items():
+        a = value.detach().float().cpu().numpy()
+        _insert(tree, _head_path(name), a.T.copy() if name.endswith(".w")
+                else a)
+    return tree

@@ -1,5 +1,6 @@
-"""Pseudo-label utilities on fixed canvases (counterpart of
-excel_tpu/ops/labels.py, the parts the LAM eval path uses).
+"""Pseudo-label utilities (counterpart of excel_tpu/ops/labels.py, the
+parts the LAM eval and training paths use; `lam_to_label` and
+`boxes_to_masks` are not ported yet).
 
 The per-image resizes reproduce `jax.image.scale_and_translate` with the
 linear kernel and no antialiasing, which the JAX package uses: each output
@@ -11,8 +12,11 @@ continuation.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 _EPS32 = float(np.finfo(np.float32).eps)
 
@@ -93,6 +97,64 @@ def cams_with_background_canvas(refined: torch.Tensor,
     x = x * cls_label[:, :, None, None]
     bg = 1.0 - x.amax(dim=1, keepdim=True)
     return torch.cat([bg, x], dim=1)
+
+
+def upsample_linear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """[B, C, h, w] -> [B, C, *out_hw] by an integer-factor linear upsample
+    with half-pixel sampling (differentiable). The JAX package's
+    `jax.image.resize(..., "linear")` equals `F.interpolate(bilinear,
+    align_corners=False)` there: both weight the same two neighbours and
+    hold the edge value beyond the outermost sample centres. Other factors
+    raise: the two resizes part ways when downsampling (jax antialiases)."""
+    h, w = x.shape[-2:]
+    if out_hw[0] % h or out_hw[1] % w or out_hw[0] < h or out_hw[1] < w:
+        raise ValueError(f"upsample_linear: {h}x{w} -> {out_hw} is not an "
+                         "integer upsample")
+    return F.interpolate(x.float(), size=tuple(out_hw), mode="bilinear",
+                         align_corners=False)
+
+
+def cams_with_background(refined: torch.Tensor, cls_label: torch.Tensor,
+                         out_hw: tuple[int, int]) -> torch.Tensor:
+    """refined [B, C, h, w] SVC outputs -> [B, 1+C, *out_hw] scores at crop
+    resolution: per map min-max normalised at grid resolution, upsampled,
+    absent classes zeroed, background = 1 - max over classes."""
+    x = upsample_linear(_minmax_per_map(refined), out_hw)
+    x = x * cls_label[:, :, None, None]
+    bg = 1.0 - x.amax(dim=1, keepdim=True)
+    return torch.cat([bg, x], dim=1)
+
+
+@functools.lru_cache(maxsize=8)
+def radius_mask(h: int, w: int, radius: int) -> np.ndarray:
+    """[hw, hw] float32 {0, 1}: grid-cell pairs within a Chebyshev box of
+    `radius` (|dy| <= r and |dx| <= r); host numpy, built once per shape
+    (callers must not write to it)."""
+    ys, xs = np.mgrid[0:h, 0:w]
+    ys, xs = ys.ravel(), xs.ravel()
+    ok = ((np.abs(ys[:, None] - ys[None, :]) <= radius)
+          & (np.abs(xs[:, None] - xs[None, :]) <= radius))
+    return ok.astype(np.float32)
+
+
+def affinity_label(cam_label: torch.Tensor, mask: torch.Tensor | None = None,
+                   ignore_index: int = 255,
+                   downscale: int = 16) -> torch.Tensor:
+    """Pairwise label-equality affinity targets: cam_label [B, H, W] int
+    nearest-downsampled by `downscale` (rows and columns 0, d, 2d, ...),
+    aff[i, j] = (l_i == l_j), ignore_index where the radius mask is 0 or
+    either cell is ignore_index. Returns [B, hw, hw] int32."""
+    b, h, w = cam_label.shape
+    gh, gw = h // downscale, w // downscale
+    small = cam_label[:, ::downscale, ::downscale][:, :gh, :gw]
+    flat = small.reshape(b, -1)
+    aff = (flat[:, None, :] == flat[:, :, None]).to(torch.int32)
+    ign = torch.tensor(ignore_index, dtype=torch.int32, device=aff.device)
+    if mask is not None:
+        aff = torch.where(mask[None] == 0, ign, aff)
+    bad = flat == ignore_index
+    aff = torch.where(bad[:, None, :], ign, aff)
+    return torch.where(bad[:, :, None], ign, aff)
 
 
 def class_slot_index(cls_label: torch.Tensor, slots: int):

@@ -7,16 +7,22 @@ diffusion then runs `num_iter` steps of `ops/par_kernels.par_diffuse`, the
 CUDA kernel on CUDA tensors. With per-image valid extents on a padded
 canvas, the pad region is re-replicated from the valid border before the
 affinity pass and after every step, which makes the valid region exactly
-the per-size result.
+the per-size result. Without extents (training's crop-resolution
+pseudo-labels) the steps chain with nothing between them: this is the
+function of the JAX package's full-extent padded route (Pallas
+`_diffuse_hcw_kernel`), whose edge-padded canvas holds what the kernel's
+clamped reads see.
 
 bf16 storage (the fast preset): the route of the JAX package's Pallas
 kernels. The images go through `pad_replicate_valid` and `par_affinity`
 (fp32 moments and softmax, bf16 affinities); the masks go to bf16,
 through `pad_replicate_valid`, and `par_diffuse_valid_resident` runs every
 step in one launch (bf16 products, fp32 sums in chunks of 8 offsets, the
-valid clamp fused in). The JAX package splits the channels into groups
-that fit the TPU's VMEM; channels diffuse independently, so the port
-diffuses them all at once.
+valid clamp fused in). Without extents the clamp is at the full extent,
+which is the function of the JAX package's `_diffuse_padded_kernel` (and
+the route it takes itself for full-extent bf16). The JAX package splits
+the channels into groups that fit the TPU's VMEM; channels diffuse
+independently, so the port diffuses them all at once.
 """
 from __future__ import annotations
 

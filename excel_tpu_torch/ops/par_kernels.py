@@ -18,6 +18,18 @@ function, with its name and its array shapes:
   `_diffuse_resident_kernel`): one fused-valid step on the padded canvas,
   and `num_iter` of them in one cooperative launch.
 
+Two Pallas functions have a plain version here and no wrapper of their
+own, because a kernel above computes their function: the full-extent
+padded steps `_diffuse_hcw_kernel` (fp32, [B, Hp, C, Wp]; plain version
+`par_diffuse_padded_hcw_reference`), which is `par_diffuse`'s step on
+unpadded masks (clamped reads of an unpadded mask are what an edge-padded
+canvas holds), and `_diffuse_padded_kernel` (bf16; plain version
+`par_diffuse_padded_reference`), which is the fused-valid step with full
+extents. The paths call those kernels; the plain versions and the padding
+helpers `pad_for_diffuse` and `pad_for_diffuse_hcw` are for holding the
+kernels against the Pallas functions' own arithmetic (the tests,
+chip_smoke.py).
+
 All are bound by device memory; the sources say how. The plain versions
 take fp32 and bf16 and follow the Pallas kernels' arithmetic (products
 rounded to the storage type, sums in fp32 in chunks of 8 offsets); the
@@ -305,15 +317,14 @@ par_affinity.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# fused-valid diffusion: one step, and all steps in one launch
+# padded diffusion steps: full extent (plain versions) and fused-valid
 # ---------------------------------------------------------------------------
 
-def _valid_step_reference(mp: torch.Tensor, aff: torch.Tensor,
-                          valid_hw: torch.Tensor, offs: list, pad: int,
-                          h: int, w: int) -> torch.Tensor:
-    """One fused-valid step: each product rounded to the storage type,
-    summed in fp32 within chunks of 8 offsets and chunk by chunk; every
-    canvas position takes its clamped valid source pixel's sum."""
+def _chunk_sums(mp: torch.Tensor, aff: torch.Tensor, offs: list, pad: int,
+                h: int, w: int) -> torch.Tensor:
+    """The Pallas steps' sums over a padded [B, C, Hp, Wp] canvas: each
+    product rounded to the storage type, summed in fp32 within chunks of 8
+    offsets and chunk by chunk. Returns [B, C, h, w] fp32."""
     acc = None
     for c0 in range(0, len(offs), _CHUNK):
         part = None
@@ -323,6 +334,77 @@ def _valid_step_reference(mp: torch.Tensor, aff: torch.Tensor,
             term = (aff[:, i:i + 1] * m).float()
             part = term if part is None else part + term
         acc = part if acc is None else acc + part
+    return acc
+
+
+def _edge_pad_to(x: torch.Tensor, pad: int, hp: int,
+                 wp: int) -> torch.Tensor:
+    """[B, C, h, w] -> [B, C, hp, wp]: position (Y, X) takes
+    x[clamp(Y - pad), clamp(X - pad)] (the padded steps' replicated
+    border, slack rows and columns included)."""
+    h, w = x.shape[-2:]
+    rows = (torch.arange(hp, device=x.device) - pad).clamp(0, h - 1)
+    cols = (torch.arange(wp, device=x.device) - pad).clamp(0, w - 1)
+    return x[:, :, rows][:, :, :, cols]
+
+
+def pad_for_diffuse(m: torch.Tensor, pad: int) -> torch.Tensor:
+    """The Pallas `pad_for_diffuse` layout: [B, C, H, W] -> edge-padded
+    [B, C, H + 2P + 8, roundup128(W + 2P)] with zero slack."""
+    mp = F.pad(m.float(), (pad, pad, pad, pad), mode="replicate").to(m.dtype)
+    return F.pad(mp, (0, (-mp.shape[-1]) % 128, 0, 8))
+
+
+def pad_for_diffuse_hcw(m: torch.Tensor, pad: int) -> torch.Tensor:
+    """The Pallas `pad_for_diffuse_hcw` layout, fp32: [B, C, H, W] ->
+    edge-padded [B, H + 2P, roundup8(C), roundup128(W + 2P)] with zero
+    channel and lane slack."""
+    mp = F.pad(m.float(), (pad, pad, pad, pad), mode="replicate")
+    mp = F.pad(mp, (0, (-mp.shape[-1]) % 128, 0, 0, 0, (-mp.shape[1]) % 8))
+    return mp.permute(0, 2, 1, 3).contiguous()
+
+
+def par_diffuse_padded_hcw_reference(masks_padded: torch.Tensor,
+                                     aff: torch.Tensor, offsets, h: int,
+                                     w: int) -> torch.Tensor:
+    """Plain version of the Pallas `par_diffuse_padded_hcw` step (fp32):
+    masks_padded [B, h + 2P, C8, Wp] (`pad_for_diffuse_hcw`), aff
+    [B, K, h, w]; returns the next canvas, the border replicated."""
+    offs, pad = list(offsets), _pad_of(offsets)
+    _, hp, _, wp = masks_padded.shape
+    if hp != h + 2 * pad or wp < w + 2 * pad or aff.shape[1] != len(offs):
+        raise ValueError(f"par_diffuse_padded_hcw_reference: masks_padded "
+                         f"{tuple(masks_padded.shape)}, aff "
+                         f"{tuple(aff.shape)}, h={h} w={w}")
+    acc = _chunk_sums(masks_padded.permute(0, 2, 1, 3), aff, offs, pad, h, w)
+    return _edge_pad_to(acc, pad, hp, wp).permute(0, 2, 1, 3).contiguous()
+
+
+def par_diffuse_padded_reference(masks_padded: torch.Tensor,
+                                 aff: torch.Tensor, offsets, h: int,
+                                 w: int) -> torch.Tensor:
+    """Plain version of the Pallas `par_diffuse_padded` step: masks_padded
+    [B, C, h + 2P + 8, Wp] (`pad_for_diffuse`; bf16 or fp32), aff
+    [B, K, h, w] of the same type; products in that type, fp32 sums in
+    chunks of 8, the result rounded to it and its border replicated over
+    the whole canvas."""
+    offs, pad = list(offsets), _pad_of(offsets)
+    _, _, hp, wp = masks_padded.shape
+    if (hp != h + 2 * pad + 8 or wp < w + 2 * pad or pad % 8
+            or aff.shape[1] != len(offs)):
+        raise ValueError(f"par_diffuse_padded_reference: masks_padded "
+                         f"{tuple(masks_padded.shape)}, aff "
+                         f"{tuple(aff.shape)}, pad {pad}, h={h} w={w}")
+    acc = _chunk_sums(masks_padded, aff, offs, pad, h, w)
+    return _edge_pad_to(acc.to(masks_padded.dtype), pad, hp, wp)
+
+
+def _valid_step_reference(mp: torch.Tensor, aff: torch.Tensor,
+                          valid_hw: torch.Tensor, offs: list, pad: int,
+                          h: int, w: int) -> torch.Tensor:
+    """One fused-valid step: the chunked sums, then every canvas position
+    takes its clamped valid source pixel's sum."""
+    acc = _chunk_sums(mp, aff, offs, pad, h, w)
     return _clamped_gather(acc, valid_hw, pad, *mp.shape[2:]).to(mp.dtype)
 
 

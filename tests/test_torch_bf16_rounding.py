@@ -73,6 +73,13 @@ out["step"] = np.asarray(jp.par_diffuse_padded_valid(
 out["resident"] = np.asarray(jp.par_diffuse_valid_resident(
     mp, jnp.asarray(aff).astype(bf), jnp.asarray(valid), offs, 64, 128, 20,
     interpret=True).astype(jnp.float32))
+# full extent (row 6): the edge-padded canvas, two padded steps
+mpf = jp.pad_for_diffuse(jnp.asarray(masks).astype(bf), 24)
+out["padded_canvas"] = np.asarray(mpf.astype(jnp.float32))
+for i in range(2):
+    mpf = jp.par_diffuse_padded(mpf, jnp.asarray(aff).astype(bf), offs, 64,
+                                128, interpret=True)
+    out[f"padded_step{i}"] = np.asarray(mpf.astype(jnp.float32))
 # encoder: fast tiny config on its Pallas kernels, inside one jit
 cfg = dataclasses.replace(fast(tiny_config()).clip,
                           fused_attention="interpret")
@@ -118,6 +125,27 @@ def test_bf16_diffusion_equals_pallas_bitwise(ref):
     np.testing.assert_array_equal(n(step.float()), ref["step"])
     res = pk.par_diffuse_valid_resident(mp, aff, valid, offsets, 64, 128, 20)
     np.testing.assert_array_equal(n(res.float()), ref["resident"])
+
+
+def test_bf16_padded_step_equals_pallas_bitwise(ref):
+    """Plain row 6 (`par_diffuse_padded_reference`: bf16 products, fp32
+    sums in chunks of 8, border replicated over the whole canvas) against
+    the Pallas `_diffuse_padded_kernel` in interpret mode, two chained
+    steps from the same edge-padded canvas, bit for bit; and row 7's step
+    with full extents, the route the card takes for it, gives the same
+    bits."""
+    offsets = _offsets(DILATIONS)
+    mp = pk.pad_for_diffuse(_bf16(ref["masks"]), 24)
+    np.testing.assert_array_equal(n(mp.float()), ref["padded_canvas"])
+    aff = _bf16(ref["aff"])
+    full = torch.tensor([[64, 128]] * 3, dtype=torch.int32)
+    for i in range(2):
+        step = pk.par_diffuse_padded_reference(mp, aff, offsets, 64, 128)
+        np.testing.assert_array_equal(n(step.float()), ref[f"padded_step{i}"])
+        valid_step = pk.par_diffuse_padded_valid(mp, aff, full, offsets, 64,
+                                                 128)
+        assert torch.equal(step, valid_step)
+        mp = step
 
 
 def test_bf16_par_refine_matches_pallas(ref):

@@ -68,8 +68,14 @@ def test_unported_modes_raise():
     pcfg = port_tiny_config().clip
     params = port_params(tree, pcfg)
     img = torch.zeros((1, 64, 64, 3))
-    with pytest.raises(NotImplementedError):
-        encode_image(params, img, pcfg, ex_feats=torch.zeros((1, 64, 4, 4)))
+    # ex_feats (the trained forward's calibrated pass) is ported: zero
+    # features give a uniform calibration mask, which moves the dense stream
+    calibrated = encode_image(params, img, pcfg, attn_mode="none",
+                              ex_feats=torch.zeros((1, 64, 4, 4)))
+    plain = encode_image(params, img, pcfg, attn_mode="none")
+    assert calibrated["projected"].shape == plain["projected"].shape
+    assert torch.isfinite(calibrated["projected"]).all()
+    assert not torch.allclose(calibrated["projected"], plain["projected"])
     with pytest.raises(NotImplementedError):
         encode_image(params, img, dataclasses.replace(
             pcfg, compute_dtype=torch.float16))

@@ -80,3 +80,10 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked():
         init_clip_params(tiny_config().clip)
     assert init_clip_params(tiny_config().clip, device="cpu")[
         "logit_scale"].device.type == "cpu"
+    from excel_tpu_torch.models.head import init_head_params
+
+    cfg = tiny_config()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_head_params(cfg.head, cfg.num_classes)
+    assert next(init_head_params(cfg.head, cfg.num_classes, device="cpu")
+                .parameters()).device.type == "cpu"

@@ -178,3 +178,73 @@ def test_diffuse_valid_kernels_bitwise(gen):
     with pytest.raises(NotImplementedError):
         pk.par_diffuse_padded_valid(mp.float(), aff.float(), valid, offsets,
                                     40, 200)
+
+
+def test_surgery_attention_kernel_bf16_with_ex(gen):
+    """The calibrated train pass: bf16 q/k/v with an ex mask of bf16 values
+    carried in fp32 (zero CLS row and column), no weights."""
+    q, k, v = (torch.randn((2, 3, 197, 64), device="cuda", generator=gen)
+               .bfloat16() for _ in range(3))
+    ex = torch.rand((2, 196, 196), device="cuda", generator=gen) / 196
+    ex = torch.nn.functional.pad(ex.bfloat16().float(), (1, 0, 1, 0))
+    got = ak.fused_surgery_attention(q, k, v, ex_attn=ex, need_attn=False)
+    ref = ak.surgery_attention_reference(q, k, v, ex_attn=ex,
+                                         need_attn=False)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got[0], ref[0], atol=ATOL, rtol=0)
+    torch.testing.assert_close(got[2].float(), ref[2].float(), atol=BF16_ATOL,
+                               rtol=BF16_RTOL)
+
+
+@pytest.mark.parametrize("c", [5, 9])
+def test_row8_padded_hcw_step_via_diffuse_kernel(gen, c):
+    """Pallas row 8 (full-extent fp32 step on the edge-padded [B, H+2P, C8,
+    Wp] canvas) computed by row 5's kernel on the unpadded masks: 20
+    chained steps within 1e-5 of the plain row 8."""
+    dil = (1, 2, 4, 8, 12, 24)
+    offs = _offsets(dil)
+    masks = torch.rand((2, c, 40, 56), device="cuda", generator=gen)
+    aff = torch.rand((2, len(offs), 40, 56), device="cuda", generator=gen)
+    aff = aff / aff.sum(dim=1, keepdim=True)
+    m_k = masks
+    m_r = pk.pad_for_diffuse_hcw(masks, 24)
+    offsets = pk.offsets_tensor(offs, "cuda")
+    for _ in range(20):
+        m_k = pk.par_diffuse(m_k, aff, offsets)
+        m_r = pk.par_diffuse_padded_hcw_reference(m_r, aff, offs, 40, 56)
+    torch.cuda.synchronize()
+    interior = m_r[:, 24:64, :c, 24:80].permute(0, 2, 1, 3)
+    torch.testing.assert_close(m_k, interior, atol=1e-5, rtol=0)
+
+
+def test_row6_padded_step_via_valid_kernel_bitwise(gen):
+    """Pallas row 6 (full-extent bf16 step, border kept by the step)
+    computed by row 7's kernel with every extent the whole image: 3
+    chained steps bit for bit."""
+    dil = (1, 2, 4, 8, 12, 24)
+    offs = _offsets(dil)
+    masks = torch.rand((2, 5, 40, 56), device="cuda", generator=gen)
+    aff = torch.rand((2, len(offs), 40, 56), device="cuda", generator=gen)
+    aff = (aff / aff.sum(dim=1, keepdim=True)).bfloat16()
+    full = torch.tensor([[40, 56]] * 2, device="cuda", dtype=torch.int32)
+    m_k = m_r = pk.pad_for_diffuse(masks.bfloat16(), 24)
+    for _ in range(3):
+        m_k = pk.par_diffuse_padded_valid(m_k, aff, full, offs, 40, 56)
+        m_r = pk.par_diffuse_padded_reference(m_r, aff, offs, 40, 56)
+    torch.cuda.synchronize()
+    assert torch.equal(m_k, m_r)
+
+
+def test_denormalize_images_card_equals_cpu():
+    """The PAR guidance of training on every byte value: the card's
+    float64 products and sums round as the CPU's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from excel_tpu_torch.engine.pipeline import (denormalize_images,
+                                                 normalize_images)
+
+    u8 = torch.arange(256, dtype=torch.uint8)[None, :, None].expand(
+        1, 256, 3).contiguous()
+    cpu = denormalize_images(normalize_images(u8))
+    card = denormalize_images(normalize_images(u8.cuda())).cpu()
+    assert torch.equal(cpu, card)

@@ -76,3 +76,61 @@ def test_slots_and_argmax_exact():
         np.testing.assert_array_equal(
             n(plab.slot_label_to_class(pl, pidx)),
             np.asarray(jlab.slot_label_to_class(jl, jidx)))
+
+
+# ---------------------------------------------------------------------------
+# the training path's label utilities
+# ---------------------------------------------------------------------------
+
+def test_upsample_linear_equals_jax_resize_with_gradient():
+    """jax.image.resize(linear) upsampling by an integer factor equals
+    F.interpolate(bilinear, align_corners=False): the same two taps with
+    the same weights, the edge held beyond the outer sample centres. Values
+    1e-6 abs; the gradient of a weighted sum (each entry a sum of ~256
+    products of size ~1, in another order) 1e-5 abs and relative. Factors
+    that do not divide raise (jax antialiases when it downsamples)."""
+    import jax
+    import pytest
+
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 3, 4, 5)).astype(np.float32)
+    w = rng.standard_normal((2, 3, 64, 80)).astype(np.float32)
+    ref = jax.image.resize(jnp.asarray(x), (2, 3, 64, 80), method="linear")
+    ref_grad = jax.grad(lambda a: (jax.image.resize(
+        a, (2, 3, 64, 80), method="linear") * w).sum())(jnp.asarray(x))
+    xt = t(x).requires_grad_()
+    got = plab.upsample_linear(xt, (64, 80))
+    (got * t(w)).sum().backward()
+    np.testing.assert_allclose(n(got), np.asarray(ref), atol=ATOL)
+    np.testing.assert_allclose(n(xt.grad), np.asarray(ref_grad), atol=1e-5,
+                               rtol=1e-5)
+    with pytest.raises(ValueError):
+        plab.upsample_linear(xt, (6, 7))
+
+
+def test_cams_with_background_matches():
+    rng = np.random.default_rng(12)
+    refined = rng.standard_normal((2, 4, 4, 4)).astype(np.float32)
+    cls = np.asarray([[1, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+    ref = jlab.cams_with_background(jnp.asarray(refined), jnp.asarray(cls),
+                                    (64, 64))
+    got = plab.cams_with_background(t(refined), t(cls), (64, 64))
+    np.testing.assert_allclose(n(got), np.asarray(ref), atol=ATOL)
+
+
+def test_radius_mask_and_affinity_label_exact():
+    """The Chebyshev radius mask, and the affinity targets from labels
+    nearest-downsampled at rows and columns 0, 16, 32, ... (ignore where
+    the mask is 0 or either cell is ignored)."""
+    for h, w, r in ((4, 4, 2), (20, 20, 5), (3, 5, 1)):
+        np.testing.assert_array_equal(plab.radius_mask(h, w, r),
+                                      jlab.radius_mask(h, w, r))
+    rng = np.random.default_rng(13)
+    label = rng.integers(0, 4, (2, 64, 64)).astype(np.int32)
+    label[rng.random((2, 64, 64)) < 0.3] = 255
+    mask = jlab.radius_mask(4, 4, 2)
+    for m in (None, mask):
+        ref = jlab.affinity_label(jnp.asarray(label),
+                                  None if m is None else jnp.asarray(m))
+        got = plab.affinity_label(t(label), None if m is None else t(m))
+        np.testing.assert_array_equal(n(got), np.asarray(ref))

@@ -81,3 +81,76 @@ def test_par_bf16_not_ported():
         par_refine(t(img), t(masks), dilations=(1, 2), dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):
         par_refine(t(img), t(masks), dtype=torch.float16)
+
+
+# ---------------------------------------------------------------------------
+# full extent (training's pseudo-labels): Pallas rows 8 (fp32) and 6 (bf16)
+# ---------------------------------------------------------------------------
+
+def test_padded_hcw_step_matches_pallas():
+    """Plain row 8 (`par_diffuse_padded_hcw_reference`) against the Pallas
+    `_diffuse_hcw_kernel` in interpret mode: the edge-padded [B, H+2P, C8,
+    Wp] layout exactly, then one step and three chained steps on it (the
+    kernel keeps the border itself), fp32 sums in the same chunks of 8:
+    1e-6 abs over the C real channels of the whole canvas."""
+    from excel_tpu.ops.par_pallas import pad_for_diffuse_hcw as jax_pad_hcw
+    from excel_tpu.ops.par_pallas import par_diffuse_padded_hcw
+    from excel_tpu_torch.ops.par_kernels import (
+        pad_for_diffuse_hcw, par_diffuse_padded_hcw_reference)
+
+    dil = (1, 2, 4)
+    offs = _offsets(dil)
+    _, masks, _ = _canvas(6, b=2, c=5, h=40, w=56)
+    rng = np.random.default_rng(7)
+    aff = rng.random((2, len(offs), 40, 56), dtype=np.float32)
+    aff /= aff.sum(axis=1, keepdims=True)
+    ref = jax_pad_hcw(jnp.asarray(masks), 4)
+    got = pad_for_diffuse_hcw(t(masks), 4)
+    np.testing.assert_array_equal(n(got), np.asarray(ref))
+    for _ in range(3):
+        ref = par_diffuse_padded_hcw(ref, jnp.asarray(aff), tuple(offs), 40,
+                                     56, interpret=True)
+        got = par_diffuse_padded_hcw_reference(got, t(aff), offs, 40, 56)
+        np.testing.assert_allclose(n(got)[:, :, :5], np.asarray(ref)[:, :, :5],
+                                   atol=1e-6)
+
+
+def test_par_refine_full_extent_matches_row8_route():
+    """fp32 `par_refine` without extents (the port: the diffusion kernel's
+    plain version x 20, nothing between steps) against JAX's Pallas route
+    for it (`use_pallas="interpret"`, no valid_hw: the padded loop of
+    `_diffuse_hcw_kernel`), production dilations, 20 steps on 64 x 128.
+    Tolerance 1e-5: affinity softmax and diffusion sums in another order."""
+    img, masks, _ = _canvas(8, b=2, c=5)
+    ref = jax_par_refine(jnp.asarray(img), jnp.asarray(masks),
+                         dilations=DILATIONS, num_iter=20,
+                         use_pallas="interpret")
+    got = par_refine(t(img), t(masks), dilations=DILATIONS, num_iter=20)
+    np.testing.assert_allclose(n(got), np.asarray(ref), atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_padded_step_is_valid_step_at_full_extent(dtype):
+    """Plain row 6 (`par_diffuse_padded_reference`) equals plain row 7 with
+    every image's extent the whole canvas, bit for bit over the whole
+    canvas: the identity by which row 7's kernel computes row 6 on the
+    card."""
+    from excel_tpu_torch.ops.par_kernels import (
+        pad_for_diffuse, par_diffuse_padded_reference,
+        par_diffuse_padded_valid_reference)
+
+    dil = (1, 8)
+    offs = _offsets(dil)
+    _, masks, _ = _canvas(9, b=2, c=5, h=40, w=56)
+    rng = np.random.default_rng(10)
+    aff = rng.random((2, len(offs), 40, 56), dtype=np.float32)
+    aff /= aff.sum(axis=1, keepdims=True)
+    mp = pad_for_diffuse(t(masks).to(dtype), 8)
+    full = torch.tensor([[40, 56]] * 2, dtype=torch.int32)
+    a = t(aff).to(dtype)
+    for _ in range(3):
+        step = par_diffuse_padded_reference(mp, a, offs, 40, 56)
+        assert torch.equal(
+            step, par_diffuse_padded_valid_reference(mp, a, full, offs, 40,
+                                                     56))
+        mp = step
