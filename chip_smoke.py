@@ -18,7 +18,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    full-extent padded steps of training's pseudo-labels (Pallas rows 8 and
    6) against row 5's and row 7's kernels at [4, 5 | 9, 320, 320], and the
    fast train step's pad-clamp, affinity and resident diffusion at its
-   shapes;
+   shapes; the attention kernels without weights and without ex at the MSC
+   scales' token counts (197, 577, 901 at 2 x 4 images); row 5's kernel at
+   the mean-field CRF's shapes (72 offsets up to 55 px; [4, 21, 384, 512],
+   [2, 81, 480, 640], [16, 4, 384, 512]) through its fp32 and its bf16
+   entry point, both bit for bit;
 4. the eval slices: `run_lam_eval` (training-free LAM eval at full
    ViT-B/16 width, seeded random weights) over synthetic VOC-sized samples
    in `voc_config()` (fp32) and `fast(voc_config())` (bf16 encoder with its
@@ -26,8 +30,19 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    each run checked against the number of batches; a device-time profile
    of one batch of each; one batch of 2 of each through `lam_eval_step` on
    the card and on the CPU (plain versions), labels compared over the
-   valid pixels;
-5. the training slice, for each preset: the LVC head's training steps at
+   valid pixels; then the same sweep with its on-device CRF branch,
+   `run_lam_eval(crf_tpu=True)`: the batch's launches plus 10 of row 5's
+   kernel at 72 offsets (fp32 entry point; bf16 under the fast preset);
+5. the MSC slice, for each preset: `run_msc_seg_eval` (MSC+flip
+   segmentation eval, seeded random CLIP and head) on 8 synthetic samples,
+   batch 4, scales (1.0, 0.7, 1.2, 1.5) x 320 px, without and with the
+   on-device CRF, launches per batch checked by the Pallas row the JAX
+   package would route them to (14 row 2, 14 row 1, 15 row 3, 5 row 4, and
+   10 of row 5 with the CRF); one batch's step profiled, the host's
+   preparation of a batch timed, the CRF's build against its message
+   passes; one batch of 2 with the CRF on the card and on the CPU: fused
+   logits, predictions, and the CPU's CRF + argmax on the card's logits;
+6. the training slice, for each preset: the LVC head's training steps at
    B=4, crop 320 through the three phases (pre-calibration, calibrated,
    calibrated + seg affinity), each step's launch counts checked, the head
    moved and CLIP unchanged, median step times and a profiled step; one
@@ -37,11 +52,13 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    `denormalize_images` on all byte values; then in-training validation (`run_validation`) and the
    trained LAM sweep (`run_lam_eval(mode="trained")`) with the trained head.
 
-The JSON kernel table has one line per Pallas function (rows 1-3 for each
-dtype); `launches` counts the launches of the route that stands for that
-function (the plain kernel's weights or "none" mode, the fp32 and bf16
-steps on valid or full extents) over all main-path runs: the eval slices,
-the train steps and the two trained sweeps.
+The JSON kernel table has one line per Pallas function (rows 1-4 for each
+dtype; row 5 for PAR's step and for the CRF's message pass in fp32 and
+bf16); `launches` counts the launches of the route that stands for that
+function (the attention wrappers' attribution by mode and token count, the
+fp32 and bf16 steps on valid or full extents, the step at the CRF's 72
+offsets) over all main-path runs: the eval slices with their CRF sweeps,
+the MSC slices, the train steps and the two trained sweeps.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": N}}.
 It imports neither jax nor excel_tpu. It exits non-zero without a CUDA
@@ -130,6 +147,27 @@ TRAIN_GRAD_RTOL = 1e-2
 MIN_SAME_INPUT_AGREEMENT = 0.999
 
 
+# the final evaluation: MSC+flip segmentation eval at scales x 320 px (320,
+# 224, 384, 480 px: 401, 197, 577, 901 tokens) on batches of 4, and the
+# on-device mean-field CRF, whose message pass is row 5's kernel at 72
+# offsets (pad 55) over the canvas: [4, 21, 384, 512] for a VOC MSC batch,
+# [2, 81, 480, 640] the COCO-sized case, [16, 4, 384, 512] the LAM sweep's
+# batch in its 3-slot bucket
+MSC_SCALES = (1.0, 0.7, 1.2, 1.5)
+MSC_B, MSC_SAMPLES = 4, 8
+CRF_SHAPES = ((4, 21, 384, 512), (2, 81, 480, 640), (16, 4, 384, 512))
+CRF_ITERS = 10
+# launches per MSC batch by Pallas row: 7 plain and 5 surgery launches a
+# forward; scales 1.0 and 0.7 (N <= 512) take row 2 and scales 1.2 and 1.5
+# row 1; scales 1.0, 0.7 and 1.2 (N <= 640) row 3 and scale 1.5 row 4
+MSC_ROW_LAUNCHES = {"_plain_kernel_rows_hb": 14, "_plain_kernel": 14,
+                    "_kernel": 15, "_kernel_rows": 5}
+# card against CPU on one MSC batch: the fused logits within this share of
+# their range (fp32 sums in other orders through 12 blocks and the head at
+# four scales), and the predictions' agreement
+MSC_LOGITS_RTOL = 1e-3
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -148,6 +186,18 @@ def time_ms(fn, reps: int) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def median_wall_ms(step, reps: int = 3) -> float:
+    """Host-clock median of `reps` synchronised calls after one warm-up."""
+    walls = []
+    for _ in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls[1:])
 
 
 def bound_ms(flops: float, nbytes: float,
@@ -230,19 +280,25 @@ def check_outputs(got, ref, what: str) -> float:
     return err
 
 
-# the mode each attention row's record is timed in: the main path's for rows
-# 1-3 (block 6, blocks 0-5, blocks 7-11), MSC's for row 4
-TIMED_MODE = {"plain_attention": "out", "plain_attention_rows_hb": "none",
-              "surgery_attention": "acc", "surgery_attention_rows": "out"}
+# the case each attention row's record is timed at, (mode, N, B, with ex):
+# the LAM eval batch's for rows 1-3 (block 6, blocks 0-5, blocks 7-11), the
+# MSC batch's largest scale for row 4 (no weights, no ex, 2 x 4 images)
+MSC_B2 = 8
+TIMED_CASE = {"plain_attention": ("out", 401, 16, False),
+              "plain_attention_rows_hb": ("none", 401, 16, False),
+              "surgery_attention": ("acc", 401, 16, False),
+              "surgery_attention_rows": ("none", 901, MSC_B2, False)}
+# token counts of the MSC scales 0.7, 1.2 and 1.5 of 320 px (1.0: N_TOK)
+MSC_TOKENS = (197, 577, 901)
 
 
 def check_attention(gen, dtype) -> dict:
     """The plain and surgery attention kernels against their plain versions
-    at the main path's shapes in `dtype` (float32 also runs the surgery
-    kernel at N=901 with ex, MSC's shape; both run the train step's modes at
-    its B=4, the surgery kernel with ex among them). Returns {kernel name:
-    record} for the JSON table, one per Pallas row, timed in the mode of
-    TIMED_MODE at the eval batch."""
+    at the main paths' shapes in `dtype` (float32 also runs the surgery
+    kernel at N=901 with ex; both run the train step's modes at its B=4,
+    the surgery kernel with ex among them, and the MSC batch's: no weights,
+    no ex, N = 197, 577 and 901 at 2 x 4 images). Returns {kernel name:
+    record} for the JSON table, one per Pallas row, timed at TIMED_CASE."""
     import torch.nn.functional as F
 
     from excel_tpu_torch.models.attention_kernels import (
@@ -270,6 +326,12 @@ def check_attention(gen, dtype) -> dict:
     cases += [("plain", m, N_TOK, TRAIN_B, False) for m in ("none", "out")]
     cases += [("surgery", m, N_TOK, TRAIN_B, False) for m in ("acc", "out")]
     cases += [("surgery", "none", N_TOK, TRAIN_B, True)]
+    # the MSC batch: attn_mode "none" without ex, scale 1.0 unflipped (B=4;
+    # the plain kernel's case is the train step's above) and the other
+    # scales' token counts at 2 x 4 images
+    cases += [("surgery", "none", N_TOK, TRAIN_B, False)]
+    cases += [(kind, "none", n, MSC_B2, False) for n in MSC_TOKENS
+              for kind in ("plain", "surgery")]
     for kind, mode, n, b, with_ex in cases:
         q, k, v = _qkv(gen, b, n, dtype)
         acc0 = torch.rand((b, n, n), device="cuda", generator=gen)
@@ -289,10 +351,10 @@ def check_attention(gen, dtype) -> dict:
             fused, plain = fused_surgery_attention, surgery_attention_reference
             flops = 5 * 2 * n * n * HEAD_DIM * HEADS * b
             nbytes += nn + (nn if with_ex else 0)   # shared out, ex in
-        # rows 1 (weights out) and 2 (none) of the plain kernel; rows 3 and
-        # 4 (N > 640) of the surgery kernel
-        row = ("_rows_hb" if kind == "plain" and mode == "none" else
-               "_rows" if n > 640 else "")
+        # the Pallas row the JAX package routes the case to: row 2 (plain,
+        # no weights, N <= 512) or row 1; row 3 or (N > 640) row 4
+        row = ("_rows_hb" if mode == "none" and n <= 512 else "") \
+            if kind == "plain" else ("_rows" if n > 640 else "")
         name = f"{kind}_attention{row}{suffix}"
         what = f"{name} mode={mode} B={b} H={HEADS} N={n} D={HEAD_DIM}"
         err = check_outputs(
@@ -313,8 +375,7 @@ def check_attention(gen, dtype) -> dict:
             f"library_ms={library} bound_ms={bnd:.4f} ({by})")
         rec = records.setdefault(name, dict(max_abs_err=0.0))
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
-        if (mode == TIMED_MODE[name.removesuffix(suffix)]
-                and b == (8 if n > 640 else B)):
+        if (mode, n, b, with_ex) == TIMED_CASE[name.removesuffix(suffix)]:
             rec.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library,
                        bound_ms=bnd, bound_by=by)
     return records
@@ -688,38 +749,47 @@ def _kernel_wrappers():
 
 
 def reset_launches() -> None:
-    """Every wrapper's launch count (and the plain kernel's by mode) to 0,
-    just before a main path runs."""
+    """Every wrapper's launch count (and the counts by Pallas row and by
+    type) to 0, just before a main path runs."""
     wrappers = _kernel_wrappers()
     for fn in wrappers.values():
         fn.launches = 0
-    by_mode = wrappers["plain_attention"].launches_by_mode
-    for mode in by_mode:
-        by_mode[mode] = 0
+    for name in ("plain_attention", "surgery_attention"):
+        by_row = wrappers[name].launches_by_row
+        for row in by_row:
+            by_row[row] = 0
+    wrappers["par_diffuse"].launches_by_type.clear()
 
 
 # launches per line of the JSON kernel table (per Pallas function) over all
 # main paths, each read just after its path ran
 ROW_LAUNCHES: dict = {}
+CRF_K = 72      # offsets of the mean-field CRF's message pass (PAR: 48)
 
 
 def read_launches(preset: str, training: bool) -> dict:
     """Each wrapper's launches since `reset_launches` (returned), added to
-    ROW_LAUNCHES under the Pallas function whose route they took: the plain
-    kernel's weights route (out, acc) is row 1 and its "none" route row 2;
-    the fp32 step on valid extents (eval) row 5 and on full extents
-    (training's pseudo-labels) row 8; likewise the bf16 single step, row 7
-    or row 6. Rows 1-3 are counted per dtype; row 4 (N > 640) is on no
-    main path."""
+    ROW_LAUNCHES under the Pallas function whose route they took: the
+    attention wrappers' own attribution (`launches_by_row`: plain without
+    weights at N <= 512 is row 2, else row 1; surgery at N <= 640 row 3,
+    else row 4), counted per dtype; the fp32 step of PAR on valid extents
+    (eval) row 5 and on full extents (training's pseudo-labels) row 8, the
+    CRF's message pass (72 offsets) row 5 at its own lines, fp32 and bf16;
+    likewise the bf16 single step, row 7 or row 6."""
     wrappers = _kernel_wrappers()
     counts = {name: fn.launches for name, fn in wrappers.items()}
     sfx = "_bf16" if preset == "fast" else ""
-    by_mode = wrappers["plain_attention"].launches_by_mode
-    rows = {f"plain_attention{sfx}": by_mode["out"] + by_mode["acc"],
-            f"plain_attention_rows_hb{sfx}": by_mode["none"],
-            f"surgery_attention{sfx}": counts["surgery_attention"],
-            "par_diffuse_padded_hcw" if training else "par_diffuse":
-                counts["par_diffuse"],
+    plain = wrappers["plain_attention"].launches_by_row
+    surgery = wrappers["surgery_attention"].launches_by_row
+    by_type = wrappers["par_diffuse"].launches_by_type
+    par_steps = sum(v for (_, k), v in by_type.items() if k != CRF_K)
+    rows = {f"plain_attention{sfx}": plain["_plain_kernel"],
+            f"plain_attention_rows_hb{sfx}": plain["_plain_kernel_rows_hb"],
+            f"surgery_attention{sfx}": surgery["_kernel"],
+            f"surgery_attention_rows{sfx}": surgery["_kernel_rows"],
+            "par_diffuse_padded_hcw" if training else "par_diffuse": par_steps,
+            "par_diffuse_crf": by_type[torch.float32, CRF_K],
+            "par_diffuse_crf_bf16": by_type[torch.bfloat16, CRF_K],
             "par_diffuse_padded" if training else "par_diffuse_padded_valid":
                 counts["par_diffuse_padded_valid"]}
     rows.update({name: counts[name] for name in (
@@ -800,11 +870,23 @@ def phase_slice(preset: str, n_samples: int = 32, batch: int = 16):
     return counts, params, text, cfg, samples
 
 
+def _device_profile(step):
+    """(device ms, events by kernel) of one profiled call of `step`."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in events) / 1e3, events
+
+
 def phase_profile(preset, params, text, cfg, samples,
                   batch: int = 16) -> None:
     """Device time by kernel over one main-path batch (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from excel_tpu_torch.engine.evaluate import (
         _bucketed_batches, _prep_batch, _slots_bucket, lam_eval_hist_step)
     from excel_tpu_torch.utils.metrics import init_hist
@@ -825,27 +907,12 @@ def phase_profile(preset, params, text, cfg, samples,
                                   args[3], text, cfg, canvas,
                                   class_slots=slots)
 
-    walls = []
-    for _ in range(4):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-    wall = statistics.median(walls[1:])
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
-        torch.cuda.synchronize()
-    from torch.autograd import DeviceType
-
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in events)
+    wall = median_wall_ms(step)
+    device_ms, events = _device_profile(step)
     log(f"profile {preset}: one batch of {batch} canvas={canvas} "
         f"slots={slots} wall_ms={wall:.2f} (median of 3, profiler off) device_ms="
-        f"{device_us / 1e3:.2f} (profiled run) busy_share="
-        f"{device_us / 1e3 / wall:.3f} host_prep_ms={prep_ms:.2f} "
+        f"{device_ms:.2f} (profiled run) busy_share="
+        f"{device_ms / wall:.3f} host_prep_ms={prep_ms:.2f} "
         f"(_prep_batch: numpy resize of the batch's images)")
     top = sorted(events, key=lambda e: e.self_device_time_total,
                  reverse=True)[:12]
@@ -1201,11 +1268,323 @@ def phase_trained_eval(preset, cfg, clip, state, text,
                     f"expected {per_batch} x {n_batches} batches")
 
 
+def check_crf_diffuse() -> dict:
+    """Row 5's kernel at the mean-field CRF's shapes (72 offsets up to 55 px,
+    CRF_SHAPES), fp32 and bf16, each against its plain version on the same
+    inputs: marginals Q over the channels and non-negative pairwise weights
+    that sum to bi_w = 4 a pixel. fp32 sums in the plain version's order and
+    bf16 keeps its rounding points, so both are held bit for bit. Returns
+    the records of the first shape, the VOC MSC batch's."""
+    from excel_tpu_torch.ops import par_kernels as pk
+    from excel_tpu_torch.ops.crf_tpu import DEFAULT_DILATIONS, _offsets
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    offs = _offsets(DEFAULT_DILATIONS)
+    k = len(offs)
+    offsets = pk.offsets_tensor(offs, "cuda")
+    records = {}
+    for b, c, h, w in CRF_SHAPES:
+        q = torch.rand((b, c, h, w), device="cuda", generator=gen)
+        q = q / q.sum(dim=1, keepdim=True)
+        aff = torch.rand((b, k, h, w), device="cuda", generator=gen)
+        aff = 4.0 * aff / aff.sum(dim=1, keepdim=True)
+        for dtype, name in ((torch.float32, "par_diffuse_crf"),
+                            (torch.bfloat16, "par_diffuse_crf_bf16")):
+            qd, ad = q.to(dtype).contiguous(), aff.to(dtype).contiguous()
+            got = pk.par_diffuse(qd, ad, offsets)
+            err = max_err(got.float(),
+                          pk.par_diffuse_reference(qd, ad, offsets).float())
+            if got.dtype != dtype or not err <= TOL_PAR_STEP:
+                raise AssertionError(f"{name} {(b, c, h, w)}: max err {err}")
+            kernel = time_ms(lambda: pk.par_diffuse(qd, ad, offsets), 10)
+            plain = time_ms(lambda: pk.par_diffuse_reference(qd, ad, offsets),
+                            2)
+            el = qd.element_size()
+            bnd, by = bound_ms(2 * k * b * c * h * w,
+                               (ad.numel() + 2 * qd.numel()) * el)
+            log(f"kernel {name} (row 5, the CRF's message pass) B={b} C={c} "
+                f"K={k} {h}x{w} pad={max(DEFAULT_DILATIONS)} "
+                f"{str(dtype).split('.')[-1]}: max_abs_err={err:.3g} (tol "
+                f"{TOL_PAR_STEP}) kernel_ms={kernel:.4f} plain_ms={plain:.4f} "
+                f"library_ms=None bound_ms={bnd:.4f} ({by})")
+            if (b, c, h, w) == CRF_SHAPES[0]:
+                records[name] = dict(ms=kernel, plain_ms=plain,
+                                     library_ms=None, bound_ms=bnd,
+                                     bound_by=by, max_abs_err=err)
+            else:
+                records[name]["max_abs_err"] = max(
+                    records[name]["max_abs_err"], err)
+    return records
+
+
+# label extents of the MSC slice's samples: one full batch on the 384 x 512
+# canvas and one on the 512 x 384 canvas
+MSC_EXTENTS = [(375, 500), (366, 500), (375, 500), (353, 500),
+               (500, 375), (500, 333), (500, 375), (500, 366)]
+
+
+def msc_setup(preset: str):
+    """(cfg, params, text bank, samples) of the MSC slice: seeded random
+    CLIP (seed 0; matmul weights cast to bf16 under the fast preset) and
+    head (seed 1) at full voc_config() width, MSC_SAMPLES synthetic
+    samples."""
+    from excel_tpu_torch.config import fast, voc_config
+    from excel_tpu_torch.models.head import init_head_params
+    from excel_tpu_torch.models.params import (cast_matmul_weights,
+                                               init_clip_params)
+
+    cfg = voc_config() if preset == "fp32" else fast(voc_config())
+    clip = init_clip_params(cfg.clip, torch.Generator().manual_seed(0),
+                            device="cuda")
+    if preset == "fast":
+        clip = cast_matmul_weights(clip, torch.bfloat16)
+    head = init_head_params(cfg.head, cfg.num_classes,
+                            torch.Generator().manual_seed(1), device="cuda")
+    head.eval()
+    samples = synthetic_samples(MSC_SAMPLES, cfg.num_fg, seed=4,
+                                extents=MSC_EXTENTS)
+    return (cfg, {"clip": clip, "head": head}, text_bank(cfg, seed=0).cuda(),
+            samples)
+
+
+def msc_batch(cfg, samples, batch: int):
+    """The first canvas bucket's batch, prepared for `msc_hist_step` with
+    the CRF, as CPU tensors: (canvas, host preparation ms, (labels,
+    valid_hw, canvas images), per-scale images, per-scale configs,
+    keep_flips)."""
+    from excel_tpu_torch.engine.evaluate import (_bucketed_batches,
+                                                 _prep_msc_batch, _scale_cfgs)
+
+    canvas, group = next(_bucketed_batches(samples, batch, cfg.data.eval_pad))
+    t0 = time.perf_counter()
+    prep, scale_images = _prep_msc_batch(group, cfg.clip.image_size, canvas,
+                                         MSC_SCALES, with_canvas_images=True)
+    prep_ms = (time.perf_counter() - t0) * 1e3
+    return (canvas, prep_ms, tuple(torch.from_numpy(a) for a in prep[2:]),
+            tuple(torch.from_numpy(x) for x in scale_images),
+            _scale_cfgs(cfg, cfg.clip.image_size, MSC_SCALES),
+            tuple(sc != 1.0 for sc in MSC_SCALES))
+
+
+def phase_msc(preset: str):
+    """`run_msc_seg_eval` of one preset at full width, without and with the
+    on-device CRF (`long_range` on, the default): launch counts per batch
+    by Pallas row, scores, img/s; then one batch's step profiled (wall,
+    device time, busy share), the host's preparation time of a batch, and
+    the CRF's build against its message passes. Returns (cfg, params, text,
+    samples)."""
+    import dataclasses
+
+    from excel_tpu_torch.engine.evaluate import (_bucketed_batches,
+                                                 msc_hist_step,
+                                                 run_msc_seg_eval)
+    from excel_tpu_torch.models.attention_kernels import (
+        fused_plain_attention, fused_surgery_attention)
+    from excel_tpu_torch.ops import par_kernels as pk
+    from excel_tpu_torch.ops.crf_tpu import crf_meanfield_cfg
+    from excel_tpu_torch.utils.metrics import init_hist
+
+    cfg, params, text, samples = msc_setup(preset)
+    n_batches = sum(1 for _ in _bucketed_batches(samples, MSC_B,
+                                                 cfg.data.eval_pad))
+    msg = torch.bfloat16 if cfg.crf.msg_bf16 else torch.float32
+    if not cfg.crf.long_range:
+        raise AssertionError("the CRF's long-range level is off")
+    for crf in (False, True):
+        run_msc_seg_eval(params, samples, text, cfg, scales=MSC_SCALES,
+                         batch_size=MSC_B, crf_tpu=crf)        # warm-up
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = run_msc_seg_eval(params, samples, text, cfg,
+                                  scales=MSC_SCALES, batch_size=MSC_B,
+                                  crf_tpu=crf)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        by_row = dict(fused_plain_attention.launches_by_row,
+                      **fused_surgery_attention.launches_by_row)
+        by_type = dict(pk.par_diffuse.launches_by_type)
+        counts = read_launches(preset, training=False)
+        log(f"msc {preset} crf_tpu={crf}: run_msc_seg_eval scales="
+            f"{MSC_SCALES} x {cfg.clip.image_size} px samples={len(samples)} "
+            f"batch={MSC_B} batches={n_batches} seconds={dt:.3f} img_per_s="
+            f"{len(samples) / dt:.3f} miou={scores['miou']:.4f} pAcc="
+            f"{scores['pAcc']:.4f} launches by row=" + json.dumps(by_row)
+            + " par_diffuse=" + json.dumps(
+                {f"{str(d).split('.')[-1]} K={k}": v
+                 for (d, k), v in by_type.items()}))
+        want_rows = {r: v * n_batches for r, v in MSC_ROW_LAUNCHES.items()}
+        want_crf = {(msg, CRF_K): CRF_ITERS * n_batches} if crf else {}
+        others = {k: v for k, v in counts.items() if v and k not in (
+            "plain_attention", "surgery_attention", "par_diffuse")}
+        if by_row != want_rows or by_type != want_crf or others:
+            raise AssertionError(
+                f"msc {preset} crf_tpu={crf}: launches by row {by_row} "
+                f"(expected {want_rows}), par_diffuse {by_type} (expected "
+                f"{want_crf}), other kernels {others}")
+        if not (0.0 <= scores["miou"] <= 1.0 and np.isfinite(scores["pAcc"])):
+            raise AssertionError(f"msc {preset}: bad scores {scores}")
+
+    # one batch: host preparation, then the step with and without the CRF
+    canvas, prep_ms, on_host, images, cfgs, keep = msc_batch(cfg, samples,
+                                                             MSC_B)
+    labels, valid, canvas_images = (a.cuda() for a in on_host)
+    images = tuple(x.cuda() for x in images)
+    hist = init_hist(cfg.num_classes, "cuda")
+    for crf in (False, True):
+        def step():
+            return msc_hist_step(hist, params, images, labels, valid, text,
+                                 cfgs, canvas, keep,
+                                 canvas_images=canvas_images, use_crf=crf)
+
+        wall = median_wall_ms(step)
+        device_ms, events = _device_profile(step)
+        log(f"profile msc {preset} crf_tpu={crf}: one batch of {MSC_B} "
+            f"canvas={canvas} wall_ms={wall:.2f} (median of 3, profiler "
+            f"off) device_ms={device_ms:.2f} (profiled run) busy_share="
+            f"{device_ms / wall:.3f} host_prep_ms={prep_ms:.2f} "
+            f"(_prep_msc_batch: {1 + len(MSC_SCALES)} numpy resizes an "
+            f"image and the canvas copy)")
+        for e in sorted(events, key=lambda e: e.self_device_time_total,
+                        reverse=True)[:10]:
+            log(f"profile msc {preset} crf_tpu={crf}: "
+                f"{e.self_device_time_total / 1e3:9.3f} ms x{e.count:<5d} "
+                f"{e.key[:90]}")
+    # the CRF alone on that batch: the build (pairwise weights, both
+    # levels) against the CRF_ITERS message passes and updates
+    probs = torch.softmax(torch.randn(
+        (MSC_B, cfg.num_classes, *canvas), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(5)), dim=1)
+    build_cfg = dataclasses.replace(cfg.crf, iters=0)
+    with torch.inference_mode():
+        build_ms = time_ms(lambda: crf_meanfield_cfg(
+            canvas_images, probs, build_cfg, valid_hw=valid), 5)
+        full_ms = time_ms(lambda: crf_meanfield_cfg(
+            canvas_images, probs, cfg.crf, valid_hw=valid), 5)
+        _, events = _device_profile(lambda: crf_meanfield_cfg(
+            canvas_images, probs, cfg.crf, valid_hw=valid))
+    kernel_ms = sum(e.self_device_time_total for e in events
+                    if "par_diffuse" in e.key) / 1e3
+    log(f"crf {preset}: crf_meanfield_cfg [{MSC_B}, {cfg.num_classes}, "
+        f"{canvas[0]}, {canvas[1]}] messages "
+        f"{str(msg).split('.')[-1]} long_range=True: total_ms={full_ms:.3f} "
+        f"build_ms={build_ms:.3f} (iters=0) message_and_update_ms="
+        f"{full_ms - build_ms:.3f} of which the diffusion kernel x"
+        f"{CRF_ITERS} = {kernel_ms:.3f} ms (profiled)")
+    return cfg, params, text, samples
+
+
+def phase_lam_crf(preset, params, text, cfg, samples, batch: int = 16):
+    """The LAM sweep with the on-device CRF branch,
+    `run_lam_eval(crf_tpu=True)`, on the eval slice's samples: returns the
+    pair of scores; per batch the eval slice's launches plus CRF_ITERS of
+    row 5's kernel at 72 offsets (fp32 entry point, or bf16 under the fast
+    preset)."""
+    from excel_tpu_torch.engine.evaluate import _bucketed_batches, run_lam_eval
+    from excel_tpu_torch.ops import par_kernels as pk
+
+    n_batches = sum(1 for _ in _bucketed_batches(
+        samples, batch, cfg.data.eval_pad, cfg.refine.slot_buckets,
+        cfg.num_fg))
+    msg = torch.bfloat16 if cfg.crf.msg_bf16 else torch.float32
+    run_lam_eval(params, samples[:batch], text, cfg, batch_size=batch,
+                 crf_tpu=True)                                 # warm-up
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scores, crf_scores = run_lam_eval(params, samples, text, cfg,
+                                      batch_size=batch, crf_tpu=True)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    crf_launches = pk.par_diffuse.launches_by_type[msg, CRF_K]
+    counts = read_launches(preset, training=False)
+    log(f"lam_crf {preset}: run_lam_eval(crf_tpu=True) samples="
+        f"{len(samples)} batch={batch} batches={n_batches} seconds={dt:.3f} "
+        f"img_per_s={len(samples) / dt:.3f} miou={scores['miou']:.4f} "
+        f"crf_miou={crf_scores['miou']:.4f} launches=" + json.dumps(counts)
+        + f" of which the CRF's message pass {crf_launches}")
+    want = dict(LAUNCHES_PER_BATCH[preset])
+    want["par_diffuse"] += CRF_ITERS
+    for name, per_batch in want.items():
+        if counts[name] != per_batch * n_batches:
+            raise AssertionError(
+                f"lam_crf {preset}, {name}: {counts[name]} launches, "
+                f"expected {per_batch} x {n_batches} batches")
+    if crf_launches != CRF_ITERS * n_batches:
+        raise AssertionError(f"lam_crf {preset}: {crf_launches} launches of "
+                             f"the {msg} message pass")
+    for s in (scores, crf_scores):
+        if not (0.0 <= s["miou"] <= 1.0 and np.isfinite(s["pAcc"])):
+            raise AssertionError(f"lam_crf {preset}: bad scores {s}")
+
+
+def phase_msc_card_vs_cpu(preset, cfg, params, text, samples) -> None:
+    """One MSC batch of 2 with the CRF through `msc_hist_step` (outputs
+    returned) on the card (kernels) and on the CPU (plain versions). The
+    fused pre-CRF logits: fp32 within MSC_LOGITS_RTOL of their range, bf16
+    reported. The predictions: fp32 >= MIN_LABEL_AGREEMENT of the valid
+    pixels; under the fast preset the figure is reported (the bf16
+    encoder's rounding differs between cuBLAS and the CPU, and a
+    random-weight head's classes lie close). In both presets the CRF and
+    the argmax are held on the same input: the CPU's CRF + argmax on the
+    card's own fused logits >= MIN_SAME_INPUT_AGREEMENT of the card's
+    predictions."""
+    import copy
+
+    from excel_tpu_torch.engine.evaluate import canvas_argmax, msc_hist_step
+    from excel_tpu_torch.ops.crf_tpu import crf_meanfield_cfg
+    from excel_tpu_torch.utils.metrics import init_hist
+
+    canvas, _, (labels, valid, canvas_images), images, cfgs, keep = msc_batch(
+        cfg, samples, 2)
+    cpu_params = {"clip": _tree_to(params["clip"], "cpu"),
+                  "head": copy.deepcopy(params["head"]).cpu()}
+    out = {}
+    for dev, p in (("cuda", params), ("cpu", cpu_params)):
+        t0 = time.perf_counter()
+        hist, logits, preds = msc_hist_step(
+            init_hist(cfg.num_classes, dev), p,
+            tuple(x.to(dev) for x in images), labels.to(dev), valid.to(dev),
+            text.to(dev), cfgs, canvas, keep,
+            canvas_images=canvas_images.to(dev), use_crf=True,
+            return_outputs=True)
+        out[dev] = (hist.cpu(), logits.cpu(), preds.cpu(),
+                    time.perf_counter() - t0)
+    (h_c, l_c, p_c, t_c), (h_h, l_h, p_h, t_h) = out["cuda"], out["cpu"]
+    mask = labels != 255
+    inside = mask[:, None].expand_as(l_c)
+    span = float(l_h[inside].max() - l_h[inside].min())
+    logit_err = float((l_c - l_h)[inside].abs().max()) / span
+    agree = float((p_c == p_h)[mask].float().mean())
+    with torch.inference_mode():
+        q = crf_meanfield_cfg(canvas_images, torch.softmax(l_c, dim=1),
+                              cfg.crf, valid_hw=valid)
+        same = float((canvas_argmax(q) == p_c)[mask].float().mean())
+    fp32 = preset == "fp32"
+    log(f"msc_card_vs_cpu {preset}: batch=2 canvas={canvas} scales="
+        f"{MSC_SCALES} crf_tpu=True valid_pixels={int(mask.sum())} "
+        f"fused_logits max_abs_err/range={logit_err:.3g} (range {span:.4g}; "
+        + (f"bound {MSC_LOGITS_RTOL}" if fp32 else "reported")
+        + f") pred_agreement={agree:.6f} ("
+        + (f"bound >= {MIN_LABEL_AGREEMENT}" if fp32 else "reported")
+        + f") same_input_agreement={same:.6f} (the CPU's CRF + argmax on the "
+        f"card's logits; bound >= {MIN_SAME_INPUT_AGREEMENT}) hist pixels "
+        f"{int(h_c.sum())}/{int(h_h.sum())} card_s={t_c:.2f} cpu_s={t_h:.2f}")
+    if int(h_c.sum()) != int(mask.sum()) or int(h_h.sum()) != int(mask.sum()):
+        raise AssertionError(f"msc_card_vs_cpu {preset}: hist pixel counts")
+    if not torch.isfinite(l_c).all():
+        raise AssertionError(f"msc_card_vs_cpu {preset}: non-finite logits")
+    if not same >= MIN_SAME_INPUT_AGREEMENT or (fp32 and not (
+            logit_err <= MSC_LOGITS_RTOL and agree >= MIN_LABEL_AGREEMENT)):
+        raise AssertionError(f"msc_card_vs_cpu {preset}: out of bounds")
+
+
 _ATT = "excel_tpu/models/attention_pallas.py"
 _PAR = "excel_tpu/ops/par_pallas.py"
 _CSRC = "excel_tpu_torch/csrc/"
 # JSON name -> (source, the Pallas function it replaces): one line per
-# Pallas row (rows 1-3 once per dtype); rows 4, 6 and 8 are computed by the
+# Pallas row (rows 1-4 once per dtype; row 5 for PAR's step and for the
+# CRF's message pass, fp32 and bf16); rows 4, 6 and 8 are computed by the
 # kernels of rows 3, 7 and 5; launches from ROW_LAUNCHES
 SOURCES = {
     "plain_attention": ("attention_plain.cu", f"{_ATT}:52"),
@@ -1213,10 +1592,13 @@ SOURCES = {
     "surgery_attention": ("attention_surgery.cu", f"{_ATT}:244"),
     "surgery_attention_rows": ("attention_surgery.cu", f"{_ATT}:295"),
     "par_diffuse": ("par_diffuse.cu", f"{_PAR}:31"),
+    "par_diffuse_crf": ("par_diffuse.cu", f"{_PAR}:31"),
+    "par_diffuse_crf_bf16": ("par_diffuse.cu", f"{_PAR}:31"),
     "par_diffuse_padded_hcw": ("par_diffuse.cu", f"{_PAR}:508"),
     "plain_attention_bf16": ("attention_plain.cu", f"{_ATT}:52"),
     "plain_attention_rows_hb_bf16": ("attention_plain.cu", f"{_ATT}:157"),
     "surgery_attention_bf16": ("attention_surgery.cu", f"{_ATT}:244"),
+    "surgery_attention_rows_bf16": ("attention_surgery.cu", f"{_ATT}:295"),
     "par_diffuse_padded": ("par_diffuse_valid.cu", f"{_PAR}:209"),
     "par_diffuse_padded_valid": ("par_diffuse_valid.cu", f"{_PAR}:342"),
     "par_diffuse_valid_resident": ("par_diffuse_valid.cu", f"{_PAR}:654"),
@@ -1237,11 +1619,17 @@ def main() -> int:
     records.update(phase_kernels_fast())
     records.update(phase_kernels_padded())
     check_fast_train_par(records)
+    records.update(check_crf_diffuse())
     for preset, bound in (("fp32", MIN_LABEL_AGREEMENT),
                           ("fast", MIN_FAST_LABEL_AGREEMENT)):
         _, params, text, cfg, samples = phase_slice(preset)
         phase_profile(preset, params, text, cfg, samples)
         phase_card_vs_cpu(preset, params, text, cfg, samples, bound)
+        phase_lam_crf(preset, params, text, cfg, samples)
+        del params
+    for preset in ("fp32", "fast"):
+        cfg, params, text, samples = phase_msc(preset)
+        phase_msc_card_vs_cpu(preset, cfg, params, text, samples)
         del params
     for preset, bound in (("fp32", MIN_LABEL_AGREEMENT),
                           ("fast", MIN_FAST_LABEL_AGREEMENT)):

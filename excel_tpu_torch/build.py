@@ -25,6 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PLAIN_ATTN = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _SURGERY_ATTN = [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_DIFFUSE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _PAD_CLAMP = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
 _AFFINITY = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
 _VALID_STEP = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
@@ -37,8 +38,8 @@ ENTRY_POINTS = {
                         "excel_plain_attention_bf16": _PLAIN_ATTN},
     "attention_surgery": {"excel_surgery_attention_f32": _SURGERY_ATTN,
                           "excel_surgery_attention_bf16": _SURGERY_ATTN},
-    "par_diffuse": {"excel_par_diffuse_f32":
-                    [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]},
+    "par_diffuse": {"excel_par_diffuse_f32": _DIFFUSE,
+                    "excel_par_diffuse_bf16": _DIFFUSE},
     "par_pad_clamp": {"excel_pad_clamp_f32": _PAD_CLAMP,
                       "excel_pad_clamp_bf16": _PAD_CLAMP},
     "par_affinity": {"excel_par_affinity_bf16": _AFFINITY},

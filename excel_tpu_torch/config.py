@@ -5,8 +5,8 @@ jax.numpy ones (the JAX module imports jax.numpy, so the port keeps its own
 copy). The JAX package's `fused_attention` switch has no counterpart: the
 encoder always calls the attention kernels' wrappers, which launch the CUDA
 kernels on CUDA tensors and take their plain versions on CPU tensors.
-`fast()` gives the production preset: a bf16 encoder and bf16 PAR storage
-(the CRF's `msg_bf16` is kept for the config tree; the CRF is not ported).
+`fast()` gives the production preset: a bf16 encoder, bf16 PAR storage and
+bf16 messages in the on-device CRF.
 """
 from __future__ import annotations
 
@@ -100,7 +100,9 @@ class RefineConfig:
 
 @dataclasses.dataclass(frozen=True)
 class CrfConfig:
-    """Dense-CRF post-processing (not ported yet; kept for the config tree)."""
+    """Dense-CRF post-processing: the parameters of the reference's dense
+    CRF, and the switches of the on-device convolutional mean-field
+    (ops/crf_tpu.py)."""
     iters: int = 10
     pos_w: float = 3.0
     pos_xy_std: float = 1.0

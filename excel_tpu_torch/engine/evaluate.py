@@ -1,6 +1,6 @@
-"""LAM evaluation at label resolution and in-training validation
-(counterpart of the LAM and validation parts of
-excel_tpu/engine/evaluate.py).
+"""Evaluation protocols: LAM evaluation at label resolution, in-training
+validation and MSC+flip segmentation eval, each with the optional on-device
+CRF (counterpart of excel_tpu/engine/evaluate.py).
 
 Per batch: normalise, encode, LAMs (training-free: the encoder alone with
 its block-mean attention accumulated in the attention kernels; trained:
@@ -15,10 +15,20 @@ resizes them in a background thread and can checkpoint its hist to resume
 a killed sweep. In-training validation scores the pseudo-labels and the
 head's segmentation in one pass.
 
-MSC segmentation eval and the CRF branches belong to later slices.
+MSC+flip segmentation eval (the final segmentation score): per scale the
+resized batch and its horizontal flip go through the full forward as one
+batch of 2B with the encoder's attention outputs skipped, the unflipped
+logits are averaged (scale 1.0 keeps only the non-flipped logits, a quirk
+of the reference, so its flip is not computed), upscaled to each image's
+valid extent and summed over scales on the canvas; then the argmax, or
+first the convolutional mean-field CRF (ops/crf_tpu.py) on their softmax
+against the canvas-resolution image. The LAM sweep has the same CRF branch
+over its pre-PAR class maps. Multi-device sharding (`mesh` in the JAX
+package) is not ported.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 
 import numpy as np
@@ -31,6 +41,7 @@ from ..device import resolve_device
 from ..models.clip import encode_image
 from ..models.excel import compute_lams, excel_forward
 from ..ops.affinity import refine_lams_batch
+from ..ops.crf_tpu import crf_meanfield_cfg
 from ..ops.labels import (argmax_label, cams_with_background_canvas,
                           class_slot_index, slot_label_to_class,
                           upscale_to_canvas, upscale_to_canvas_align)
@@ -140,6 +151,39 @@ def lam_eval_hist_step(hist, params: dict, images_u8, cls_label, gt_labels,
     return update_hist(hist, gt_labels, preds, cfg.num_classes)
 
 
+def lam_crf_refine(cams, canvas_images_u8, cls_label, valid_hw,
+                   cfg: ExcelConfig, class_slots: int | None = None):
+    """The on-device CRF branch of the LAM protocol: conv mean-field over
+    the pre-PAR normed bg + class stack against the canvas-resolution
+    image, slot argmax mapped back to class ids. cams [B, 1+K, H, W] ->
+    [B, H, W] int32 class ids. Approximate against the host lattice CRF,
+    which stays the exact-form path."""
+    with torch.inference_mode():
+        q = crf_meanfield_cfg(canvas_images_u8, cams, cfg.crf,
+                              valid_hw=valid_hw)
+        slot = q.argmax(dim=1).to(torch.int32)
+        if class_slots is None:
+            return slot              # full stack: channel s IS class id s
+        idx, _ = class_slot_index(cls_label, class_slots)
+        return slot_label_to_class(slot, idx)
+
+
+def lam_crf_hist_step(hist, crf_hist, params: dict, images_u8, cls_label,
+                      gt_labels, valid_hw, canvas_images_u8, text_attr,
+                      cfg: ExcelConfig, canvas: tuple[int, int],
+                      mode: str = "training_free",
+                      class_slots: int | None = None):
+    """lam_eval_hist_step with the on-device CRF branch: returns the raw
+    and the CRF [C, C] hists."""
+    preds, cams = lam_eval_step(params, images_u8, cls_label, valid_hw,
+                                text_attr, cfg, canvas, mode,
+                                return_cams=True, class_slots=class_slots)
+    hist = update_hist(hist, gt_labels, preds, cfg.num_classes)
+    crf_preds = lam_crf_refine(cams, canvas_images_u8, cls_label, valid_hw,
+                               cfg, class_slots=class_slots)
+    return hist, update_hist(crf_hist, gt_labels, crf_preds, cfg.num_classes)
+
+
 def val_step(params: dict, images_u8, cls_label, valid_hw, text_attr,
              cfg: ExcelConfig, canvas: tuple[int, int],
              class_slots: int | None = None):
@@ -170,15 +214,80 @@ def val_hist_step(hist_p, hist_s, params: dict, images_u8, cls_label,
             update_hist(hist_s, gt_labels, segs, cfg.num_classes))
 
 
+def seg_grid_logits(params: dict, images_u8, text_attr, cfg: ExcelConfig):
+    """Forward -> decoder logits on the token grid, [B, C, g, g], for any
+    input size (one per MSC scale). The encoder's attention outputs are
+    skipped (attn_mode="none"): the seg branch never reads them."""
+    with torch.inference_mode():
+        out = excel_forward(params, normalize_images(images_u8), text_attr,
+                            cfg, attn_mode="none")
+        b, hw, c = out.segs.shape
+        grid = int(round(hw ** 0.5))
+        return out.segs.transpose(1, 2).reshape(b, c, grid, grid)
+
+
+def msc_accumulate(params: dict, images_u8, valid_hw, text_attr,
+                   cfg: ExcelConfig, canvas: tuple[int, int], acc,
+                   keep_flip: bool = True):
+    """One MSC scale: forward [x, flip x] as one batch, unflip, average (or
+    with keep_flip=False, scale 1.0, forward only x: the reference computes
+    the flipped half there and discards it), upscale to the valid extents,
+    add onto the canvas accumulator [B, C, *canvas]."""
+    b = images_u8.shape[0]
+    with torch.inference_mode():
+        if keep_flip:
+            cat = torch.cat([images_u8, images_u8.flip(2)], dim=0)   # W axis
+            logits = seg_grid_logits(params, cat, text_attr, cfg)
+            fused = (logits[:b] + logits[b:].flip(-1)) / 2.0
+        else:
+            fused = seg_grid_logits(params, images_u8, text_attr, cfg)
+        return acc + upscale_to_canvas(fused, valid_hw, canvas)
+
+
+def canvas_argmax(acc):
+    return acc.argmax(dim=1).to(torch.int32)
+
+
+def msc_hist_step(hist, params: dict, scale_images: tuple, gt_labels,
+                  valid_hw, text_attr, cfgs: tuple, canvas: tuple[int, int],
+                  keep_flips: tuple, canvas_images=None, use_crf: bool = False,
+                  return_outputs: bool = False):
+    """All MSC scales + flip fusion + (optional on-device CRF) + argmax +
+    hist update for one batch; the accumulator and the predictions stay on
+    the device. scale_images: per scale the resized batch [B, s, s, 3];
+    cfgs: per scale the config with that image size; keep_flips: per scale
+    whether the flip is fused; canvas_images [B, *canvas, 3] uint8 with
+    use_crf. Returns the hist, or with return_outputs (hist, summed logits,
+    preds) for per-image dumps; the logits are always pre-CRF (the
+    reference saves raw fused logits and runs its host CRF on those)."""
+    cfg0 = cfgs[0]
+    b = scale_images[0].shape[0]
+    acc = torch.zeros((b, cfg0.num_classes, *canvas), dtype=torch.float32,
+                      device=scale_images[0].device)
+    for imgs, c, kf in zip(scale_images, cfgs, keep_flips):
+        acc = msc_accumulate(params, imgs, valid_hw, text_attr, c, canvas,
+                             acc, keep_flip=kf)
+    logits = acc
+    with torch.inference_mode():
+        if use_crf:
+            acc = crf_meanfield_cfg(canvas_images, torch.softmax(acc, dim=1),
+                                    cfg0.crf, valid_hw=valid_hw)
+        preds = canvas_argmax(acc)
+        hist = update_hist(hist, gt_labels, preds, cfg0.num_classes)
+    return (hist, logits, preds) if return_outputs else hist
+
+
 # ---------------------------------------------------------------------------
 # host sweeps
 # ---------------------------------------------------------------------------
 
-def _prep_batch(samples: list[dict], resize: int, canvas: tuple[int, int]):
+def _prep_batch(samples: list[dict], resize: int, canvas: tuple[int, int],
+                with_canvas_images: bool = False):
     """Full-size eval samples -> (images [B,r,r,3] f32, cls [B,C], labels
-    [B,*canvas] 255-padded, valid_hw [B,2])."""
+    [B,*canvas] 255-padded, valid_hw [B,2][, canvas_images [B,*canvas,3]
+    uint8, zero beyond each image])."""
     ch, cw = canvas
-    images, labels, cls, valid = [], [], [], []
+    images, labels, cls, valid, canv = [], [], [], [], []
     for s in samples:
         images.append(resize_bilinear(s["image"], (resize, resize)))
         lab = np.full((ch, cw), 255, np.int32)
@@ -188,8 +297,29 @@ def _prep_batch(samples: list[dict], resize: int, canvas: tuple[int, int]):
         labels.append(lab)
         cls.append(s["cls_label"])
         valid.append((h, w))
-    return (np.stack(images), np.stack(cls).astype(np.float32),
-            np.stack(labels), np.asarray(valid, np.int32))
+        if with_canvas_images:
+            ci = np.zeros((ch, cw, 3), np.uint8)
+            ci[:h, :w] = s["image"][:h, :w]
+            canv.append(ci)
+    out = (np.stack(images), np.stack(cls).astype(np.float32),
+           np.stack(labels), np.asarray(valid, np.int32))
+    return out + (np.stack(canv),) if with_canvas_images else out
+
+
+def _prep_msc_batch(samples: list[dict], base: int, canvas: tuple[int, int],
+                    scales, with_canvas_images: bool = False):
+    """-> (`_prep_batch` at the base size, per scale the images [B, s, s, 3]
+    f32 resized to s = int(base * scale))."""
+    prep = _prep_batch(samples, base, canvas, with_canvas_images)
+    return prep, tuple(
+        np.stack([resize_bilinear(s["image"], (int(base * sc),) * 2)
+                  for s in samples]) for sc in scales)
+
+
+def _scale_cfgs(cfg: ExcelConfig, base: int, scales) -> tuple:
+    """Per MSC scale the config whose image size is int(base * scale)."""
+    return tuple(dataclasses.replace(cfg, clip=dataclasses.replace(
+        cfg.clip, image_size=int(base * sc))) for sc in scales)
 
 
 def _bucket_of(sample, pad: int, q: int = 128) -> tuple[int, int]:
@@ -278,45 +408,101 @@ def _skip_batches(gen, start: int):
             yield item
 
 
+def _to_device(arrays, device):
+    return tuple(torch.from_numpy(a).to(device, non_blocking=True)
+                 for a in arrays)
+
+
 def run_lam_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
                  mode: str = "training_free", batch_size: int = 4,
-                 resize: int | None = None,
-                 checkpoint_path: str | None = None,
+                 resize: int | None = None, save_cam=None, save_lam_crf=None,
+                 crf_tpu: bool = False, checkpoint_path: str | None = None,
                  checkpoint_every: int = 100, device="cuda"):
     """LAM pseudo-label sweep -> scores dict.
 
-    dataset: len() and [i] -> {"image" uint8 [h,w,3], "label" int [h,w],
-    "cls_label" [num_fg]}. params and text_attr must already be on
-    `device`. checkpoint_path: periodic hist + progress checkpoint (about
-    every `checkpoint_every` images) that a rerun with the same protocol
-    resumes from."""
+    dataset: len() and [i] -> {"name", "image" uint8 [h,w,3], "label" int
+    [h,w], "cls_label" [num_fg]}. params and text_attr must already be on
+    `device`.
+    save_cam(name, image_u8 [h,w,3], cams [1+C_fg,h,w]) optionally receives
+    each image's normed pre-PAR per-class maps (the full class stack).
+    save_lam_crf(name, valid_lam [1+K,h,w], keys [K])
+    receives the spill of the host CRF pass: bg + the image's K
+    present-class normed cams and their 0-based fg indices (ascending).
+    crf_tpu=True additionally runs the on-device conv mean-field CRF branch
+    (`lam_crf_refine`) and returns (scores, crf_scores).
+    checkpoint_path: periodic hist + progress checkpoint (about every
+    `checkpoint_every` images) that a rerun with the same protocol resumes
+    from; off with dumps or the CRF branch (the files of skipped batches
+    and the second hist would be missing)."""
     device = resolve_device(device)
     resize = resize or cfg.clip.image_size
     fp = (f"lam:sg1:{len(dataset)}:{batch_size}:{mode}:{resize}:"
           f"{cfg.num_classes}:{cfg.data.eval_pad}:proc0/1")
+    dumps = save_cam is not None or save_lam_crf is not None
+    if dumps or crf_tpu:
+        checkpoint_path = None
     hist, start = _sweep_resume(checkpoint_path, fp, cfg.num_classes, device)
+    crf_hist = init_hist(cfg.num_classes, device) if crf_tpu else None
     n_done = start * batch_size
     last_saved = n_done
-    sb = cfg.refine.slot_buckets
+    # slot-homogeneous batches, except for save_cam sweeps, which run the
+    # full class stack (crf spills keep the slot compaction: the compacted
+    # stack is the spill format)
+    sb = None if save_cam is not None else cfg.refine.slot_buckets
     prepped = prefetch_iter(
-        (cv, b, _prep_batch(b, resize, cv))
+        (cv, b, _prep_batch(b, resize, cv, with_canvas_images=crf_tpu))
         for cv, b in _skip_batches(
             _bucketed_batches(dataset, batch_size, cfg.data.eval_pad,
                               slot_buckets=sb, num_fg=cfg.num_fg),
             start))
-    for canvas, samples, (images, cls, labels, valid) in prepped:
-        slots = _slots_bucket(cls, cfg.num_fg, sb)
-        images, cls, labels, valid = (
-            torch.from_numpy(a).to(device, non_blocking=True)
-            for a in (images, cls, labels, valid))
-        hist = lam_eval_hist_step(hist, params, images, cls, labels, valid,
-                                  text_attr, cfg, canvas, mode,
-                                  class_slots=slots)
+    for canvas, samples, prep in prepped:
+        slots = None if save_cam is not None else _slots_bucket(
+            prep[1], cfg.num_fg, cfg.refine.slot_buckets)
+        images, cls, labels, valid, *canvas_imgs = _to_device(prep, device)
+        if not dumps and not crf_tpu:
+            hist = lam_eval_hist_step(hist, params, images, cls, labels,
+                                      valid, text_attr, cfg, canvas, mode,
+                                      class_slots=slots)
+        elif not dumps:
+            hist, crf_hist = lam_crf_hist_step(
+                hist, crf_hist, params, images, cls, labels, valid,
+                canvas_imgs[0], text_attr, cfg, canvas, mode,
+                class_slots=slots)
+        else:
+            preds, cams = lam_eval_step(params, images, cls, valid, text_attr,
+                                        cfg, canvas, mode, return_cams=True,
+                                        class_slots=slots)
+            hist = update_hist(hist, labels, preds, cfg.num_classes)
+            if crf_tpu:
+                crf_preds = lam_crf_refine(cams, canvas_imgs[0], cls, valid,
+                                           cfg, class_slots=slots)
+                crf_hist = update_hist(crf_hist, labels, crf_preds,
+                                       cfg.num_classes)
+            cams_np = cams.cpu().numpy()
+            for i, s in enumerate(samples):
+                if s.get("_pad"):   # remainder padding: no file emission
+                    continue
+                h, w = s["label"].shape
+                if save_cam:
+                    save_cam(s["name"], s["image"][:h, :w],
+                             cams_np[i, :, :h, :w])
+                if save_lam_crf:
+                    keys = np.flatnonzero(np.asarray(s["cls_label"]) > 0)
+                    if slots is None:
+                        # full stack: channel c+1 is fg class c
+                        chans = np.concatenate(([0], keys + 1))
+                        valid_lam = cams_np[i][chans][:, :h, :w]
+                    else:
+                        # compacted: present classes ascending in slots 1..K
+                        valid_lam = cams_np[i, :1 + len(keys), :h, :w]
+                    save_lam_crf(s["name"], valid_lam, keys)
         n_done += len(samples)
         if checkpoint_path and n_done - last_saved >= checkpoint_every:
             _sweep_save(checkpoint_path, hist, n_done // batch_size, fp)
             last_saved = n_done
     _sweep_done(checkpoint_path)
+    if crf_tpu:
+        return scores_from_hist(hist), scores_from_hist(crf_hist)
     return scores_from_hist(hist)
 
 
@@ -334,10 +520,75 @@ def run_validation(params: dict, dataset, text_attr, cfg: ExcelConfig,
                                        slot_buckets=sb, num_fg=cfg.num_fg))
     for canvas, _, (images, cls, labels, valid) in prepped:
         slots = _slots_bucket(cls, cfg.num_fg, sb)
-        images, cls, labels, valid = (
-            torch.from_numpy(a).to(device, non_blocking=True)
-            for a in (images, cls, labels, valid))
+        images, cls, labels, valid = _to_device(
+            (images, cls, labels, valid), device)
         hist_p, hist_s = val_hist_step(hist_p, hist_s, params, images, cls,
                                        labels, valid, text_attr, cfg, canvas,
                                        class_slots=slots)
     return scores_from_hist(hist_p), scores_from_hist(hist_s)
+
+
+def run_msc_seg_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
+                     scales=(1.0, 0.7, 1.2, 1.5), batch_size: int = 4,
+                     resize: int | None = None, save_logits=None,
+                     save_pred=None, crf_tpu: bool = False,
+                     checkpoint_path: str | None = None,
+                     checkpoint_every: int = 100, device="cuda"):
+    """MSC+flip segmentation sweep -> scores dict. params (clip and head)
+    and text_attr must already be on `device`.
+
+    save_logits(name, logits [C, h, w]) / save_pred(name, label [h, w])
+    optionally receive per-image outputs: the fused pre-CRF logits, averaged
+    over the scales, and the prediction. crf_tpu=True runs the on-device
+    convolutional mean-field CRF (ops/crf_tpu.py) on the fused logits before
+    the argmax. checkpoint_path: periodic hist + progress checkpoint that a
+    rerun with the same protocol (the CRF's parameters included) resumes
+    from; off when per-image dumps are requested (their files would be
+    missing on resume)."""
+    device = resolve_device(device)
+    base = resize or cfg.clip.image_size
+    # a resumed hist must not blend predictions of different CRF settings
+    crf_fp = f"{cfg.crf}" if crf_tpu else ""
+    fp = (f"msc:{len(dataset)}:{batch_size}:{base}:{scales}:{crf_tpu}:"
+          f"{crf_fp}:{cfg.num_classes}:{cfg.data.eval_pad}:proc0/1")
+    want_dumps = save_logits is not None or save_pred is not None
+    if want_dumps:
+        checkpoint_path = None
+    hist, start = _sweep_resume(checkpoint_path, fp, cfg.num_classes, device)
+    n_done = start * batch_size
+    last_saved = n_done
+    cfgs = _scale_cfgs(cfg, base, scales)
+    prepped = prefetch_iter(
+        (cv, b, *_prep_msc_batch(b, base, cv, scales,
+                                 with_canvas_images=crf_tpu))
+        for cv, b in _skip_batches(
+            _bucketed_batches(dataset, batch_size, cfg.data.eval_pad),
+            start))
+    for canvas, samples, prep, scale_images in prepped:
+        labels, valid, *canvas_imgs = _to_device(prep[2:], device)
+        out = msc_hist_step(
+            hist, params, _to_device(scale_images, device), labels, valid,
+            text_attr, cfgs, canvas, tuple(sc != 1.0 for sc in scales),
+            canvas_images=canvas_imgs[0] if crf_tpu else None,
+            use_crf=crf_tpu, return_outputs=want_dumps)
+        if want_dumps:
+            hist, logits, preds = out
+            logits_np = logits.cpu().numpy()
+            preds_np = preds.cpu().numpy()
+            for i, s in enumerate(samples):
+                if s.get("_pad"):   # remainder padding: no file emission
+                    continue
+                h, w = s["label"].shape
+                if save_logits:
+                    save_logits(s["name"],
+                                logits_np[i, :, :h, :w] / len(scales))
+                if save_pred:
+                    save_pred(s["name"], preds_np[i, :h, :w])
+        else:
+            hist = out
+        n_done += len(samples)
+        if checkpoint_path and n_done - last_saved >= checkpoint_every:
+            _sweep_save(checkpoint_path, hist, n_done // batch_size, fp)
+            last_saved = n_done
+    _sweep_done(checkpoint_path)
+    return scores_from_hist(hist)

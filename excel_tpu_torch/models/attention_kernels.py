@@ -17,7 +17,11 @@ accumulator, the cross-block mean of the training-free path) and "none"
 
 On a CPU tensor a wrapper computes its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises. Each wrapper counts its kernel
-launches in its `launches` attribute.
+launches in its `launches` attribute, and in `launches_by_row` under the
+Pallas function the JAX package would route the same call to: plain
+attention without weights at N <= 512 to `_plain_kernel_rows_hb`, every
+other plain call to `_plain_kernel`; surgery attention at N <= 640 to
+`_kernel`, above to `_kernel_rows`.
 """
 from __future__ import annotations
 
@@ -28,6 +32,10 @@ from .. import build
 _MODES = {"none": 0, "out": 1, "acc": 2}
 _KERNEL_HEAD_DIMS = (32, 64)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
+# the JAX package's routing thresholds (attention_pallas.py), which
+# `launches_by_row` follows; the CUDA kernels take any N
+_ROWS_HB_MAX_N = 512
+_WHOLE_N_MAX_N = 640
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
@@ -131,14 +139,15 @@ def fused_plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    _ptr(weights), b, heads, n, d, _MODES[mode], _stream(q)),
                 "attention_plain")
     fused_plain_attention.launches += 1
-    fused_plain_attention.launches_by_mode[mode] += 1
+    row = ("_plain_kernel_rows_hb" if mode == "none" and n <= _ROWS_HB_MAX_N
+           else "_plain_kernel")
+    fused_plain_attention.launches_by_row[row] += 1
     return ctx, weights
 
 
 fused_plain_attention.launches = 0
-# the same launches by mode: "out" and "acc" are the weights route of the
-# JAX package's _plain_kernel, "none" that of _plain_kernel_rows_hb
-fused_plain_attention.launches_by_mode = {"out": 0, "acc": 0, "none": 0}
+fused_plain_attention.launches_by_row = {"_plain_kernel": 0,
+                                         "_plain_kernel_rows_hb": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -200,7 +209,10 @@ def fused_surgery_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    b, heads, n, d, _MODES[mode], _stream(q)),
                 "attention_surgery")
     fused_surgery_attention.launches += 1
+    fused_surgery_attention.launches_by_row[
+        "_kernel" if n <= _WHOLE_N_MAX_N else "_kernel_rows"] += 1
     return shared, attn_sum, ctx_ori
 
 
 fused_surgery_attention.launches = 0
+fused_surgery_attention.launches_by_row = {"_kernel": 0, "_kernel_rows": 0}

@@ -28,27 +28,27 @@ from .layers import (attention_fused, external_feature_attention, layer_norm,
 
 def interpolate_pos_embedding(pos: torch.Tensor,
                               new_side: int) -> torch.Tensor:
-    """Bilinearly resize the grid part of a [1+S*S, C] positional table
-    (half-pixel sampling, as jax.image.resize 'linear' and torch
-    F.interpolate(align_corners=False) do when upsampling).
+    """Resize the grid part of a [1+S*S, C] positional table as the JAX
+    package does, with `jax.image.resize(..., "linear")`: half-pixel
+    sampling, and antialiased when downsampling (a grid below the
+    pretrained one, e.g. MSC scale 0.5): the triangle kernel is widened by
+    1 / scale and its weights renormalised where the table's edge cuts it.
 
-    Downsampling (a grid below the pretrained one, e.g. MSC scale 0.5) is
-    not ported: jax.image.resize antialiases there and the reference's
-    F.interpolate does not, so the choice belongs to the MSC slice."""
+    Upsampling equals torch's `F.interpolate(bilinear,
+    align_corners=False)`, which the original torch implementation uses;
+    downsampling does not, because `F.interpolate` does not antialias (at
+    14 -> 10 the two differ by up to 1.11 on a standard-normal table). The
+    port is held to the JAX package, so it antialiases."""
     cls_tok, grid = pos[:1], pos[1:]
     side = int(round(float(grid.shape[0]) ** 0.5))
     c = grid.shape[-1]
     if side == new_side:
         return pos
-    if new_side < side:
-        raise NotImplementedError(
-            f"positional-table downsampling {side}->{new_side} belongs to "
-            "the MSC slice (antialias choice, ROADMAP §3)")
     grid = grid.reshape(side, side, c).permute(2, 0, 1)[None]  # [1,C,S,S]
     scale = torch.full((1, 2), new_side / side, dtype=torch.float32,
                        device=pos.device)
     grid = scale_and_translate(grid, (new_side, new_side), scale,
-                               torch.zeros_like(scale))
+                               torch.zeros_like(scale), antialias=True)
     return torch.cat([cls_tok, grid[0].permute(1, 2, 0).reshape(-1, c)],
                      dim=0)
 

@@ -3,7 +3,8 @@ parts the LAM eval and training paths use; `lam_to_label` and
 `boxes_to_masks` are not ported yet).
 
 The per-image resizes reproduce `jax.image.scale_and_translate` with the
-linear kernel and no antialiasing, which the JAX package uses: each output
+linear kernel (no antialiasing, as the JAX package's canvas upscales call
+it; antialiased on request, as `jax.image.resize` is): each output
 sample takes the triangle-kernel weights of its input neighbours,
 renormalised where the kernel is cut by the input's edge, and samples whose
 position falls outside the input ([-0.5, in - 0.5]) get weight 0. So a map
@@ -22,18 +23,25 @@ _EPS32 = float(np.finfo(np.float32).eps)
 
 
 def linear_weight_mat(in_size: int, out_size: int, scale: torch.Tensor,
-                      translation: torch.Tensor) -> torch.Tensor:
+                      translation: torch.Tensor,
+                      antialias: bool = False) -> torch.Tensor:
     """[..., in_size, out_size] float32 weights of scale_and_translate's
-    linear kernel (antialias off) for float32 `scale`/`translation` of any
-    batch shape: output o samples input position
-    (o + 0.5) / scale - translation / scale - 0.5."""
+    linear kernel for float32 `scale`/`translation` of any batch shape:
+    output o samples input position
+    (o + 0.5) / scale - translation / scale - 0.5. With `antialias` (the
+    default of `jax.image.resize`) a downsample widens the triangle kernel
+    by 1 / scale, so that each output averages the inputs it covers; an
+    upsample is the same either way."""
     inv = 1.0 / scale.float()[..., None]
     translation = translation.float()[..., None]
     dev = inv.device
     sample = ((torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5)
               * inv - translation * inv - 0.5)                    # [..., out]
     pos = torch.arange(in_size, dtype=torch.float32, device=dev)[:, None]
-    weights = torch.clamp(1 - torch.abs(sample[..., None, :] - pos), min=0)
+    dist = torch.abs(sample[..., None, :] - pos)
+    if antialias:
+        dist = dist / torch.clamp(inv, min=1.0)[..., None, :]
+    weights = torch.clamp(1 - dist, min=0)
     total = weights.sum(dim=-2, keepdim=True)
     weights = torch.where(
         torch.abs(total) > 1000.0 * _EPS32,
@@ -45,13 +53,15 @@ def linear_weight_mat(in_size: int, out_size: int, scale: torch.Tensor,
 
 
 def scale_and_translate(x: torch.Tensor, out_hw: tuple[int, int],
-                        scale: torch.Tensor,
-                        translation: torch.Tensor) -> torch.Tensor:
+                        scale: torch.Tensor, translation: torch.Tensor,
+                        antialias: bool = False) -> torch.Tensor:
     """Per-image linear resize of x [B, C, h, w] to [B, C, *out_hw].
     scale, translation: [B, 2] float32 (y, x)."""
     _, _, h, w = x.shape
-    wy = linear_weight_mat(h, out_hw[0], scale[:, 0], translation[:, 0])
-    wx = linear_weight_mat(w, out_hw[1], scale[:, 1], translation[:, 1])
+    wy = linear_weight_mat(h, out_hw[0], scale[:, 0], translation[:, 0],
+                           antialias)
+    wx = linear_weight_mat(w, out_hw[1], scale[:, 1], translation[:, 1],
+                           antialias)
     t = torch.einsum("bchw,bwx->bchx", x.float(), wx)
     return torch.einsum("bchx,bhy->bcyx", t, wy)
 

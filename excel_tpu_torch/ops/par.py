@@ -23,6 +23,16 @@ which is the function of the JAX package's `_diffuse_padded_kernel` (and
 the route it takes itself for full-extent bf16). The JAX package splits
 the channels into groups that fit the TPU's VMEM; channels diffuse
 independently, so the port diffuses them all at once.
+
+bf16 with a pad that is not a multiple of 8 (the tiny test configuration's
+dilations (1, 2)): the JAX package's padded kernels need 8-aligned pads,
+and its Pallas route there (`use_pallas=True` or "interpret") is the
+per-step one: the fp32 affinity and the valid-clamped masks rounded to
+bf16, then `par_diffuse` in bf16 (sums rounded to bf16 between chunks of 8
+offsets) and `_replicate_valid` each step. The port mirrors that route.
+(Where the JAX package runs without Pallas, on a CPU by default, it takes
+an XLA loop instead, which rounds its sum to bf16 after every offset; the
+port has no counterpart of that loop.)
 """
 from __future__ import annotations
 
@@ -116,37 +126,31 @@ def par_refine(imgs: torch.Tensor, masks: torch.Tensor,
     per-image valid extents on a padded canvas. dtype: None or float32, or
     bfloat16 for the fast preset's bf16 storage. Returns [B, C, H, W]
     float32."""
-    if dtype == torch.bfloat16:
+    store = dtype or torch.float32
+    if store not in (torch.float32, torch.bfloat16):
+        raise NotImplementedError(f"PAR storage {dtype}: float32 or bfloat16")
+    if store == torch.bfloat16 and max(dilations) % 8 == 0:
         return _par_refine_bf16(imgs, masks, dilations, num_iter, w1, w2,
                                 valid_hw)
-    if dtype is not None and dtype != torch.float32:
-        raise NotImplementedError(f"PAR storage {dtype}: float32 or bfloat16")
+    # the per-step route: fp32, or bf16 storage with an unaligned pad
     imgs = imgs.float()
     masks = masks.float()
     if valid_hw is not None:
         masks = _replicate_valid(masks, valid_hw)
         imgs = _replicate_valid(imgs, valid_hw)
-    aff = _affinity(imgs, dilations, w1, w2).contiguous()
+    aff = _affinity(imgs, dilations, w1, w2).to(store).contiguous()
     offsets = offsets_tensor(_offsets(dilations), masks.device)
-    m = masks.contiguous()
+    m = masks.to(store).contiguous()
     for _ in range(num_iter):
         m = par_diffuse(m, aff, offsets)
         if valid_hw is not None:
             m = _replicate_valid(m, valid_hw)
-    return m
+    return m.float()
 
 
 def _par_refine_bf16(imgs, masks, dilations, num_iter, w1, w2, valid_hw):
     offs = _offsets(dilations)
     pad = max(max(abs(dy), abs(dx)) for dy, dx in offs)
-    if pad % 8:
-        raise NotImplementedError(
-            f"bf16 PAR with a pad of {pad} (not a multiple of 8): the JAX "
-            "package takes other bf16 routes there, whose sums round to bf16 "
-            "between chunks of offsets (its per-step _diffuse_kernel with a "
-            "bf16 output on a TPU, the XLA loop elsewhere); the port has "
-            "only the fused-valid route with fp32 sums, and computes nothing "
-            "else in its place")
     b, _, h, w = imgs.shape
     if valid_hw is None:
         # full extents: the valid clamp is plain edge padding
@@ -162,3 +166,4 @@ def _par_refine_bf16(imgs, masks, dilations, num_iter, w1, w2, valid_hw):
         mp = par_diffuse_valid_resident(mp, aff, valid_hw, offs, h, w,
                                         num_iter)
     return mp[:, :, pad:pad + h, pad:pad + w].float()
+

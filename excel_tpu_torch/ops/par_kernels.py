@@ -4,7 +4,8 @@ Counterparts of excel_tpu/ops/par_pallas.py, one wrapper per Pallas
 function, with its name and its array shapes:
 
 - `par_diffuse` (csrc/par_diffuse.cu, the Pallas `_diffuse_kernel`): one
-  fp32 step over unpadded masks, reads clamped to the canvas
+  step over unpadded masks, reads clamped to the canvas, fp32 or bf16 (PAR's
+  step; the message pass of the mean-field CRF, ops/crf_tpu.py)
 
       new[b, c, y, x] = sum_k aff[b, k, y, x] * m[b, c, y + dy_k, x + dx_k];
 
@@ -33,8 +34,9 @@ chip_smoke.py).
 All are bound by device memory; the sources say how. The plain versions
 take fp32 and bf16 and follow the Pallas kernels' arithmetic (products
 rounded to the storage type, sums in fp32 in chunks of 8 offsets); the
-kernels take the types the paths run: pad-clamp fp32 and bf16, the
-affinity with a bf16 output, the fused-valid diffusion in bf16.
+kernels take the types the paths run: the unpadded step and pad-clamp
+fp32 and bf16, the affinity with a bf16 output, the fused-valid diffusion
+in bf16.
 
 On CPU tensors a wrapper computes its plain version; on CUDA tensors it
 launches its kernel or raises. Each wrapper counts its kernel launches in
@@ -45,6 +47,7 @@ once per configuration (`offsets_tensor`).
 """
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
@@ -72,34 +75,57 @@ def _offsets_on(offsets: tuple, device: torch.device) -> torch.Tensor:
 def par_diffuse_reference(masks: torch.Tensor, aff: torch.Tensor,
                           offsets: torch.Tensor) -> torch.Tensor:
     """Plain version of `par_diffuse`: edge-pad, then one shifted product per
-    offset, summed in offset order."""
+    offset. fp32: summed in offset order. bf16: the Pallas kernel's rounding
+    points: each product rounded to bf16, the products of a chunk of 8
+    offsets summed in fp32 in offset order, each chunk's sum rounded to
+    bf16 and added onto the bf16 output (one more rounding a chunk)."""
     _, _, h, w = masks.shape
     offs = offsets.tolist()
     pad = max(max(abs(dy), abs(dx)) for dy, dx in offs)
-    mp = F.pad(masks, (pad, pad, pad, pad), mode="replicate")
-    acc = torch.zeros_like(masks)
-    for i, (dy, dx) in enumerate(offs):
-        shifted = mp[:, :, pad + dy:pad + dy + h, pad + dx:pad + dx + w]
-        acc = acc + shifted * aff[:, i:i + 1]
+    mp = F.pad(masks.float(), (pad, pad, pad, pad),
+               mode="replicate").to(masks.dtype)
+
+    def product(i):
+        dy, dx = offs[i]
+        return (mp[:, :, pad + dy:pad + dy + h, pad + dx:pad + dx + w]
+                * aff[:, i:i + 1])
+
+    if masks.dtype == torch.float32:
+        acc = torch.zeros_like(masks)
+        for i in range(len(offs)):
+            acc = acc + product(i)
+        return acc
+    acc = None
+    for c0 in range(0, len(offs), _CHUNK):
+        part = None
+        for i in range(c0, min(c0 + _CHUNK, len(offs))):
+            term = product(i).float()
+            part = term if part is None else part + term
+        part = part.to(masks.dtype)
+        acc = part if acc is None else acc + part
     return acc
 
 
 def par_diffuse(masks: torch.Tensor, aff: torch.Tensor,
                 offsets: torch.Tensor) -> torch.Tensor:
-    """masks: [B, C, H, W] float32, aff: [B, K, H, W] float32, offsets:
-    [K, 2] int32 (dy, dx) on the same device, all contiguous.
-    Returns the diffused [B, C, H, W] masks."""
+    """masks: [B, C, H, W], aff: [B, K, H, W], both float32 or both
+    bfloat16; offsets: [K, 2] int32 (dy, dx) on the same device, all
+    contiguous; any K >= 1 and C >= 1. Returns the diffused [B, C, H, W]
+    masks in the inputs' type (bf16: the roundings of
+    `par_diffuse_reference`)."""
     if masks.dim() != 4 or aff.dim() != 4:
         raise ValueError("masks and aff must be [B, C, H, W] / [B, K, H, W]")
     b, c, h, w = masks.shape
     k = aff.shape[1]
-    if aff.shape != (b, k, h, w) or offsets.shape != (k, 2):
+    if (aff.shape != (b, k, h, w) or offsets.shape != (k, 2)
+            or min(b, c, h, w, k) < 1):
         raise ValueError(f"shape mismatch: masks {tuple(masks.shape)}, aff "
                          f"{tuple(aff.shape)}, offsets {tuple(offsets.shape)}")
-    if masks.dtype != torch.float32 or aff.dtype != torch.float32:
-        raise NotImplementedError(
-            "bf16 PAR diffusion belongs to the fast-preset slice; this "
-            "slice's kernel is fp32")
+    if masks.dtype not in _SUFFIX:
+        raise NotImplementedError(f"par_diffuse: masks are {masks.dtype}; "
+                                  "the kernel takes float32 and bfloat16")
+    if aff.dtype != masks.dtype:
+        raise ValueError("par_diffuse: masks and aff must share a dtype")
     if offsets.dtype != torch.int32:
         raise ValueError("offsets must be int32")
     for t in (aff, offsets):
@@ -113,16 +139,20 @@ def par_diffuse(masks: torch.Tensor, aff: torch.Tensor,
     if masks.device.type != "cuda":
         raise ValueError(f"unsupported device {masks.device}")
     out = torch.empty_like(masks)
-    fn = build.load("par_diffuse", "excel_par_diffuse_f32")
+    fn = build.load("par_diffuse",
+                    f"excel_par_diffuse_{_SUFFIX[masks.dtype]}")
     build.check(fn(masks.data_ptr(), aff.data_ptr(), offsets.data_ptr(),
                    out.data_ptr(), b, c, h, w, k,
                    torch.cuda.current_stream(masks.device).cuda_stream),
                 "par_diffuse")
     par_diffuse.launches += 1
+    par_diffuse.launches_by_type[masks.dtype, k] += 1
     return out
 
 
 par_diffuse.launches = 0
+# the same launches by (dtype, K): PAR's 48 offsets apart from the CRF's 72
+par_diffuse.launches_by_type = collections.Counter()
 
 
 # ---------------------------------------------------------------------------

@@ -80,6 +80,35 @@ for i in range(2):
     mpf = jp.par_diffuse_padded(mpf, jnp.asarray(aff).astype(bf), offs, 64,
                                 128, interpret=True)
     out[f"padded_step{i}"] = np.asarray(mpf.astype(jnp.float32))
+# row 5 with bf16 storage at the mean-field CRF's 72 offsets (pad 55):
+# weights that sum to bi_w = 4, 21 channels
+from excel_tpu.ops.crf_tpu import DEFAULT_DILATIONS, _offsets as crf_offsets
+from excel_tpu.ops.crf_tpu import crf_meanfield
+coffs = tuple(crf_offsets(DEFAULT_DILATIONS))
+cq = rng.random((2, 21, 40, 64), dtype=np.float32)
+cq = np.asarray(jnp.asarray(cq / cq.sum(axis=1, keepdims=True)).astype(bf)
+                .astype(jnp.float32))
+caff = rng.random((2, len(coffs), 40, 64), dtype=np.float32)
+caff = 4.0 * caff / caff.sum(axis=1, keepdims=True)
+caff = np.asarray(jnp.asarray(caff).astype(bf).astype(jnp.float32))
+out.update(crf_q=cq, crf_aff=caff)
+out["crf_step"] = np.asarray(jp.par_diffuse(
+    jp.pad_for_diffuse(jnp.asarray(cq).astype(bf), 55),
+    jnp.asarray(caff).astype(bf), coffs, interpret=True).astype(jnp.float32))
+# bf16 PAR with a pad of 2 (the per-step Pallas route), with extents and
+# without, and the mean-field with bf16 messages
+for key, v in (("refine_pad2_valid", jnp.asarray(valid)),
+               ("refine_pad2_full", None)):
+    out[key] = np.asarray(par_refine(
+        jnp.asarray(img), jnp.asarray(masks), dilations=(1, 2), num_iter=5,
+        valid_hw=v, use_pallas="interpret", dtype=bf))
+crf_img = rng.integers(0, 256, (3, 64, 128, 3)).astype(np.uint8)
+probs = masks ** 3 / (masks ** 3).sum(axis=1, keepdims=True)
+out.update(crf_img=crf_img, crf_probs=probs)
+out["crf_bf16"] = np.asarray(crf_meanfield(
+    jnp.asarray(crf_img), jnp.asarray(probs), iters=4, dilations=(1, 2, 4),
+    use_pallas="interpret", valid_hw=jnp.asarray(valid), msg_dtype=bf,
+    coarse_stride=8))
 # encoder: fast tiny config on its Pallas kernels, inside one jit
 cfg = dataclasses.replace(fast(tiny_config()).clip,
                           fused_attention="interpret")
@@ -146,6 +175,53 @@ def test_bf16_padded_step_equals_pallas_bitwise(ref):
                                                  128)
         assert torch.equal(step, valid_step)
         mp = step
+
+
+def test_bf16_diffuse_step_equals_pallas_bitwise(ref):
+    """`par_diffuse` in bf16 (its plain version: products rounded to bf16,
+    fp32 sums in chunks of 8, chunk sums and the running output rounded to
+    bf16) against the Pallas `_diffuse_kernel` with bf16 storage in
+    interpret mode at the CRF's 72 offsets, bit for bit."""
+    from excel_tpu_torch.ops.crf_tpu import DEFAULT_DILATIONS
+    from excel_tpu_torch.ops.crf_tpu import _offsets as crf_offsets
+
+    offsets = pk.offsets_tensor(crf_offsets(DEFAULT_DILATIONS), "cpu")
+    got = pk.par_diffuse(_bf16(ref["crf_q"]), _bf16(ref["crf_aff"]), offsets)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(n(got.float()), ref["crf_step"])
+
+
+@pytest.mark.parametrize("extents", ["valid", "full"])
+def test_bf16_par_refine_unaligned_pad_equals_pallas_bitwise(ref, extents):
+    """bf16 `par_refine` with dilations (1, 2) (a pad of 2, not a multiple
+    of 8), 5 steps: the per-step route equals the JAX package's Pallas
+    route for it bit for bit, with per-image extents and without (the fp32
+    affinity's ulp differences vanish in its rounding to bf16 here)."""
+    got = par_refine(torch.from_numpy(ref["img"]),
+                     torch.from_numpy(ref["masks"]), dilations=(1, 2),
+                     num_iter=5, dtype=torch.bfloat16,
+                     valid_hw=(torch.from_numpy(ref["valid"])
+                               if extents == "valid" else None))
+    np.testing.assert_array_equal(n(got), ref[f"refine_pad2_{extents}"])
+
+
+def test_bf16_crf_messages_match_pallas(ref):
+    """The mean-field CRF with bf16 messages (4 iterations, valid extents,
+    the coarse level) against the JAX function on its Pallas kernel: the
+    message pass agrees bit for bit, so Q differs only by the fp32 build's
+    ulps where they cross a bf16 rounding of a pairwise weight (one bf16 ulp
+    of a weight, 2^-8 of it, into a softmax): 1e-4 on Q (observed 2.3e-6),
+    and the same argmax on >= 99.9% of the pixels (observed all)."""
+    from excel_tpu_torch.ops.crf_tpu import crf_meanfield
+
+    got = n(crf_meanfield(torch.from_numpy(ref["crf_img"]),
+                          torch.from_numpy(ref["crf_probs"]), iters=4,
+                          dilations=(1, 2, 4),
+                          valid_hw=torch.from_numpy(ref["valid"]),
+                          msg_dtype=torch.bfloat16, coarse_stride=8))
+    want = ref["crf_bf16"]
+    assert (got.argmax(1) == want.argmax(1)).mean() >= 0.999
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
 def test_bf16_par_refine_matches_pallas(ref):

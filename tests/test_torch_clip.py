@@ -59,8 +59,81 @@ def test_pos_embedding_upsample_matches_jax():
     np.testing.assert_allclose(n(interpolate_pos_embedding(t(pos), 20)),
                                np.asarray(jax_interp(jnp.asarray(pos), 20)),
                                atol=1e-6)
-    with pytest.raises(NotImplementedError):
-        interpolate_pos_embedding(t(pos), 10)
+    # below the pretrained grid the JAX package's resize antialiases, and
+    # so does the port
+    np.testing.assert_allclose(n(interpolate_pos_embedding(t(pos), 10)),
+                               np.asarray(jax_interp(jnp.asarray(pos), 10)),
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("side,new_side", [(4, 3), (14, 10), (14, 7), (2, 1),
+                                           (14, 36), (14, 56)])
+def test_pos_embedding_resize_matches_jax(side, new_side):
+    """Downsampling (antialiased: triangle kernel widened by 1 / scale,
+    edge weights renormalised) and the MSC upsamples 14 -> 36 / 56, against
+    `jax.image.resize(..., "linear")`: 1e-6 on a standard-normal table. The
+    CLS row passes through."""
+    from excel_tpu.models.clip import interpolate_pos_embedding as jax_interp
+
+    pos = np.random.default_rng(5).standard_normal(
+        (side * side + 1, 8)).astype(np.float32)
+    got = n(interpolate_pos_embedding(t(pos), new_side))
+    assert got.shape == (new_side * new_side + 1, 8)
+    np.testing.assert_array_equal(got[0], pos[0])
+    np.testing.assert_allclose(
+        got, np.asarray(jax_interp(jnp.asarray(pos), new_side)), atol=1e-6)
+    if new_side < side and side % new_side:
+        # torch's own bilinear resize does not antialias: not this function
+        # (at 2 -> 1 both are the mean of the four entries)
+        import torch.nn.functional as F
+        grid = t(pos[1:]).reshape(side, side, 8).permute(2, 0, 1)[None]
+        plain = F.interpolate(grid, size=(new_side, new_side),
+                              mode="bilinear", align_corners=False)
+        assert not np.allclose(
+            got[1:], n(plain[0].permute(1, 2, 0).reshape(-1, 8)), atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("size", [16, 48, 80])
+def test_vision_forward_at_msc_sizes_matches_jax(size, dtype):
+    """attn_mode="none" at other input sizes than the configured one, as
+    MSC runs the encoder: 16 px (a 1 x 1 grid, below the tiny config's
+    pretrained 2 x 2 table), 48 and 80 px (grids 3 and 5). fp32: 1e-4 on
+    the projected tokens; bf16: one bf16 ulp of the array's largest
+    magnitude (the GEMM libraries round sums differently,
+    tests/test_torch_bf16_rounding.py)."""
+    from excel_tpu.config import fast as jax_fast
+    from excel_tpu.models.clip import vision_forward as jax_vision_forward
+    from excel_tpu.models.params import cast_matmul_weights as jax_cast
+    from excel_tpu_torch.config import fast
+    from excel_tpu_torch.models.clip import vision_forward
+    from excel_tpu_torch.models.params import cast_matmul_weights
+
+    jcfg, pcfg = tiny_config(), port_tiny_config()
+    if dtype == "bfloat16":
+        jcfg, pcfg = jax_fast(jcfg), fast(pcfg)
+    jclip = dataclasses.replace(jcfg.clip, fused_attention="interpret",
+                                image_size=size)
+    pclip = dataclasses.replace(pcfg.clip, image_size=size)
+    tree = jax_clip_tree(jclip)
+    params = port_params(tree, pclip)
+    if dtype == "bfloat16":
+        tree = jax_cast(tree, jnp.bfloat16)
+        params = cast_matmul_weights(params, torch.bfloat16)
+    images = np.random.default_rng(6).standard_normal(
+        (2, size, size, 3)).astype(np.float32)
+    ref = jax_vision_forward(tree, jnp.asarray(images), jclip,
+                             attn_mode="none")
+    with torch.inference_mode():
+        got = vision_forward(params, t(images), pclip, attn_mode="none")
+    assert got["attn"] is None and ref["attn"] is None
+    tokens = (size // 16) ** 2 + 1
+    assert got["projected"].shape == (2, tokens, pclip.embed_dim)
+    want = np.asarray(ref["projected"].astype(jnp.float32))
+    atol = ATOL if dtype == "float32" else 2.0 ** -7 * float(
+        np.abs(want).max())
+    np.testing.assert_allclose(n(got["projected"].float()), want, atol=atol,
+                               rtol=0)
 
 
 def test_unported_modes_raise():

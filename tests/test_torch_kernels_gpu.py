@@ -248,3 +248,104 @@ def test_denormalize_images_card_equals_cpu():
     cpu = denormalize_images(normalize_images(u8))
     card = denormalize_images(normalize_images(u8.cuda())).cpu()
     assert torch.equal(cpu, card)
+
+
+# ---------------------------------------------------------------------------
+# the mean-field CRF's message pass (row 5 at 72 offsets, fp32 and bf16) and
+# the MSC shapes' launch attribution
+# ---------------------------------------------------------------------------
+
+def _crf_inputs(gen, c, dtype):
+    from excel_tpu_torch.ops.crf_tpu import DEFAULT_DILATIONS
+    from excel_tpu_torch.ops.crf_tpu import _offsets as crf_offsets
+
+    offs = crf_offsets(DEFAULT_DILATIONS)
+    q = torch.rand((2, c, 40, 300), device="cuda", generator=gen)
+    q = (q / q.sum(dim=1, keepdim=True)).to(dtype)
+    aff = torch.rand((2, len(offs), 40, 300), device="cuda", generator=gen)
+    aff = (4.0 * aff / aff.sum(dim=1, keepdim=True)).to(dtype)
+    return q, aff, pk.offsets_tensor(offs, "cuda")
+
+
+# 9, 21 and 81 channels: two, three and eleven register groups, the last
+# one partly filled
+@pytest.mark.parametrize("c", [9, 21, 81])
+def test_par_diffuse_bf16_kernel_bitwise(gen, c):
+    """The bf16 entry point against its plain version (products rounded to
+    bf16, fp32 sums in chunks of 8, a bf16 running output), bit for bit,
+    at the CRF's 72 offsets with a pad (55) beyond the canvas height."""
+    q, aff, offsets = _crf_inputs(gen, c, torch.bfloat16)
+    before = pk.par_diffuse.launches_by_type.copy()
+    got = pk.par_diffuse(q, aff, offsets)
+    ref = pk.par_diffuse_reference(q, aff, offsets)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, ref)
+    assert pk.par_diffuse.launches_by_type - before == {
+        (torch.bfloat16, 72): 1}
+
+
+def test_par_diffuse_fp32_kernel_at_crf_offsets_bitwise(gen):
+    q, aff, offsets = _crf_inputs(gen, 21, torch.float32)
+    got = pk.par_diffuse(q, aff, offsets)
+    torch.cuda.synchronize()
+    assert torch.equal(got, pk.par_diffuse_reference(q, aff, offsets))
+    with pytest.raises(ValueError, match="share a dtype"):
+        pk.par_diffuse(q, aff.bfloat16(), offsets)
+
+
+@pytest.mark.parametrize("msg_dtype", [None, torch.bfloat16])
+def test_crf_meanfield_card_matches_cpu(gen, msg_dtype):
+    """The whole mean-field (valid extents, coarse level, 3 iterations) on
+    the card (message pass through the kernel) against the CPU (its plain
+    version). The build's exp and rsqrt differ by ulps between the devices:
+    Q within 1e-4, argmax agreement >= 0.999."""
+    from excel_tpu_torch.ops.crf_tpu import crf_meanfield
+
+    img = torch.randint(0, 256, (2, 48, 160, 3), device="cuda",
+                        generator=gen, dtype=torch.uint8)
+    probs = torch.rand((2, 6, 48, 160), device="cuda", generator=gen) ** 3
+    probs = probs / probs.sum(dim=1, keepdim=True)
+    valid = torch.tensor([[48, 160], [37, 101]], device="cuda",
+                         dtype=torch.int32)
+    kw = dict(iters=3, msg_dtype=msg_dtype, coarse_stride=8)
+    before = pk.par_diffuse.launches
+    card = crf_meanfield(img, probs, valid_hw=valid, **kw).cpu()
+    assert pk.par_diffuse.launches == before + 3
+    cpu = crf_meanfield(img.cpu(), probs.cpu(), valid_hw=valid.cpu(), **kw)
+    assert (card.argmax(1) == cpu.argmax(1)).float().mean() >= 0.999
+    torch.testing.assert_close(card, cpu, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("tokens,plain_row,surgery_row", [
+    (197, "_plain_kernel_rows_hb", "_kernel"),
+    (577, "_plain_kernel", "_kernel"),
+    (901, "_plain_kernel", "_kernel_rows")])
+def test_attention_none_mode_at_msc_tokens(gen, tokens, plain_row,
+                                           surgery_row):
+    """Mode "none" (MSC's: no weights, surgery without ex) at the token
+    counts of MSC scales 0.7, 1.2 and 1.5, bf16 and fp32, and the Pallas
+    row each launch is attributed to."""
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = (torch.randn((1, 12, tokens, 64), device="cuda",
+                               generator=gen).to(dtype) for _ in range(3))
+        rows_p = dict(ak.fused_plain_attention.launches_by_row)
+        rows_s = dict(ak.fused_surgery_attention.launches_by_row)
+        ctx, w = ak.fused_plain_attention(q, k, v, need_weights=False)
+        shared, attn, ctx_ori = ak.fused_surgery_attention(q, k, v,
+                                                           need_attn=False)
+        torch.cuda.synchronize()
+        assert w is None and attn is None
+        rows_p[plain_row] += 1
+        rows_s[surgery_row] += 1
+        assert ak.fused_plain_attention.launches_by_row == rows_p
+        assert ak.fused_surgery_attention.launches_by_row == rows_s
+        ref_ctx, _ = ak.plain_attention_reference(q, k, v,
+                                                  need_weights=False)
+        ref_shared, _, ref_ori = ak.surgery_attention_reference(
+            q, k, v, need_attn=False)
+        tol = (dict(atol=ATOL, rtol=0) if dtype == torch.float32
+               else dict(atol=BF16_ATOL, rtol=BF16_RTOL))
+        torch.testing.assert_close(ctx.float(), ref_ctx.float(), **tol)
+        torch.testing.assert_close(ctx_ori.float(), ref_ori.float(), **tol)
+        torch.testing.assert_close(shared, ref_shared, atol=ATOL, rtol=0)

@@ -73,14 +73,62 @@ def test_par_refine_full_extent_matches_jnp():
 
 
 def test_par_bf16_not_ported():
-    """bf16 PAR with a pad that is not a multiple of 8 is a route the port
-    does not have (the JAX package rounds its sums to bf16 there): it
-    raises rather than compute something else."""
-    img, masks, _ = _canvas(5, b=1, c=1, h=16, w=16)
-    with pytest.raises(NotImplementedError, match="multiple of 8"):
-        par_refine(t(img), t(masks), dilations=(1, 2), dtype=torch.bfloat16)
+    """bf16 PAR with a pad that is not a multiple of 8 (the tiny config's
+    dilations (1, 2)) has no padded kernel; it takes the per-step route,
+    which mirrors the JAX package's Pallas route there (`use_pallas="interpret"`:
+    fp32 affinity rounded to bf16, `par_diffuse` with a bf16 output,
+    `_replicate_valid` each step), not the XLA loop the JAX package runs
+    without Pallas. In process XLA may skip some bf16 roundings the program
+    writes down, so the bound is two bf16 ulps of masks in [1, 2) (observed
+    one, 2^-6 after 3 steps); tests/test_torch_bf16_rounding.py holds the
+    same route bit for bit. Other storage types still raise."""
+    img, masks, valid = _canvas(5, b=2, c=3, h=40, w=64)
+    for v in (valid, None):
+        ref = jax_par_refine(
+            jnp.asarray(img), jnp.asarray(masks), dilations=(1, 2),
+            num_iter=3, valid_hw=None if v is None else jnp.asarray(v),
+            use_pallas="interpret", dtype=jnp.bfloat16)
+        got = par_refine(t(img), t(masks), dilations=(1, 2), num_iter=3,
+                         valid_hw=None if v is None else t(v),
+                         dtype=torch.bfloat16)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(n(got), np.asarray(ref), atol=2.0 ** -5,
+                                   rtol=0)
     with pytest.raises(NotImplementedError):
         par_refine(t(img), t(masks), dtype=torch.float16)
+
+
+def test_par_diffuse_crf_offsets_matches_pallas():
+    """One fp32 step at the mean-field CRF's 72 offsets (pad 55, larger than
+    the 40 x 64 canvas), 21 channels in three register groups: the TPU
+    kernel sums in chunks of 8, the port in offset order; values in [0, 1]:
+    1e-6 abs."""
+    from excel_tpu.ops.crf_tpu import DEFAULT_DILATIONS as CRF_DILATIONS
+
+    offs = _offsets(CRF_DILATIONS)
+    assert len(offs) == 72
+    rng = np.random.default_rng(11)
+    m = rng.random((2, 21, 40, 64), dtype=np.float32)
+    aff = rng.random((2, 72, 40, 64), dtype=np.float32)
+    aff /= aff.sum(axis=1, keepdims=True)
+    ref = jax_diffuse(pad_for_diffuse(jnp.asarray(m), 55), jnp.asarray(aff),
+                      tuple(offs), interpret=True)
+    got = par_diffuse(t(m), t(aff), offsets_tensor(offs, "cpu"))
+    np.testing.assert_allclose(n(got), np.asarray(ref), atol=1e-6, rtol=0)
+
+
+def test_par_diffuse_checks_types():
+    offs = offsets_tensor(_offsets((1, 2)), "cpu")
+    m = torch.rand((1, 2, 8, 8))
+    aff = torch.rand((1, 16, 8, 8))
+    assert par_diffuse(m.bfloat16(), aff.bfloat16(),
+                       offs).dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="share a dtype"):
+        par_diffuse(m.bfloat16(), aff, offs)
+    with pytest.raises(NotImplementedError):
+        par_diffuse(m.half(), aff.half(), offs)
+    with pytest.raises(ValueError):
+        par_diffuse(m, aff[:, :8], offs)
 
 
 # ---------------------------------------------------------------------------
