@@ -7,17 +7,26 @@ Counterpart of excel_tpu/models/attention_pallas.py. Two wrappers:
 - `fused_surgery_attention` runs csrc/attention_surgery.cu, which replaces
   the Pallas `_kernel` and computes what `_kernel_rows` computes.
 
-Both kernels take fp32 or bf16 q/k/v (one entry point each) and are bound
-by fp32 arithmetic; the sources say how they are laid out. With bf16 inputs
-the arithmetic is the TPU kernels': fp32 logits, softmax and weight sums,
-P rounded to bf16 before P V, a bf16 context. The weights output has the
-TPU kernels' three modes: "out" (own output), "acc" (added in place onto an
-accumulator, the cross-block mean of the training-free path) and "none"
-(never written); it is fp32 for either input type.
+Both take fp32 or bf16 q/k/v (one C entry point each) and run two kernels
+an entry point (csrc/attention_common.cuh): a rows kernel (the exact
+softmax in two passes over the keys with the logits formed twice, P V, and
+each row's softmax statistics into a small scratch) and a sums kernel (the
+[N, N] head sums, a 64 x 64 patch a block, every head's terms added in
+registers and written once). The bf16 entry points multiply on the tensor
+cores (`mma.sync`, csrc/attention_mma.cuh) and are bound by the softmaxes'
+exponentials and L2 reads; the fp32 ones stay exact fp32 FMA
+(csrc/attention_fma.cuh) and are bound by FMA throughput. With bf16 inputs the
+arithmetic is the TPU kernels': fp32 logits, softmax and weight sums, the
+normalised P rounded to bf16 before P V, a bf16 context. The weights
+output has the TPU kernels' three modes: "out" (own output), "acc" (added
+in place onto an accumulator, the cross-block mean of the training-free
+path; bit for bit "out" + the accumulator) and "none" (never written); it
+is fp32 for either input type. A launch gives the same bits every time.
 
 On a CPU tensor a wrapper computes its plain PyTorch version; on a CUDA
-tensor it launches its kernel or raises. Each wrapper counts its kernel
-launches in its `launches` attribute, and in `launches_by_row` under the
+tensor it launches its kernel or raises. Each wrapper counts the calls of
+its C entry point (one launch of the rows kernel and of the sums kernels
+back to back) in its `launches` attribute, and in `launches_by_row` under the
 Pallas function the JAX package would route the same call to: plain
 attention without weights at N <= 512 to `_plain_kernel_rows_hb`, every
 other plain call to `_plain_kernel`; surgery attention at N <= 640 to
@@ -80,6 +89,27 @@ def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def stats_shape(kind: str, mode: str, b: int, heads: int, n: int):
+    """Shape of the fp32 scratch an entry point needs, or None.
+
+    An entry point runs two kernels; the first hands the second each row's
+    softmax statistics (m c, 1 / s): one pair for plain attention with
+    weights, four (q k^T, q q^T, k k^T, v v^T) for surgery attention in
+    every mode (`shared` is always formed). Plain attention without weights
+    is one kernel and needs none."""
+    if kind not in ("plain", "surgery") or mode not in _MODES:
+        raise ValueError(f"unknown kernel {kind!r} or mode {mode!r}")
+    if kind == "plain" and mode == "none":
+        return None
+    return (b, heads, n, 2 if kind == "plain" else 8)
+
+
+def _stats(kind: str, mode: str, q: torch.Tensor):
+    b, heads, n, _ = q.shape
+    shape = stats_shape(kind, mode, b, heads, n)
+    return None if shape is None else q.new_empty(shape, dtype=torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # plain attention
 # ---------------------------------------------------------------------------
@@ -96,6 +126,28 @@ def _pv(attn: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """attn v with attn rounded to v's type first, accumulated in fp32 and
     returned in v's type."""
     return torch.matmul(attn.to(v.dtype).float(), v.float()).to(v.dtype)
+
+
+def context_rounding_allowance(q, k, v, rel: float = 2.0 ** -20):
+    """How far a kernel's context may lie from the plain version's because
+    the normalised p is rounded to v's type before P V: [B, H, N, D] fp32.
+
+    A kernel forms p = exp(x - m) / s with another exponential, reciprocal
+    and order of summation than `torch.softmax`, so its fp32 p differs by a
+    few fp32 ulps (`rel` of its size bounds that). Where the plain
+    version's p lies that close to the midpoint of two bf16 values, the
+    kernel's p may round to the other one, and the context row moves by one
+    bf16 ulp of that p times |v| of its key. The allowance sums exactly
+    those terms, so it is 0 for almost every element (and everywhere for
+    fp32, where p is not rounded)."""
+    if v.dtype == torch.float32:
+        return torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    p = _softmax_sim(q, k)
+    _, e = torch.frexp(p)       # p = m 2^e, m in [0.5, 1): bf16 ulp 2^(e-8)
+    ulp = torch.ldexp(torch.ones_like(p), e - 8)
+    near_tie = (p - p.to(v.dtype).float()).abs() >= 0.5 * ulp - rel * p
+    return torch.matmul(torch.where(near_tie, ulp, torch.zeros_like(ulp)),
+                        v.float().abs())
 
 
 def plain_attention_reference(q, k, v, acc=None, need_weights=True):
@@ -135,8 +187,10 @@ def fused_plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else None)
     fn = build.load("attention_plain",
                     f"excel_plain_attention_{_SUFFIX[q.dtype]}")
+    stats = _stats("plain", mode, q)
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
-                   _ptr(weights), b, heads, n, d, _MODES[mode], _stream(q)),
+                   _ptr(weights), _ptr(stats), b, heads, n, d, _MODES[mode],
+                   _stream(q)),
                 "attention_plain")
     fused_plain_attention.launches += 1
     row = ("_plain_kernel_rows_hb" if mode == "none" and n <= _ROWS_HB_MAX_N
@@ -204,9 +258,10 @@ def fused_surgery_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         else None)
     fn = build.load("attention_surgery",
                     f"excel_surgery_attention_{_SUFFIX[q.dtype]}")
+    stats = _stats("surgery", mode, q)
     build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ex_attn),
                    shared.data_ptr(), _ptr(attn_sum), ctx_ori.data_ptr(),
-                   b, heads, n, d, _MODES[mode], _stream(q)),
+                   _ptr(stats), b, heads, n, d, _MODES[mode], _stream(q)),
                 "attention_surgery")
     fused_surgery_attention.launches += 1
     fused_surgery_attention.launches_by_row[

@@ -22,7 +22,7 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
-# N=17 and 197: tails of the 16/32-row query tiles and of the 64-key chunks
+# N=17 and 197: tails of the 64-row query tiles and of the 64-key chunks
 @pytest.mark.parametrize("tokens,d", [(17, 32), (197, 64)])
 @pytest.mark.parametrize("mode", ["none", "out", "acc"])
 def test_plain_attention_kernel(gen, tokens, d, mode):
@@ -81,6 +81,120 @@ def test_par_diffuse_kernel_bitwise(gen):
 # than 2^-7 of them
 BF16_RTOL = 2.0 ** -7
 BF16_ATOL = torch.finfo(torch.float32).tiny
+# the bf16 attention contexts get two more terms: 2^-20 max|v| (the tensor
+# cores sum an instruction's 16 products without rounding each partial sum,
+# which shows where a context cancels to nearly 0) and the rounding
+# allowance of p (a normalised p at a bf16 tie may round either way; one
+# bf16 ulp of exactly those p times |v|, 0 elsewhere)
+CTX_ABS_OF_VMAX = 2.0 ** -20
+
+
+def _ctx_close(got, ref, q, k, v):
+    assert got.dtype == ref.dtype
+    g, r = got.float(), ref.float()
+    lim = BF16_RTOL * r.abs() + BF16_ATOL if got.dtype == torch.bfloat16 \
+        else torch.full_like(r, ATOL)
+    lim = lim + ak.context_rounding_allowance(q, k, v) \
+        + (CTX_ABS_OF_VMAX * float(v.float().abs().max())
+           if got.dtype == torch.bfloat16 else 0.0)
+    assert torch.isfinite(g).all()
+    bad = (g - r).abs() > lim
+    assert not bad.any(), (int(bad.sum()), float((g - r).abs().max()))
+
+
+def _qkv(gen, b, h, n, d, dtype):
+    return [torch.randn((b, h, n, d), device="cuda", generator=gen).to(dtype)
+            for _ in range(3)]
+
+
+def _attention(kind, q, k, v, mode, acc, ex=None):
+    """(fused outputs, plain outputs) with output 1 the accumulated one."""
+    def a():
+        return acc.clone() if mode == "acc" else None
+    if kind == "plain":
+        kw = dict(need_weights=mode != "none")
+        got = ak.fused_plain_attention(q, k, v, acc=a(), **kw)
+        ref = ak.plain_attention_reference(q, k, v, acc=a(), **kw)
+        return (got[1], got[0]), (ref[1], ref[0])
+    kw = dict(ex_attn=ex, need_attn=mode != "none")
+    got = ak.fused_surgery_attention(q, k, v, acc=a(), **kw)
+    ref = ak.surgery_attention_reference(q, k, v, acc=a(), **kw)
+    return (got[1], got[2], got[0]), (ref[1], ref[2], ref[0])
+
+
+def _check_attention(kind, q, k, v, mode, acc, ex=None):
+    got, ref = _attention(kind, q, k, v, mode, acc, ex)
+    torch.cuda.synchronize()
+    assert (got[0] is None) == (mode == "none")
+    _ctx_close(got[1], ref[1], q, k, v)
+    for g, r in zip(got[::2], ref[::2]):       # fp32 [B, N, N] outputs
+        assert (g is None) == (r is None)
+        if g is not None:
+            torch.testing.assert_close(g, r, atol=ATOL, rtol=0)
+    return got
+
+
+# ragged and tiny token counts: one key, tails of 1 and 15 rows on either
+# side of the 16-row fragments and the 64-row tiles; D=32 and 64; every mode
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["none", "out", "acc"])
+@pytest.mark.parametrize("tokens", [1, 15, 17, 63, 65])
+@pytest.mark.parametrize("d", [32, 64])
+def test_attention_kernels_edge_tokens(gen, d, tokens, mode, dtype):
+    q, k, v = _qkv(gen, 2, 3, tokens, d, dtype)
+    acc = torch.rand((2, tokens, tokens), device="cuda", generator=gen)
+    _check_attention("plain", q, k, v, mode, acc)
+    _check_attention("surgery", q, k, v, mode, acc)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["none", "out", "acc"])
+@pytest.mark.parametrize("b", [1, 3])
+def test_surgery_attention_kernel_ex_every_mode(gen, b, mode, dtype):
+    n = 130
+    q, k, v = _qkv(gen, b, 12, n, 64, dtype)
+    acc = torch.rand((b, n, n), device="cuda", generator=gen)
+    ex = (torch.rand((b, n, n), device="cuda", generator=gen)
+          / n).to(dtype).float()
+    _check_attention("surgery", q, k, v, mode, acc, ex)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["plain", "surgery"])
+def test_attention_kernels_deterministic_and_acc_is_out_plus_acc(gen, kind,
+                                                                 dtype):
+    """Two launches give the same bits (no atomics, fixed order of the head
+    sums), and mode acc equals mode out + the accumulator bit for bit."""
+    n = 197
+    q, k, v = _qkv(gen, 2, 12, n, 64, dtype)
+    acc = torch.rand((2, n, n), device="cuda", generator=gen)
+    first, _ = _attention(kind, q, k, v, "acc", acc)
+    again, _ = _attention(kind, q, k, v, "acc", acc)
+    out, _ = _attention(kind, q, k, v, "out", acc)
+    torch.cuda.synchronize()
+    for a, b2 in zip(first, again):
+        assert torch.equal(a, b2)
+    assert torch.equal(first[0], out[0] + acc)
+    for a, o in zip(first[1:], out[1:]):
+        assert torch.equal(a, o)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_on_a_side_stream(gen, dtype):
+    """The kernels and their scratch follow PyTorch's current stream."""
+    n = 401
+    q, k, v = _qkv(gen, 2, 12, n, 64, dtype)
+    acc = torch.rand((2, n, n), device="cuda", generator=gen)
+    ref_p, _ = _attention("plain", q, k, v, "out", acc)
+    ref_s, _ = _attention("surgery", q, k, v, "out", acc)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got_p, _ = _attention("plain", q, k, v, "out", acc)
+        got_s, _ = _attention("surgery", q, k, v, "out", acc)
+    side.synchronize()
+    for g, r in zip(got_p + got_s, ref_p + ref_s):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.parametrize("tokens", [17, 197])
@@ -96,8 +210,7 @@ def test_plain_attention_kernel_bf16(gen, tokens, mode):
         q, k, v, acc=acc.clone() if mode == "acc" else None, **kw)
     torch.cuda.synchronize()
     assert got[0].dtype == torch.bfloat16
-    torch.testing.assert_close(got[0].float(), ref[0].float(), atol=BF16_ATOL,
-                               rtol=BF16_RTOL)
+    _ctx_close(got[0], ref[0], q, k, v)
     if mode != "none":
         torch.testing.assert_close(got[1], ref[1], atol=ATOL, rtol=0)
 
@@ -114,8 +227,7 @@ def test_surgery_attention_kernel_bf16(gen, mode):
         q, k, v, acc=acc.clone() if mode == "acc" else None, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got[0], ref[0], atol=ATOL, rtol=0)
-    torch.testing.assert_close(got[2].float(), ref[2].float(), atol=BF16_ATOL,
-                               rtol=BF16_RTOL)
+    _ctx_close(got[2], ref[2], q, k, v)
     if mode != "none":
         torch.testing.assert_close(got[1], ref[1], atol=ATOL, rtol=0)
 
@@ -192,8 +304,7 @@ def test_surgery_attention_kernel_bf16_with_ex(gen):
                                          need_attn=False)
     torch.cuda.synchronize()
     torch.testing.assert_close(got[0], ref[0], atol=ATOL, rtol=0)
-    torch.testing.assert_close(got[2].float(), ref[2].float(), atol=BF16_ATOL,
-                               rtol=BF16_RTOL)
+    _ctx_close(got[2], ref[2], q, k, v)
 
 
 @pytest.mark.parametrize("c", [5, 9])
@@ -344,8 +455,6 @@ def test_attention_none_mode_at_msc_tokens(gen, tokens, plain_row,
                                                   need_weights=False)
         ref_shared, _, ref_ori = ak.surgery_attention_reference(
             q, k, v, need_attn=False)
-        tol = (dict(atol=ATOL, rtol=0) if dtype == torch.float32
-               else dict(atol=BF16_ATOL, rtol=BF16_RTOL))
-        torch.testing.assert_close(ctx.float(), ref_ctx.float(), **tol)
-        torch.testing.assert_close(ctx_ori.float(), ref_ori.float(), **tol)
+        _ctx_close(ctx, ref_ctx, q, k, v)
+        _ctx_close(ctx_ori, ref_ori, q, k, v)
         torch.testing.assert_close(shared, ref_shared, atol=ATOL, rtol=0)
