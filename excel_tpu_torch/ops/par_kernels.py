@@ -473,10 +473,12 @@ def _check_valid_step(name, masks_padded, aff, valid_hw, offsets, h, w):
         raise ValueError(f"{name}: aff and masks_padded must share a dtype")
     _check(name, {"masks_padded": masks_padded, "aff": aff,
                   "valid_hw": valid_hw}, masks_padded.device)
-    if (masks_padded.device.type == "cuda"
-            and masks_padded.dtype != torch.bfloat16):
+    if masks_padded.device.type == "cuda" and (
+            masks_padded.dtype != torch.bfloat16 or k > 64 or pad > 64):
         raise NotImplementedError(f"{name}: the kernel takes bf16 canvases "
-                                  "(the fast preset's)")
+                                  f"(the fast preset's), at most 64 offsets "
+                                  f"and a pad of at most 64 (got "
+                                  f"{masks_padded.dtype}, K={k}, pad {pad})")
     return b, c, hp, wp, k, pad
 
 

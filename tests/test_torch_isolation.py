@@ -1,6 +1,7 @@
 """The port stands alone: no module of excel_tpu_torch and no line of
-chip_smoke.py imports jax or excel_tpu, and its entry points refuse to fall
-back to the CPU when no GPU is present."""
+chip_smoke.py or of the port's kernel timing tools imports jax or
+excel_tpu, and its entry points refuse to fall back to the CPU when no GPU
+is present."""
 import ast
 import os
 import subprocess
@@ -14,7 +15,8 @@ FORBIDDEN = ("jax", "jaxlib", "excel_tpu")
 
 
 def _port_files():
-    files = [os.path.join(ROOT, "chip_smoke.py")]
+    files = [os.path.join(ROOT, f) for f in (
+        "chip_smoke.py", "tools/attention_ab.py", "tools/par_ab.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "excel_tpu_torch")):
         files += [os.path.join(d, f) for f in names if f.endswith(".py")]
     return sorted(files)

@@ -270,7 +270,7 @@ def test_affinity_kernel(gen):
 def test_diffuse_valid_kernels_bitwise(gen):
     """The step kernel equals its plain version, and one resident launch of
     6 steps equals 6 step launches, bit for bit (bf16; 9 channels: two
-    channel groups, the second partial)."""
+    passes over the affinities, of 5 and 4 channels)."""
     dil = (1, 2, 4, 8, 12, 24)
     offsets = _offsets(dil)
     masks, valid = _canvas(gen, torch.bfloat16, c=9)
@@ -290,6 +290,87 @@ def test_diffuse_valid_kernels_bitwise(gen):
     with pytest.raises(NotImplementedError):
         pk.par_diffuse_padded_valid(mp.float(), aff.float(), valid, offsets,
                                     40, 200)
+
+
+def _diffuse_valid_case(gen, c, w, dil, hp_extra=8, wp=None):
+    """bf16 canvas, affinities and extents of 4 images of height 40 and
+    width w: one full, one ragged, one a single row, one a single column."""
+    offs = _offsets(dil)
+    pad = max(dil)
+    valid = torch.tensor([[40, w], [25, w * 2 // 3 + 1], [1, w - 7], [33, 1]],
+                         device="cuda", dtype=torch.int32)
+    masks = torch.rand((4, c, 40, w), device="cuda", generator=gen).bfloat16()
+    wp = wp or -(-(w + 2 * pad) // 128) * 128
+    mp = pk._clamped_gather(masks, valid, pad, 40 + 2 * pad + hp_extra, wp)
+    aff = torch.rand((4, len(offs), 40, w), device="cuda", generator=gen)
+    aff = (aff / aff.sum(dim=1, keepdim=True)).bfloat16()
+    return mp, aff, valid, offs
+
+
+# pad 24 (the production dilations, K=48) and pad 3 (K=16: odd column
+# offsets, whose mask pairs are not 4-byte aligned)
+@pytest.mark.parametrize("dil", [(1, 2, 4, 8, 12, 24), (1, 3)])
+@pytest.mark.parametrize("w", [61, 200, 512])
+@pytest.mark.parametrize("c", [1, 4, 5, 8, 9])
+def test_diffuse_valid_resident_edges_bitwise(gen, c, w, dil):
+    """Resident == iterated step launches == plain version, bit for bit,
+    for 1, 2, 7 and 20 steps: one pass over the affinities up to 8
+    channels, two at 9; widths that break the 16-byte copies (61) and
+    extents of one row or one column."""
+    mp, aff, valid, offs = _diffuse_valid_case(gen, c, w, dil)
+    m, plain = mp, mp
+    for n in range(1, 21):
+        m = pk.par_diffuse_padded_valid(m, aff, valid, offs, 40, w)
+        plain = pk.par_diffuse_padded_valid_reference(plain, aff, valid, offs,
+                                                      40, w)
+        if n in (1, 2, 7, 20):
+            res = pk.par_diffuse_valid_resident(mp, aff, valid, offs, 40, w,
+                                                n)
+            torch.cuda.synchronize()
+            assert torch.equal(m, plain), n
+            assert torch.equal(res, plain), n
+
+
+def test_diffuse_valid_odd_canvas_and_unaligned_pointers(gen):
+    """An odd canvas width and height, and tensors that start 2 bytes past
+    a 16-byte boundary: every copy and store takes its element path."""
+    dil = (1, 2, 4, 8, 12, 24)
+    mp, aff, valid, offs = _diffuse_valid_case(gen, 5, 200, dil, hp_extra=1,
+                                               wp=200 + 48 + 3)
+    big_m = torch.empty((mp.numel() + 1,), device="cuda", dtype=mp.dtype)
+    big_a = torch.empty((aff.numel() + 1,), device="cuda", dtype=aff.dtype)
+    mp_u = big_m[1:].view(mp.shape).copy_(mp)
+    aff_u = big_a[1:].view(aff.shape).copy_(aff)
+    ref = pk.par_diffuse_valid_resident_reference(mp, aff, valid, offs, 40,
+                                                  200, 7)
+    got = pk.par_diffuse_valid_resident(mp_u, aff_u, valid, offs, 40, 200, 7)
+    step = pk.par_diffuse_padded_valid(mp_u, aff_u, valid, offs, 40, 200)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+    assert torch.equal(step, pk.par_diffuse_padded_valid_reference(
+        mp, aff, valid, offs, 40, 200))
+
+
+def test_diffuse_valid_deterministic_and_on_a_side_stream(gen):
+    """Two launches give the same bits, and a launch on a side stream the
+    same bits as on the default stream."""
+    mp, aff, valid, offs = _diffuse_valid_case(gen, 4, 512,
+                                               (1, 2, 4, 8, 12, 24))
+    a = pk.par_diffuse_valid_resident(mp, aff, valid, offs, 40, 512, 20)
+    b = pk.par_diffuse_valid_resident(mp, aff, valid, offs, 40, 512, 20)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        c = pk.par_diffuse_valid_resident(mp, aff, valid, offs, 40, 512, 20)
+        s = pk.par_diffuse_padded_valid(mp, aff, valid, offs, 40, 512)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert torch.equal(s, pk.par_diffuse_padded_valid_reference(
+        mp, aff, valid, offs, 40, 512))
+    with pytest.raises(NotImplementedError):
+        pk.par_diffuse_padded_valid(mp, aff[:, :1].repeat(1, 65, 1, 1), valid,
+                                    (offs * 2)[:65], 40, 512)
 
 
 def test_surgery_attention_kernel_bf16_with_ex(gen):

@@ -82,15 +82,15 @@ def test_par_affinity_matches_pallas(dtype, atol, rtol):
     _close(got, ref, atol, rtol)
 
 
-def _diffusion_inputs(seed: int, dtype: str):
+def _diffusion_inputs(seed: int, dtype: str, c: int = C, valid=VALID):
     rng = np.random.default_rng(seed)
     k = len(_offsets(DILATIONS))
     aff = rng.random((B, k, H, W), dtype=np.float32)
     aff /= aff.sum(axis=1, keepdims=True)
-    masks = rng.random((B, C, H, W), dtype=np.float32)
+    masks = rng.random((B, c, H, W), dtype=np.float32)
     affj, afft = _pair(aff, dtype)
     mj, _ = _pair(masks, dtype)
-    mpj = jp.pad_replicate_valid(mj, jnp.asarray(VALID), PAD, interpret=True)
+    mpj = jp.pad_replicate_valid(mj, jnp.asarray(valid), PAD, interpret=True)
     mpt = t(np.asarray(mpj.astype(jnp.float32))).to(DTYPES[dtype][0])
     return mpj, affj, mpt, afft
 
@@ -107,28 +107,41 @@ def test_par_diffuse_padded_valid_matches_pallas(dtype, atol):
     _close(got, ref, atol)
 
 
+# valid extents with a one-pixel row, a one-pixel column and a width that
+# is no multiple of 8: the CUDA kernel's edge paths (its 16-byte copies of
+# 8 pixels do not fit there), held here through the plain version it is
+# compared with on the card
+EDGE_VALID = np.asarray([[1, 128], [33, 1], [17, 61]], np.int32)
+# (channels, extents): the eval batch's C=4, and C = 1, 5 (VOC train) and
+# 9 (COCO train: more channels than the kernel sums in one pass)
+CHANNEL_CASES = [(4, VALID), (1, EDGE_VALID), (5, EDGE_VALID),
+                 (9, EDGE_VALID)]
+
+
+@pytest.mark.parametrize("c,valid", CHANNEL_CASES)
 @pytest.mark.parametrize("dtype,atol", [("f32", 1e-6), ("bf16", BF16_ULP)])
-def test_par_diffuse_valid_resident_matches_pallas(dtype, atol):
+def test_par_diffuse_valid_resident_matches_pallas(dtype, atol, c, valid):
     """5 steps; the per-step ulps do not grow beyond one (the diffusion
     averages)."""
-    mpj, affj, mpt, afft = _diffusion_inputs(3, dtype)
-    ref = jp.par_diffuse_valid_resident(mpj, affj, jnp.asarray(VALID),
+    mpj, affj, mpt, afft = _diffusion_inputs(3, dtype, c, valid)
+    ref = jp.par_diffuse_valid_resident(mpj, affj, jnp.asarray(valid),
                                         tuple(jax_offsets(DILATIONS)), H, W,
                                         5, interpret=True)
-    got = pk.par_diffuse_valid_resident(mpt, afft, t(VALID), _offsets_t(), H,
+    got = pk.par_diffuse_valid_resident(mpt, afft, t(valid), _offsets_t(), H,
                                         W, 5)
     _close(got, ref, atol)
 
 
+@pytest.mark.parametrize("c,valid", CHANNEL_CASES)
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-def test_resident_equals_iterated_steps(dtype):
+def test_resident_equals_iterated_steps(dtype, c, valid):
     """The port's resident version is the step version iterated, bit for
     bit (what the card checks of the two kernels)."""
-    _, _, mpt, afft = _diffusion_inputs(4, dtype)
+    _, _, mpt, afft = _diffusion_inputs(4, dtype, c, valid)
     m = mpt
     for _ in range(4):
-        m = pk.par_diffuse_padded_valid(m, afft, t(VALID), _offsets_t(), H, W)
-    got = pk.par_diffuse_valid_resident(mpt, afft, t(VALID), _offsets_t(), H,
+        m = pk.par_diffuse_padded_valid(m, afft, t(valid), _offsets_t(), H, W)
+    got = pk.par_diffuse_valid_resident(mpt, afft, t(valid), _offsets_t(), H,
                                         W, 4)
     assert torch.equal(got, m)
 

@@ -1,0 +1,222 @@
+#!/usr/bin/env python3
+"""Time the port's fused-valid PAR diffusion kernels, alone or against
+another tree's.
+
+    python3 tools/par_ab.py                      # this tree, times
+    python3 tools/par_ab.py --check              # bit-for-bit checks
+    python3 tools/par_ab.py --ab work_dirs/parent
+
+Needs one NVIDIA GPU and nvcc; imports `excel_tpu_torch` (never jax) from
+`--tree` (default: the repository this file lies in). The kernels are those
+of `csrc/par_diffuse_valid.cu`: the step entry point (Pallas rows 7 and 6)
+and the resident one (row 9, 20 steps in one launch). Cases, K=48 offsets
+(dilations 1, 2, 4, 8, 12, 24; pad 24): the fast LAM eval batch's [16, C,
+440, 640] canvas with `chip_smoke.py`'s valid extents at C=4 (the sweep's
+3-slot bucket) and at C=7 and 13 (slot buckets 6 and 12, which run 2 and 3
+channel passes), the train step's [4, C, 376, 384] canvas at full 320 x 320
+extents with C=5 (VOC) and C=9 (COCO), and a barrier probe: one 8 x 64
+image per SM, so that the resident launch's 20 steps are mostly its 19
+grid barriers; `(resident - step) / 19` bounds one barrier's cost from
+above. `--ab OTHER` runs the timing in four subprocesses on the same card
+in turns (OTHER, this tree, this tree, OTHER; each builds its own kernels)
+and prints one table: per case the two trees' CUDA-event medians (the lower
+of a tree's two turns), their ratio, and `bound_ms`, the bytes a call must
+move over 3.35 TB/s. A step moves the valid pixels' affinities, the canvas
+in and the canvas out. 20 steps move 20 such steps where the affinity stack
+exceeds the 50 MiB L2 (the eval shape); where it fits (the train shape),
+they move the stack once and 20 canvases in and out.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DILATIONS = (1, 2, 4, 8, 12, 24)
+PAD, ITERS = 24, 20
+PEAK_BYTES_PER_S = 3.35e12
+L2_BYTES = 50 * 2**20
+EVAL_VALID = [[375, 500], [333, 500], [384, 512], [300, 450]] * 4
+BARRIER = "barrier probe"
+# name -> (B, C, h, w, valid extents or None for full); B=None: one image
+# per SM
+CASES = {"eval B=16 C=4": (16, 4, 384, 512, EVAL_VALID),
+         "eval B=16 C=7": (16, 7, 384, 512, EVAL_VALID),
+         "eval B=16 C=13": (16, 13, 384, 512, EVAL_VALID),
+         "train B=4 C=5": (4, 5, 320, 320, None),
+         "train B=4 C=9": (4, 9, 320, 320, None),
+         BARRIER: (None, 1, 8, 64, None)}
+
+
+def _event_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _inputs(torch, pk, offsets, b, c, h, w, extents, seed):
+    """The padded bf16 canvas, affinities, extents, and the bounds of one
+    step and of ITERS resident steps."""
+    if b is None:
+        b = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    valid = torch.tensor(extents or [[h, w]] * b, device="cuda",
+                         dtype=torch.int32)
+    masks = torch.rand((b, c, h, w), device="cuda", generator=gen)
+    aff = torch.rand((b, len(offsets), h, w), device="cuda", generator=gen)
+    aff = (aff / aff.sum(dim=1, keepdim=True)).bfloat16()
+    mp = pk.pad_replicate_valid_reference(masks.bfloat16(), valid, PAD)
+    valid_px = int((valid[:, 0] * valid[:, 1]).sum())
+    aff_bytes, canvas_bytes = valid_px * len(offsets) * 2, 2 * mp.numel() * 2
+    step_bytes = aff_bytes + canvas_bytes
+    res_bytes = (aff_bytes + ITERS * canvas_bytes
+                 if aff.numel() * 2 <= L2_BYTES else ITERS * step_bytes)
+    return (mp, aff, valid, step_bytes / PEAK_BYTES_PER_S * 1e3,
+            res_bytes / PEAK_BYTES_PER_S * 1e3)
+
+
+def _setup(tree):
+    sys.path.insert(0, tree)
+    from excel_tpu_torch import build
+    from excel_tpu_torch.ops import par_kernels as pk
+    from excel_tpu_torch.ops.par import _offsets
+
+    build.build(("par_diffuse_valid",))
+    return build, pk, _offsets(DILATIONS)
+
+
+def run_times(tree: str, reps: int) -> dict:
+    import torch
+
+    _, pk, offsets = _setup(tree)
+    out = {}
+    for name, (b, c, h, w, ext) in CASES.items():
+        mp, aff, valid, step_bound, res_bound = _inputs(
+            torch, pk, offsets, b, c, h, w, ext, 0)
+        out[f"{name} step"] = _event_ms(
+            torch, lambda: pk.par_diffuse_padded_valid(
+                mp, aff, valid, offsets, h, w), reps)
+        out[f"{name} step bound"] = step_bound
+        out[f"{name} resident x{ITERS}"] = _event_ms(
+            torch, lambda: pk.par_diffuse_valid_resident(
+                mp, aff, valid, offsets, h, w, ITERS), max(reps // 2, 3))
+        out[f"{name} resident x{ITERS} bound"] = res_bound
+        del mp, aff, valid
+    out[f"{BARRIER} per barrier, at most"] = (
+        out[f"{BARRIER} resident x{ITERS}"] - out[f"{BARRIER} step"]) / (
+            ITERS - 1)
+    return out
+
+
+def run_check(tree: str) -> None:
+    """Each case: the step kernel and the resident kernel (20 steps)
+    against their plain versions, the resident launch against 20 step
+    launches, and two resident launches, all bit for bit; prints the
+    compiler's resource report first."""
+    import torch
+
+    build, pk, offsets = _setup(tree)
+    with open(build.library_path("par_diffuse_valid") + ".log") as f:
+        for line in f:
+            if any(k in line for k in ("entry function", "registers",
+                                       "spill")):
+                print(f"build[par_diffuse_valid]: {line.strip()}", flush=True)
+    for seed, (name, (b, c, h, w, ext)) in enumerate(CASES.items()):
+        mp, aff, valid, _, _ = _inputs(torch, pk, offsets, b, c, h, w, ext,
+                                       seed)
+        step = pk.par_diffuse_padded_valid(mp, aff, valid, offsets, h, w)
+        ref = pk.par_diffuse_padded_valid_reference(mp, aff, valid, offsets,
+                                                    h, w)
+        res = pk.par_diffuse_valid_resident(mp, aff, valid, offsets, h, w,
+                                            ITERS)
+        again = pk.par_diffuse_valid_resident(mp, aff, valid, offsets, h, w,
+                                              ITERS)
+        m = mp
+        for _ in range(ITERS):
+            m = pk.par_diffuse_padded_valid(m, aff, valid, offsets, h, w)
+        plain = pk.par_diffuse_valid_resident_reference(mp, aff, valid,
+                                                        offsets, h, w, ITERS)
+        torch.cuda.synchronize()
+        ok = {"step == plain": torch.equal(step, ref),
+              "resident == plain": torch.equal(res, plain),
+              f"resident == {ITERS} steps": torch.equal(res, m),
+              "two resident launches": torch.equal(res, again)}
+        print(f"{name} {tuple(mp.shape)}: {ok}", flush=True)
+        if not all(ok.values()):
+            raise SystemExit(f"par_ab: {name} differs")
+    print("check passed", flush=True)
+
+
+def run_ab(other: str, tree: str, reps: int) -> None:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    runs = {other: [], tree: []}
+    for which in (other, tree, tree, other):
+        res = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--tree", which,
+             "--reps", str(reps), "--json"], capture_output=True, text=True)
+        if res.returncode != 0:
+            sys.stderr.write(res.stdout + res.stderr)
+            raise SystemExit(f"timing run of {which} failed")
+        runs[which].append(json.loads(res.stdout.strip().splitlines()[-1]))
+    print(f"| case | {other} ms | {tree} ms | ratio | bound ms |")
+    print("| --- | --- | --- | --- | --- |")
+    for name in runs[tree][0]:
+        if name.endswith(" bound"):
+            continue
+        a = min(r[name] for r in runs[other])
+        c = min(r[name] for r in runs[tree])
+        bound = runs[tree][0].get(name + " bound")
+        print(f"| {name} | {a:.4f} | {c:.4f} | {a / c:.2f} | "
+              + ("-" if bound is None else f"{bound:.4f}") + " |",
+              flush=True)
+    print(json.dumps({"card": smi, "runs": runs}), flush=True)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tree", default=HERE)
+    ap.add_argument("--ab", metavar="OTHER")
+    ap.add_argument("--check", action="store_true")
+    ap.add_argument("--json", action="store_true")
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    if args.ab:
+        run_ab(os.path.abspath(args.ab), tree, args.reps)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("par_ab: no CUDA device", file=sys.stderr)
+        return 1
+    if args.check:
+        run_check(tree)
+        return 0
+    times = run_times(tree, args.reps)
+    if args.json:
+        print(json.dumps(times))
+    else:
+        for name, ms in times.items():
+            print(f"{name}: {ms:.4f} ms")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
