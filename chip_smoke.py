@@ -226,6 +226,31 @@ def bound_ms(flops: float, nbytes: float,
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def sm_clock_hz() -> float:
+    """The SM clock the card reports as its maximum (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def diffuse_bound_ms(b: int, c: int, h: int, w: int, k: int,
+                     elem_bytes: int) -> tuple[float, str]:
+    """Bound of one `par_diffuse` step (rows 5 and 8), as tools/par_ab.py
+    states it: the affinities and the masks in and out over the memory
+    rate, or the operations, 64 products an SM and clock (at the SM clock
+    the card reports): fp32 takes one FMUL and one FADD a product (never
+    contracted into an FMA) on 128 fp32 lanes, bf16 one bf16 -> fp32
+    placement a product on the 64-lane integer pipe (its fp32 add runs
+    beside it)."""
+    nbytes = (b * k * h * w + 2 * b * c * h * w) * elem_bytes
+    rate = torch.cuda.get_device_properties(0).multi_processor_count * 64 \
+        * sm_clock_hz()
+    return max((nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+               (b * c * h * w * k / rate * 1e3, "operations"))
+
+
 def max_err(a, b) -> float:
     if a is None and b is None:
         return 0.0
@@ -496,9 +521,7 @@ def phase_kernels() -> dict:
         raise AssertionError(f"par_diffuse 20 steps: max err {err_chain}")
     kernel = time_ms(lambda: par_diffuse(masks, aff, offsets), 20)
     plain = time_ms(lambda: par_diffuse_reference(masks, aff, offsets), 5)
-    flops = 2 * k_off * B * PAR_C * PAR_H * PAR_W
-    nbytes = (B * k_off * PAR_H * PAR_W + 2 * B * PAR_C * PAR_H * PAR_W) * f32
-    bnd, by = bound_ms(flops, nbytes)
+    bnd, by = diffuse_bound_ms(B, PAR_C, PAR_H, PAR_W, k_off, f32)
     log(f"kernel par_diffuse B={B} C={PAR_C} K={k_off} {PAR_H}x{PAR_W}: "
         f"max_abs_err step={err_step:.3g} chain20={err_chain:.3g} "
         f"(tol {TOL_PAR_STEP}) kernel_ms={kernel:.4f} plain_ms={plain:.4f} "
@@ -678,7 +701,7 @@ def phase_kernels_padded() -> dict:
         plain = time_ms(lambda: pk.par_diffuse_padded_hcw_reference(
             mp, aff, offs, h, w), 3)
         step_flops = 2 * k_off * b * c * h * w
-        bnd, by = bound_ms(step_flops, (aff.numel() + 2 * masks.numel()) * 4)
+        bnd, by = diffuse_bound_ms(b, c, h, w, k_off, 4)
         log(f"kernel par_diffuse_padded_hcw (row 8, row 5's kernel) "
             f"B={b} C={c} K={k_off} {h}x{w} pad={p} fp32: max_abs_err "
             f"step1={errs[0]:.3g} chain{PAR_ITERS}={errs[-1]:.3g} (max "
@@ -1405,11 +1428,10 @@ def check_crf_diffuse() -> dict:
             kernel = time_ms(lambda: pk.par_diffuse(qd, ad, offsets), 10)
             plain = time_ms(lambda: pk.par_diffuse_reference(qd, ad, offsets),
                             2)
-            el = qd.element_size()
-            bnd, by = bound_ms(2 * k * b * c * h * w,
-                               (ad.numel() + 2 * qd.numel()) * el)
+            bnd, by = diffuse_bound_ms(b, c, h, w, k, qd.element_size())
             log(f"kernel {name} (row 5, the CRF's message pass) B={b} C={c} "
-                f"K={k} {h}x{w} pad={max(DEFAULT_DILATIONS)} "
+                f"K={k} {h}x{w} pad={max(DEFAULT_DILATIONS)} (staged "
+                f"{pk.staged_pad(tuple(offs), c, qd.element_size())}) "
                 f"{str(dtype).split('.')[-1]}: max_abs_err={err:.3g} (tol "
                 f"{TOL_PAR_STEP}) kernel_ms={kernel:.4f} plain_ms={plain:.4f} "
                 f"library_ms=None bound_ms={bnd:.4f} ({by})")

@@ -25,7 +25,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _PLAIN_ATTN = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
 _SURGERY_ATTN = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
-_DIFFUSE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]
+_DIFFUSE = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]
 _PAD_CLAMP = [_P, _P, _P, _I, _I, _I, _I, _I, _P]
 _AFFINITY = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
 _VALID_STEP = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]

@@ -5,7 +5,8 @@ function, with its name and its array shapes:
 
 - `par_diffuse` (csrc/par_diffuse.cu, the Pallas `_diffuse_kernel`): one
   step over unpadded masks, reads clamped to the canvas, fp32 or bf16 (PAR's
-  step; the message pass of the mean-field CRF, ops/crf_tpu.py)
+  step; the message pass of the mean-field CRF, ops/crf_tpu.py); the halo
+  the kernel stages is chosen on the host (`staged_pad`)
 
       new[b, c, y, x] = sum_k aff[b, k, y, x] * m[b, c, y + dy_k, x + dx_k];
 
@@ -66,10 +67,70 @@ def offsets_tensor(offsets, device) -> torch.Tensor:
                        torch.device(device))
 
 
+# id of a tensor made by `offsets_tensor` -> its (dy, dx) pairs, so that a
+# launch sizes its halo without reading the device copy; the cached tensors
+# live as long as the process, so their ids are never reused
+_HOST_OFFSETS: dict[int, tuple] = {}
+
+
 @functools.lru_cache(maxsize=None)
 def _offsets_on(offsets: tuple, device: torch.device) -> torch.Tensor:
-    return torch.tensor(offsets, dtype=torch.int32, device=device).reshape(
-        -1, 2)
+    t = torch.tensor(offsets, dtype=torch.int32, device=device).reshape(-1, 2)
+    _HOST_OFFSETS[id(t)] = offsets
+    return t
+
+
+def _host_offsets(offsets: torch.Tensor) -> tuple:
+    """The (dy, dx) pairs of a [K, 2] offsets tensor: the host copy where
+    `offsets_tensor` made it, else read from the tensor (a device read)."""
+    pairs = _HOST_OFFSETS.get(id(offsets))
+    if pairs is None:
+        pairs = tuple(map(tuple, offsets.tolist()))
+    return pairs
+
+
+# csrc/par_diffuse.cu's geometry: tiles of 32 x 64 pixels, a pass of at
+# most 8 channels, the shared memory of a block (H100: 227 KiB)
+_TILE_H, _TILE_W, _MAX_PASS, _SMEM = 32, 64, 8, 232448
+
+
+@functools.lru_cache(maxsize=None)
+def staged_pad(offsets: tuple, c: int, elem_bytes: int) -> int:
+    """The pad of the halo that `par_diffuse`'s kernel stages in shared
+    memory for C channels of `elem_bytes`-byte elements: chunks of 8
+    offsets that reach beyond it read their neighbours from global memory.
+    A larger halo holds fewer channels, so the affinities are read in more
+    channel passes; for fp32 this picks the pad (one of the chunks'
+    reaches) with the fewest bytes a pixel and channel: the affinities once
+    a pass, the staged halo, and one element a far offset (no reuse
+    assumed). bf16 stages every offset's reach: its far reads (2-byte
+    pairs) cost more than the passes they save (PERF.md)."""
+    k = len(offsets)
+    reach = [max(max(abs(dy), abs(dx)) for dy, dx in offsets[q:q + _CHUNK])
+             for q in range(0, k, _CHUNK)]
+    if elem_bytes == 2:
+        return max(reach)
+    per = 16 // elem_bytes
+    table = -(-(k + len(reach)) // 4) * 16
+    best = None
+    for pad in sorted(set(reach)):
+        pad_cols = -(-pad // per) * per
+        plane = ((_TILE_H + 2 * pad) * (_TILE_W + 2 * pad_cols)
+                 * elem_bytes)
+        nc = min(_MAX_PASS, (_SMEM - table) // plane)
+        if nc < 1:
+            break
+        passes = -(-c // nc)
+        far = sum(min(_CHUNK, k - _CHUNK * q) for q, r in enumerate(reach)
+                  if r > pad)
+        cost = (k * elem_bytes * passes / c
+                + plane / (_TILE_H * _TILE_W) + far * elem_bytes)
+        if best is None or cost < best[0]:
+            best = (cost, pad)
+    if best is None:
+        raise NotImplementedError(f"par_diffuse: no halo of these offsets "
+                                  f"fits shared memory (reaches {reach})")
+    return best[1]
 
 
 def par_diffuse_reference(masks: torch.Tensor, aff: torch.Tensor,
@@ -112,7 +173,11 @@ def par_diffuse(masks: torch.Tensor, aff: torch.Tensor,
     bfloat16; offsets: [K, 2] int32 (dy, dx) on the same device, all
     contiguous; any K >= 1 and C >= 1. Returns the diffused [B, C, H, W]
     masks in the inputs' type (bf16: the roundings of
-    `par_diffuse_reference`)."""
+    `par_diffuse_reference`). On the card the kernel stages a halo of
+    `staged_pad` rows and columns, from the host copy of the offsets that
+    `offsets_tensor` keeps (another tensor is read once, a device read);
+    a bf16 pad whose halo of one channel does not fit shared memory
+    raises."""
     if masks.dim() != 4 or aff.dim() != 4:
         raise ValueError("masks and aff must be [B, C, H, W] / [B, K, H, W]")
     b, c, h, w = masks.shape
@@ -141,10 +206,11 @@ def par_diffuse(masks: torch.Tensor, aff: torch.Tensor,
     out = torch.empty_like(masks)
     fn = build.load("par_diffuse",
                     f"excel_par_diffuse_{_SUFFIX[masks.dtype]}")
+    pairs = _host_offsets(offsets)
     build.check(fn(masks.data_ptr(), aff.data_ptr(), offsets.data_ptr(),
                    out.data_ptr(), b, c, h, w, k,
-                   torch.cuda.current_stream(masks.device).cuda_stream),
-                "par_diffuse")
+                   staged_pad(pairs, c, masks.element_size()),
+                   _pad_of(pairs), _stream(masks)), "par_diffuse")
     par_diffuse.launches += 1
     par_diffuse.launches_by_type[masks.dtype, k] += 1
     return out

@@ -122,8 +122,22 @@ out.update(images=images,
            attn=np.asarray(enc["attn"]))
 out.update({"tree/" + jax.tree_util.keystr(k): np.asarray(v)
             for k, v in jax.tree_util.tree_flatten_with_path(tree)[0]})
+# row 5 in bf16 at the CRF's offsets on ragged shapes (pad 55 beyond the
+# canvas, odd and unaligned widths, 1, 9 and 21 channels)
+for i, (b, c, h, w) in enumerate(CRF_SHAPES):
+    q = rng.random((b, c, h, w), dtype=np.float32)
+    q = jnp.asarray(q / q.sum(axis=1, keepdims=True)).astype(bf)
+    a = rng.random((b, len(coffs), h, w), dtype=np.float32)
+    a = jnp.asarray(4.0 * a / a.sum(axis=1, keepdims=True)).astype(bf)
+    out[f"crf_q{i}"] = np.asarray(q.astype(jnp.float32))
+    out[f"crf_aff{i}"] = np.asarray(a.astype(jnp.float32))
+    out[f"crf_step{i}"] = np.asarray(jp.par_diffuse(
+        jp.pad_for_diffuse(q, 55), a, coffs,
+        interpret=True).astype(jnp.float32))
 np.savez(OUT, **out)
 """
+# (B, C, h, w) of the ragged CRF steps, after the 2 x 21 x 40 x 64 one
+CRF_SHAPES = [(1, 1, 8, 61), (2, 9, 16, 200), (1, 21, 40, 61)]
 
 
 @pytest.fixture(scope="module")
@@ -134,7 +148,8 @@ def ref(tmp_path_factory):
                XLA_FLAGS=(flags + " --xla_allow_excess_precision=false"
                           ).strip())
     code = (f"ROOT = {ROOT!r}\nTESTS = {TESTS!r}\nOUT = {path!r}\n"
-            f"DILATIONS = {DILATIONS!r}\n" + SCRIPT)
+            f"DILATIONS = {DILATIONS!r}\nCRF_SHAPES = {CRF_SHAPES!r}\n"
+            + SCRIPT)
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-4000:]
@@ -177,18 +192,22 @@ def test_bf16_padded_step_equals_pallas_bitwise(ref):
         mp = step
 
 
-def test_bf16_diffuse_step_equals_pallas_bitwise(ref):
+@pytest.mark.parametrize("case", ["", "0", "1", "2"])
+def test_bf16_diffuse_step_equals_pallas_bitwise(ref, case):
     """`par_diffuse` in bf16 (its plain version: products rounded to bf16,
     fp32 sums in chunks of 8, chunk sums and the running output rounded to
     bf16) against the Pallas `_diffuse_kernel` with bf16 storage in
-    interpret mode at the CRF's 72 offsets, bit for bit."""
+    interpret mode at the CRF's 72 offsets, bit for bit: [2, 21, 40, 64],
+    then the ragged CRF_SHAPES."""
     from excel_tpu_torch.ops.crf_tpu import DEFAULT_DILATIONS
     from excel_tpu_torch.ops.crf_tpu import _offsets as crf_offsets
 
     offsets = pk.offsets_tensor(crf_offsets(DEFAULT_DILATIONS), "cpu")
-    got = pk.par_diffuse(_bf16(ref["crf_q"]), _bf16(ref["crf_aff"]), offsets)
+    got = pk.par_diffuse(_bf16(ref[f"crf_q{case}"]),
+                         _bf16(ref[f"crf_aff{case}"]), offsets)
     assert got.dtype == torch.bfloat16
-    np.testing.assert_array_equal(n(got.float()), ref["crf_step"])
+    assert got.shape == ref[f"crf_step{case}"].shape
+    np.testing.assert_array_equal(n(got.float()), ref[f"crf_step{case}"])
 
 
 @pytest.mark.parametrize("extents", ["valid", "full"])

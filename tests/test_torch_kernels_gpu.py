@@ -60,6 +60,52 @@ def test_surgery_attention_kernel(gen, tokens, mode):
             torch.testing.assert_close(g, r, atol=ATOL, rtol=0)
 
 
+# row 5's kernel at its offset sets: K=8 (dilation 1, pad 1), 48 (PAR's
+# dilations, pad 24) and 72 (the CRF's, pad 55)
+def _diffuse_offsets(k):
+    if k == 72:
+        from excel_tpu_torch.ops.crf_tpu import DEFAULT_DILATIONS
+        from excel_tpu_torch.ops.crf_tpu import _offsets as crf_offsets
+
+        return crf_offsets(DEFAULT_DILATIONS)
+    return _offsets({8: (1,), 48: (1, 2, 4, 8, 12, 24)}[k])
+
+
+# (K, B, C, h, w): 1, 2, 3, 8, 9, 21 and 81 channels (one to 21 channel
+# passes); widths 61, 200, 300 and 640 (ragged and whole 64-column tiles);
+# heights below the pad; a 1-row and a 1-column image
+DIFFUSE_SHAPES = [(8, 2, 1, 1, 61), (8, 1, 3, 33, 1), (48, 1, 8, 1, 200),
+                  (48, 2, 2, 20, 640), (48, 1, 9, 40, 61),
+                  (72, 1, 3, 8, 300), (72, 2, 21, 40, 61),
+                  (72, 1, 81, 16, 200), (72, 1, 9, 50, 640)]
+
+
+def _diffuse_case(gen, k, b, c, h, w, dtype):
+    offs = _diffuse_offsets(k)
+    masks = torch.rand((b, c, h, w), device="cuda", generator=gen)
+    aff = torch.rand((b, len(offs), h, w), device="cuda", generator=gen)
+    aff = aff / aff.sum(dim=1, keepdim=True)
+    return masks.to(dtype), aff.to(dtype), pk.offsets_tensor(offs, "cuda")
+
+
+def _diffuse_bitwise(masks, aff, offsets):
+    """The kernel against its plain version bit for bit, twice for equal
+    bits, and once more on a side stream."""
+    got = pk.par_diffuse(masks, aff, offsets)
+    again = pk.par_diffuse(masks, aff, offsets)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = pk.par_diffuse(masks, aff, offsets)
+    torch.cuda.current_stream().wait_stream(side)
+    ref = pk.par_diffuse_reference(masks, aff, offsets)
+    torch.cuda.synchronize()
+    assert got.dtype == masks.dtype
+    assert torch.equal(got, ref), float((got.float() - ref.float()).abs()
+                                        .max())
+    assert torch.equal(got, again) and torch.equal(got, on_side)
+
+
 def test_par_diffuse_kernel_bitwise(gen):
     offs = _offsets((1, 2, 4, 8, 12, 24))
     masks = torch.rand((2, 10, 40, 300), device="cuda", generator=gen)
@@ -71,6 +117,22 @@ def test_par_diffuse_kernel_bitwise(gen):
     ref = pk.par_diffuse_reference(masks, aff, offsets)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k,b,c,h,w", DIFFUSE_SHAPES)
+def test_par_diffuse_kernel_shapes_bitwise(gen, k, b, c, h, w, dtype):
+    _diffuse_bitwise(*_diffuse_case(gen, k, b, c, h, w, dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [8, 72])
+def test_par_diffuse_kernel_unaligned_bitwise(gen, k, dtype):
+    """Masks and affinities at an odd element offset (a batch sliced off
+    the front of an odd-sized one): no 16-byte copy or 4-byte pair is
+    aligned."""
+    masks, aff, offsets = _diffuse_case(gen, k, 3, 3, 7, 61, dtype)
+    _diffuse_bitwise(masks[1:], aff[1:], offsets)
 
 
 # bf16 outputs against their plain versions: at most one bf16 ulp of the
@@ -388,24 +450,25 @@ def test_surgery_attention_kernel_bf16_with_ex(gen):
     _ctx_close(got[2], ref[2], q, k, v)
 
 
-@pytest.mark.parametrize("c", [5, 9])
-def test_row8_padded_hcw_step_via_diffuse_kernel(gen, c):
+@pytest.mark.parametrize("c,h,w", [(5, 40, 56), (9, 40, 56), (1, 20, 61),
+                                   (5, 64, 200)])
+def test_row8_padded_hcw_step_via_diffuse_kernel(gen, c, h, w):
     """Pallas row 8 (full-extent fp32 step on the edge-padded [B, H+2P, C8,
     Wp] canvas) computed by row 5's kernel on the unpadded masks: 20
     chained steps within 1e-5 of the plain row 8."""
     dil = (1, 2, 4, 8, 12, 24)
     offs = _offsets(dil)
-    masks = torch.rand((2, c, 40, 56), device="cuda", generator=gen)
-    aff = torch.rand((2, len(offs), 40, 56), device="cuda", generator=gen)
+    masks = torch.rand((2, c, h, w), device="cuda", generator=gen)
+    aff = torch.rand((2, len(offs), h, w), device="cuda", generator=gen)
     aff = aff / aff.sum(dim=1, keepdim=True)
     m_k = masks
     m_r = pk.pad_for_diffuse_hcw(masks, 24)
     offsets = pk.offsets_tensor(offs, "cuda")
     for _ in range(20):
         m_k = pk.par_diffuse(m_k, aff, offsets)
-        m_r = pk.par_diffuse_padded_hcw_reference(m_r, aff, offs, 40, 56)
+        m_r = pk.par_diffuse_padded_hcw_reference(m_r, aff, offs, h, w)
     torch.cuda.synchronize()
-    interior = m_r[:, 24:64, :c, 24:80].permute(0, 2, 1, 3)
+    interior = m_r[:, 24:24 + h, :c, 24:24 + w].permute(0, 2, 1, 3)
     torch.testing.assert_close(m_k, interior, atol=1e-5, rtol=0)
 
 
@@ -459,9 +522,8 @@ def _crf_inputs(gen, c, dtype):
     return q, aff, pk.offsets_tensor(offs, "cuda")
 
 
-# 9, 21 and 81 channels: two, three and eleven register groups, the last
-# one partly filled
-@pytest.mark.parametrize("c", [9, 21, 81])
+# 1 to 81 channels: one to 21 channel passes, the last one partly filled
+@pytest.mark.parametrize("c", [1, 2, 3, 8, 9, 21, 81])
 def test_par_diffuse_bf16_kernel_bitwise(gen, c):
     """The bf16 entry point against its plain version (products rounded to
     bf16, fp32 sums in chunks of 8, a bf16 running output), bit for bit,

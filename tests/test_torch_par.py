@@ -98,23 +98,52 @@ def test_par_bf16_not_ported():
         par_refine(t(img), t(masks), dtype=torch.float16)
 
 
-def test_par_diffuse_crf_offsets_matches_pallas():
+# (B, C, h, w): pad 55 beyond the canvas in both directions, odd and
+# unaligned widths, 1, 9 and 21 channels (heights multiples of 8, which the
+# Pallas kernel needs)
+@pytest.mark.parametrize("b,c,h,w", [(2, 21, 40, 64), (1, 1, 8, 61),
+                                     (2, 9, 16, 200), (1, 21, 40, 61)])
+def test_par_diffuse_crf_offsets_matches_pallas(b, c, h, w):
     """One fp32 step at the mean-field CRF's 72 offsets (pad 55, larger than
-    the 40 x 64 canvas), 21 channels in three register groups: the TPU
-    kernel sums in chunks of 8, the port in offset order; values in [0, 1]:
-    1e-6 abs."""
+    the canvas): the TPU kernel sums in chunks of 8, the port in offset
+    order; values in [0, 1]: 1e-6 abs."""
     from excel_tpu.ops.crf_tpu import DEFAULT_DILATIONS as CRF_DILATIONS
 
     offs = _offsets(CRF_DILATIONS)
     assert len(offs) == 72
     rng = np.random.default_rng(11)
-    m = rng.random((2, 21, 40, 64), dtype=np.float32)
-    aff = rng.random((2, 72, 40, 64), dtype=np.float32)
+    m = rng.random((b, c, h, w), dtype=np.float32)
+    aff = rng.random((b, 72, h, w), dtype=np.float32)
     aff /= aff.sum(axis=1, keepdims=True)
     ref = jax_diffuse(pad_for_diffuse(jnp.asarray(m), 55), jnp.asarray(aff),
                       tuple(offs), interpret=True)
     got = par_diffuse(t(m), t(aff), offsets_tensor(offs, "cpu"))
     np.testing.assert_allclose(n(got), np.asarray(ref), atol=1e-6, rtol=0)
+
+
+def test_staged_pad_keeps_par_halo_and_cuts_crf_halo():
+    """The kernel's staged halo: PAR's 48 offsets stage their whole pad 24
+    (one or two channel passes); the CRF's 72 at 21 fp32 channels stage
+    less than its pad 55, so the affinities take fewer passes and the outer
+    dilations read global memory; bf16 stages the whole pad; the host copy
+    of the offsets is found without reading the tensor, and a tensor made
+    elsewhere is read."""
+    from excel_tpu_torch.ops import par_kernels as pk
+    from excel_tpu_torch.ops.crf_tpu import DEFAULT_DILATIONS
+    from excel_tpu_torch.ops.crf_tpu import _offsets as crf_offsets
+
+    par = tuple(_offsets(DILATIONS))
+    crf = tuple(crf_offsets(DEFAULT_DILATIONS))
+    for c in (1, 4, 5, 9):
+        for elem in (4, 2):
+            assert pk.staged_pad(par, c, elem) == 24
+    for elem in (4, 2):
+        assert pk.staged_pad(crf, 1, elem) == 55
+    assert pk.staged_pad(crf, 21, 4) in (13, 21, 34)
+    assert pk.staged_pad(crf, 21, 2) == 55
+    t = offsets_tensor(crf, "cpu")
+    assert pk._host_offsets(t) == crf
+    assert pk._host_offsets(t.clone()) == crf
 
 
 def test_par_diffuse_checks_types():

@@ -1,30 +1,46 @@
 #!/usr/bin/env python3
-"""Time the port's fused-valid PAR diffusion kernels, alone or against
-another tree's.
+"""Time the port's PAR diffusion kernels, alone or against another tree's.
 
     python3 tools/par_ab.py                      # this tree, times
     python3 tools/par_ab.py --check              # bit-for-bit checks
     python3 tools/par_ab.py --ab work_dirs/parent
 
 Needs one NVIDIA GPU and nvcc; imports `excel_tpu_torch` (never jax) from
-`--tree` (default: the repository this file lies in). The kernels are those
-of `csrc/par_diffuse_valid.cu`: the step entry point (Pallas rows 7 and 6)
-and the resident one (row 9, 20 steps in one launch). Cases, K=48 offsets
-(dilations 1, 2, 4, 8, 12, 24; pad 24): the fast LAM eval batch's [16, C,
-440, 640] canvas with `chip_smoke.py`'s valid extents at C=4 (the sweep's
-3-slot bucket) and at C=7 and 13 (slot buckets 6 and 12, which run 2 and 3
-channel passes), the train step's [4, C, 376, 384] canvas at full 320 x 320
-extents with C=5 (VOC) and C=9 (COCO), and a barrier probe: one 8 x 64
-image per SM, so that the resident launch's 20 steps are mostly its 19
-grid barriers; `(resident - step) / 19` bounds one barrier's cost from
-above. `--ab OTHER` runs the timing in four subprocesses on the same card
-in turns (OTHER, this tree, this tree, OTHER; each builds its own kernels)
-and prints one table: per case the two trees' CUDA-event medians (the lower
-of a tree's two turns), their ratio, and `bound_ms`, the bytes a call must
-move over 3.35 TB/s. A step moves the valid pixels' affinities, the canvas
-in and the canvas out. 20 steps move 20 such steps where the affinity stack
-exceeds the 50 MiB L2 (the eval shape); where it fits (the train shape),
-they move the stack once and 20 canvases in and out.
+`--tree` (default: the repository this file lies in). Two sources:
+
+- `csrc/par_diffuse_valid.cu`: the step entry point (Pallas rows 7 and 6)
+  and the resident one (row 9, 20 steps in one launch). Cases, K=48
+  offsets (dilations 1, 2, 4, 8, 12, 24; pad 24): the fast LAM eval
+  batch's [16, C, 440, 640] canvas with `chip_smoke.py`'s valid extents at
+  C=4 (the sweep's 3-slot bucket) and at C=7 and 13 (slot buckets 6 and
+  12, which run 2 and 3 channel passes), the train step's [4, C, 376, 384]
+  canvas at full 320 x 320 extents with C=5 (VOC) and C=9 (COCO), and a
+  barrier probe: one 8 x 64 image per SM, so that the resident launch's 20
+  steps are mostly its 19 grid barriers; `(resident - step) / 19` bounds
+  one barrier's cost from above. A step moves the valid pixels'
+  affinities, the canvas in and the canvas out. 20 steps move 20 such
+  steps where the affinity stack exceeds the 50 MiB L2 (the eval shape);
+  where it fits (the train shape), they move the stack once and 20
+  canvases in and out.
+- `csrc/par_diffuse.cu` (`par_diffuse`, one step over unpadded masks,
+  Pallas rows 5 and 8): the fp32 PAR step of the LAM eval batch [16, 4,
+  384, 512] on masks replicated from `chip_smoke.py`'s valid extents, K=48;
+  row 8, the fp32 train step's full-extent step, at [4, 5|9, 320, 320],
+  K=48; the CRF's message pass at [4, 21, 384, 512] (VOC, the MSC batch)
+  and [2, 81, 480, 640] (COCO), K=72 (dilations 1 ... 55, pad 55), fp32 and
+  bf16. A step moves the affinities, the masks in and out; its operations
+  floor is 64 products an SM and clock (the SM clock `nvidia-smi` reports
+  as its maximum): fp32 needs one FMUL and one FADD a product on 128
+  lanes, bf16 one fp32 add and one bf16 -> fp32 placement, the placement
+  on the 64-lane integer pipe (the issue floor). The bound is the larger
+  of the two.
+
+Times are CUDA-event medians of samples of 10 calls back to back. `--ab
+OTHER` runs the timing in four subprocesses on the same card in turns
+(OTHER, this tree, this tree, OTHER; each builds its own kernels) and
+prints one table: per case the two trees' medians (the lower of a tree's
+two turns), their ratio, and `bound_ms`, the bytes a call must move over
+3.35 TB/s (or the operations floor, where larger).
 """
 from __future__ import annotations
 
@@ -42,6 +58,25 @@ PEAK_BYTES_PER_S = 3.35e12
 L2_BYTES = 50 * 2**20
 EVAL_VALID = [[375, 500], [333, 500], [384, 512], [300, 450]] * 4
 BARRIER = "barrier probe"
+CRF_DILATIONS = (1, 2, 3, 5, 8, 13, 21, 34, 55)
+# par_diffuse cases: name -> (dtype name, dilations, B, C, h, w, valid
+# extents to replicate the masks from, or None)
+DIFFUSE_CASES = {
+    "row5 PAR fp32 [16, 4, 384, 512]": ("float32", DILATIONS, 16, 4, 384,
+                                        512, EVAL_VALID),
+    "row8 fp32 [4, 5, 320, 320]": ("float32", DILATIONS, 4, 5, 320, 320,
+                                   None),
+    "row8 fp32 [4, 9, 320, 320]": ("float32", DILATIONS, 4, 9, 320, 320,
+                                   None),
+    "row5 CRF fp32 [4, 21, 384, 512]": ("float32", CRF_DILATIONS, 4, 21, 384,
+                                        512, None),
+    "row5 CRF bf16 [4, 21, 384, 512]": ("bfloat16", CRF_DILATIONS, 4, 21,
+                                        384, 512, None),
+    "row5 CRF fp32 [2, 81, 480, 640]": ("float32", CRF_DILATIONS, 2, 81, 480,
+                                        640, None),
+    "row5 CRF bf16 [2, 81, 480, 640]": ("bfloat16", CRF_DILATIONS, 2, 81,
+                                        480, 640, None),
+}
 # name -> (B, C, h, w, valid extents or None for full); B=None: one image
 # per SM
 CASES = {"eval B=16 C=4": (16, 4, 384, 512, EVAL_VALID),
@@ -52,7 +87,10 @@ CASES = {"eval B=16 C=4": (16, 4, 384, 512, EVAL_VALID),
          BARRIER: (None, 1, 8, 64, None)}
 
 
-def _event_ms(torch, fn, reps):
+def _event_ms(torch, fn, reps, inner=10):
+    """Median over `reps` samples of one call's ms, a sample timing `inner`
+    calls back to back between two CUDA events (so that the host's launch
+    gaps do not enter the times of the short kernels)."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -60,10 +98,11 @@ def _event_ms(torch, fn, reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
@@ -88,13 +127,56 @@ def _inputs(torch, pk, offsets, b, c, h, w, extents, seed):
             res_bytes / PEAK_BYTES_PER_S * 1e3)
 
 
+def sm_clock_hz() -> float:
+    """The SM clock the card reports as its maximum (nvidia-smi)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0]
+    return float(out) * 1e6
+
+
+def diffuse_bound_ms(b, c, h, w, k, elem_bytes, sms, clock_hz):
+    """(bound ms, what bounds it) of one `par_diffuse` step: the affinities
+    and the masks in and out over 3.35 TB/s, or the operations, 64 products
+    an SM and clock: fp32 takes one FMUL and one FADD a product (never
+    contracted into an FMA) on 128 fp32 lanes, bf16 one bf16 -> fp32
+    placement a product on the 64-lane integer pipe (the issue floor; its
+    fp32 add runs beside it)."""
+    nbytes = (b * k * h * w + 2 * b * c * h * w) * elem_bytes
+    return max((nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"),
+               (b * c * h * w * k / (sms * 64 * clock_hz) * 1e3,
+                "operations"))
+
+
+def _diffuse_inputs(torch, offsets_tensor, replicate, dtype, dil, b, c, h, w,
+                    extents, seed):
+    from excel_tpu_torch.ops.par import _offsets as par_offsets
+
+    if dil == CRF_DILATIONS:
+        from excel_tpu_torch.ops.crf_tpu import _offsets
+        offs = _offsets(dil)
+    else:
+        offs = par_offsets(dil)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    masks = torch.rand((b, c, h, w), device="cuda", generator=gen)
+    if extents is not None:
+        masks = replicate(masks, torch.tensor(extents, device="cuda",
+                                              dtype=torch.int32))
+    aff = torch.rand((b, len(offs), h, w), device="cuda", generator=gen)
+    aff = aff / aff.sum(dim=1, keepdim=True)
+    dt = getattr(torch, dtype)
+    return (masks.to(dt).contiguous(), aff.to(dt).contiguous(),
+            offsets_tensor(offs, "cuda"))
+
+
 def _setup(tree):
     sys.path.insert(0, tree)
     from excel_tpu_torch import build
     from excel_tpu_torch.ops import par_kernels as pk
     from excel_tpu_torch.ops.par import _offsets
 
-    build.build(("par_diffuse_valid",))
+    build.build(("par_diffuse_valid", "par_diffuse"))
     return build, pk, _offsets(DILATIONS)
 
 
@@ -118,6 +200,19 @@ def run_times(tree: str, reps: int) -> dict:
     out[f"{BARRIER} per barrier, at most"] = (
         out[f"{BARRIER} resident x{ITERS}"] - out[f"{BARRIER} step"]) / (
             ITERS - 1)
+    from excel_tpu_torch.ops.par import _replicate_valid
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
+    for name, (dtype, dil, b, c, h, w, ext) in DIFFUSE_CASES.items():
+        masks, aff, offsets = _diffuse_inputs(
+            torch, pk.offsets_tensor, _replicate_valid, dtype, dil, b, c, h,
+            w, ext, 0)
+        out[name] = _event_ms(
+            torch, lambda: pk.par_diffuse(masks, aff, offsets), reps)
+        out[f"{name} bound"] = diffuse_bound_ms(
+            b, c, h, w, aff.shape[1], masks.element_size(), sms, clock)[0]
+        del masks, aff
     return out
 
 
@@ -129,11 +224,12 @@ def run_check(tree: str) -> None:
     import torch
 
     build, pk, offsets = _setup(tree)
-    with open(build.library_path("par_diffuse_valid") + ".log") as f:
-        for line in f:
-            if any(k in line for k in ("entry function", "registers",
-                                       "spill")):
-                print(f"build[par_diffuse_valid]: {line.strip()}", flush=True)
+    for source in ("par_diffuse_valid", "par_diffuse"):
+        with open(build.library_path(source) + ".log") as f:
+            for line in f:
+                if any(k in line for k in ("entry function", "registers",
+                                           "spill")):
+                    print(f"build[{source}]: {line.strip()}", flush=True)
     for seed, (name, (b, c, h, w, ext)) in enumerate(CASES.items()):
         mp, aff, valid, _, _ = _inputs(torch, pk, offsets, b, c, h, w, ext,
                                        seed)
@@ -157,6 +253,25 @@ def run_check(tree: str) -> None:
         print(f"{name} {tuple(mp.shape)}: {ok}", flush=True)
         if not all(ok.values()):
             raise SystemExit(f"par_ab: {name} differs")
+        del mp, aff, valid, step, ref, res, again, m, plain
+    from excel_tpu_torch.ops.par import _replicate_valid
+
+    for seed, (name, (dtype, dil, b, c, h, w, ext)) in enumerate(
+            DIFFUSE_CASES.items()):
+        masks, aff, offs = _diffuse_inputs(
+            torch, pk.offsets_tensor, _replicate_valid, dtype, dil, b, c, h,
+            w, ext, seed)
+        got = pk.par_diffuse(masks, aff, offs)
+        again = pk.par_diffuse(masks, aff, offs)
+        ref = pk.par_diffuse_reference(masks, aff, offs)
+        torch.cuda.synchronize()
+        ok = {"kernel == plain": torch.equal(got, ref),
+              "two launches": torch.equal(got, again)}
+        pad = pk.staged_pad(pk._host_offsets(offs), c, masks.element_size())
+        print(f"{name} K={aff.shape[1]} staged pad {pad}: {ok}", flush=True)
+        if not all(ok.values()):
+            raise SystemExit(f"par_ab: {name} differs")
+        del masks, aff, got, again, ref
     print("check passed", flush=True)
 
 
