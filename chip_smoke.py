@@ -19,7 +19,9 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    6) against row 5's and row 7's kernels at [4, 5 | 9, 320, 320] (and one
    resident launch against row 7's 20 chained steps), and the fast train
    step's pad-clamp, affinity and resident diffusion at its shapes (the
-   resident launch also against 20 step launches); the attention kernels
+   resident launch also against 20 step launches; `F.pad` timed as
+   pad-clamp's library call there; the affinity's bound from the
+   instructions of its SASS); the attention kernels
    without weights and without ex at the MSC scales' token counts (197,
    577, 901 at 2 x 4 images; plain attention there and at 401 with
    `scaled_dot_product_attention` timed beside it), and every attention
@@ -75,6 +77,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -82,6 +85,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -251,6 +255,69 @@ def diffuse_bound_ms(b: int, c: int, h: int, w: int, k: int,
                (b * c * h * w * k / rate * 1e3, "operations"))
 
 
+_SASS_INS = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_BRA = re.compile(r"\bBRA\b[.\w]*\s+(?:!?U?P\w+,\s*)?(0x[0-9a-f]+)")
+
+
+def affinity_sass_counts(k: int) -> dict:
+    """Instructions a pixel of the affinity kernel (Pallas row 11) executes at
+    K offsets, counted in the SASS of its K instantiations (`build.sass`;
+    the one for the paths' pads): its loop over a lane's rows (the
+    function's longest backward branch) handles two pixels, and the loop
+    inside it one pixel at a time, so a pixel counts half the row loop's
+    body outside the inner loop and the inner loop's body. fp32: FADD, FMUL
+    and FFMA (the FMA pipe, 128 lanes an SM); mufu: MUFU.* (16 lanes an
+    SM); lds: shared loads; all: every instruction. The bodies hold no fp32
+    or MUFU instruction off their common path: the rare pixels (a sum
+    outside [2^-100, inf)), IEEE divisions and square roots are
+    subroutines outside them."""
+    from excel_tpu_torch import build
+
+    tag = f"affinity_kernelILi{k}ELi9216E"
+    text = next(f for f in build.sass("par_affinity").split("Function : ")
+                if tag in f.split("\n", 1)[0])
+    ins = [(int(a, 16), re.sub(r"^@!?U?P\w+\s+", "", t).split()[0])
+           for a, t in _SASS_INS.findall(text)]
+    loops = sorted(((int(m.group(1), 16), a) for a, t in
+                    _SASS_INS.findall(text) for a in [int(a, 16)]
+                    for m in [_SASS_BRA.search(t)]
+                    if m and int(m.group(1), 16) < a),
+                   key=lambda ht: ht[0] - ht[1])
+    head, tail = loops[0]
+    inner = [(h, t) for h, t in loops[1:] if head <= h and t <= tail][:1]
+    ih, it = inner[0] if inner else (tail + 1, tail)
+
+    def count(pred):
+        outer = sum(pred(o) for a, o in ins
+                    if head <= a <= tail and not ih <= a <= it)
+        return outer / 2 + sum(pred(o) for a, o in ins if ih <= a <= it) \
+            if inner else outer / 2
+
+    fp32 = count(lambda o: o.split(".")[0] in ("FADD", "FMUL", "FFMA"))
+    return {"fp32": fp32, "mufu": count(lambda o: o.startswith("MUFU")),
+            "lds": count(lambda o: o.startswith("LDS")),
+            "all": count(lambda o: True)}
+
+
+def affinity_bound_ms(pixels: int, nbytes: int, k: int):
+    """Bound of one affinity launch over `pixels` output pixels at K offsets
+    moving `nbytes` (the padded image read once, the bf16 stack written
+    once): the largest of the bytes over the memory rate, the fp32
+    instructions a pixel on 128 lanes an SM and the MUFU instructions on 16
+    (at the SM clock the card reports), both counted in the kernel's SASS.
+    Returns (ms, "bytes" or "operations", the winning term, the counts)."""
+    counts = affinity_sass_counts(k)
+    rate = torch.cuda.get_device_properties(0).multi_processor_count \
+        * sm_clock_hz()
+    terms = [(nbytes / PEAK_BYTES_PER_S * 1e3, "bytes", "bytes"),
+             (pixels * counts["fp32"] / (rate * 128) * 1e3, "operations",
+              "fp32"),
+             (pixels * counts["mufu"] / (rate * 16) * 1e3, "operations",
+              "mufu")]
+    ms, by, term = max(terms)
+    return ms, by, term, counts
+
+
 def max_err(a, b) -> float:
     if a is None and b is None:
         return 0.0
@@ -382,8 +449,6 @@ def check_attention(gen, dtype) -> dict:
     no ex, N = 197, 577 and 901 at 2 x 4 images), then every mode at the
     EDGE_TOKENS with D = 64 and 32. Returns {kernel name: record} for the
     JSON table, one per Pallas row, timed at TIMED_CASE."""
-    import torch.nn.functional as F
-
     from excel_tpu_torch.models.attention_kernels import (
         fused_plain_attention, fused_surgery_attention,
         plain_attention_reference, surgery_attention_reference)
@@ -576,6 +641,8 @@ def phase_kernels_fast() -> dict:
         rec["plain_ms"] += plain
         rec["bound_ms"] += bnd
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
+    # library_ms: F.pad at the train step's full extents
+    # (check_fast_train_par); at these valid extents no one call computes it
     records["pad_replicate_valid"] = dict(rec, bound_by="bytes",
                                           library_ms=None)
 
@@ -591,14 +658,12 @@ def phase_kernels_fast() -> dict:
                                              PAR_W), 10)
     plain = time_ms(lambda: pk.par_affinity_reference(
         ip, offsets, pos_w, PAR_H, PAR_W), 3)
-    # per pixel: moments 3 x K x 3, logits K x (3 x 4 + 2), softmax and
-    # position term K x 4, per-channel statistics ~30
-    flops = B * PAR_H * PAR_W * (k_off * (9 + 14 + 4) + 30)
-    bnd, by = bound_ms(flops, ip.numel() * f32 + aff.numel() * bf16)
+    bnd, by, term, counts = affinity_bound_ms(
+        B * PAR_H * PAR_W, ip.numel() * f32 + aff.numel() * bf16, k_off)
     log(f"kernel par_affinity {tuple(ip.shape)} -> {tuple(aff.shape)} "
         f"bf16: max_abs_err={err:.3g} (tol 2^-7 |ref| + 2^-126) kernel_ms="
         f"{kernel:.4f} plain_ms={plain:.4f} library_ms=None bound_ms="
-        f"{bnd:.4f} ({by})")
+        f"{bnd:.4f} ({by}: {term}; a pixel's SASS {counts})")
     records["par_affinity"] = dict(ms=kernel, plain_ms=plain, library_ms=None,
                                    bound_ms=bnd, bound_by=by, max_abs_err=err)
 
@@ -753,8 +818,10 @@ def check_fast_train_par(records: dict) -> None:
     affinity [4, 48, 320, 320] and the resident diffusion of PAR_ITERS
     steps, each against its plain version on the same inputs: pad-clamp
     and resident bit for bit, the affinity within one bf16 ulp. Folds each
-    error into the kernel's record (whose times are the eval path's) and
-    logs the kernel times at these shapes."""
+    error into the kernel's record (whose times are the eval path's), logs
+    the kernel times at these shapes and the affinity's bound, and times
+    pad-clamp's library call, F.pad replicate of both tensors (equal to the
+    kernel's output at these full extents), into its record."""
     from excel_tpu_torch.ops import par_kernels as pk
     from excel_tpu_torch.ops.par import _offsets, _pos_weight
 
@@ -792,6 +859,20 @@ def check_fast_train_par(records: dict) -> None:
           "par_diffuse_valid_resident": time_ms(
               lambda: pk.par_diffuse_valid_resident(
                   mp, aff, full, offs, h, w, PAR_ITERS), 10)}
+    # pad-clamp at full extents is edge padding: one F.pad (replicate) a
+    # tensor computes it, slack included (timed beside the kernel, never
+    # used by the port)
+    hp, wp = ip.shape[2:]
+    lib_pad = (p, wp - w - p, p, hp - h - p)
+    if not (torch.equal(F.pad(images, lib_pad, mode="replicate"), ip)
+            and torch.equal(F.pad(masks, lib_pad, mode="replicate"), mp)):
+        raise AssertionError("pad_replicate_valid != F.pad replicate at full "
+                             "extents")
+    library = time_ms(lambda: (F.pad(images, lib_pad, mode="replicate"),
+                               F.pad(masks, lib_pad, mode="replicate")), 20)
+    records["pad_replicate_valid"]["library_ms"] = library
+    aff_bnd, aff_by, aff_term, _ = affinity_bound_ms(
+        b * h * w, ip.numel() * 4 + aff.numel() * 2, len(offs))
     # the resident diffusion's bound here: the affinity stack (39 MB) fits
     # the 50 MiB L2, so it need be read from device memory once; each step
     # reads one canvas and writes the other (2 x 5.8 MB). Twenty reads of
@@ -807,6 +888,8 @@ def check_fast_train_par(records: dict) -> None:
         + f" resident vs {PAR_ITERS} step launches={err_steps:.3g}"
         + f" (tol {TOL_PAR_BF16}; affinity 2^-7 |ref| + 2^-126) kernel_ms "
         + " ".join(f"{k}={v:.4f}" for k, v in ms.items())
+        + f" pad-clamp library_ms (F.pad replicate, both)={library:.4f}"
+        + f" affinity bound_ms={aff_bnd:.4f} ({aff_by}: {aff_term})"
         + f" resident bound_ms={bnd:.4f} ({by}; stack read every step "
         f"{every:.4f})")
     if not (errs["pad_replicate_valid"] <= TOL_PAR_BF16

@@ -107,6 +107,15 @@ def build(names=tuple(ENTRY_POINTS)) -> dict[str, float]:
     return seconds
 
 
+def sass(name: str) -> str:
+    """The SASS of `csrc/<name>.cu`'s library (`cuobjdump -sass`, the tool
+    beside nvcc), building the library first if needed."""
+    build((name,))
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    return subprocess.run([tool, "-sass", library_path(name)],
+                          capture_output=True, text=True, check=True).stdout
+
+
 def load(name: str, symbol: str):
     """The C entry point `symbol` of `csrc/<name>.cu` as a ctypes function,
     building its library first if needed."""

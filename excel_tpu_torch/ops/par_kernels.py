@@ -14,7 +14,8 @@ function, with its name and its array shapes:
   valid-extent clamp and edge pad of a canvas, [B, C, H, W] ->
   [B, C, H + 2P + 8, roundup128(W + 2P)], slack included;
 - `par_affinity` (csrc/par_affinity.cu, `_affinity_kernel`): the appearance
-  affinity [B, K, h, w] from such a padded image;
+  affinity [B, K, h, w] from such a padded image, in tiles whose rows
+  `affinity_tiling` picks from the pad;
 - `par_diffuse_padded_valid` and `par_diffuse_valid_resident`
   (csrc/par_diffuse_valid.cu, `_diffuse_padded_valid_kernel` and
   `_diffuse_resident_kernel`): one fused-valid step on the padded canvas,
@@ -44,7 +45,9 @@ launches its kernel or raises. Each wrapper counts its kernel launches in
 its `launches` attribute. The slice-2 wrappers take the offsets as (dy, dx)
 pairs on the host, as the JAX functions do, so that they read their pad
 without waiting for the device; the kernels' [K, 2] device copy is made
-once per configuration (`offsets_tensor`).
+once per configuration (`offsets_tensor`). The affinity kernel takes a host
+copy instead, and its position terms too: its entry point passes them as
+kernel parameters.
 """
 from __future__ import annotations
 
@@ -311,6 +314,31 @@ pad_replicate_valid.launches = 0
 # appearance affinity
 # ---------------------------------------------------------------------------
 
+# csrc/par_affinity.cu's geometry: tiles of 32, 16 or 8 rows x 64 columns
+# whose haloed slab of 3 fp32 channels is staged in shared memory, a slab
+# row padded to 4 words, channel planes 9,216 floats apart (two blocks an
+# SM) or 19,328 (one block)
+_AFF_TW, _AFF_ROWS, _AFF_PLANES = 64, (32, 16, 8), (9216, 19328)
+
+
+def affinity_slab_words(tile_rows: int, pad: int) -> int:
+    """Words of one channel of a `par_affinity` slab: a tile's rows and 64
+    columns with a halo of `pad`, each row padded to 4 words."""
+    return (tile_rows + 2 * pad) * (-(-(_AFF_TW + 2 * pad) // 4) * 4)
+
+
+def affinity_tiling(pad: int) -> tuple[int, int]:
+    """(tile rows, words between channel planes) of `par_affinity`'s kernel
+    at this pad, as the kernel picks them: the most rows of 32, 16, 8 whose
+    slab fits the small plane (two blocks an SM), else the large one;
+    (0, 0) for a pad the kernel does not take (above 52)."""
+    for plane in _AFF_PLANES:
+        for rows in _AFF_ROWS:
+            if affinity_slab_words(rows, pad) <= plane:
+                return rows, plane
+    return 0, 0
+
+
 def position_terms(pos_w, w2: float, device) -> torch.Tensor:
     """[K] fp32 w2 * pos_w[k], each product taken in double and rounded once
     (the Pallas kernel's Python-float constant); made once per (pos_w, w2,
@@ -376,7 +404,9 @@ def par_affinity(img_padded: torch.Tensor, offsets, pos_w, h: int, w: int,
     [P, P + w) and edge-replicated around it (P = max |offset|, Hp >= h + 2P,
     Wp >= w + 2P); offsets: the K (dy, dx) pairs, K a multiple of 8 up to
     64; pos_w: the K position weights. Returns aff [B, K, h, w] in
-    out_dtype: bfloat16 (or float32 on the CPU)."""
+    out_dtype: bfloat16 (or float32 on the CPU). On the card P is at most
+    52 (`affinity_tiling`); the kernel takes the offsets and the
+    position terms from host memory, as kernel parameters."""
     if img_padded.dim() != 4 or img_padded.shape[1] != 3:
         raise ValueError(f"par_affinity: img_padded must be [B, 3, Hp, Wp], "
                          f"got {tuple(img_padded.shape)}")
@@ -398,9 +428,12 @@ def par_affinity(img_padded: torch.Tensor, offsets, pos_w, h: int, w: int,
     if out_dtype != torch.bfloat16:
         raise NotImplementedError("par_affinity: the kernel writes bf16 "
                                   "affinities (the fast preset's)")
+    if not affinity_tiling(pad)[0]:
+        raise NotImplementedError(f"par_affinity: pad {pad}: the kernel's "
+                                  f"slab does not fit shared memory")
     out = img_padded.new_empty((b, k, h, w), dtype=out_dtype)
-    wpos = position_terms(pos_w, w2, img_padded.device)
-    offsets_t = offsets_tensor(offsets, img_padded.device)
+    wpos = position_terms(pos_w, w2, "cpu")
+    offsets_t = offsets_tensor(offsets, "cpu")
     fn = build.load("par_affinity", "excel_par_affinity_bf16")
     build.check(fn(img_padded.data_ptr(), offsets_t.data_ptr(),
                    wpos.data_ptr(), out.data_ptr(), b, h, w, hp, wp, k, pad,

@@ -6,6 +6,7 @@ the card: python -m pytest -m cuda tests/test_torch_kernels_gpu.py -q
 import pytest
 import torch
 
+from excel_tpu_torch import build
 from excel_tpu_torch.models import attention_kernels as ak
 from excel_tpu_torch.ops.par import _offsets, _pos_weight, _replicate_valid
 from excel_tpu_torch.ops import par_kernels as pk
@@ -601,3 +602,143 @@ def test_attention_none_mode_at_msc_tokens(gen, tokens, plain_row,
         _ctx_close(ctx, ref_ctx, q, k, v)
         _ctx_close(ctx_ori, ref_ori, q, k, v)
         torch.testing.assert_close(shared, ref_shared, atol=ATOL, rtol=0)
+
+
+# -- pad-clamp and affinity: edges of their tiles and vectors ---------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pad", [3, 8, 16, 24])
+@pytest.mark.parametrize("w", [61, 200, 512])
+def test_pad_clamp_kernel_edges_bitwise(gen, dtype, pad, w):
+    """16-byte vectors where P and W are multiples of the vector (4 fp32, 8
+    bf16), the element path elsewhere (pad 3, w = 61); extents of the whole
+    image, a ragged part and a single pixel."""
+    x = torch.rand((3, 2, 40, w), device="cuda", generator=gen).to(dtype)
+    valid = torch.tensor([[40, w], [25, w * 2 // 3 + 1], [1, 1]],
+                         device="cuda", dtype=torch.int32)
+    got = pk.pad_replicate_valid(x, valid, pad)
+    ref = pk.pad_replicate_valid_reference(x, valid, pad)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pad_clamp_kernel_unaligned_and_on_a_side_stream(gen, dtype):
+    """An input one element past a 16-byte boundary takes the element path;
+    a launch on a side stream gives the same bits."""
+    x, valid = _canvas(gen, dtype)
+    big = torch.empty((x.numel() + 1,), device="cuda", dtype=dtype)
+    x_u = big[1:].view(x.shape).copy_(x)
+    ref = pk.pad_replicate_valid_reference(x, valid, 24)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got_u = pk.pad_replicate_valid(x_u, valid, 24)
+        got_s = pk.pad_replicate_valid(x, valid, 24)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got_u, ref) and torch.equal(got_s, ref)
+
+
+def _affinity_dilations(k, pad):
+    """Dilations of K = 8 x their count offsets whose reach is `pad`."""
+    return {8: (), 16: (1,), 48: (1, 2, 3, 4, 5),
+            64: (1, 2, 3, 4, 5, 6, 7)}[k] + (pad,)
+
+
+def _affinity_inputs(gen, k, pad, h, w, slack=True):
+    """A padded fp32 image of 3 images of h x w (extents: whole, ragged, one
+    pixel), with (slack) or without the canvas's alignment slack."""
+    dil = _affinity_dilations(k, pad)
+    img = torch.rand((3, 3, h, w), device="cuda", generator=gen)
+    valid = torch.tensor([[h, w], [max(h * 2 // 3, 1), max(w // 2, 1)],
+                          [1, 1]], device="cuda", dtype=torch.int32)
+    hp, wp = pk.padded_shape(h, w, pad) if slack else (h + 2 * pad,
+                                                       w + 2 * pad)
+    ip = pk._clamped_gather(img, valid, pad, hp, wp).contiguous()
+    return ip, _offsets(dil), [float(p) for p in _pos_weight(dil)]
+
+
+def _affinity_close(ip, offs, pos_w, h, w):
+    """The kernel against its plain version run on the CPU, within one bf16
+    ulp (exp differs by an fp32 ulp). On the CPU the plain version divides
+    by K as the kernel does (IEEE division); on the card PyTorch multiplies
+    by 1/K, and where the neighbours' variance cancels to nearly 0 (the
+    replicated border) that ulp scales the logits, which the far offsets'
+    tiny affinities show unmasked by their position terms (2 of 325,008
+    values beyond one bf16 ulp at K=48, pad 24, 37 x 61)."""
+    got = pk.par_affinity(ip, offs, pos_w, h, w)
+    ref = pk.par_affinity_reference(ip.cpu(), offs, pos_w, h, w)
+    torch.testing.assert_close(got.float().cpu(), ref.float(),
+                               atol=BF16_ATOL, rtol=BF16_RTOL)
+    return got
+
+
+@pytest.mark.parametrize("slack", [True, False])
+@pytest.mark.parametrize("pad", [8, 16, 24])
+@pytest.mark.parametrize("k", [8, 16, 48, 64])
+def test_affinity_kernel_edges(gen, k, pad, slack):
+    """Within one bf16 ulp of the plain version (see test_affinity_kernel)
+    for K = 8 ... 64 and pads 8 ... 24, at 40 x 200 (a ragged last tile
+    down and across) and 37 x 61 (odd: bf16 pairs stored one by one), on a
+    canvas with and without slack (an odd Wp: 61 + 2P)."""
+    for h, w in ((40, 200), (37, 61)):
+        _affinity_close(*_affinity_inputs(gen, k, pad, h, w, slack), h, w)
+
+
+@pytest.mark.parametrize("pad,tiling", [(30, (8, 9216)), (33, (32, 19328)),
+                                        (46, (16, 19328)), (52, (8, 19328))])
+def test_affinity_kernel_smaller_tiles(gen, pad, tiling):
+    """Pads whose slabs take 8- and 16-row tiles or the large channel
+    plane (one block an SM); a pad beyond 52 raises."""
+    assert pk.affinity_tiling(pad) == tiling
+    _affinity_close(*_affinity_inputs(gen, 8, pad, 40, 70), 40, 70)
+    ip, offs, pos_w = _affinity_inputs(gen, 8, 53, 20, 30)
+    with pytest.raises(NotImplementedError):
+        pk.par_affinity(ip, offs, pos_w, 20, 30)
+
+
+def test_affinity_kernel_unaligned_side_stream_and_device_tables(gen):
+    """An image one float past a 16-byte boundary; two launches and a
+    launch on a side stream give the same bits; the entry point takes the
+    offsets and position terms from device memory too (its copy waits for
+    the stream) with the same result."""
+    h, w, pad = 40, 200, 24
+    ip, offs, pos_w = _affinity_inputs(gen, 48, pad, h, w)
+    big = torch.empty((ip.numel() + 1,), device="cuda")
+    ip_u = big[1:].view(ip.shape).copy_(ip)
+    got = _affinity_close(ip_u, offs, pos_w, h, w)
+    again = pk.par_affinity(ip, offs, pos_w, h, w)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = pk.par_affinity(ip, offs, pos_w, h, w)
+    torch.cuda.current_stream().wait_stream(side)
+    out = torch.empty_like(got)
+    fn = build.load("par_affinity", "excel_par_affinity_bf16")
+    build.check(fn(ip.data_ptr(), pk.offsets_tensor(offs, "cuda").data_ptr(),
+                   pk.position_terms(pos_w, 0.01, "cuda").data_ptr(),
+                   out.data_ptr(), ip.shape[0], h, w, ip.shape[2],
+                   ip.shape[3], len(offs), pad, 0.3,
+                   torch.cuda.current_stream().cuda_stream), "par_affinity")
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, on_side)
+    assert torch.equal(got, out)
+
+
+def test_affinity_kernel_rare_sums(gen):
+    """Pixels whose sums of squared differences are subnormal (an image of
+    values near 1e-28) or infinite (a spike of 1e12 on a flat image: its
+    logits are -inf, its affinities NaN in both versions) take the
+    kernel's out-of-line division by 3; a flat image (every sum 0) its
+    fast one."""
+    h, w, pad = 40, 200, 24
+    ip, offs, pos_w = _affinity_inputs(gen, 48, pad, h, w)
+    for img in (ip * 1e-28, torch.full_like(ip, 0.25), ip * 0 + 0.5):
+        if img[0, 0, 0, 0] == 0.5:
+            img[:, :, pad + 7, pad + 9] = 1e12
+        got = pk.par_affinity(img, offs, pos_w, h, w)
+        ref = pk.par_affinity_reference(img.cpu(), offs, pos_w, h, w)
+        torch.testing.assert_close(got.float().cpu(), ref.float(),
+                                   atol=BF16_ATOL, rtol=BF16_RTOL,
+                                   equal_nan=True)

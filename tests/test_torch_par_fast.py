@@ -2,6 +2,8 @@
 pad_replicate_valid, par_affinity, par_diffuse_padded_valid,
 par_diffuse_valid_resident) and the bf16 route of par_refine against the
 JAX package's Pallas functions in interpret mode, in fp32 and in bf16."""
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -177,3 +179,93 @@ def test_par_wrappers_check_inputs():
     with pytest.raises(ValueError):
         pk.par_affinity(torch.zeros((1, 3, 56, 256)), offs[:20], [0.0] * 20,
                         H, W)
+
+
+@pytest.mark.parametrize("pad,rows,plane,words", [
+    (8, 32, 9216, 3840), (16, 32, 9216, 6144), (24, 32, 9216, 8960),
+    (25, 16, 9216, 7656), (30, 8, 9216, 8432), (32, 8, 9216, 9216),
+    (33, 32, 19328, 12936), (45, 32, 19328, 19032), (46, 16, 19328, 16848),
+    (52, 8, 19328, 18816)])
+def test_affinity_tiling_from_the_pad(pad, rows, plane, words):
+    """The affinity kernel's tiles: a channel of the slab (the tile with its
+    halo, rows padded to 4 words) within 9,216 words, whose 3 channels let
+    two blocks share an SM's 228 KiB, as the paths' pad 24 does with 32
+    rows; fewer rows for larger pads; beyond pad 32 within 19,328 words (one
+    block of at most 227 KiB)."""
+    assert pk.affinity_tiling(pad) == (rows, plane)
+    assert pk.affinity_slab_words(rows, pad) == words <= plane
+    assert 2 * (3 * 9216 * 4 + 1024) <= 233472
+    assert 3 * 19328 * 4 <= 232448
+
+
+def test_affinity_kernel_takes_pads_up_to_52():
+    assert pk.affinity_tiling(53) == (0, 0)
+    img = torch.zeros((1, 3, 40 + 2 * 53 + 8, 256))
+    offs = [(53, 53)] * 8
+    # the plain version takes any pad; the card's kernel raises beyond 52
+    assert pk.par_affinity(img, offs, [0.0] * 8, 40, 100).shape == (
+        1, 8, 40, 100)
+
+
+def _third_fast(s: np.ndarray) -> np.ndarray:
+    """csrc/par_affinity.cu's third_fast on float32 s: q = RN(s * RN(1/3)),
+    r = fma(-q, 3, s), RN(q + r * RN(1/3)) (one FMA), each step emulated in
+    float64, where its operations are exact, then rounded once."""
+    y = np.float64(np.float32(1.0) / np.float32(3.0))
+    s64 = s.astype(np.float64)
+    q = (s64 * y).astype(np.float32).astype(np.float64)
+    r = (s64 - 3.0 * q).astype(np.float32).astype(np.float64)
+    return (q + r * y).astype(np.float32)
+
+
+def _assert_third(got: np.ndarray, s: np.ndarray) -> None:
+    np.testing.assert_array_equal(got.view(np.uint32),
+                                  (s / np.float32(3.0)).view(np.uint32))
+
+
+@pytest.mark.parametrize("exponent", [-100, -99, -1, 0, 64, 125, 126, 127])
+def test_division_by_three_as_product_and_fma_correction(exponent):
+    """The affinity kernel divides a logit's sum s by 3 with third_fast
+    where s is 0 or lies in [2^-100, inf): that equals float32 division (the
+    previous kernel's __fdiv_rn) for every mantissa, at both ends of the
+    range and between (the steps scale exactly with the exponent)."""
+    assert np.float32(1.0 / 3.0).view(np.uint32) == 0x3EAAAAAB
+    assert np.float32(2.0 ** -100).view(np.uint32) == 0x0D800000
+    for part in np.array_split(np.arange(1 << 23, dtype=np.uint32), 4):
+        s = ((np.uint32(exponent + 127) << np.uint32(23)) | part).view(
+            np.float32)
+        _assert_third(_third_fast(s), s)
+    zero = np.zeros(1, np.float32)
+    _assert_third(_third_fast(zero), zero)   # +0, as 0 / 3
+
+
+def test_division_by_three_below_the_fast_range():
+    """third_exact's other paths: every s below 3 * 2^-126 (its quotient is
+    subnormal or 0) as the integer (m + 1) / 3 of s = m 2^-149; a sample of
+    every binade of [3 * 2^-126, 2^-100) through third_fast at s * 2^64,
+    scaled back; inf and NaN."""
+    assert np.float32(3 * 2.0 ** -126).view(np.uint32) == 0x01400000
+    with open(os.path.join(os.path.dirname(pk.__file__), os.pardir, "csrc",
+                           "par_affinity.cu")) as f:
+        src = f.read()
+    assert all(c in src for c in ("0x01400000u", "0x0D800000u",
+                                  "0x7F800000u", "0x1.555556p-2f"))
+    for part in np.array_split(np.arange(0x01400000, dtype=np.uint32), 8):
+        e = part >> np.uint32(23)
+        m = np.where(e == 0, part, ((part & np.uint32(0x7FFFFF))
+                                    | np.uint32(0x800000))
+                     << np.maximum(e, np.uint32(1)) - np.uint32(1))
+        _assert_third(((m + np.uint32(1)) // np.uint32(3)).astype(np.uint32)
+                      .view(np.float32), part.view(np.float32))
+    rng = np.random.default_rng(0)
+    bits = np.concatenate([
+        (np.uint32(e) << np.uint32(23)) | rng.integers(
+            0, 1 << 23, 1 << 14, dtype=np.uint32) for e in range(2, 27)])
+    s = bits[(bits >= 0x01400000) & (bits < 0x0D800000)].view(np.float32)
+    got = (_third_fast(s * np.float32(2.0 ** 64)).astype(np.float64)
+           * 2.0 ** -64).astype(np.float32)
+    _assert_third(got, s)
+    special = np.asarray([np.inf, np.nan], np.float32)
+    with np.errstate(invalid="ignore"):
+        third = special * np.float32(1.0 / 3.0)
+    assert np.isinf(third[0]) and np.isnan(third[1])

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's PAR diffusion kernels, alone or against another tree's.
+"""Time the port's PAR kernels, alone or against another tree's.
 
     python3 tools/par_ab.py                      # this tree, times
     python3 tools/par_ab.py --check              # bit-for-bit checks
@@ -35,6 +35,23 @@ Needs one NVIDIA GPU and nvcc; imports `excel_tpu_torch` (never jax) from
   on the 64-lane integer pipe (the issue floor). The bound is the larger
   of the two.
 
+- `csrc/par_pad_clamp.cu` and `csrc/par_affinity.cu` (`pad_replicate_valid`
+  and `par_affinity`, Pallas rows 10 and 11): the fast LAM eval batch's
+  fp32 images [16, 3, 384, 512] and bf16 masks [16, 4, 384, 512] with
+  `chip_smoke.py`'s valid extents, and the fast train step's [4, 3, 320,
+  320] and [4, 5, 320, 320] at full extents, pad-clamped at pad 24, and the
+  affinity (K=48) of each padded image. Pad-clamp moves its input and
+  output once; the affinity's bound is the largest of its bytes (the padded
+  image, the bf16 stack), its fp32 instructions on 128 lanes an SM and its
+  MUFU instructions on 16, both counted a pixel in the kernel's SASS
+  (`chip_smoke.affinity_sass_counts`). `--check` holds pad-clamp bit for
+  bit and the affinity within one bf16 ulp of their plain versions (and
+  prints how many affinities differ from it) and prints the SASS counts;
+  each run prints a digest of each case's output bytes, and `--ab` fails
+  where the two trees' digests differ. These cases' times are the
+  kernels' device time (torch.profiler), without the host's gaps, which
+  exceed a 5-microsecond pad-clamp.
+
 Times are CUDA-event medians of samples of 10 calls back to back. `--ab
 OTHER` runs the timing in four subprocesses on the same card in turns
 (OTHER, this tree, this tree, OTHER; each builds its own kernels) and
@@ -45,6 +62,7 @@ two turns), their ratio, and `bound_ms`, the bytes a call must move over
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import statistics
@@ -77,6 +95,10 @@ DIFFUSE_CASES = {
     "row5 CRF bf16 [2, 81, 480, 640]": ("bfloat16", CRF_DILATIONS, 2, 81,
                                         480, 640, None),
 }
+# rows 10 and 11: name -> (B, h, w, valid extents or None for full, mask
+# channels)
+PAR_INPUT_CASES = {"eval B=16": (16, 384, 512, EVAL_VALID, 4),
+                   "train B=4": (4, 320, 320, None, 5)}
 # name -> (B, C, h, w, valid extents or None for full); B=None: one image
 # per SM
 CASES = {"eval B=16 C=4": (16, 4, 384, 512, EVAL_VALID),
@@ -170,13 +192,91 @@ def _diffuse_inputs(torch, offsets_tensor, replicate, dtype, dil, b, c, h, w,
             offsets_tensor(offs, "cuda"))
 
 
+def _chip_smoke():
+    """This repository's chip_smoke.py (its bounds and tolerances), whichever
+    tree is timed."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _par_input_cases(torch, pk, seed, bounds=True):
+    """Rows 10 and 11: {case: (kernel call, plain call, (bound ms, what
+    bounds it))}, the affinity's inputs padded by the plain version. The
+    affinity's bound counts the instructions of this repository's kernel
+    (the built library of the tree imported): without `bounds` (timing
+    another tree), (None, None)."""
+    from excel_tpu_torch.ops.par import _offsets, _pos_weight
+
+    offs = _offsets(DILATIONS)
+    pos_w = [float(p) for p in _pos_weight(DILATIONS)]
+    cases = {}
+    for name, (b, h, w, ext, c) in PAR_INPUT_CASES.items():
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        valid = torch.tensor(ext or [[h, w]] * b, device="cuda",
+                             dtype=torch.int32)
+        images = torch.randn((b, 3, h, w), device="cuda", generator=gen)
+        masks = torch.rand((b, c, h, w), device="cuda",
+                           generator=gen).bfloat16()
+        for what, x in (("images fp32", images), ("masks bf16", masks)):
+            hp, wp = pk.padded_shape(h, w, PAD)
+            nbytes = x.numel() * x.element_size() * (1 + hp * wp / (h * w))
+            cases[f"row10 {what} {tuple(x.shape)} {name}"] = (
+                lambda x=x, valid=valid: pk.pad_replicate_valid(x, valid, PAD),
+                lambda x=x, valid=valid: pk.pad_replicate_valid_reference(
+                    x, valid, PAD),
+                (nbytes / PEAK_BYTES_PER_S * 1e3, "bytes"))
+        ip = pk.pad_replicate_valid_reference(images, valid, PAD)
+        bound = (None, None)
+        if bounds:
+            ms, by, term, _ = _chip_smoke().affinity_bound_ms(
+                b * h * w, ip.numel() * 4 + b * len(offs) * h * w * 2,
+                len(offs))
+            bound = (ms, f"{by}: {term}")
+        cases[f"row11 affinity K={len(offs)} {tuple(ip.shape)} {name}"] = (
+            lambda ip=ip, h=h, w=w: pk.par_affinity(ip, offs, pos_w, h, w),
+            lambda ip=ip, h=h, w=w: pk.par_affinity_reference(
+                ip, offs, pos_w, h, w),
+            bound)
+    return cases
+
+
+def _device_ms(torch, fn, tag: str, reps: int) -> float:
+    """Device time of one call's kernels whose name holds `tag`
+    (torch.profiler), over `reps` calls after a warm-up: the kernel alone,
+    without the host's gaps between launches."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and tag in e.key)
+    return us / reps / 1e3
+
+
+def _digest(torch, t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    return hashlib.sha256(t.contiguous().view(-1).view(torch.uint8).cpu()
+                          .numpy().tobytes()).hexdigest()[:16]
+
+
 def _setup(tree):
     sys.path.insert(0, tree)
     from excel_tpu_torch import build
     from excel_tpu_torch.ops import par_kernels as pk
     from excel_tpu_torch.ops.par import _offsets
 
-    build.build(("par_diffuse_valid", "par_diffuse"))
+    build.build(("par_diffuse_valid", "par_diffuse", "par_pad_clamp",
+                 "par_affinity"))
     return build, pk, _offsets(DILATIONS)
 
 
@@ -213,6 +313,15 @@ def run_times(tree: str, reps: int) -> dict:
         out[f"{name} bound"] = diffuse_bound_ms(
             b, c, h, w, aff.shape[1], masks.element_size(), sms, clock)[0]
         del masks, aff
+    cases = _par_input_cases(torch, pk, 0, bounds=tree == HERE)
+    for name, (fn, _, (bound, by)) in cases.items():
+        tag = "pad_clamp_kernel" if name.startswith("row10") \
+            else "affinity_kernel"
+        out[name] = _device_ms(torch, fn, tag, reps)
+        if bound is not None:
+            out[f"{name} bound"] = bound
+            out[f"{name} bound_by"] = by
+        out[f"{name} digest"] = _digest(torch, fn())
     return out
 
 
@@ -224,7 +333,8 @@ def run_check(tree: str) -> None:
     import torch
 
     build, pk, offsets = _setup(tree)
-    for source in ("par_diffuse_valid", "par_diffuse"):
+    for source in ("par_diffuse_valid", "par_diffuse", "par_pad_clamp",
+                   "par_affinity"):
         with open(build.library_path(source) + ".log") as f:
             for line in f:
                 if any(k in line for k in ("entry function", "registers",
@@ -272,6 +382,26 @@ def run_check(tree: str) -> None:
         if not all(ok.values()):
             raise SystemExit(f"par_ab: {name} differs")
         del masks, aff, got, again, ref
+    chip_smoke = _chip_smoke()
+    for k in (8, 16, 24, 32, 40, 48, 56, 64):
+        print(f"affinity K={k} a pixel (SASS): "
+              f"{chip_smoke.affinity_sass_counts(k)}", flush=True)
+    for name, (fn, plain, (bound, by)) in _par_input_cases(torch, pk,
+                                                           1).items():
+        got, again, ref = fn(), fn(), plain()
+        torch.cuda.synchronize()
+        if name.startswith("row10"):
+            ok = {"kernel == plain": torch.equal(got, ref)}
+        else:
+            ok = {"within one bf16 ulp of plain":
+                  chip_smoke.bf16_within_ulp(got, ref)}
+        ok["two launches"] = torch.equal(got, again)
+        print(f"{name}: {ok}, {int((got != ref).sum())} of {got.numel()} "
+              f"differ from plain, bound_ms {bound:.4f} ({by}), digest "
+              f"{_digest(torch, got)}", flush=True)
+        if not all(ok.values()):
+            raise SystemExit(f"par_ab: {name} differs")
+        del got, again, ref
     print("check passed", flush=True)
 
 
@@ -293,15 +423,27 @@ def run_ab(other: str, tree: str, reps: int) -> None:
     print(f"| case | {other} ms | {tree} ms | ratio | bound ms |")
     print("| --- | --- | --- | --- | --- |")
     for name in runs[tree][0]:
-        if name.endswith(" bound"):
+        if name.endswith((" bound", " bound_by", " digest")):
             continue
         a = min(r[name] for r in runs[other])
         c = min(r[name] for r in runs[tree])
         bound = runs[tree][0].get(name + " bound")
+        by = runs[tree][0].get(name + " bound_by")
         print(f"| {name} | {a:.4f} | {c:.4f} | {a / c:.2f} | "
-              + ("-" if bound is None else f"{bound:.4f}") + " |",
-              flush=True)
+              + ("-" if bound is None else f"{bound:.4f}")
+              + ("" if by is None else f" ({by})") + " |", flush=True)
     print(json.dumps({"card": smi, "runs": runs}), flush=True)
+    differ = []
+    for name in runs[tree][0]:
+        if name.endswith(" digest"):
+            a, c = ({r[name] for r in runs[t]} for t in (other, tree))
+            print(f"{name}: {other} {sorted(a)} {tree} {sorted(c)}",
+                  flush=True)
+            if len(a | c) != 1:
+                differ.append(name)
+    if differ:
+        raise SystemExit(f"par_ab: outputs differ between the trees: "
+                         f"{differ}")
 
 
 def main() -> int:
@@ -328,8 +470,9 @@ def main() -> int:
     if args.json:
         print(json.dumps(times))
     else:
-        for name, ms in times.items():
-            print(f"{name}: {ms:.4f} ms")
+        for name, v in times.items():
+            print(f"{name}: {v}" if isinstance(v, str) else
+                  f"{name}: {v:.4f} ms")
     return 0
 
 
