@@ -59,7 +59,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    CPU (pseudo-labels, losses, head gradients; the card's pseudo-labels
    also against the CPU's on the card's own LAMs and attention) and
    `denormalize_images` on all byte values; then in-training validation (`run_validation`) and the
-   trained LAM sweep (`run_lam_eval(mode="trained")`) with the trained head.
+   trained LAM sweep (`run_lam_eval(mode="trained")`) with the trained head;
+7. the text side and the eval CLIs: the VOC text bank (45 prompts, TSE
+   over the shipped attribute bank) at ViT-B/16's text widths on the card
+   against the CPU in both presets, with its build time; the weights saved
+   with `save_params_npz` (and a head with `save_head_npz`), then the CLIs'
+   `main(argv)` on an 8-image synthetic tree: `infer_lam --training-free
+   --crf-tpu` in both presets, `infer_lam --head` and `infer_seg --head
+   --save-preds` in the fast preset, `rescore` of those predictions (equal
+   to infer_seg's scores); each CLI's kernels launched, img/s of each.
 
 The JSON kernel table has one line per Pallas function (rows 1-4 for each
 dtype; row 5 for PAR's step and for the CRF's message pass in fp32 and
@@ -67,7 +75,7 @@ bf16); `launches` counts the launches of the route that stands for that
 function (the attention wrappers' attribution by mode and token count, the
 fp32 and bf16 steps on valid or full extents, the step at the CRF's 72
 offsets) over all main-path runs: the eval slices with their CRF sweeps,
-the MSC slices, the train steps and the two trained sweeps.
+the MSC slices, the train steps, the two trained sweeps and the CLIs.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": N}}.
 It imports neither jax nor excel_tpu. It exits non-zero without a CUDA
@@ -75,6 +83,7 @@ device.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -337,12 +346,10 @@ def phase_environment() -> str:
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
         f"count {torch.cuda.device_count()}")
     log(smi)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    # bf16 GEMMs accumulate in fp32 all the way (JAX's
-    # preferred_element_type=float32)
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    torch.set_float32_matmul_precision("highest")
+    # no TF32; bf16 GEMMs accumulate in fp32 all the way (JAX's
+    # preferred_element_type=float32), as the CLIs set it
+    from excel_tpu_torch.cli.common import exact_matmuls
+    exact_matmuls()
     return smi
 
 
@@ -1267,6 +1274,8 @@ def phase_train(preset: str):
         for name, n in counts.items():
             total[name] = total.get(name, 0) + n
         walls.setdefault(phase, []).append(wall)
+        # the losses are 0-d device tensors: read here, where they are logged
+        metrics = {k: float(v) for k, v in metrics.items()}
         log(f"train {preset} step {n_iter} phase={phase} slots="
             f"{steps.slots_for(cls_host)} wall_ms={wall:.2f} "
             + " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
@@ -1790,6 +1799,186 @@ def phase_msc_card_vs_cpu(preset, cfg, params, text, samples) -> None:
         raise AssertionError(f"msc_card_vs_cpu {preset}: out of bounds")
 
 
+# the text bank on the card against the CPU: fp32 sums in another order on
+# 512-wide unit rows
+TEXT_BANK_TOL_FP32 = 1e-5
+# fast: the bf16 text tower's GEMMs round their fp32 sums to bf16 after
+# summing in another order than the CPU's; over 12 layers the banks may
+# part by one bf16 ulp of the bank's largest magnitude (the bound the CPU
+# tests hold the bf16 encoder to)
+TEXT_BANK_ULPS_FAST = 1.0
+CLI_SAMPLES = 8
+# the kernel wrappers each CLI run must launch: the training-free LAM sweep
+# with the on-device CRF (row 5 at the CRF's 72 offsets), the trained LAM
+# sweep, the MSC sweep; fp32 PAR is row 5's step, fast PAR pad-clamp,
+# affinity and the resident diffusion
+CLI_KERNELS = {
+    ("infer_lam", "fp32"): ("plain_attention", "surgery_attention",
+                            "par_diffuse"),
+    ("infer_lam", "fast"): ("plain_attention", "surgery_attention",
+                            "par_diffuse", "pad_replicate_valid",
+                            "par_affinity", "par_diffuse_valid_resident"),
+    ("infer_lam_head", "fast"): ("plain_attention", "surgery_attention",
+                                 "pad_replicate_valid", "par_affinity",
+                                 "par_diffuse_valid_resident"),
+    ("infer_seg", "fast"): ("plain_attention", "surgery_attention"),
+}
+
+
+@contextlib.contextmanager
+def _patched(module, name: str, wrap):
+    """module.<name> replaced by wrap(module.<name>) inside the block."""
+    real = getattr(module, name)
+    setattr(module, name, wrap(real))
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def phase_text_cli(smi: str) -> None:
+    """The text side and the eval CLIs. (a) The VOC text bank (45 prompts,
+    TSE over the shipped [512, 112] bank) at ViT-B/16's text widths from
+    seeded random weights, on the card and on the CPU, in fp32 and in the
+    fast preset, its build time on the card. (b) Those weights written by
+    `save_params_npz` and a seeded head by `save_head_npz`; the CLIs'
+    `main(argv)` on an 8-image synthetic tree in a temporary work dir:
+    infer_lam --training-free --crf-tpu in both presets, infer_lam --head
+    and infer_seg --head --save-preds in the fast preset, rescore on those
+    predictions. (c) Finite scores, rescore's equal to infer_seg's, every
+    kernel of each CLI's path launched (counts reset just before and read
+    just after each run), img/s of each sweep."""
+    import shutil
+    import tempfile
+
+    from excel_tpu_torch.cli import infer_lam, infer_seg, rescore
+    from excel_tpu_torch.config import asset_path, fast, voc_config
+    from excel_tpu_torch.engine.checkpoint import save_head_npz
+    from excel_tpu_torch.models.excel import build_text_bank
+    from excel_tpu_torch.models.head import init_head_params
+    from excel_tpu_torch.models.params import (init_clip_params,
+                                               save_params_npz)
+    from excel_tpu_torch.text.class_names import prompt_vocabulary
+
+    card = smi.replace(", ", " ")
+    clip_cpu = init_clip_params(voc_config().clip,
+                                torch.Generator().manual_seed(0),
+                                device="cpu")
+    clip = _tree_to(clip_cpu, "cuda")
+    with np.load(asset_path("attributes", "pascal_voc_bank_112.npz")) as z:
+        bank = torch.from_numpy(z["cluster_bank"])
+    vocab = prompt_vocabulary("pascal_voc")
+    for preset in ("fp32", "fast"):
+        cfg = voc_config() if preset == "fp32" else fast(voc_config())
+        ms = median_wall_ms(lambda: build_text_bank(clip, cfg, vocab,
+                                                    bank.cuda()))
+        got = build_text_bank(clip, cfg, vocab, bank.cuda()).cpu()
+        t0 = time.perf_counter()
+        ref = build_text_bank(clip_cpu, cfg, vocab, bank)
+        cpu_s = time.perf_counter() - t0
+        err = max_err(got, ref)
+        tol = (TEXT_BANK_TOL_FP32 if preset == "fp32" else
+               TEXT_BANK_ULPS_FAST * 2.0 ** -7 * float(ref.abs().max()))
+        norms = torch.linalg.vector_norm(got, dim=1)
+        log(f"text_cli text_bank {preset}: [{len(vocab)} prompts -> "
+            f"{tuple(got.shape)}] build_ms={ms:.3f} (card, median of 3 "
+            f"synchronised builds; {card}) cpu_s={cpu_s:.2f} max_abs_err="
+            f"{err:.3g} (bound {tol:.3g}) row norms "
+            f"[{float(norms.min()):.7f}, {float(norms.max()):.7f}]")
+        if not (torch.isfinite(got).all() and err <= tol
+                and float((norms - 1).abs().max()) <= 1e-5):
+            raise AssertionError(f"text bank {preset}: card against CPU "
+                                 f"{err:.3g} > {tol:.3g}, or rows not unit")
+
+    cfg = voc_config()
+    os.makedirs(os.path.join(ROOT, "work_dirs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="text_cli_",
+                            dir=os.path.join(ROOT, "work_dirs"))
+    try:
+        clip_npz = os.path.join(work, "clip.npz")
+        head_npz = os.path.join(work, "head.npz")
+        save_params_npz(clip_npz, clip_cpu)
+        save_head_npz(head_npz, init_head_params(
+            cfg.head, cfg.num_classes, torch.Generator().manual_seed(1),
+            device="cpu"))
+        del clip, clip_cpu
+        flags = ["--random-init", "--synthetic", str(CLI_SAMPLES),
+                 "--work-dir", work, "--clip-params", clip_npz]
+        runs = [("infer_lam", "fp32", infer_lam,
+                 ["--training-free", "--crf-tpu"]),
+                ("infer_lam", "fast", infer_lam,
+                 ["--training-free", "--crf-tpu", "--fast"]),
+                ("infer_lam_head", "fast", infer_lam,
+                 ["--head", head_npz, "--fast"]),
+                ("infer_seg", "fast", infer_seg,
+                 ["--head", head_npz, "--save-preds", "--fast"])]
+        from excel_tpu_torch.engine import evaluate
+        seconds, hists = [], {}
+
+        def timing(real):
+            def timed(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(*a, **k)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+                return out
+            return timed
+
+        def keeping(key):
+            """Keep the confusion hist behind the scores under `key`."""
+            def wrap(real):
+                def scores(hist):
+                    hists[key] = hist.cpu().clone()
+                    return real(hist)
+                return scores
+            return wrap
+
+        seg_scores = None
+        for name, preset, cli, extra in runs:
+            sweep = "run_msc_seg_eval" if cli is infer_seg else "run_lam_eval"
+            seconds.clear()
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _patched(cli, sweep, timing), \
+                    _patched(evaluate, "scores_from_hist", keeping(name)):
+                out = cli.main(extra + flags)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = read_launches(preset, training=False)
+            scores = out if isinstance(out, tuple) else (out,)
+            log(f"text_cli {name} {preset}: {CLI_SAMPLES} images sweep_s="
+                f"{seconds[0]:.3f} img_per_s={CLI_SAMPLES / seconds[0]:.3f} "
+                f"main_s={wall:.3f} (weights file read, tree, sweep; {card}) "
+                f"miou={[round(float(s['miou']), 4) for s in scores]} "
+                "launches=" + json.dumps({k: v for k, v in counts.items()
+                                          if v}))
+            if not all(np.isfinite(s["miou"]) and np.isfinite(s["pAcc"])
+                       for s in scores):
+                raise AssertionError(f"text_cli {name}: non-finite scores")
+            missing = [k for k in CLI_KERNELS[name, preset] if counts[k] <= 0]
+            if missing:
+                raise AssertionError(f"text_cli {name} {preset}: no launch "
+                                     f"of {missing}")
+            if cli is infer_seg:
+                seg_scores = out
+        with _patched(rescore, "scores_from_hist", keeping("rescore")):
+            again = rescore.main(["--pred-dir", os.path.join(work, "preds"),
+                                  "--fast"] + flags)
+        same = torch.equal(hists["rescore"], hists["infer_seg"])
+        log(f"text_cli rescore: miou={again['miou']:.6f} pAcc="
+            f"{again['pAcc']:.6f} (infer_seg miou={seg_scores['miou']:.6f} "
+            f"pAcc={seg_scores['pAcc']:.6f}); confusion hists equal: {same} "
+            f"({int(hists['rescore'].sum())} pixels, "
+            f"{int(hists['rescore'].diagonal().sum())} on the diagonal)")
+        if not (same and again["miou"] == seg_scores["miou"]
+                and again["pAcc"] == seg_scores["pAcc"]):
+            raise AssertionError("text_cli: rescore differs from infer_seg")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 _ATT = "excel_tpu/models/attention_pallas.py"
 _PAR = "excel_tpu/ops/par_pallas.py"
 _CSRC = "excel_tpu_torch/csrc/"
@@ -1824,7 +2013,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     t0 = time.perf_counter()
-    phase_environment()
+    smi = phase_environment()
     phase_build()
     records = phase_kernels()
     records.update(phase_kernels_fast())
@@ -1848,6 +2037,7 @@ def main() -> int:
         phase_train_card_vs_cpu(preset, cfg, clip, state, text, crops, bound)
         phase_trained_eval(preset, cfg, clip, state, text)
         del clip, state
+    phase_text_cli(smi)
     table = []
     for name, (source, replaces) in SOURCES.items():
         r = records[name]

@@ -1,10 +1,16 @@
-"""Background prefetch for the eval sweeps (the port's copy of
-excel_tpu/data/loader.prefetch_iter)."""
+"""Eval samples and background prefetch for the eval sweeps (the port's
+copies of excel_tpu/data/loader.eval_samples and prefetch_iter)."""
 from __future__ import annotations
 
 import queue
 import threading
 from typing import Iterator
+
+
+def eval_samples(dataset) -> Iterator[dict]:
+    """Sequential full-size eval samples (batch-1 protocols)."""
+    for i in range(len(dataset)):
+        yield dataset[i]
 
 
 def prefetch_iter(it: Iterator, depth: int = 2) -> Iterator:

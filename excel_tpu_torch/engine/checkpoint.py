@@ -19,7 +19,7 @@ import torch
 from ..config import HeadConfig
 from ..models.head import LvcHead
 from ..models.params import (_insert, _keystr_path, head_from_jax_params,
-                             head_to_jax_tree)
+                             head_to_jax_tree, save_npz_tree)
 from .train import TrainState
 
 
@@ -58,26 +58,9 @@ def restore_checkpoint(path: str, template: TrainState) -> TrainState:
     return template
 
 
-def _keystr(parts: list) -> str:
-    return "".join(f"[{p}]" if isinstance(p, int) else f"['{p}']"
-                   for p in parts)
-
-
-def _leaves(tree, path=()):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], path + (k,))
-    elif isinstance(tree, list):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, path + (i,))
-    else:
-        yield list(path), tree
-
-
 def save_head_npz(path: str, head: LvcHead) -> None:
     """The head in the JAX package's `save_head_npz` layout."""
-    np.savez(path, **{_keystr(p): v
-                      for p, v in _leaves(head_to_jax_tree(head))})
+    save_npz_tree(path, head_to_jax_tree(head))
 
 
 def load_head_npz(path: str, cfg: HeadConfig, num_classes: int,

@@ -408,21 +408,29 @@ def _skip_batches(gen, start: int):
             yield item
 
 
-def _to_device(arrays, device):
-    return tuple(torch.from_numpy(a).to(device, non_blocking=True)
+def _to_device(arrays, device: torch.device):
+    """numpy arrays -> tensors on `device`. A CUDA copy is staged in pinned
+    host memory, so that it runs asynchronously (a copy from pageable memory
+    waits for the device even with non_blocking=True); on the CPU the
+    tensors share the arrays' memory."""
+    if device.type != "cuda":
+        return tuple(torch.from_numpy(a) for a in arrays)
+    return tuple(torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
                  for a in arrays)
 
 
 def run_lam_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
                  mode: str = "training_free", batch_size: int = 4,
-                 resize: int | None = None, save_cam=None, save_lam_crf=None,
-                 crf_tpu: bool = False, checkpoint_path: str | None = None,
+                 resize: int | None = None, progress=None, save_cam=None,
+                 save_lam_crf=None, crf_tpu: bool = False,
+                 checkpoint_path: str | None = None,
                  checkpoint_every: int = 100, device="cuda"):
     """LAM pseudo-label sweep -> scores dict.
 
     dataset: len() and [i] -> {"name", "image" uint8 [h,w,3], "label" int
     [h,w], "cls_label" [num_fg]}. params and text_attr must already be on
-    `device`.
+    `device`. progress(n) is called after each batch with its sample count
+    (remainder padding included).
     save_cam(name, image_u8 [h,w,3], cams [1+C_fg,h,w]) optionally receives
     each image's normed pre-PAR per-class maps (the full class stack).
     save_lam_crf(name, valid_lam [1+K,h,w], keys [K])
@@ -500,6 +508,8 @@ def run_lam_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
         if checkpoint_path and n_done - last_saved >= checkpoint_every:
             _sweep_save(checkpoint_path, hist, n_done // batch_size, fp)
             last_saved = n_done
+        if progress:
+            progress(len(samples))
     _sweep_done(checkpoint_path)
     if crf_tpu:
         return scores_from_hist(hist), scores_from_hist(crf_hist)
@@ -507,9 +517,10 @@ def run_lam_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
 
 
 def run_validation(params: dict, dataset, text_attr, cfg: ExcelConfig,
-                   batch_size: int = 4, device="cuda"):
+                   batch_size: int = 4, progress=None, device="cuda"):
     """In-training validation sweep -> (pseudo-label scores, seg scores).
-    params (clip and head) and text_attr must already be on `device`."""
+    params (clip and head) and text_attr must already be on `device`;
+    progress(n) is called after each batch with its sample count."""
     device = resolve_device(device)
     hist_p = init_hist(cfg.num_classes, device)
     hist_s = init_hist(cfg.num_classes, device)
@@ -518,24 +529,27 @@ def run_validation(params: dict, dataset, text_attr, cfg: ExcelConfig,
         (cv, b, _prep_batch(b, cfg.clip.image_size, cv))
         for cv, b in _bucketed_batches(dataset, batch_size, cfg.data.eval_pad,
                                        slot_buckets=sb, num_fg=cfg.num_fg))
-    for canvas, _, (images, cls, labels, valid) in prepped:
+    for canvas, samples, (images, cls, labels, valid) in prepped:
         slots = _slots_bucket(cls, cfg.num_fg, sb)
         images, cls, labels, valid = _to_device(
             (images, cls, labels, valid), device)
         hist_p, hist_s = val_hist_step(hist_p, hist_s, params, images, cls,
                                        labels, valid, text_attr, cfg, canvas,
                                        class_slots=slots)
+        if progress:
+            progress(len(samples))
     return scores_from_hist(hist_p), scores_from_hist(hist_s)
 
 
 def run_msc_seg_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
                      scales=(1.0, 0.7, 1.2, 1.5), batch_size: int = 4,
-                     resize: int | None = None, save_logits=None,
-                     save_pred=None, crf_tpu: bool = False,
+                     resize: int | None = None, progress=None,
+                     save_logits=None, save_pred=None, crf_tpu: bool = False,
                      checkpoint_path: str | None = None,
                      checkpoint_every: int = 100, device="cuda"):
     """MSC+flip segmentation sweep -> scores dict. params (clip and head)
-    and text_attr must already be on `device`.
+    and text_attr must already be on `device`; progress(n) is called after
+    each batch with its sample count.
 
     save_logits(name, logits [C, h, w]) / save_pred(name, label [h, w])
     optionally receive per-image outputs: the fused pre-CRF logits, averaged
@@ -590,5 +604,7 @@ def run_msc_seg_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
         if checkpoint_path and n_done - last_saved >= checkpoint_every:
             _sweep_save(checkpoint_path, hist, n_done // batch_size, fp)
             last_saved = n_done
+        if progress:
+            progress(len(samples))
     _sweep_done(checkpoint_path)
     return scores_from_hist(hist)

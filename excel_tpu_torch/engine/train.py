@@ -163,9 +163,10 @@ def train_step(state: TrainState, clip_params: dict,
     images_u8: [B, H, W, 3] uint8 crops; cls_label [B, num_fg] one-hot;
     generator: the head's dropout draws (None: no dropout); class_slots:
     refine only bg + this many present-class channels in the pseudo-label
-    path. Returns (state, metrics) with float metrics "loss", "seg_loss",
-    "diver_loss", "lr" (the rate of this update); the state is updated in
-    place."""
+    path. Returns (state, metrics): "loss", "seg_loss" and "diver_loss" as
+    0-d tensors on the step's device, read by the caller only when it logs
+    (a float here would wait for the device every step), and "lr", the
+    float rate of this update; the state is updated in place."""
     total, l_seg, l_aff, _ = train_losses(
         state.head, clip_params, images_u8, cls_label, text_attr, generator,
         cfg, calibrated=calibrated, seg_affinity=seg_affinity,
@@ -177,8 +178,8 @@ def train_step(state: TrainState, clip_params: dict,
     total.backward()
     state.optimizer.step()
     state.step += 1
-    return state, {"loss": total.item(), "seg_loss": l_seg.item(),
-                   "diver_loss": l_aff.item(), "lr": lr}
+    return state, {"loss": total.detach(), "seg_loss": l_seg.detach(),
+                   "diver_loss": l_aff.detach(), "lr": lr}
 
 
 def phased_train_steps(cfg: ExcelConfig) -> dict:

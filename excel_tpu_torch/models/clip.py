@@ -1,8 +1,7 @@
-"""Frozen CLIP ViT-B/16 with ExCEL architecture surgery, vision side
-(counterpart of excel_tpu/models/clip.py; the text encoder belongs to a
-later slice). With `ex_feats` (the LVC head's fused features) the surgery
-blocks' dense path is calibrated by their feature affinity, as in the
-trained forward's second pass.
+"""Frozen CLIP ViT-B/16 with ExCEL architecture surgery, and the CLIP text
+transformer (counterpart of excel_tpu/models/clip.py). With `ex_feats` (the
+LVC head's fused features) the surgery blocks' dense path is calibrated by
+their feature affinity, as in the trained forward's second pass.
 
 "Surgery" is a static property of the forward: the last
 `cfg.surgery_blocks` blocks run the dual-path value-value attention. The
@@ -23,7 +22,7 @@ import torch
 from ..config import ClipConfig
 from ..ops.labels import scale_and_translate
 from .layers import (attention_fused, external_feature_attention, layer_norm,
-                     mlp, surgery_attention_fused)
+                     mlp, multi_head_attention, surgery_attention_fused)
 
 
 def interpolate_pos_embedding(pos: torch.Tensor,
@@ -187,8 +186,60 @@ def encode_image(params: dict, images: torch.Tensor, cfg: ClipConfig,
     (dim 1 of [B, N, C]), not the feature dimension."""
     out = vision_forward(params, images, cfg, ex_feats, attn_mode=attn_mode)
     feats = out["projected"]
-    # jnp.linalg.norm's program: squares in the features' type, summed in
-    # fp32, the root in the features' type
-    sq = (feats * feats).float().sum(dim=1, keepdim=True)
-    out["projected"] = feats / torch.sqrt(sq.to(feats.dtype))
+    out["projected"] = feats / _norm(feats, dim=1)
     return out
+
+
+def _norm(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """jnp.linalg.norm(x, axis=dim, keepdims=True) as its program computes
+    it: squares in x's type, summed in fp32, the root in x's type."""
+    sq = (x * x).float().sum(dim=dim, keepdim=True)
+    return torch.sqrt(sq.to(x.dtype))
+
+
+# ---------------------------------------------------------------------------
+# text encoder
+# ---------------------------------------------------------------------------
+
+def text_forward(params: dict, tokens: torch.Tensor,
+                 cfg: ClipConfig) -> torch.Tensor:
+    """CLIP text transformer on any device: tokens [B, context_length] int
+    -> [B, embed_dim] in `cfg.compute_dtype`, pooled at the EOT (argmax-id)
+    position. The JAX package's type points: the token embedding cast to
+    the compute type, LayerNorm in fp32, the causal mask triu(-inf, 1) on
+    fp32 logits (`multi_head_attention`), and the projection of the pooled
+    tokens by the fp32 `text_projection` formed in fp32 (its `jnp.dot`
+    promotes a bf16 operand) and rounded to the compute type."""
+    p = params["text"]
+    tokens = tokens.long()
+    x = p["token_embedding"][tokens].to(cfg.compute_dtype)
+    x = x + p["positional_embedding"].to(x.dtype)
+
+    n = tokens.shape[-1]
+    causal = torch.triu(torch.full((n, n), -torch.inf, dtype=torch.float32,
+                                   device=x.device), diagonal=1)
+    for blk in p["blocks"]:
+        y, _ = multi_head_attention(layer_norm(x, blk["ln_1"]), blk["attn"],
+                                    cfg.text_heads, mask=causal)
+        x = x + y
+        x = x + mlp(layer_norm(x, blk["ln_2"]), blk["mlp"])
+
+    x = layer_norm(x, p["ln_final"])
+    eot = tokens.argmax(dim=-1)
+    pooled = x[torch.arange(x.shape[0], device=x.device), eot]
+    out = torch.matmul(pooled.float(), p["text_projection"].float())
+    return out.to(x.dtype)
+
+
+def encode_text_ensemble(params: dict, token_batches: torch.Tensor,
+                         cfg: ClipConfig) -> torch.Tensor:
+    """Prompt-ensemble class embeddings: token_batches [num_classes,
+    num_templates, context_length]. Per class: encode all templates,
+    L2-normalize each, mean, L2-normalize the mean, all in the text's type
+    (the mean summed in fp32, as `jnp.mean` sums a bf16 array)."""
+    nc, nt, length = token_batches.shape
+    emb = text_forward(params, token_batches.reshape(nc * nt, length), cfg)
+    emb = emb.reshape(nc, nt, -1)
+    emb = emb / _norm(emb, dim=-1)
+    mean = emb.float().mean(dim=1).to(emb.dtype)
+    return mean / _norm(mean, dim=-1)

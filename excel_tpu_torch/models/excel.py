@@ -1,5 +1,5 @@
-"""ExCEL composition (counterpart of excel_tpu/models/excel.py; the text
-bank belongs to a later slice).
+"""ExCEL composition and the text bank (counterpart of
+excel_tpu/models/excel.py).
 
 params = {"clip": <frozen encoder tree>, "head": <LvcHead>}. Only the head
 trains: the encoder runs under `torch.no_grad()`, so autograd records the
@@ -13,7 +13,8 @@ import torch
 
 from ..config import ExcelConfig
 from ..ops.surgery import clip_feature_surgery
-from .clip import encode_image
+from ..ops.tse import attr_aggregate
+from .clip import encode_image, encode_text_ensemble
 from .head import (LvcHead, decoder_forward, feature_affinity,
                    init_head_params, segformer_fuse)
 
@@ -80,3 +81,22 @@ def init_excel_params(cfg: ExcelConfig, clip_params: dict,
     return {"clip": clip_params,
             "head": init_head_params(cfg.head, cfg.num_classes, generator,
                                      device)}
+
+
+def build_text_bank(clip_params: dict, cfg: ExcelConfig,
+                    vocabulary: list[str],
+                    cluster_bank: torch.Tensor) -> torch.Tensor:
+    """Enriched text embeddings [num_fg + num_bg, embed] float32 on the
+    device of the text weights: `cfg.prompt_template` over `vocabulary`
+    (text.class_names.prompt_vocabulary: fg names then bg names), tokenized
+    at the context length 77, one template per class through
+    `encode_text_ensemble`, then TSE (`attr_aggregate`) over
+    `cluster_bank` [embed, K]."""
+    from ..text.tokenizer import tokenize
+
+    prompts = [cfg.prompt_template.format(n) for n in vocabulary]
+    device = clip_params["text"]["token_embedding"].device
+    tokens = torch.from_numpy(tokenize(prompts)).to(device)[:, None, :]
+    with torch.no_grad():
+        emb = encode_text_ensemble(clip_params, tokens, cfg.clip)
+        return attr_aggregate(emb, cluster_bank.to(device), cfg.num_fg)

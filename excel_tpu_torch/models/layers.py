@@ -80,24 +80,30 @@ def _cpu_only(y: torch.Tensor, name: str) -> None:
                          f"tensors; on {y.device} use {name}_fused")
 
 
-def multi_head_attention(y: torch.Tensor, p: dict, heads: int):
-    """Standard multi-head self-attention over pre-normed float32 input in
-    plain PyTorch ops, on any device and differentiable: the LVC head's
-    decoder (the JAX package's head calls its plain `attention`, outside
-    any Pallas kernel). Returns (output [B, N, C], head-mean weights
-    [B, N, N])."""
+def multi_head_attention(y: torch.Tensor, p: dict, heads: int,
+                         mask: torch.Tensor | None = None):
+    """Standard multi-head self-attention over pre-normed input in plain
+    PyTorch ops, on any device and differentiable: the JAX package's plain
+    `attention`, which it runs outside any Pallas kernel for the LVC head's
+    decoder and, with a causal `mask` [N, N] (fp32, added to the logits),
+    for the text tower. Its type points are kept for bf16 input: q * scale
+    in the activation type, the logits formed in fp32 (bf16 products are
+    exact there) plus the mask, the softmax in fp32, the weights rounded to
+    v's type for the context, which is accumulated in fp32 and rounded.
+    Returns (output [B, N, C], head-mean fp32 weights [B, N, N])."""
     q, k, v = qkv_projection(y, p, heads)
-    scale = q.shape[-1] ** -0.5
-    logits = torch.matmul(q * scale, k.transpose(-1, -2))
+    scale = float(torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype))
+    logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
+    if mask is not None:
+        logits = logits + mask
     weights = torch.softmax(logits, dim=-1)
-    ctx = torch.matmul(weights, v)
+    ctx = torch.matmul(weights.to(v.dtype).float(), v.float()).to(v.dtype)
     return linear(merge_heads(ctx), p["out"]), weights.mean(dim=1)
 
 
 def attention(y: torch.Tensor, p: dict, heads: int):
     """`multi_head_attention` as the encoder's per-head plain version, for
-    CPU tensors only (the encoder calls `attention_fused`). (The text
-    encoder's causal mask belongs to the text slice.)"""
+    CPU tensors only (the encoder calls `attention_fused`)."""
     _cpu_only(y, "attention")
     return multi_head_attention(y, p, heads)
 

@@ -1,7 +1,8 @@
-"""CLIP parameters in torch layout: random init, conversion from the JAX
-package's parameter tree, reading its `save_params_npz` files, and the
-one-time bf16 copy of the matmul weights for the fast preset; and the LVC
-head's conversion from and to the JAX package's head tree.
+"""CLIP parameters in torch layout: random init, conversion from and to the
+JAX package's parameter tree, reading and writing its `save_params_npz`
+files, and the one-time bf16 copy of the matmul weights for the fast
+preset; and the LVC head's conversion from and to the JAX package's head
+tree.
 
 The tree keeps the JAX package's keys ({"visual": ..., "text": ...,
 "logit_scale": ...}); the leaves change layout:
@@ -160,6 +161,53 @@ def _insert(tree: dict, parts: list, value) -> None:
         while len(node) <= last:
             node.append(None)
     node[last] = value
+
+
+def _keystr(parts) -> str:
+    """jax.tree_util.keystr of a path of dict keys and list indices."""
+    return "".join(f"[{p}]" if isinstance(p, int) else f"['{p}']"
+                   for p in parts)
+
+
+def _leaves(tree, path=()):
+    """(path, leaf) pairs of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k], path + (k,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def save_npz_tree(path: str, tree) -> None:
+    """One array per leaf, keyed by `jax.tree_util.keystr` of its path: the
+    layout of the JAX package's `save_params_npz` and `save_head_npz`."""
+    np.savez(path, **{_keystr(p): np.asarray(v) for p, v in _leaves(tree)})
+
+
+def to_jax_params(params: dict) -> dict:
+    """The port's torch tree -> the JAX package's layout with float32 numpy
+    leaves (the inverse of `from_jax_params`; bf16 leaves widen exactly)."""
+    def conv(tree, path):
+        if isinstance(tree, dict):
+            return {k: conv(v, path + (k,)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [conv(v, path + (i,)) for i, v in enumerate(tree)]
+        a = tree.detach().float().cpu().numpy()
+        if path[-1] == "patch_embed":
+            a = a.transpose(2, 3, 1, 0)                # OIHW -> HWIO
+        elif path[-1] == "w" and path[-2] in _LINEAR_KEYS:
+            a = a.T                                    # [out,in] -> [in,out]
+        return np.ascontiguousarray(a)
+    return conv(params, ())
+
+
+def save_params_npz(path: str, params: dict) -> None:
+    """Write the port's CLIP parameters in the file format of the JAX
+    package's `save_params_npz`, which `load_params_npz` reads back."""
+    save_npz_tree(path, to_jax_params(params))
 
 
 def load_params_npz(path: str, cfg: ClipConfig, device="cuda") -> dict:

@@ -26,23 +26,34 @@ def compute_trans_mat(attn: torch.Tensor) -> torch.Tensor:
     return torch.matmul(t, t)
 
 
+# sweeps between two convergence tests of `_propagate_labels`: each test
+# waits for the device, and a sweep past the fixed point changes nothing
+SWEEPS_PER_TEST = 8
+
+
 def _propagate_labels(mask: torch.Tensor) -> torch.Tensor:
     """8-connected component labels of [M, h, w] bool masks by min-label
     propagation to a fixed point. Returns [M, h, w] int64; background pixels
-    get h*w."""
+    get h*w.
+
+    A sweep never raises a label, so labels equal after SWEEPS_PER_TEST
+    sweeps were equal after each of them: the fixed point is tested once
+    every SWEEPS_PER_TEST sweeps, and the result is exact (the JAX package
+    tests it every sweep inside a device loop)."""
     m, h, w = mask.shape
     big = h * w
     lab = torch.where(
         mask, torch.arange(big, device=mask.device).reshape(1, h, w),
         torch.full((1, h, w), big, device=mask.device))
     while True:
-        p = torch.nn.functional.pad(lab, (1, 1, 1, 1), value=big)
-        neigh = torch.stack([p[:, dy:dy + h, dx:dx + w]
-                             for dy in range(3) for dx in range(3)])
-        new = torch.where(mask, neigh.amin(dim=0), big)
-        if torch.equal(new, lab):
+        before = lab
+        for _ in range(SWEEPS_PER_TEST):
+            p = torch.nn.functional.pad(lab, (1, 1, 1, 1), value=big)
+            neigh = torch.stack([p[:, dy:dy + h, dx:dx + w]
+                                 for dy in range(3) for dx in range(3)])
+            lab = torch.where(mask, neigh.amin(dim=0), big)
+        if torch.equal(lab, before):
             return lab
-        lab = new
 
 
 def scoremap_box_mask(score: torch.Tensor, threshold: float) -> torch.Tensor:

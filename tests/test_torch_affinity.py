@@ -78,3 +78,67 @@ def test_refine_lams_batch_stack_and_mean_match():
     with pytest.raises(ValueError):
         paff.refine_lams_batch(t(lams), t(stack.mean(axis=0)), 0.79, (4, 4),
                                seg_attn=t(np.ones((2, 16, 16), np.float32)))
+
+
+def _propagate_every_sweep(mask):
+    """The propagation as it tested convergence after every sweep (one
+    device wait a sweep): the reference for the batched test."""
+    import torch
+
+    m, h, w = mask.shape
+    big = h * w
+    lab = torch.where(mask, torch.arange(big).reshape(1, h, w),
+                      torch.full((1, h, w), big))
+    sweeps = 0
+    while True:
+        p = torch.nn.functional.pad(lab, (1, 1, 1, 1), value=big)
+        neigh = torch.stack([p[:, dy:dy + h, dx:dx + w]
+                             for dy in range(3) for dx in range(3)])
+        new = torch.where(mask, neigh.amin(dim=0), big)
+        sweeps += 1
+        if torch.equal(new, lab):
+            return lab, sweeps
+        lab = new
+
+
+def _masks(h=20, w=24):
+    """A serpentine (one component along which the smallest label walks
+    ~h/2 x w sweeps), a comb, an empty and a full mask."""
+    snake = np.zeros((h, w), bool)
+    snake[::2] = True
+    for r in range(1, h, 2):
+        snake[r, w - 1 if r % 4 == 1 else 0] = True
+    comb = np.zeros((h, w), bool)
+    comb[0] = True
+    comb[:, ::3] = True
+    comb[h // 2, 1::3] = True
+    return np.stack([snake, comb, np.zeros((h, w), bool),
+                     np.ones((h, w), bool)])
+
+
+def test_propagate_labels_tests_convergence_every_k_sweeps(monkeypatch):
+    """Labels equal to the every-sweep loop's and to the JAX package's on
+    masks that need many sweeps, with one convergence test (one device
+    wait) per SWEEPS_PER_TEST sweeps."""
+    import torch
+
+    masks = t(_masks())
+    ref, sweeps = _propagate_every_sweep(masks)
+    assert sweeps > 100
+    tests = []
+    real_equal = torch.equal
+    monkeypatch.setattr(torch, "equal",
+                        lambda a, b: tests.append(1) or real_equal(a, b))
+    got = paff._propagate_labels(masks)
+    monkeypatch.undo()
+    np.testing.assert_array_equal(n(got), n(ref))
+    # the fixed point holds after sweeps - 1 sweeps; the first test after it
+    # that compares two labellings past it ends the loop
+    assert len(tests) == -(-(sweeps - 1) // paff.SWEEPS_PER_TEST) + 1
+    jax_lab = np.stack([np.asarray(jaff._propagate_labels(jnp.asarray(b)))
+                        for b in _masks()])
+    np.testing.assert_array_equal(n(got), jax_lab)
+    # one component each for the serpentine, the comb and the full mask
+    for i in (0, 1, 3):
+        assert len(np.unique(n(got[i])[_masks()[i]])) == 1
+    assert (n(got[2]) == masks.shape[1] * masks.shape[2]).all()

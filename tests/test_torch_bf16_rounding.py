@@ -134,6 +134,20 @@ for i, (b, c, h, w) in enumerate(CRF_SHAPES):
     out[f"crf_step{i}"] = np.asarray(jp.par_diffuse(
         jp.pad_for_diffuse(q, 55), a, coffs,
         interpret=True).astype(jnp.float32))
+# the text tower in bf16 on the uncast weights (the CLIs build the text
+# bank before casting them): 4 classes x 3 templates of random tokens
+from excel_tpu.models.clip import encode_text_ensemble, text_forward
+trng = np.random.default_rng(1)
+tok = trng.integers(1, cfg.vocab_size - 2,
+                    (4, 3, cfg.context_length)).astype(np.int32)
+for row in tok.reshape(-1, cfg.context_length):
+    eot = trng.integers(2, cfg.context_length)
+    row[eot], row[eot + 1:] = cfg.vocab_size - 1, 0
+out["text_tokens"] = tok
+out["text_forward"] = np.asarray(text_forward(
+    tree, jnp.asarray(tok[:, 0]), cfg).astype(jnp.float32))
+out["text_ensemble"] = np.asarray(encode_text_ensemble(
+    tree, jnp.asarray(tok), cfg).astype(jnp.float32))
 np.savez(OUT, **out)
 """
 # (B, C, h, w) of the ragged CRF steps, after the 2 x 21 x 40 x 64 one
@@ -287,3 +301,21 @@ def test_bf16_encoder_matches_pallas(ref):
             atol=2.0 ** -7 * float(np.abs(ref[key]).max()), err_msg=key)
     np.testing.assert_allclose(n(got["attn"]), ref["attn"], atol=1e-3,
                                rtol=0)
+
+
+def test_bf16_text_tower_equals_jax_bitwise(ref):
+    """The fast preset's text tower (`text_forward`, `encode_text_ensemble`
+    over 3 templates) on the uncast weights: bit for bit once XLA rounds as
+    written (in-process, XLA's excess precision moves some outputs by one
+    or two bf16 ulps: tests/test_torch_text.py)."""
+    from excel_tpu_torch.models.clip import encode_text_ensemble, text_forward
+
+    cfg = fast(port_tiny_config()).clip
+    params = from_jax_params(_tree_from(ref), cfg, device="cpu")
+    tok = torch.from_numpy(ref["text_tokens"])
+    with torch.inference_mode():
+        fwd = text_forward(params, tok[:, 0], cfg)
+        ens = encode_text_ensemble(params, tok, cfg)
+    assert fwd.dtype == ens.dtype == torch.bfloat16
+    np.testing.assert_array_equal(n(fwd.float()), ref["text_forward"])
+    np.testing.assert_array_equal(n(ens.float()), ref["text_ensemble"])

@@ -236,3 +236,18 @@ def test_run_lam_eval_trained_matches(setup, trained, single_class,
         lambda: pev.run_lam_eval(pparams, single_class, t(text), pcfg,
                                  mode="trained", batch_size=2, device="cpu"))
     _assert_hists_match(got, ref, single_class)
+
+
+def test_to_device_on_the_cpu_shares_the_arrays():
+    """The CPU branch of `_to_device`: the arrays arrive equal, as tensors
+    over the same memory (no copy); a CUDA target stages them in pinned
+    memory (held on the card by the `cuda` tests)."""
+    rng = np.random.default_rng(0)
+    arrays = (rng.random((2, 8, 8, 3), dtype=np.float32),
+              rng.integers(0, 255, (2, 16, 16)).astype(np.int32),
+              rng.integers(0, 255, (2, 16, 16, 3)).astype(np.uint8))
+    got = pev._to_device(arrays, torch.device("cpu"))
+    for a, g in zip(arrays, got):
+        assert g.device.type == "cpu" and g.dtype == t(a).dtype
+        np.testing.assert_array_equal(n(g), a)
+        assert g.data_ptr() == a.ctypes.data

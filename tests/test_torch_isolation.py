@@ -1,6 +1,8 @@
 """The port stands alone: no module of excel_tpu_torch and no line of
 chip_smoke.py or of the port's kernel timing tools imports jax or
-excel_tpu, and its entry points refuse to fall back to the CPU when no GPU
+excel_tpu; with jax, excel_tpu, Pillow and regex blocked (the machine with
+the card has neither of the last two) every module imports and the eval
+CLIs run; and its entry points refuse to fall back to the CPU when no GPU
 is present."""
 import ast
 import os
@@ -12,6 +14,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "excel_tpu")
+# absent where the card is: blocked when the port runs below
+BLOCKED = FORBIDDEN + ("PIL", "regex")
 
 
 def _port_files():
@@ -44,9 +48,11 @@ def test_port_sources_import_no_jax():
     assert len(_port_files()) > 15
 
 
-def test_port_imports_with_jax_blocked():
+def test_port_imports_with_jax_blocked(tmp_path):
     """Import every port module (and chip_smoke) in a fresh interpreter in
-    which importing jax or excel_tpu raises."""
+    which importing jax, excel_tpu, PIL or regex raises; then tokenize and
+    run the eval CLIs at the tiny config on a 2-image synthetic tree (CAM
+    overlays and palette PNGs written, the PNGs rescored)."""
     modules = []
     for path in _port_files():
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
@@ -56,15 +62,23 @@ def test_port_imports_with_jax_blocked():
 import sys
 class Block:
     def find_spec(self, name, path=None, target=None):
-        if any(name == f or name.startswith(f + ".") for f in {FORBIDDEN!r}):
+        if any(name == f or name.startswith(f + ".") for f in {BLOCKED!r}):
             raise ImportError("blocked " + name)
 sys.meta_path.insert(0, Block())
 sys.path.insert(0, {ROOT!r})
 import importlib
 for m in {modules!r}:
     importlib.import_module(m)
-assert not any(k == "jax" or k.startswith(("jax.", "excel_tpu."))
-               or k == "excel_tpu" for k in sys.modules)
+from excel_tpu_torch.text.tokenizer import tokenize
+assert tokenize(["a clean origami cat."]).shape == (1, 77)
+from excel_tpu_torch.cli import infer_lam, infer_seg, rescore
+flags = ["--device", "cpu", "--tiny", "--random-init", "--synthetic", "2",
+         "--work-dir", {str(tmp_path)!r}, "--batch-size", "2"]
+infer_lam.main(flags + ["--training-free", "--save-cam"])
+seg = infer_seg.main(flags + ["--scales", "1.0", "--save-preds"])
+again = rescore.main(flags + ["--pred-dir", {str(tmp_path / "preds")!r}])
+assert again["miou"] == seg["miou"]
+assert not any(k.split(".")[0] in {BLOCKED!r} for k in sys.modules)
 """
     env = dict(os.environ, OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,

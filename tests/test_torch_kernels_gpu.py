@@ -742,3 +742,33 @@ def test_affinity_kernel_rare_sums(gen):
         torch.testing.assert_close(got.float().cpu(), ref.float(),
                                    atol=BF16_ATOL, rtol=BF16_RTOL,
                                    equal_nan=True)
+
+
+def test_to_device_stages_through_pinned_memory(gen):
+    """The sweeps' host-to-card copies: equal arrays on the card, the
+    staging tensor pinned (an asynchronous copy)."""
+    import numpy as np
+
+    from excel_tpu_torch.engine import evaluate as pev
+
+    rng = np.random.default_rng(0)
+    arrays = (rng.random((4, 64, 64, 3), dtype=np.float32),
+              rng.integers(0, 255, (4, 96, 128)).astype(np.int32))
+    pinned = []
+    real = torch.Tensor.pin_memory
+
+    def pin(self, *a, **k):
+        out = real(self, *a, **k)
+        pinned.append(out.is_pinned())
+        return out
+
+    torch.Tensor.pin_memory = pin
+    try:
+        got = pev._to_device(arrays, torch.device("cuda"))
+    finally:
+        torch.Tensor.pin_memory = real
+    torch.cuda.synchronize()
+    assert pinned == [True, True]
+    for a, g in zip(arrays, got):
+        assert g.is_cuda
+        assert np.array_equal(g.cpu().numpy(), a)

@@ -261,3 +261,28 @@ def test_head_npz_both_ways(train_setup, tmp_path):
     for a, b in zip(jax.tree_util.tree_leaves(back),
                     jax.tree_util.tree_leaves(jhead)):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_train_step_returns_device_scalars(train_setup):
+    """The losses come back as 0-d tensors on the step's device, equal to
+    the losses of the step's own forward (what `.item()` read before), and
+    the step itself reads no loss on the host."""
+    import inspect
+
+    assert ".item()" not in inspect.getsource(ptr.train_step)
+    _, pcfg, clip, head, images, cls, text = train_setup
+    pclip = port_params(clip, pcfg.clip)
+    for cal, seg in PHASES:
+        kw = dict(calibrated=cal, seg_affinity=seg)
+        state = ptr.init_train_state(port_head(head, pcfg), pcfg.train)
+        total, l_seg, l_aff, _ = ptr.train_losses(
+            state.head, pclip, t(images), t(cls), t(text), None, pcfg, **kw)
+        state, m = ptr.train_step(state, pclip, t(images), t(cls), t(text),
+                                  None, pcfg, **kw)
+        for key, ref in (("loss", total), ("seg_loss", l_seg),
+                         ("diver_loss", l_aff)):
+            assert isinstance(m[key], torch.Tensor) and m[key].dim() == 0
+            assert m[key].device == t(images).device
+            assert not m[key].requires_grad
+            assert float(m[key]) == float(ref), key
+        assert isinstance(m["lr"], float)
