@@ -67,15 +67,41 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    `main(argv)` on an 8-image synthetic tree: `infer_lam --training-free
    --crf-tpu` in both presets, `infer_lam --head` and `infer_seg --head
    --save-preds` in the fast preset, `rescore` of those predictions (equal
-   to infer_seg's scores); each CLI's kernels launched, img/s of each.
+   to infer_seg's scores); each CLI's kernels launched, img/s of each;
+8. the training run and weights in without JAX: (a) an OpenAI-layout CLIP
+   checkpoint at ViT-B/16 widths of seeded random weights through
+   `cli.convert_clip` (the detected architecture voc_config()'s, the file
+   equal to the seeded tree bit for bit) and a reference head checkpoint
+   (`module.`-prefixed, the frozen CLIP keys beside it) through
+   `cli.convert_head`; (b) `cli.train.main` in the fast preset from those
+   weights (text bank through the text tower and TSE over the shipped
+   attribute bank) on a 16-image synthetic tree, batch 4: 6 steps with
+   validation, `--tensorboard` and `--viz`, then `--resume` to step 8
+   without validation; the files, the resumed start, finite losses, the
+   head moved and CLIP unchanged, the event records' CRCs, the PNG panels,
+   each kernel of the train path launched; the loop's it/s and iteration
+   interval on the host clock without added synchronisation, one CLI
+   step's device time (profiled), the loader's batch time alone; (c)
+   COCO's production phase, `fast(coco_config())` calibrated without seg
+   affinity, B=32, crop 320, the 8-slot bucket (PAR at C=9): 3 steps,
+   launches, finite losses, the head moved, the peak memory; (d) the fast
+   PAR beyond the affinity slab ((1, 2, 4, 8, 12, 24, 56): pad 56; nine
+   dilations: K=72) through the padded route (the direct affinity kernel,
+   the resident diffusion), launches counted, card against CPU; the direct
+   kernel against its plain version at the train step's shapes (timed),
+   against the slab kernel bit for bit at pad 24, and the resident
+   diffusion at K=72 bit for bit.
 
 The JSON kernel table has one line per Pallas function (rows 1-4 for each
 dtype; row 5 for PAR's step and for the CRF's message pass in fp32 and
-bf16); `launches` counts the launches of the route that stands for that
+bf16; row 11 for the affinity's slab kernel and for its direct kernel,
+the latter timed at pad 56); `launches` counts the launches of the route
+that stands for that
 function (the attention wrappers' attribution by mode and token count, the
 fp32 and bf16 steps on valid or full extents, the step at the CRF's 72
 offsets) over all main-path runs: the eval slices with their CRF sweeps,
-the MSC slices, the train steps, the two trained sweeps and the CLIs.
+the MSC slices, the train steps, the two trained sweeps, the CLIs, the
+train CLI's two runs, the COCO steps and (d)'s two refinements.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": N}}.
 It imports neither jax nor excel_tpu. It exits non-zero without a CUDA
@@ -978,6 +1004,7 @@ def reset_launches() -> None:
         for row in by_row:
             by_row[row] = 0
     wrappers["par_diffuse"].launches_by_type.clear()
+    wrappers["par_affinity"].launches_by_kernel.clear()
 
 
 # launches per line of the JSON kernel table (per Pallas function) over all
@@ -994,7 +1021,8 @@ def read_launches(preset: str, training: bool) -> dict:
     else row 4), counted per dtype; the fp32 step of PAR on valid extents
     (eval) row 5 and on full extents (training's pseudo-labels) row 8, the
     CRF's message pass (72 offsets) row 5 at its own lines, fp32 and bf16;
-    likewise the bf16 single step, row 7 or row 6."""
+    likewise the bf16 single step, row 7 or row 6; the affinity's slab
+    and direct kernels (row 11) each at its own line."""
     wrappers = _kernel_wrappers()
     counts = {name: fn.launches for name, fn in wrappers.items()}
     sfx = "_bf16" if preset == "fast" else ""
@@ -1012,7 +1040,10 @@ def read_launches(preset: str, training: bool) -> dict:
             "par_diffuse_padded" if training else "par_diffuse_padded_valid":
                 counts["par_diffuse_padded_valid"]}
     rows.update({name: counts[name] for name in (
-        "pad_replicate_valid", "par_affinity", "par_diffuse_valid_resident")})
+        "pad_replicate_valid", "par_diffuse_valid_resident")})
+    by_kernel = wrappers["par_affinity"].launches_by_kernel
+    rows.update(par_affinity=by_kernel["slab"],
+                par_affinity_direct=by_kernel["direct"])
     for name, n in rows.items():
         ROW_LAUNCHES[name] = ROW_LAUNCHES.get(name, 0) + n
     return counts
@@ -1979,6 +2010,558 @@ def phase_text_cli(smi: str) -> None:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# slice 11: the training run from converted weights
+TRAIN_CLI_SAMPLES = 16
+# the Pallas rows of the fast train path (and its validation): rows 1-3 in
+# bf16, the resident diffusion, pad-clamp and the affinity
+TRAIN_CLI_ROWS = ("plain_attention_bf16", "plain_attention_rows_hb_bf16",
+                  "surgery_attention_bf16", "par_diffuse_valid_resident",
+                  "pad_replicate_valid", "par_affinity")
+# COCO's production train phase (calibrated, no seg affinity) at B=32, its
+# classes in the 8-slot bucket (PAR at C=9)
+COCO_B, COCO_SLOTS, COCO_BG = 32, 8, 23
+# the fast PAR beyond the affinity slab: pad 56 (K=56), where no slab fits
+# shared memory, and nine dilations (K=72), more logits than the slab
+# kernel holds; card against the CPU within one bf16 ulp of masks in
+# [1, 2), the bound of the JAX comparison at 20 steps
+# (tests/test_torch_bf16_rounding.py): the affinities differ by a bf16 ulp
+# at most, the diffusion not at all
+PAR_REPAIR_DILATIONS = ((1, 2, 4, 8, 12, 24, 56),
+                        (1, 2, 4, 8, 12, 16, 24, 32, 40))
+TOL_PAR_REPAIR = 2.0 ** -7
+
+
+def _openai_block(sd: dict, prefix: str, blk: dict) -> None:
+    """The inverse of `models.params._block_from_torch` on one block of the
+    port's tree, whose linears are already [out, in] (OpenAI's layout)."""
+    for name, ln in (("ln_1", blk["ln_1"]), ("ln_2", blk["ln_2"])):
+        sd[f"{prefix}.{name}.weight"] = ln["scale"]
+        sd[f"{prefix}.{name}.bias"] = ln["bias"]
+    for name, p in (("attn.in_proj_", blk["attn"]["qkv"]),
+                    ("attn.out_proj.", blk["attn"]["out"]),
+                    ("mlp.c_fc.", blk["mlp"]["fc"]),
+                    ("mlp.c_proj.", blk["mlp"]["proj"])):
+        sd[f"{prefix}.{name}weight"] = p["w"]
+        sd[f"{prefix}.{name}bias"] = p["b"]
+
+
+def openai_state_dict(clip: dict) -> dict:
+    """An OpenAI CLIP state dict (names and layout of the published
+    checkpoints, with their three integer entries) of the port's CPU tree."""
+    v, t = clip["visual"], clip["text"]
+    sd = {"visual.conv1.weight": v["patch_embed"],
+          "visual.class_embedding": v["class_embedding"],
+          "visual.positional_embedding": v["positional_embedding"],
+          "visual.proj": v["proj"],
+          "token_embedding.weight": t["token_embedding"],
+          "positional_embedding": t["positional_embedding"],
+          "text_projection": t["text_projection"],
+          "logit_scale": clip["logit_scale"],
+          "input_resolution": torch.tensor(224),
+          "context_length": torch.tensor(77),
+          "vocab_size": torch.tensor(49408)}
+    for name, ln in (("visual.ln_pre", v["ln_pre"]),
+                     ("visual.ln_post", v["ln_post"]),
+                     ("ln_final", t["ln_final"])):
+        sd[name + ".weight"], sd[name + ".bias"] = ln["scale"], ln["bias"]
+    for i, blk in enumerate(v["blocks"]):
+        _openai_block(sd, f"visual.transformer.resblocks.{i}", blk)
+    for i, blk in enumerate(t["blocks"]):
+        _openai_block(sd, f"transformer.resblocks.{i}", blk)
+    return sd
+
+
+def reference_head_state_dict(head, clip_sd: dict) -> dict:
+    """A reference `model_iter_*.pth` state dict of a head: its torch names
+    ([out, in] linears, [out, in, 1, 1] 1x1 convolutions) and the frozen
+    CLIP keys, all `module.`-prefixed as DDP saves them."""
+    from excel_tpu_torch.models.params import _head_path, _insert
+
+    tree: dict = {}
+    for name, value in head.state_dict().items():       # linears [out, in]
+        _insert(tree, _head_path(name), value)
+    fuse = "decoder_fts_fuse"
+    sd = {f"{fuse}.linear_fuse.weight": tree["linear_fuse"]["w"][..., None,
+                                                                   None],
+          f"{fuse}.linear_fuse.bias": tree["linear_fuse"]["b"],
+          "decoder.linear_pred.weight": tree["classifier"]["w"][..., None,
+                                                                None],
+          "decoder.linear_pred.bias": tree["classifier"]["b"]}
+    for i, m in enumerate(tree["fuse_mlps"]):
+        for key, name in (("proj", "proj"), ("proj2", "proj_2")):
+            prefix = f"{fuse}.linears_modulelist.{i}.{name}"
+            sd[prefix + ".weight"] = m[key]["w"]
+            sd[prefix + ".bias"] = m[key]["b"]
+    for i, blk in enumerate(tree["decoder"]):
+        _openai_block(sd, f"decoder.transformer.resblocks.{i}", blk)
+    out = {"module." + k: v for k, v in sd.items()}
+    out.update({"module.encoder." + k: v for k, v in clip_sd.items()})
+    return out
+
+
+def _flat(tree, path=()) -> dict:
+    """{path: tensor} of a tree of dicts and lists."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {path: tree}
+    return {p: t for k, v in items for p, t in _flat(v, path + (k,)).items()}
+
+
+def _tree_equal(a, b) -> bool:
+    fa, fb = _flat(a), _flat(b)
+    return fa.keys() == fb.keys() and all(
+        fa[k].dtype == fb[k].dtype and torch.equal(fa[k], fb[k]) for k in fa)
+
+
+def train_cli_weights(work: str) -> str:
+    """(a) Weights in: an OpenAI-layout CLIP checkpoint at ViT-B/16 widths
+    of seeded random weights through `convert_clip`, a reference head
+    checkpoint through `convert_head`; both files equal to the seeded
+    trees bit for bit. Returns the CLIP weights file."""
+    from excel_tpu_torch.cli import convert_clip, convert_head
+    from excel_tpu_torch.config import voc_config
+    from excel_tpu_torch.engine.checkpoint import load_head_npz
+    from excel_tpu_torch.models.head import init_head_params
+    from excel_tpu_torch.models.params import (init_clip_params,
+                                               load_params_npz)
+
+    cfg = voc_config()
+    clip = init_clip_params(cfg.clip, torch.Generator().manual_seed(0),
+                            device="cpu")
+    sd = openai_state_dict(clip)
+    pt, clip_npz = (os.path.join(work, f) for f in ("ViT-B-16.pt",
+                                                    "clip.npz"))
+    t0 = time.perf_counter()
+    torch.save(sd, pt)
+    got = convert_clip.main([pt, clip_npz])
+    convert_s = time.perf_counter() - t0
+    arch = ("patch_size", "vision_width", "vision_layers", "vision_heads",
+            "embed_dim", "pretrain_grid", "context_length", "vocab_size",
+            "text_width", "text_heads", "text_layers")
+    wrong = {f: (getattr(got, f), getattr(cfg.clip, f)) for f in arch
+             if getattr(got, f) != getattr(cfg.clip, f)}
+    same = _tree_equal(load_params_npz(clip_npz, cfg.clip, device="cpu"),
+                       clip)
+    head = init_head_params(cfg.head, cfg.num_classes,
+                            torch.Generator().manual_seed(1), device="cpu")
+    pth, head_npz = (os.path.join(work, f) for f in ("model_iter_0.pth",
+                                                     "head.npz"))
+    ref_sd = reference_head_state_dict(head, sd)
+    torch.save(ref_sd, pth)
+    convert_head.main([pth, head_npz])
+    back = load_head_npz(head_npz, cfg.head, cfg.num_classes, device="cpu")
+    head_same = all(torch.equal(v, back.state_dict()[k])
+                    for k, v in head.state_dict().items())
+    mib = os.path.getsize(pt) / 2 ** 20
+    log(f"train_cli weights: convert_clip of a {mib:.0f} MiB OpenAI state "
+        f"dict ({len(sd)} entries) detected "
+        + json.dumps({f: getattr(got, f) for f in arch})
+        + f" (voc_config().clip: {'equal' if not wrong else wrong}); npz "
+        f"== seeded tree bit for bit: {same}; convert_head of "
+        f"{len(ref_sd)} keys ({len(ref_sd) - len(sd)} of the head): npz == "
+        f"seeded head bit for bit: {head_same}; save + convert_clip s="
+        f"{convert_s:.2f}")
+    if wrong or not same or not head_same:
+        raise AssertionError("train_cli weights: a converted file differs "
+                             "from its seeded tree")
+    return clip_npz
+
+
+def _read_events(path: str) -> list:
+    """TFRecord payloads of an event file, each length and payload checked
+    against its masked CRC32C."""
+    import struct
+
+    from excel_tpu_torch.utils.tb import _masked_crc
+
+    with open(path, "rb") as f:
+        data = f.read()
+    out, pos = [], 0
+    while pos < len(data):
+        header = data[pos:pos + 8]
+        (length,) = struct.unpack("<Q", header)
+        crcs = struct.unpack("<I", data[pos + 8:pos + 12])[0], \
+            struct.unpack("<I", data[pos + 12 + length:pos + 16 + length])[0]
+        payload = data[pos + 12:pos + 12 + length]
+        if crcs != (_masked_crc(header), _masked_crc(payload)):
+            raise AssertionError(f"{path}: record at {pos} fails its CRC")
+        out.append(payload)
+        pos += 16 + length
+    return out
+
+
+def train_cli_runs(work: str, clip_npz: str, card: str) -> None:
+    """(b) `cli.train.main` in the fast preset from the converted weights
+    (the text bank through the text tower and TSE over the shipped
+    attribute bank) on a 16-image synthetic tree: 6 steps with validation,
+    TensorBoard and PNG panels, then --resume to 8 without validation.
+    Checks the files, the resumed start, finite logged losses, the head
+    moved and CLIP unchanged, the events' CRCs, the panels, each train-path
+    kernel launched (counts reset before and read after each run). Prints
+    it/s, the median step wall and the loader's batch time alone."""
+    from excel_tpu_torch.cli import common, train
+    from excel_tpu_torch.data.loader import train_batches
+    from excel_tpu_torch.data.png import read_png
+    from excel_tpu_torch.engine import train as engine_train
+    from excel_tpu_torch.engine.checkpoint import load_head_npz
+    from excel_tpu_torch.models.head import init_head_params
+    from excel_tpu_torch.models.params import (cast_matmul_weights,
+                                               load_params_npz)
+
+    flags = ["--fast", "--synthetic", str(TRAIN_CLI_SAMPLES), "--work-dir",
+             work, "--clip-params", clip_npz, "--batch-size", "4",
+             "--log-iters", "2"]
+    resolved, calls, ends, profiled = [], [], [], {}
+
+    def keep(real):
+        def resolve(args):
+            out = real(args)
+            resolved.append(out)
+            return out
+        return resolve
+
+    # the host clock at each step's call, unsynchronised, so that the loop
+    # runs as a user's does (it reads the device only at log_iters and
+    # where it saves); the call numbered profile_at is profiled
+    profile_at = [0]
+
+    def stamp(real):
+        def step(*a, **k):
+            calls.append(time.perf_counter())
+            if len(calls) != profile_at[0]:
+                return real(*a, **k)
+            out = []
+            profiled["device_ms"], profiled["events"] = _device_profile(
+                lambda: out.append(real(*a, **k)))
+            return out[0]
+        return step
+
+    # the loop's end: the first save follows the last step (eval_iters is
+    # max_iters in the first run; the resumed one saves at its end only)
+    def loop_end(real):
+        def save(*a, **k):
+            torch.cuda.synchronize()
+            ends.append(time.perf_counter())
+            return real(*a, **k)
+        return save
+
+    # (run, flags, the call to profile: none in the first run, whose rate
+    # is read; the second step of the resumed run)
+    runs = [("first", ["--max-iters", "6", "--eval-iters", "6",
+                       "--tensorboard", "--viz"], 0),
+            ("resumed", ["--resume", "--max-iters", "8", "--no-eval"], 2)]
+    rate = interval = None
+    for name, extra, profile in runs:
+        before = dict(ROW_LAUNCHES)
+        calls.clear()
+        ends.clear()
+        profile_at[0] = profile
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _patched(train, "resolve", keep), \
+                _patched(engine_train, "train_step", stamp), \
+                _patched(train, "save_checkpoint", loop_end):
+            state = train.main(flags + extra)
+        torch.cuda.synchronize()
+        main_s = time.perf_counter() - t0
+        counts = read_launches("fast", training=True)
+        rows = {k: ROW_LAUNCHES.get(k, 0) - before.get(k, 0)
+                for k in TRAIN_CLI_ROWS}
+        steps = len(calls)
+        loop_s = ends[0] - calls[0]
+        line = (f"train_cli {name}: {steps} steps to step {state.step} "
+                f"main_s={main_s:.2f} loop_s={loop_s:.2f} (first call to "
+                f"the end of the last step)")
+        if name == "first":
+            # steps 2.. over the host clock, unsynchronised
+            gaps = [b - a for a, b in zip(calls[1:], calls[2:] + ends[:1])]
+            rate = (steps - 1) / (ends[0] - calls[1])
+            interval = statistics.median(gaps) * 1e3
+            line += (f" it_per_s={rate:.3f} (steps 2-{steps}, "
+                     f"unsynchronised; {card}) iteration interval ms "
+                     f"median={interval:.2f} first step wall="
+                     f"{(calls[1] - calls[0]) * 1e3:.2f}")
+        log(line + " launches=" + json.dumps(
+            {k: v for k, v in counts.items() if v})
+            + " rows=" + json.dumps(rows))
+        missing = [k for k, v in rows.items() if v <= 0]
+        if missing:
+            raise AssertionError(f"train_cli {name}: no launch of {missing}")
+    top = sorted(profiled["events"], key=lambda e: e.self_device_time_total,
+                 reverse=True)[:8]
+    log(f"train_cli profile: one step of the CLI (the resumed run's second,"
+        f" step 7, phase {engine_train._phase(resolved[-1][0], 7)}) "
+        f"device_ms={profiled['device_ms']:.2f}"
+        f" (profiled run; {card}); top: " + "; ".join(
+            f"{e.self_device_time_total / 1e3:.3f} ms x{e.count} "
+            f"{e.key[:50]}" for e in top))
+    files = ["head_6.npz", "head_8.npz", "checkpoints/step_6.pt",
+             "checkpoints/step_8.pt"]
+    absent = [f for f in files if not os.path.exists(os.path.join(work, f))]
+    with open(os.path.join(work, "train.log")) as f:
+        text = f.read()
+    resumed_at = re.findall(r"resumed from .* \(step (\d+)\)", text)
+    losses = [float(v) for v in re.findall(
+        r"(?:seg_loss|diver_loss): ([^,\s]+)", text)]
+    cfg = resolved[-1][0]
+    head0 = init_head_params(cfg.head, cfg.num_classes,
+                             torch.Generator().manual_seed(cfg.train.seed),
+                             device="cpu")
+    head8 = load_head_npz(os.path.join(work, "head_8.npz"), cfg.head,
+                          cfg.num_classes, device="cpu")
+    moved = sum(not torch.equal(v, head8.state_dict()[k])
+                for k, v in head0.state_dict().items())
+    clip_ref = cast_matmul_weights(load_params_npz(clip_npz, cfg.clip,
+                                                   device="cpu"),
+                                   torch.bfloat16)
+    clip_same = all(_tree_equal(_tree_to(clip, "cpu"), clip_ref)
+                    for _, clip, _ in resolved)
+    events = [r for p in sorted(os.listdir(os.path.join(work, "tb")))
+              for r in _read_events(os.path.join(work, "tb", p))]
+    panels = sorted(os.listdir(os.path.join(work, "viz")))
+    shapes = [read_png(os.path.join(work, "viz", p))[0].shape
+              for p in panels]
+    log(f"train_cli checks: files {files} present: {not absent}; resumed "
+        f"at step {resumed_at}; {len(losses)} logged losses, finite: "
+        f"{all(np.isfinite(losses))}; head tensors moved {moved}/"
+        f"{len(head0.state_dict())}; CLIP unchanged bit for bit: "
+        f"{clip_same}; {len(events)} event records, CRCs pass; "
+        f"{len(panels)} PNG panels {shapes[:1]}")
+    if (absent or resumed_at != ["6"] or len(losses) != 8
+            or not all(np.isfinite(losses))
+            or moved != len(head0.state_dict()) or not clip_same
+            or len(events) != 1 + 3 * 3 + 2 + 4 or len(panels) != 4):
+        raise AssertionError("train_cli: a check of the train CLI failed")
+
+    # the loader alone, at the CLI's worker count: 16 batches after 4 of
+    # start-up, the stream consumed as fast as it comes
+    workers = min(10, os.cpu_count() or 1)
+    batches = train_batches(common.train_dataset(cfg), 4,
+                            seed=cfg.train.seed, num_workers=workers)
+    try:
+        for _ in range(4):
+            next(batches)
+        t0 = time.perf_counter()
+        for _ in range(16):
+            next(batches)
+        loader_ms = (time.perf_counter() - t0) / 16 * 1e3
+    finally:
+        batches.close()
+    log(f"train_cli loader: {loader_ms:.2f} ms a batch of 4 (16 batches "
+        f"after 4, {workers} workers, host only); the CLI's iteration "
+        f"interval {interval:.2f} ms ({rate:.3f} it/s), one step's device "
+        f"time {profiled['device_ms']:.2f} ms ({card})")
+
+
+def train_coco_step(card: str) -> None:
+    """(c) COCO's production phase: fast(coco_config()) calibrated without
+    seg affinity (its step 30,000 on), B=32, 320 px crops whose classes
+    take the 8-slot bucket (PAR at C=9); 3 steps, the launches of each
+    checked, finite losses, the head moved, the peak memory."""
+    from excel_tpu_torch.config import coco_config, fast
+    from excel_tpu_torch.engine.train import (TrainStepCache, _phase,
+                                              init_train_state,
+                                              step_generator)
+    from excel_tpu_torch.models.head import init_head_params
+    from excel_tpu_torch.models.params import (cast_matmul_weights,
+                                               init_clip_params)
+
+    cfg = fast(coco_config())
+    clip = cast_matmul_weights(init_clip_params(
+        cfg.clip, torch.Generator().manual_seed(0), device="cuda"),
+        torch.bfloat16)
+    head = init_head_params(cfg.head, cfg.num_classes,
+                            torch.Generator().manual_seed(1), device="cuda")
+    before = {k: v.clone() for k, v in head.state_dict().items()}
+    state = init_train_state(head, cfg.train)
+    state.step = cfg.train.lvc_calibrate_iter
+    crops = synthetic_samples(COCO_B, cfg.num_fg, seed=2,
+                              extents=[(TRAIN_CROP, TRAIN_CROP)])
+    images = torch.from_numpy(np.stack([s["image"] for s in crops])).cuda()
+    rng = np.random.default_rng(2)
+    cls = np.zeros((COCO_B, cfg.num_fg), np.float32)
+    for i in range(COCO_B):
+        cls[i, rng.choice(cfg.num_fg, 5 + i % (COCO_SLOTS - 4),
+                          replace=False)] = 1.0
+    cls_d = torch.from_numpy(cls).cuda()
+    rng_bank = np.random.default_rng(0)
+    bank = rng_bank.normal(size=(cfg.num_fg + COCO_BG, cfg.clip.embed_dim))
+    bank = torch.from_numpy((bank / np.linalg.norm(
+        bank, axis=-1, keepdims=True)).astype(np.float32)).cuda()
+    steps = TrainStepCache(cfg)
+    walls = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(3):
+        n_iter = state.step
+        phase = _phase(cfg, n_iter)
+        step_fn = steps(phase, cls)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, clip, images, cls_d, bank,
+                                 step_generator(cfg.train, n_iter, "cuda"))
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        counts = read_launches("fast", training=True)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        log(f"train_coco step {n_iter} phase={phase} slots="
+            f"{steps.slots_for(cls)} wall_ms={walls[-1]:.2f} "
+            + " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
+            + " launches=" + json.dumps({k: v for k, v in counts.items()
+                                         if v}))
+        if (phase != (True, False) or steps.slots_for(cls) != COCO_SLOTS
+                or counts != TRAIN_LAUNCHES["fast", True]
+                or not all(np.isfinite(v) for v in metrics.values())):
+            raise AssertionError(f"train_coco: step {n_iter} phase {phase}, "
+                                 f"launches {counts}, metrics {metrics}")
+    moved = sum(not torch.equal(v, state.head.state_dict()[k])
+                for k, v in before.items())
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train_coco: fast(coco_config()) B={COCO_B} crop={TRAIN_CROP} "
+        f"slots={COCO_SLOTS} (PAR C={COCO_SLOTS + 1}) step wall_ms median "
+        f"of steps 2-3={statistics.median(walls[1:]):.2f} (first "
+        f"{walls[0]:.2f}) max_memory_allocated={peak / 2**30:.3f} GiB "
+        f"({peak} B) head tensors moved {moved}/{len(before)} ({card})")
+    if moved != len(before):
+        raise AssertionError("train_coco: a head tensor did not move")
+
+
+def par_repair_check() -> dict:
+    """(d) The fast preset's PAR beyond the affinity slab (pad 56, K=56;
+    nine dilations, K=72): `par_refine` on the card takes the padded route
+    (pad-clamp, the direct affinity kernel, the resident diffusion), each
+    kernel's launches counted (reset before, read after), against the CPU's
+    plain versions. Then, outside the counts, at the fast train step's
+    shapes ([4, 3 | 5, 320, 320], full extents): the direct kernel against
+    its plain version on the card and timed, for its JSON record (pad 56),
+    and logged at K=72 and against the slab kernel at the paths' pad 24
+    (bit for bit); the resident diffusion at K=72 against its plain version
+    bit for bit."""
+    from excel_tpu_torch import build
+    from excel_tpu_torch.ops import par_kernels as pk
+    from excel_tpu_torch.ops.par import (_offsets, _pos_weight, bf16_route,
+                                         par_refine)
+
+    gen = torch.Generator().manual_seed(5)
+    img = torch.randn((2, 3, 96, 128), generator=gen)
+    masks = torch.rand((2, 5, 96, 128), generator=gen)
+    valid = torch.tensor([[96, 128], [70, 101]], dtype=torch.int32)
+    for dil in PAR_REPAIR_DILATIONS:
+        reset_launches()
+        got = par_refine(img.cuda(), masks.cuda(), dilations=dil,
+                         num_iter=PAR_ITERS, valid_hw=valid.cuda(),
+                         dtype=torch.bfloat16).cpu()
+        counts = read_launches("fast", training=False)
+        direct = pk.par_affinity.launches_by_kernel["direct"]
+        ref = par_refine(img, masks, dilations=dil, num_iter=PAR_ITERS,
+                         valid_hw=valid, dtype=torch.bfloat16)
+        err = max_err(got, ref)
+        kernel = pk.affinity_kernel(max(dil), 8 * len(dil))
+        log(f"par_repair dilations={dil} K={8 * len(dil)} pad={max(dil)} "
+            f"route={bf16_route(dil)} affinity kernel={kernel} launches="
+            + json.dumps({k: v for k, v in counts.items() if v})
+            + f" direct affinity launches={direct} card against CPU "
+            f"max_abs_err={err:.4g} (bound {TOL_PAR_REPAIR})")
+        if not (bf16_route(dil) == "padded" and direct == 1
+                and counts["pad_replicate_valid"] == 2
+                and counts["par_diffuse_valid_resident"] == 1
+                and counts["par_diffuse"] == 0 and err <= TOL_PAR_REPAIR):
+            raise AssertionError(f"par_repair {dil}: route "
+                                 f"{bf16_route(dil)}, launches {counts}, "
+                                 f"direct {direct}, error {err}")
+
+    # the kernels at the fast train step's shapes, outside the counts
+    gcu = torch.Generator(device="cuda").manual_seed(6)
+    b, c, h, w = TRAIN_B, PADDED_CHANNELS[0], TRAIN_CROP, TRAIN_CROP
+    full = torch.tensor([[h, w]] * b, device="cuda", dtype=torch.int32)
+    images = torch.rand((b, 3, h, w), device="cuda", generator=gcu)
+    record, notes = None, []
+    for dil in PAR_REPAIR_DILATIONS + (DILATIONS,):
+        offs, pad = _offsets(dil), max(dil)
+        pos_w = [float(p) for p in _pos_weight(dil)]
+        ip = pk.pad_replicate_valid(images, full, pad)
+        if pk.affinity_kernel(pad, len(offs)) == "slab":
+            # where both take the shape: the same bits
+            out = torch.empty((b, len(offs), h, w), device="cuda",
+                              dtype=torch.bfloat16)
+            fn = build.load("par_affinity", "excel_par_affinity_direct_bf16")
+            build.check(fn(ip.data_ptr(),
+                           pk.offsets_tensor(offs, "cpu").data_ptr(),
+                           pk.position_terms(pos_w, 0.01, "cpu").data_ptr(),
+                           out.data_ptr(), b, h, w, ip.shape[2], ip.shape[3],
+                           len(offs), pad, 0.3,
+                           torch.cuda.current_stream().cuda_stream),
+                        "par_affinity (direct)")
+            same = torch.equal(out, pk.par_affinity(ip, offs, pos_w, h, w))
+            notes.append(f"direct == slab bit for bit at pad {pad}, K="
+                         f"{len(offs)}: {same}")
+            if not same:
+                raise AssertionError("direct affinity != slab affinity")
+            continue
+        aff = pk.par_affinity(ip, offs, pos_w, h, w)
+        aff_ref = pk.par_affinity_reference(ip, offs, pos_w, h, w)
+        err = max_err(aff.float(), aff_ref.float())
+        ms = time_ms(lambda: pk.par_affinity(ip, offs, pos_w, h, w), 10)
+        plain = time_ms(lambda: pk.par_affinity_reference(
+            ip, offs, pos_w, h, w), 5)
+        if not bf16_within_ulp(aff, aff_ref):
+            raise AssertionError(f"direct affinity off at {dil}: {err}")
+        if record is None:
+            # the JSON record: pad 56, K=56, whose least arithmetic is the
+            # slab kernel's K=56 instantiation's (same function)
+            bnd, by, term, _ = affinity_bound_ms(
+                b * h * w, ip.numel() * 4 + aff.numel() * 2, len(offs))
+            record = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                      "bound_ms": bnd, "bound_by": by, "library_ms": None}
+            notes.append(f"bound_ms={bnd:.4f} ({by}: {term})")
+        notes.append(f"direct affinity pad {pad} K={len(offs)} "
+                     f"{tuple(ip.shape)} -> {tuple(aff.shape)}: max_abs_err="
+                     f"{err:.3g} kernel_ms={ms:.4f} plain_ms={plain:.4f}")
+        if len(offs) > 64:
+            mp = pk.pad_replicate_valid(
+                torch.rand((b, c, h, w), device="cuda",
+                           generator=gcu).bfloat16(), full, pad)
+            res = pk.par_diffuse_valid_resident(mp, aff, full, offs, h, w,
+                                                PAR_ITERS)
+            res_err = max_err(res.float(),
+                              pk.par_diffuse_valid_resident_reference(
+                                  mp, aff, full, offs, h, w,
+                                  PAR_ITERS).float())
+            res_ms = time_ms(lambda: pk.par_diffuse_valid_resident(
+                mp, aff, full, offs, h, w, PAR_ITERS), 5)
+            notes.append(f"resident K={len(offs)} {tuple(mp.shape)} "
+                         f"{PAR_ITERS} steps: max_abs_err={res_err:.3g} "
+                         f"kernel_ms={res_ms:.4f}")
+            if res_err > TOL_PAR_BF16:
+                raise AssertionError(f"resident at K={len(offs)}: {res_err}")
+    log("par_repair kernels at the train shapes: " + "; ".join(notes))
+    return {"par_affinity_direct": record}
+
+
+def phase_train_cli(smi: str) -> dict:
+    """Slice 11: (a) weights in without JAX, (b) the train CLI from them,
+    (c) COCO's production train phase at B=32, (d) the fast PAR beyond the
+    affinity slab. Returns the direct affinity kernel's record."""
+    import shutil
+    import tempfile
+
+    card = smi.replace(", ", " ")
+    os.makedirs(os.path.join(ROOT, "work_dirs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="train_cli_",
+                            dir=os.path.join(ROOT, "work_dirs"))
+    try:
+        clip_npz = train_cli_weights(work)
+        train_cli_runs(os.path.join(work, "run"), clip_npz, card)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    train_coco_step(card)
+    return par_repair_check()
+
+
 _ATT = "excel_tpu/models/attention_pallas.py"
 _PAR = "excel_tpu/ops/par_pallas.py"
 _CSRC = "excel_tpu_torch/csrc/"
@@ -2004,6 +2587,7 @@ SOURCES = {
     "par_diffuse_valid_resident": ("par_diffuse_valid.cu", f"{_PAR}:654"),
     "pad_replicate_valid": ("par_pad_clamp.cu", f"{_PAR}:845"),
     "par_affinity": ("par_affinity.cu", f"{_PAR}:931"),
+    "par_affinity_direct": ("par_affinity.cu", f"{_PAR}:931"),
 }
 
 
@@ -2038,6 +2622,7 @@ def main() -> int:
         phase_trained_eval(preset, cfg, clip, state, text)
         del clip, state
     phase_text_cli(smi)
+    records.update(phase_train_cli(smi))
     table = []
     for name, (source, replaces) in SOURCES.items():
         r = records[name]

@@ -42,7 +42,8 @@ ENTRY_POINTS = {
                     "excel_par_diffuse_bf16": _DIFFUSE},
     "par_pad_clamp": {"excel_pad_clamp_f32": _PAD_CLAMP,
                       "excel_pad_clamp_bf16": _PAD_CLAMP},
-    "par_affinity": {"excel_par_affinity_bf16": _AFFINITY},
+    "par_affinity": {"excel_par_affinity_bf16": _AFFINITY,
+                     "excel_par_affinity_direct_bf16": _AFFINITY},
     "par_diffuse_valid": {
         "excel_par_diffuse_valid_step_bf16": _VALID_STEP,
         "excel_par_diffuse_valid_resident_bf16": _VALID_RESIDENT},

@@ -16,7 +16,7 @@ import torch
 
 from ..config import (ExcelConfig, asset_path, coco_config, fast,
                       tiny_config, voc_config)
-from ..data.datasets import EvalDataset, make_dataset
+from ..data.datasets import ClsCropDataset, EvalDataset, make_dataset
 from ..device import resolve_device
 from ..models.excel import build_text_bank
 from ..models.params import (cast_matmul_weights, init_clip_params,
@@ -215,6 +215,14 @@ def resolve(args):
     if cfg.clip.compute_dtype == torch.bfloat16:
         clip_params = cast_matmul_weights(clip_params, torch.bfloat16)
     return cfg, clip_params, text_attr
+
+
+def train_dataset(cfg: ExcelConfig) -> ClsCropDataset:
+    base = make_dataset(cfg.data, cfg.data.train_split, "train")
+    base.num_fg = cfg.num_fg
+    return ClsCropDataset(base, crop_size=cfg.data.crop_size,
+                          rescale_range=tuple(cfg.data.rescale_range),
+                          ignore_index=cfg.data.ignore_index)
 
 
 def eval_dataset(cfg: ExcelConfig, split: str | None = None,

@@ -58,6 +58,16 @@
 //   so neither hides the other's copies (about a tenth of the eval launch);
 //   a persistent block with a double-buffered slab, which would, measured
 //   slower (PERF.md).
+//
+// A second entry point, excel_par_affinity_direct_bf16, takes the shapes
+// the slab does not: a pad above 52 (no slab of 8 rows x 64 columns fits
+// shared memory) or more than 64 offsets (the logits no longer fit the
+// registers). A thread a pixel reads its neighbours from the image through
+// L1/L2 (a warp's 32 lanes, 32 consecutive pixels of a row), twice: the
+// moments, then the logits into a local array. The arithmetic is the slab
+// kernel's, operation for operation (the division by 3 as __fdiv_rn, whose
+// quotient third_fast and third_exact equal), so the two give the same bits
+// where both run.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -387,6 +397,89 @@ int launch(const float* img, bf16* out, const Table& t, const Geo& g, int B,
              : launch<K, kPlaneLarge>(img, out, t, g, B, w1, s);
 }
 
+// ---------------------------------------------------------------------------
+// the direct kernel: any pad, K up to kMaxKDirect
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxKDirect = 128;
+constexpr int kDirectThreads = 128;
+
+struct DirectTable {
+  int d[kMaxKDirect];  // neighbour k: element offset from the centre
+  float wpos[kMaxKDirect];
+};
+
+__global__ void __launch_bounds__(kDirectThreads)
+    affinity_direct_kernel(const float* __restrict__ img,
+                           bf16* __restrict__ out,
+                           const __grid_constant__ DirectTable t, int K,
+                           int h, int w, int Hp, int Wp, int P, float w1) {
+  const int x = blockIdx.x * kDirectThreads + threadIdx.x;
+  const int y = blockIdx.y, b = blockIdx.z;
+  if (x >= w) return;
+  const size_t plane = (size_t)Hp * Wp;
+  const float* ctr = img + (size_t)b * kCh * plane + (size_t)(y + P) * Wp +
+                     x + P;
+
+  // moments, chunked as the TPU kernel sums them
+  float s1[kCh], s2[kCh];
+  for (int c0 = 0; c0 < K; c0 += kChunk) {
+    float p1[kCh], p2[kCh];
+    for (int k = c0; k < c0 + kChunk; ++k)
+#pragma unroll
+      for (int c = 0; c < kCh; ++c) {
+        const float v = __ldg(ctr + c * plane + t.d[k]);
+        const float sq = __fmul_rn(v, v);
+        p1[c] = k == c0 ? v : __fadd_rn(p1[c], v);
+        p2[c] = k == c0 ? sq : __fadd_rn(p2[c], sq);
+      }
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) {
+      s1[c] = c0 == 0 ? p1[c] : __fadd_rn(s1[c], p1[c]);
+      s2[c] = c0 == 0 ? p2[c] : __fadd_rn(s2[c], p2[c]);
+    }
+  }
+  const float kf = (float)K;
+  const float kfac = (float)((double)K / (K - 1.0));
+  float inv[kCh], x0[kCh];
+#pragma unroll
+  for (int c = 0; c < kCh; ++c) {
+    const float mean = __fdiv_rn(s1[c], kf);
+    const float var = __fmul_rn(
+        fmaxf(__fsub_rn(__fdiv_rn(s2[c], kf), __fmul_rn(mean, mean)), 0.f),
+        kfac);
+    inv[c] = __fdiv_rn(1.f, __fmul_rn(__fadd_rn(__fsqrt_rn(var), 1e-8f), w1));
+    x0[c] = __ldg(ctr + c * plane);
+  }
+
+  // the logits, their softmax over the offsets, the position term
+  float l[kMaxKDirect];
+  float mx = -INFINITY;
+  for (int k = 0; k < K; ++k) {
+    float s = 0.f;
+#pragma unroll
+    for (int c = 0; c < kCh; ++c) {
+      const float d =
+          __fmul_rn(__fsub_rn(__ldg(ctr + c * plane + t.d[k]), x0[c]), inv[c]);
+      const float dd = __fmul_rn(d, d);
+      s = c == 0 ? dd : __fadd_rn(s, dd);
+    }
+    l[k] = -__fdiv_rn(s, 3.f);
+    mx = fmaxf(mx, l[k]);
+  }
+  float sum = 0.f;
+  for (int k = 0; k < K; ++k) {
+    l[k] = expf(__fsub_rn(l[k], mx));
+    sum = k == 0 ? l[k] : __fadd_rn(sum, l[k]);
+  }
+  const float inv_s = __fdiv_rn(1.f, sum);
+  bf16* o = out + ((size_t)b * K * h + y) * w + x;
+  const size_t oplane = (size_t)h * w;
+  for (int k = 0; k < K; ++k)
+    o[k * oplane] =
+        __float2bfloat16_rn(__fadd_rn(__fmul_rn(l[k], inv_s), t.wpos[k]));
+}
+
 }  // namespace
 
 // img: [B, 3, Hp, Wp] fp32 edge-padded on the device (pad P >= every |dy|,
@@ -439,4 +532,35 @@ extern "C" int excel_par_affinity_bf16(const float* img, const int* offsets,
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+// The same function by the direct kernel, for any pad P >= every |dy|, |dx|
+// and K a multiple of 8 up to 128; the same arguments. Returns a
+// cudaError_t (cudaErrorInvalidValue for a shape it does not take).
+extern "C" int excel_par_affinity_direct_bf16(const float* img,
+                                              const int* offsets,
+                                              const float* wpos, bf16* out,
+                                              int B, int h, int w, int Hp,
+                                              int Wp, int K, int P, float w1,
+                                              void* stream) {
+  if (B < 1 || h < 1 || w < 1 || K < kChunk || K > kMaxKDirect ||
+      K % kChunk || P < 0 || Hp < h + 2 * P || Wp < w + 2 * P || B > 65535 ||
+      h > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  int offs[2 * kMaxKDirect];
+  DirectTable t{};
+  int err = to_host(offs, offsets, 2 * K * sizeof(int), s);
+  if (err == 0) err = to_host(t.wpos, wpos, K * sizeof(float), s);
+  if (err != 0) return err;
+  for (int k = 0; k < K; ++k) {
+    const int dy = offs[2 * k], dx = offs[2 * k + 1];
+    if (dy < -P || dy > P || dx < -P || dx > P)
+      return (int)cudaErrorInvalidValue;
+    t.d[k] = dy * Wp + dx;
+  }
+  dim3 grid((w + kDirectThreads - 1) / kDirectThreads, h, B);
+  affinity_direct_kernel<<<grid, kDirectThreads, 0, s>>>(img, out, t, K, h,
+                                                          w, Hp, Wp, P, w1);
+  return (int)cudaGetLastError();
 }

@@ -95,7 +95,7 @@ constexpr int kTW = 64;               // source columns of a tile: 2 a lane
 constexpr int kRows = 2;              // rows of a thread
 constexpr int kChunk = 8;             // offsets per fp32 partial sum
 constexpr int kStages = 3;            // affinity ring
-constexpr int kMaxK = 64;             // offsets the shared table holds
+constexpr int kMaxK = 128;            // offsets the shared table holds
 constexpr int kMaxP = 64;
 constexpr int kMaxPass = 8;           // channels summed in one pass
 
@@ -522,7 +522,7 @@ int run(const bf16* src, const bf16* aff, const int* valid,
 // src, dst, out, scratch: [B, C, Hp, Wp] bf16 canvases (Hp >= h + 2P,
 // Wp >= w + 2P, src replicate-valid-padded); aff: [B, K, h, w] bf16; valid:
 // [B, 2] int32 (vh, vw); offsets: [K, 2] int32 (dy, dx) with |dy|, |dx| <=
-// P <= 64 and K <= 64; all on the device, dst/out/scratch distinct from
+// P <= 64 and K <= 128; all on the device, dst/out/scratch distinct from
 // src. Returns a cudaError_t (0 on success).
 extern "C" int excel_par_diffuse_valid_step_bf16(
     const bf16* src, const bf16* aff, const int* valid, const int* offsets,

@@ -1,5 +1,5 @@
-"""VOC / COCO dataset readers (the port's copy of
-excel_tpu/data/datasets.py, without the training-view `ClsCropDataset`).
+"""VOC / COCO dataset readers and the training and validation views (the
+port's copy of excel_tpu/data/datasets.py).
 
 Plain-Python readers producing numpy samples. Layout:
 
@@ -20,6 +20,7 @@ import os
 
 import numpy as np
 
+from . import transforms
 from .png import decode_png, is_png
 
 
@@ -125,6 +126,37 @@ class CocoDataset(VocDataset):
 
     def label_path(self, name: str) -> str:
         return os.path.join(self.label_dir, name[self._prefix:] + ".png")
+
+
+class ClsCropDataset:
+    """Training-view dataset: random rescale -> flip -> pad-crop with
+    img_box -> uint8 crop (data/transforms.py, Pillow's resizes without
+    Pillow). Sample: (name, image [S,S,3] u8, cls_label [num_fg], img_box
+    [4], label [S,S] int32)."""
+
+    def __init__(self, base: VocDataset, crop_size: int = 320,
+                 rescale_range=(0.5, 2.0), ignore_index: int = 255):
+        self.base = base
+        self.crop_size = crop_size
+        self.rescale_range = rescale_range
+        self.ignore_index = ignore_index
+
+    def __len__(self):
+        return len(self.base)
+
+    def __getitem__(self, idx: int, rng: np.random.Generator | None = None):
+        rng = rng or np.random.default_rng()
+        name, image, label = self.base.read(idx)
+        image, label = transforms.random_scaling(
+            image, rng, self.rescale_range, label=label)
+        image, label = transforms.random_fliplr(image, rng, label=label)
+        image, label, img_box = transforms.random_crop(
+            image, rng, self.crop_size, label=label,
+            ignore_index=self.ignore_index)
+        cls_label = self.base.cls_label_of(name, label)
+        return dict(name=name, image=np.ascontiguousarray(image),
+                    cls_label=cls_label, img_box=img_box,
+                    label=np.ascontiguousarray(label.astype(np.int32)))
 
 
 class EvalDataset:

@@ -330,6 +330,26 @@ def _bucket_of(sample, pad: int, q: int = 128) -> tuple[int, int]:
     return (min(-(-h // hq) * hq, pad), min(-(-w // q) * q, pad))
 
 
+def _batched(dataset, batch_size):
+    """Samples in dataset order in batches of `batch_size`, the last filled
+    up with copies of its last sample whose labels are all 255 (they add
+    nothing to a hist) and marked `_pad`."""
+    buf = []
+    for i in range(len(dataset)):
+        buf.append(dataset[i])
+        if len(buf) == batch_size:
+            yield buf
+            buf = []
+    if buf:
+        pad = buf[-1]
+        while len(buf) < batch_size:
+            blank = dict(pad)
+            blank["label"] = np.full_like(pad["label"], 255)
+            blank["_pad"] = True
+            buf.append(blank)
+        yield buf
+
+
 def _slot_need_bucket(need: int, num_fg: int, buckets) -> int | None:
     """Smallest slot bucket covering `need` present classes (None = full
     stack)."""

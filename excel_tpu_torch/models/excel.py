@@ -1,5 +1,5 @@
-"""ExCEL composition and the text bank (counterpart of
-excel_tpu/models/excel.py).
+"""ExCEL composition, the text bank and the conversion of a reference head
+checkpoint (counterpart of excel_tpu/models/excel.py).
 
 params = {"clip": <frozen encoder tree>, "head": <LvcHead>}. Only the head
 trains: the encoder runs under `torch.no_grad()`, so autograd records the
@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..config import ExcelConfig
@@ -100,3 +101,48 @@ def build_text_bank(clip_params: dict, cfg: ExcelConfig,
     with torch.no_grad():
         emb = encode_text_ensemble(clip_params, tokens, cfg.clip)
         return attr_aggregate(emb, cluster_bank.to(device), cfg.num_fg)
+
+
+def convert_torch_head(sd: dict, cfg: ExcelConfig) -> LvcHead:
+    """A reference ExCEL_model state dict (`module.` stripped, numpy
+    values) -> the LVC head on the CPU. The torch checkpoint's 1x1
+    convolutions [out, in, 1, 1] become channel matrices; the keys map to
+    the JAX package's head tree (`convert_torch_head` there), which
+    `head_from_jax_params` reads."""
+    from .params import head_from_jax_params
+
+    def lin(prefix):
+        return {"w": np.asarray(sd[prefix + ".weight"]).T,
+                "b": np.asarray(sd[prefix + ".bias"])}
+
+    def conv1x1(prefix):
+        return {"w": np.asarray(sd[prefix + ".weight"])[:, :, 0, 0].T,
+                "b": np.asarray(sd[prefix + ".bias"])}
+
+    def ln(prefix):
+        return {"scale": np.asarray(sd[prefix + ".weight"]),
+                "bias": np.asarray(sd[prefix + ".bias"])}
+
+    def block(p):
+        return {"ln_1": ln(p + ".ln_1"),
+                "attn": {"qkv": {"w": np.asarray(
+                                     sd[p + ".attn.in_proj_weight"]).T,
+                                 "b": np.asarray(
+                                     sd[p + ".attn.in_proj_bias"])},
+                         "out": lin(p + ".attn.out_proj")},
+                "ln_2": ln(p + ".ln_2"),
+                "mlp": {"fc": lin(p + ".mlp.c_fc"),
+                        "proj": lin(p + ".mlp.c_proj")}}
+
+    fuse = "decoder_fts_fuse.linears_modulelist"
+    tree = {
+        "fuse_mlps": [{"proj": lin(f"{fuse}.{i}.proj"),
+                       "proj2": lin(f"{fuse}.{i}.proj_2")}
+                      for i in range(cfg.head.num_blocks)],
+        "linear_fuse": conv1x1("decoder_fts_fuse.linear_fuse"),
+        "decoder": [block(f"decoder.transformer.resblocks.{i}")
+                    for i in range(cfg.head.decoder_layers)],
+        "classifier": conv1x1("decoder.linear_pred"),
+    }
+    return head_from_jax_params(tree, cfg.head, cfg.num_classes,
+                                device="cpu")

@@ -1,8 +1,8 @@
 """CLIP parameters in torch layout: random init, conversion from and to the
 JAX package's parameter tree, reading and writing its `save_params_npz`
-files, and the one-time bf16 copy of the matmul weights for the fast
-preset; and the LVC head's conversion from and to the JAX package's head
-tree.
+files, conversion of an OpenAI CLIP state dict into that tree, and the
+one-time bf16 copy of the matmul weights for the fast preset; and the LVC
+head's conversion from and to the JAX package's head tree.
 
 The tree keeps the JAX package's keys ({"visual": ..., "text": ...,
 "logit_scale": ...}); the leaves change layout:
@@ -220,6 +220,85 @@ def load_params_npz(path: str, cfg: ClipConfig, device="cuda") -> dict:
         for key in data.files:
             _insert(tree, _keystr_path(key), data[key])
     return from_jax_params(tree, cfg, device)
+
+
+# ---------------------------------------------------------------------------
+# OpenAI CLIP state dicts -> the JAX package's layout (numpy leaves)
+# ---------------------------------------------------------------------------
+
+def _ln(sd: dict, prefix: str) -> dict:
+    return {"scale": np.asarray(sd[prefix + ".weight"]),
+            "bias": np.asarray(sd[prefix + ".bias"])}
+
+
+def _block_from_torch(sd: dict, prefix: str) -> dict:
+    def lin(name):
+        return {"w": np.ascontiguousarray(np.asarray(sd[name + "weight"]).T),
+                "b": np.asarray(sd[name + "bias"])}
+
+    return {
+        "ln_1": _ln(sd, prefix + ".ln_1"),
+        "attn": {"qkv": lin(prefix + ".attn.in_proj_"),
+                 "out": lin(prefix + ".attn.out_proj.")},
+        "ln_2": _ln(sd, prefix + ".ln_2"),
+        "mlp": {"fc": lin(prefix + ".mlp.c_fc."),
+                "proj": lin(prefix + ".mlp.c_proj.")},
+    }
+
+
+def infer_clip_config(sd: dict) -> ClipConfig:
+    """The architecture of an OpenAI CLIP state dict from its tensor
+    shapes (heads: width / 64)."""
+    vision_width = sd["visual.conv1.weight"].shape[0]
+    grid = int(round((sd["visual.positional_embedding"].shape[0] - 1)
+                     ** 0.5))
+
+    def layers(pattern: str) -> int:
+        return len({int(m.group(1)) for k in sd
+                    if (m := re.match(pattern, k))})
+
+    text_width = sd["positional_embedding"].shape[1]
+    return ClipConfig(
+        patch_size=sd["visual.conv1.weight"].shape[-1],
+        vision_width=vision_width,
+        vision_layers=layers(r"visual\.transformer\.resblocks\.(\d+)\."),
+        vision_heads=vision_width // 64,
+        embed_dim=sd["text_projection"].shape[1],
+        pretrain_grid=grid,
+        context_length=sd["positional_embedding"].shape[0],
+        vocab_size=sd["token_embedding.weight"].shape[0],
+        text_width=text_width,
+        text_heads=text_width // 64,
+        text_layers=layers(r"transformer\.resblocks\.(\d+)\."),
+    )
+
+
+def convert_torch_state_dict(sd: dict, cfg: ClipConfig) -> dict:
+    """A numpy-valued OpenAI CLIP state dict -> the JAX package's parameter
+    tree with numpy leaves (linear weights [in, out], the patch embedding
+    HWIO), as `save_npz_tree` writes it and `from_jax_params` reads it."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    visual = {
+        "patch_embed": np.ascontiguousarray(
+            sd["visual.conv1.weight"].transpose(2, 3, 1, 0)),  # OIHW->HWIO
+        "class_embedding": sd["visual.class_embedding"],
+        "positional_embedding": sd["visual.positional_embedding"],
+        "ln_pre": _ln(sd, "visual.ln_pre"),
+        "blocks": [_block_from_torch(sd, f"visual.transformer.resblocks.{i}")
+                   for i in range(cfg.vision_layers)],
+        "ln_post": _ln(sd, "visual.ln_post"),
+        "proj": sd["visual.proj"],
+    }
+    text = {
+        "token_embedding": sd["token_embedding.weight"],
+        "positional_embedding": sd["positional_embedding"],
+        "blocks": [_block_from_torch(sd, f"transformer.resblocks.{i}")
+                   for i in range(cfg.text_layers)],
+        "ln_final": _ln(sd, "ln_final"),
+        "text_projection": sd["text_projection"],
+    }
+    return {"visual": visual, "text": text,
+            "logit_scale": sd["logit_scale"]}
 
 
 def cast_matmul_weights(params: dict, dtype: torch.dtype) -> dict:

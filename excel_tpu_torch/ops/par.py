@@ -29,7 +29,11 @@ dilations (1, 2)): the JAX package's padded kernels need 8-aligned pads,
 and its Pallas route there (`use_pallas=True` or "interpret") is the
 per-step one: the fp32 affinity and the valid-clamped masks rounded to
 bf16, then `par_diffuse` in bf16 (sums rounded to bf16 between chunks of 8
-offsets) and `_replicate_valid` each step. The port mirrors that route.
+offsets) and `_replicate_valid` each step. The port mirrors that route
+(`bf16_route`). Every 8-aligned pad takes the padded route, as in the JAX
+package: the affinity kernel takes any pad and up to 128 offsets (its
+direct kernel where the slab does not fit), the resident diffusion up to
+128 offsets and a pad of 64, and raises on the card beyond that.
 (Where the JAX package runs without Pallas, on a CPU by default, it takes
 an XLA loop instead, which rounds its sum to bf16 after every offset; the
 port has no counterpart of that loop.)
@@ -116,6 +120,16 @@ def _affinity(imgs: torch.Tensor, dilations, w1: float,
     return aff + w2 * pos[None, :, None, None]
 
 
+def bf16_route(dilations) -> str:
+    """The route of bf16 `par_refine` at these dilations, from the shapes
+    alone, as the JAX package picks its Pallas route: "padded" (pad-clamp,
+    affinity and resident diffusion kernels) for a pad that is a multiple
+    of 8, else "per_step" (the fp32 affinity, then row 5's bf16 step and
+    `_replicate_valid` per step)."""
+    pad = max(max(abs(dy), abs(dx)) for dy, dx in _offsets(dilations))
+    return "padded" if pad % 8 == 0 else "per_step"
+
+
 def par_refine(imgs: torch.Tensor, masks: torch.Tensor,
                dilations=(1, 2, 4, 8, 12, 24), num_iter: int = 20,
                w1: float = 0.3, w2: float = 0.01,
@@ -129,10 +143,11 @@ def par_refine(imgs: torch.Tensor, masks: torch.Tensor,
     store = dtype or torch.float32
     if store not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"PAR storage {dtype}: float32 or bfloat16")
-    if store == torch.bfloat16 and max(dilations) % 8 == 0:
+    if store == torch.bfloat16 and bf16_route(dilations) == "padded":
         return _par_refine_bf16(imgs, masks, dilations, num_iter, w1, w2,
                                 valid_hw)
-    # the per-step route: fp32, or bf16 storage with an unaligned pad
+    # the per-step route: fp32, or bf16 storage at a pad that is not a
+    # multiple of 8
     imgs = imgs.float()
     masks = masks.float()
     if valid_hw is not None:

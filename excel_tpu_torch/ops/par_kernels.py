@@ -15,7 +15,8 @@ function, with its name and its array shapes:
   [B, C, H + 2P + 8, roundup128(W + 2P)], slack included;
 - `par_affinity` (csrc/par_affinity.cu, `_affinity_kernel`): the appearance
   affinity [B, K, h, w] from such a padded image, in tiles whose rows
-  `affinity_tiling` picks from the pad;
+  `affinity_tiling` picks from the pad, or, for a pad or a K the tiles do
+  not take, by the file's direct kernel (`affinity_kernel`);
 - `par_diffuse_padded_valid` and `par_diffuse_valid_resident`
   (csrc/par_diffuse_valid.cu, `_diffuse_padded_valid_kernel` and
   `_diffuse_resident_kernel`): one fused-valid step on the padded canvas,
@@ -61,6 +62,10 @@ from .. import build
 
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _CHUNK = 8      # offsets per fp32 partial sum, as in the Pallas kernels
+# the most offsets and the largest pad that the fused-valid step and the
+# resident diffusion take on the card (csrc/par_diffuse_valid.cu)
+PADDED_MAX_OFFSETS = 128
+PADDED_MAX_PAD = 64
 
 
 def offsets_tensor(offsets, device) -> torch.Tensor:
@@ -331,12 +336,28 @@ def affinity_tiling(pad: int) -> tuple[int, int]:
     """(tile rows, words between channel planes) of `par_affinity`'s kernel
     at this pad, as the kernel picks them: the most rows of 32, 16, 8 whose
     slab fits the small plane (two blocks an SM), else the large one;
-    (0, 0) for a pad the kernel does not take (above 52)."""
+    (0, 0) for a pad the slab kernel does not take (above 52)."""
     for plane in _AFF_PLANES:
         for rows in _AFF_ROWS:
             if affinity_slab_words(rows, pad) <= plane:
                 return rows, plane
     return 0, 0
+
+
+# the most offsets of the slab kernel (its logits live in registers) and of
+# the direct kernel (a local array)
+AFFINITY_SLAB_MAX_OFFSETS = 64
+AFFINITY_MAX_OFFSETS = 128
+
+
+def affinity_kernel(pad: int, k: int) -> str:
+    """The kernel `par_affinity` launches for a pad and K offsets: "slab"
+    where its slab fits shared memory (`affinity_tiling`) and K <= 64,
+    else "direct" (csrc/par_affinity.cu: neighbours read through L1/L2,
+    the same arithmetic)."""
+    if affinity_tiling(pad)[0] and k <= AFFINITY_SLAB_MAX_OFFSETS:
+        return "slab"
+    return "direct"
 
 
 def position_terms(pos_w, w2: float, device) -> torch.Tensor:
@@ -403,10 +424,12 @@ def par_affinity(img_padded: torch.Tensor, offsets, pos_w, h: int, w: int,
     img_padded: [B, 3, Hp, Wp] float32 with the image at [P, P + h) x
     [P, P + w) and edge-replicated around it (P = max |offset|, Hp >= h + 2P,
     Wp >= w + 2P); offsets: the K (dy, dx) pairs, K a multiple of 8 up to
-    64; pos_w: the K position weights. Returns aff [B, K, h, w] in
-    out_dtype: bfloat16 (or float32 on the CPU). On the card P is at most
-    52 (`affinity_tiling`); the kernel takes the offsets and the
-    position terms from host memory, as kernel parameters."""
+    128; pos_w: the K position weights. Returns aff [B, K, h, w] in
+    out_dtype: bfloat16 (or float32 on the CPU). On the card the slab
+    kernel runs where it takes the pad and K, the direct kernel elsewhere
+    (`affinity_kernel`; `launches_by_kernel` counts each); both take the
+    offsets and the position terms from host memory, as kernel
+    parameters."""
     if img_padded.dim() != 4 or img_padded.shape[1] != 3:
         raise ValueError(f"par_affinity: img_padded must be [B, 3, Hp, Wp], "
                          f"got {tuple(img_padded.shape)}")
@@ -414,7 +437,8 @@ def par_affinity(img_padded: torch.Tensor, offsets, pos_w, h: int, w: int,
     pad = _pad_of(offsets)
     b, _, hp, wp = img_padded.shape
     if (len(pos_w) != k or k % 8 or not
-            0 < k <= 64 or hp < h + 2 * pad or wp < w + 2 * pad):
+            0 < k <= AFFINITY_MAX_OFFSETS or hp < h + 2 * pad
+            or wp < w + 2 * pad):
         raise ValueError(f"par_affinity: img_padded {tuple(img_padded.shape)}"
                          f", {k} offsets, {len(pos_w)} "
                          f"position weights, h={h} w={w}")
@@ -428,21 +452,22 @@ def par_affinity(img_padded: torch.Tensor, offsets, pos_w, h: int, w: int,
     if out_dtype != torch.bfloat16:
         raise NotImplementedError("par_affinity: the kernel writes bf16 "
                                   "affinities (the fast preset's)")
-    if not affinity_tiling(pad)[0]:
-        raise NotImplementedError(f"par_affinity: pad {pad}: the kernel's "
-                                  f"slab does not fit shared memory")
+    kernel = affinity_kernel(pad, k)
     out = img_padded.new_empty((b, k, h, w), dtype=out_dtype)
     wpos = position_terms(pos_w, w2, "cpu")
     offsets_t = offsets_tensor(offsets, "cpu")
-    fn = build.load("par_affinity", "excel_par_affinity_bf16")
+    fn = build.load("par_affinity", "excel_par_affinity_bf16"
+                    if kernel == "slab" else "excel_par_affinity_direct_bf16")
     build.check(fn(img_padded.data_ptr(), offsets_t.data_ptr(),
                    wpos.data_ptr(), out.data_ptr(), b, h, w, hp, wp, k, pad,
-                   w1, _stream(img_padded)), "par_affinity")
+                   w1, _stream(img_padded)), f"par_affinity ({kernel})")
     par_affinity.launches += 1
+    par_affinity.launches_by_kernel[kernel] += 1
     return out
 
 
 par_affinity.launches = 0
+par_affinity.launches_by_kernel = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -573,10 +598,12 @@ def _check_valid_step(name, masks_padded, aff, valid_hw, offsets, h, w):
     _check(name, {"masks_padded": masks_padded, "aff": aff,
                   "valid_hw": valid_hw}, masks_padded.device)
     if masks_padded.device.type == "cuda" and (
-            masks_padded.dtype != torch.bfloat16 or k > 64 or pad > 64):
+            masks_padded.dtype != torch.bfloat16 or k > PADDED_MAX_OFFSETS
+            or pad > PADDED_MAX_PAD):
         raise NotImplementedError(f"{name}: the kernel takes bf16 canvases "
-                                  f"(the fast preset's), at most 64 offsets "
-                                  f"and a pad of at most 64 (got "
+                                  f"(the fast preset's), at most "
+                                  f"{PADDED_MAX_OFFSETS} offsets and a pad of "
+                                  f"at most {PADDED_MAX_PAD} (got "
                                   f"{masks_padded.dtype}, K={k}, pad {pad})")
     return b, c, hp, wp, k, pad
 

@@ -102,6 +102,13 @@ for key, v in (("refine_pad2_valid", jnp.asarray(valid)),
     out[key] = np.asarray(par_refine(
         jnp.asarray(img), jnp.asarray(masks), dilations=(1, 2), num_iter=5,
         valid_hw=v, use_pallas="interpret", dtype=bf))
+# bf16 PAR at the dilations beyond the affinity slab (pad 56, K=56; K=72),
+# 20 steps through the padded Pallas route, with extents and without
+for i, dil in enumerate(LARGE_DILATIONS):
+    for key, v in (("valid", jnp.asarray(valid)), ("full", None)):
+        out[f"refine_large{i}_{key}"] = np.asarray(par_refine(
+            jnp.asarray(img), jnp.asarray(masks), dilations=dil, num_iter=20,
+            valid_hw=v, use_pallas="interpret", dtype=bf))
 crf_img = rng.integers(0, 256, (3, 64, 128, 3)).astype(np.uint8)
 probs = masks ** 3 / (masks ** 3).sum(axis=1, keepdims=True)
 out.update(crf_img=crf_img, crf_probs=probs)
@@ -152,6 +159,10 @@ np.savez(OUT, **out)
 """
 # (B, C, h, w) of the ragged CRF steps, after the 2 x 21 x 40 x 64 one
 CRF_SHAPES = [(1, 1, 8, 61), (2, 9, 16, 200), (1, 21, 40, 61)]
+# dilations beyond the card's affinity slab: pad 56 (K=56), where no slab
+# fits shared memory; nine dilations (K=72), more logits than its
+# registers hold
+LARGE_DILATIONS = [(1, 2, 4, 8, 12, 24, 56), (1, 2, 4, 8, 12, 16, 24, 32, 40)]
 
 
 @pytest.fixture(scope="module")
@@ -163,6 +174,7 @@ def ref(tmp_path_factory):
                           ).strip())
     code = (f"ROOT = {ROOT!r}\nTESTS = {TESTS!r}\nOUT = {path!r}\n"
             f"DILATIONS = {DILATIONS!r}\nCRF_SHAPES = {CRF_SHAPES!r}\n"
+            f"LARGE_DILATIONS = {LARGE_DILATIONS!r}\n"
             + SCRIPT)
     r = subprocess.run([sys.executable, "-c", code], env=env,
                        capture_output=True, text=True, timeout=600)
@@ -266,6 +278,22 @@ def test_bf16_par_refine_matches_pallas(ref):
                      num_iter=20, valid_hw=torch.from_numpy(ref["valid"]),
                      dtype=torch.bfloat16)
     np.testing.assert_allclose(n(got), ref["refine"], atol=2.0 ** -7, rtol=0)
+
+
+@pytest.mark.parametrize("extents", ["valid", "full"])
+@pytest.mark.parametrize("case", [0, 1])
+def test_bf16_par_refine_large_pads_and_offset_counts_match_pallas(
+        ref, case, extents):
+    """The same 20 steps at pad 56 (K=56) and at K=72, where the card runs
+    the direct affinity kernel and the resident diffusion's larger offset
+    table: the padded route on both sides, within the same one bf16 ulp."""
+    v = torch.from_numpy(ref["valid"]) if extents == "valid" else None
+    got = par_refine(torch.from_numpy(ref["img"]),
+                     torch.from_numpy(ref["masks"]),
+                     dilations=LARGE_DILATIONS[case], num_iter=20,
+                     valid_hw=v, dtype=torch.bfloat16)
+    np.testing.assert_allclose(n(got), ref[f"refine_large{case}_{extents}"],
+                               atol=2.0 ** -7, rtol=0)
 
 
 def _tree_from(ref) -> dict:

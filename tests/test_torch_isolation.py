@@ -2,8 +2,8 @@
 chip_smoke.py or of the port's kernel timing tools imports jax or
 excel_tpu; with jax, excel_tpu, Pillow and regex blocked (the machine with
 the card has neither of the last two) every module imports and the eval
-CLIs run; and its entry points refuse to fall back to the CPU when no GPU
-is present."""
+and train CLIs run; and its entry points refuse to fall back to the CPU
+when no GPU is present."""
 import ast
 import os
 import subprocess
@@ -52,7 +52,8 @@ def test_port_imports_with_jax_blocked(tmp_path):
     """Import every port module (and chip_smoke) in a fresh interpreter in
     which importing jax, excel_tpu, PIL or regex raises; then tokenize and
     run the eval CLIs at the tiny config on a 2-image synthetic tree (CAM
-    overlays and palette PNGs written, the PNGs rescored)."""
+    overlays and palette PNGs written, the PNGs rescored), and the train
+    CLI for 2 steps with validation, TensorBoard events and PNG panels."""
     modules = []
     for path in _port_files():
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
@@ -78,6 +79,10 @@ infer_lam.main(flags + ["--training-free", "--save-cam"])
 seg = infer_seg.main(flags + ["--scales", "1.0", "--save-preds"])
 again = rescore.main(flags + ["--pred-dir", {str(tmp_path / "preds")!r}])
 assert again["miou"] == seg["miou"]
+from excel_tpu_torch.cli import train
+state = train.main(flags + ["--max-iters", "2", "--eval-iters", "2",
+                            "--log-iters", "1", "--tensorboard", "--viz"])
+assert state.step == 2
 assert not any(k.split(".")[0] in {BLOCKED!r} for k in sys.modules)
 """
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -86,7 +91,8 @@ assert not any(k.split(".")[0] in {BLOCKED!r} for k in sys.modules)
     assert r.returncode == 0, r.stderr
 
 
-def test_entry_points_need_a_gpu_unless_cpu_is_asked():
+def test_entry_points_need_a_gpu_unless_cpu_is_asked(tmp_path):
+    from excel_tpu_torch.cli import train
     from excel_tpu_torch.config import tiny_config
     from excel_tpu_torch.models.params import init_clip_params
 
@@ -103,3 +109,6 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked():
         init_head_params(cfg.head, cfg.num_classes)
     assert next(init_head_params(cfg.head, cfg.num_classes, device="cpu")
                 .parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--tiny", "--random-init", "--synthetic", "2",
+                    "--work-dir", str(tmp_path), "--max-iters", "1"])

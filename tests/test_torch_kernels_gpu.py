@@ -431,9 +431,10 @@ def test_diffuse_valid_deterministic_and_on_a_side_stream(gen):
     assert torch.equal(a, b) and torch.equal(a, c)
     assert torch.equal(s, pk.par_diffuse_padded_valid_reference(
         mp, aff, valid, offs, 40, 512))
+    # beyond the kernel's table of 128 offsets
     with pytest.raises(NotImplementedError):
-        pk.par_diffuse_padded_valid(mp, aff[:, :1].repeat(1, 65, 1, 1), valid,
-                                    (offs * 2)[:65], 40, 512)
+        pk.par_diffuse_padded_valid(mp, aff[:, :1].repeat(1, 129, 1, 1),
+                                    valid, (offs * 3)[:129], 40, 512)
 
 
 def test_surgery_attention_kernel_bf16_with_ex(gen):
@@ -690,12 +691,68 @@ def test_affinity_kernel_edges(gen, k, pad, slack):
                                         (46, (16, 19328)), (52, (8, 19328))])
 def test_affinity_kernel_smaller_tiles(gen, pad, tiling):
     """Pads whose slabs take 8- and 16-row tiles or the large channel
-    plane (one block an SM); a pad beyond 52 raises."""
+    plane (one block an SM); a pad beyond 52, where no slab fits, runs the
+    direct kernel."""
     assert pk.affinity_tiling(pad) == tiling
     _affinity_close(*_affinity_inputs(gen, 8, pad, 40, 70), 40, 70)
     ip, offs, pos_w = _affinity_inputs(gen, 8, 53, 20, 30)
-    with pytest.raises(NotImplementedError):
-        pk.par_affinity(ip, offs, pos_w, 20, 30)
+    direct = pk.par_affinity.launches_by_kernel["direct"]
+    _affinity_close(ip, offs, pos_w, 20, 30)
+    assert pk.par_affinity.launches_by_kernel["direct"] == direct + 1
+
+
+def _direct_affinity(ip, offs, pos_w, h, w):
+    """The direct kernel through its entry point, at any shape."""
+    out = torch.empty((ip.shape[0], len(offs), h, w), device="cuda",
+                      dtype=torch.bfloat16)
+    fn = build.load("par_affinity", "excel_par_affinity_direct_bf16")
+    build.check(fn(ip.data_ptr(), pk.offsets_tensor(offs, "cpu").data_ptr(),
+                   pk.position_terms(pos_w, 0.01, "cpu").data_ptr(),
+                   out.data_ptr(), ip.shape[0], h, w, ip.shape[2],
+                   ip.shape[3], len(offs), max(max(abs(d) for d in o)
+                                               for o in offs), 0.3,
+                   torch.cuda.current_stream().cuda_stream),
+                "par_affinity (direct)")
+    return out
+
+
+@pytest.mark.parametrize("k,pad", [(8, 56), (48, 64), (64, 56), (72, 24),
+                                   (72, 40), (128, 64)])
+def test_affinity_direct_kernel(gen, k, pad):
+    """The direct kernel (pads the slab does not take, K beyond 64): within
+    one bf16 ulp of the plain version (see test_affinity_kernel) at 40 x 200
+    and 37 x 61, with and without the canvas's slack."""
+    dil = {8: (), 48: (1, 2, 3, 4, 5), 64: (1, 2, 3, 4, 5, 6, 7),
+           72: (1, 2, 3, 4, 5, 6, 7, 8), 128: tuple(range(1, 16))}[k] + (pad,)
+    for h, w in ((40, 200), (37, 61)):
+        for slack in (True, False):
+            img = torch.rand((3, 3, h, w), device="cuda", generator=gen)
+            valid = torch.tensor([[h, w], [h * 2 // 3, w // 2], [1, 1]],
+                                 device="cuda", dtype=torch.int32)
+            hp, wp = pk.padded_shape(h, w, pad) if slack else (
+                h + 2 * pad, w + 2 * pad)
+            ip = pk._clamped_gather(img, valid, pad, hp, wp).contiguous()
+            offs = _offsets(dil)
+            assert len(offs) == k
+            assert pk.affinity_kernel(pad, k) == "direct"
+            _affinity_close(ip, offs, [float(p) for p in _pos_weight(dil)],
+                            h, w)
+
+
+@pytest.mark.parametrize("k,pad", [(8, 8), (48, 24), (64, 52)])
+def test_affinity_direct_kernel_equals_slab_kernel_bitwise(gen, k, pad):
+    """Where both kernels take the shape, the same arithmetic gives the
+    same bits, rare sums included (values near 1e-28, a spike of 1e12)."""
+    h, w = 37, 200
+    ip, offs, pos_w = _affinity_inputs(gen, k, pad, h, w)
+    for img in (ip, ip * 1e-28, ip * 0 + 0.5):
+        if img[0, 0, 0, 0] == 0.5:
+            img[:, :, pad + 7, pad + 9] = 1e12
+        slab = pk.par_affinity(img, offs, pos_w, h, w)
+        direct = _direct_affinity(img, offs, pos_w, h, w)
+        torch.cuda.synchronize()
+        assert torch.equal(slab.isnan(), direct.isnan())
+        assert torch.equal(slab.nan_to_num(), direct.nan_to_num())
 
 
 def test_affinity_kernel_unaligned_side_stream_and_device_tables(gen):
@@ -772,3 +829,46 @@ def test_to_device_stages_through_pinned_memory(gen):
     for a, g in zip(arrays, got):
         assert g.is_cuda
         assert np.array_equal(g.cpu().numpy(), a)
+
+
+# the fast preset's PAR beyond the affinity slab: pad 56 (K=56) and nine
+# dilations (K=72, pad 40) take the padded route, as every 8-aligned pad
+# does: pad-clamp, the direct affinity kernel, the resident diffusion with
+# its table of up to 128 offsets; card against the CPU within one bf16 ulp
+# of masks in [1, 2) (the affinities differ by a bf16 ulp at most,
+# test_affinity_kernel; the diffusion agrees bit for bit)
+@pytest.mark.parametrize("dil", [(1, 2, 4, 8, 12, 24, 56),
+                                 (1, 2, 4, 8, 12, 16, 24, 32, 40)])
+def test_par_refine_bf16_large_pads_card_matches_cpu(gen, dil):
+    from excel_tpu_torch.ops.par import bf16_route, par_refine
+
+    assert bf16_route(dil) == "padded"
+    img = torch.randn((2, 3, 96, 128), device="cuda", generator=gen)
+    masks = torch.rand((2, 5, 96, 128), device="cuda", generator=gen)
+    valid = torch.tensor([[96, 128], [70, 101]], dtype=torch.int32,
+                         device="cuda")
+    direct = pk.par_affinity.launches_by_kernel["direct"]
+    resident = pk.par_diffuse_valid_resident.launches
+    got = par_refine(img, masks, dilations=dil, num_iter=20, valid_hw=valid,
+                     dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert pk.par_affinity.launches_by_kernel["direct"] == direct + 1
+    assert pk.par_diffuse_valid_resident.launches == resident + 1
+    ref = par_refine(img.cpu(), masks.cpu(), dilations=dil, num_iter=20,
+                     valid_hw=valid.cpu(), dtype=torch.bfloat16)
+    torch.testing.assert_close(got.cpu(), ref, atol=2.0 ** -7, rtol=0)
+
+
+@pytest.mark.parametrize("c", [1, 5, 9])
+def test_diffuse_valid_resident_72_offsets_bitwise(gen, c):
+    """Resident == plain version bit for bit at K=72 (nine dilations), the
+    offset table beyond its former 64 entries, for 1 and 20 steps."""
+    dil = (1, 2, 4, 8, 12, 16, 24, 32, 40)
+    mp, aff, valid, offs = _diffuse_valid_case(gen, c, 200, dil)
+    assert len(offs) == 72
+    for n in (1, 20):
+        res = pk.par_diffuse_valid_resident(mp, aff, valid, offs, 40, 200, n)
+        ref = pk.par_diffuse_valid_resident_reference(mp, aff, valid, offs,
+                                                      40, 200, n)
+        torch.cuda.synchronize()
+        assert torch.equal(res, ref), n

@@ -202,7 +202,10 @@ def test_affinity_kernel_takes_pads_up_to_52():
     assert pk.affinity_tiling(53) == (0, 0)
     img = torch.zeros((1, 3, 40 + 2 * 53 + 8, 256))
     offs = [(53, 53)] * 8
-    # the plain version takes any pad; the card's kernel raises beyond 52
+    # the plain version takes any pad; on the card the slab kernel takes
+    # pads up to 52 and the direct kernel the rest
+    assert pk.affinity_kernel(52, 8) == "slab"
+    assert pk.affinity_kernel(53, 8) == "direct"
     assert pk.par_affinity(img, offs, [0.0] * 8, 40, 100).shape == (
         1, 8, 40, 100)
 
@@ -269,3 +272,64 @@ def test_division_by_three_below_the_fast_range():
     with np.errstate(invalid="ignore"):
         third = special * np.float32(1.0 / 3.0)
     assert np.isinf(third[0]) and np.isnan(third[1])
+
+
+# (dilations, route, affinity kernel): every 8-aligned pad takes the padded
+# route, as in the JAX package; the card's affinity runs its slab kernel
+# where the slab fits shared memory (pads up to 52) and K <= 64, its direct
+# kernel elsewhere
+ROUTES = [((1, 2, 4, 8, 12, 24), "padded", "slab"),              # pad 24
+          ((1, 2, 4, 8, 12, 48), "padded", "slab"),              # pad 48
+          ((1, 2, 4, 8, 12, 24, 32), "padded", "slab"),          # K=56
+          ((1, 2, 4, 8, 12, 24, 56), "padded", "direct"),        # pad 56
+          ((1, 2, 4, 8, 12, 24, 64), "padded", "direct"),        # pad 64
+          ((1, 2, 4, 8, 12, 16, 24, 32, 40), "padded", "direct"),  # K=72
+          ((1, 2, 4, 8, 12, 52), "per_step", None),              # pad 52
+          ((1, 2), "per_step", None)]                            # pad 2
+
+
+@pytest.mark.parametrize("dilations,route,kernel", ROUTES)
+def test_bf16_route_from_the_shapes(dilations, route, kernel):
+    from excel_tpu_torch.ops.par import bf16_route
+
+    assert bf16_route(dilations) == route
+    k, pad = len(_offsets(dilations)), max(dilations)
+    if kernel is not None:
+        assert pk.affinity_kernel(pad, k) == kernel
+        assert k <= pk.PADDED_MAX_OFFSETS and pad <= pk.PADDED_MAX_PAD
+
+
+# the dilations of the slab's limits: pad 56 (K=56), no slab that fits;
+# nine dilations (K=72, pad 40), more logits than the slab kernel holds
+LARGE = [(1, 2, 4, 8, 12, 24, 56), (1, 2, 4, 8, 12, 16, 24, 32, 40)]
+
+
+@pytest.mark.parametrize("dilations", LARGE)
+def test_par_affinity_beyond_the_slab_matches_pallas(dilations):
+    """The plain version that the direct kernel is held to on the card,
+    against the Pallas affinity where the JAX package runs it: within a
+    bf16 ulp, as test_par_affinity_matches_pallas."""
+    h, w = 24, 128
+    pad = max(dilations)
+    img = np.random.default_rng(9).standard_normal((2, 3, h, w)).astype(
+        np.float32)
+    valid = np.asarray([[24, 128], [17, 93]], np.int32)
+    ip = np.asarray(jp.pad_replicate_valid(jnp.asarray(img),
+                                           jnp.asarray(valid), pad,
+                                           interpret=True))
+    pos_w = tuple(float(v) for v in _pos_weight(dilations))
+    ref = jp.par_affinity(jnp.asarray(ip), tuple(jax_offsets(dilations)),
+                          pos_w, h, w, out_dtype=jnp.bfloat16, interpret=True)
+    got = pk.par_affinity(t(ip), _offsets(dilations), pos_w, h, w)
+    assert got.shape == ref.shape
+    _close(got, ref, float(np.finfo(np.float32).tiny), 2.0 ** -7)
+
+
+def test_per_step_route_raises_only_without_a_halo_that_fits():
+    """Row 5's step (the per-step route, the CRF's message pass) stages the
+    whole reach in bf16, a pad of 56 included; in fp32 it raises where no
+    chunk's halo fits shared memory."""
+    assert pk.staged_pad(tuple(_offsets((1, 2, 4, 8, 12, 24, 56))), 5,
+                         2) == 56
+    with pytest.raises(NotImplementedError, match="no halo"):
+        pk.staged_pad(tuple(_offsets((300,))), 1, 4)
