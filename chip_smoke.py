@@ -6,7 +6,8 @@
 Phases, each printing its own lines; any failure raises and exits non-zero:
 1. environment: torch/CUDA versions, and the card's name and power limit as
    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives them;
-2. build: every CUDA kernel of the port, compiled from excel_tpu_torch/csrc;
+2. build: every CUDA kernel of the port, compiled from excel_tpu_torch/csrc,
+   and the host lattice CRF (g++, excel_tpu_torch/native);
 3. kernels: each kernel against its plain PyTorch version on the card at the
    main paths' shapes (plus the fp32 surgery kernel at N=901, and the
    surgery kernel with ex at the calibrated train pass's B=4), with the
@@ -92,6 +93,20 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    against the slab kernel bit for bit at pad 24, and the resident
    diffusion at K=72 bit for bit.
 
+9. the host dense CRF: (a) the lattice library built by g++ in the build
+   phase, with the host's core count; (b) the card's mean-field CRF (row 5
+   at 72 offsets, fp32 messages) against the lattice on the three
+   `crf_scene` kinds with the voc and msc_dev parameter sets (short range)
+   and the voc set with the long-range level, each within the bounds of
+   tests/test_crf_tpu.py, and bf16 messages against fp32 at the argmax;
+   (c) `infer_seg --head --crf` and `infer_lam --training-free --crf` in
+   the fast preset on an 8-image synthetic tree, each as a post-pass and
+   streamed (--crf-stream): identical CRF scores, and `rescore` of the
+   CRF's PNGs identical to them; each run's kernels launched; (d) the
+   lattice's host times at 375 x 500 (one call, `crf_batch` of 8 at 1 and
+   at `default_workers()` threads), the spill's ms an image and the walls
+   of sweep, post-pass, streamed drain and each CLI run.
+
 The JSON kernel table has one line per Pallas function (rows 1-4 for each
 dtype; row 5 for PAR's step and for the CRF's message pass in fp32 and
 bf16; row 11 for the affinity's slab kernel and for its direct kernel,
@@ -101,7 +116,8 @@ function (the attention wrappers' attribution by mode and token count, the
 fp32 and bf16 steps on valid or full extents, the step at the CRF's 72
 offsets) over all main-path runs: the eval slices with their CRF sweeps,
 the MSC slices, the train steps, the two trained sweeps, the CLIs, the
-train CLI's two runs, the COCO steps and (d)'s two refinements.
+train CLI's two runs, the COCO steps, (d)'s two refinements and the host
+CRF's four CLI runs.
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": N}}.
 It imports neither jax nor excel_tpu. It exits non-zero without a CUDA
@@ -386,6 +402,10 @@ def phase_build() -> None:
     seconds = build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
         + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
+    host_s = build.build_host()
+    log(f"build: host lattice CRF (g++) {host_s:.2f} s -> "
+        f"{os.path.relpath(build.host_library_path(), ROOT)}; host "
+        f"os.cpu_count()={os.cpu_count()}")
     for name in build.ENTRY_POINTS:
         with open(build.library_path(name) + ".log") as f:
             for line in f:
@@ -1857,6 +1877,38 @@ CLI_KERNELS = {
 
 
 @contextlib.contextmanager
+def cli_workspace(clip_cpu: dict, prefix: str):
+    """A temporary work dir under work_dirs/ holding `clip_cpu` as clip.npz
+    (`save_params_npz`) and a seeded head as head.npz; yields (work dir,
+    the flags every CLI run takes: --random-init, --synthetic CLI_SAMPLES,
+    --work-dir, --clip-params; head.npz), and removes the dir after."""
+    import shutil
+    import tempfile
+
+    from excel_tpu_torch.config import voc_config
+    from excel_tpu_torch.engine.checkpoint import save_head_npz
+    from excel_tpu_torch.models.head import init_head_params
+    from excel_tpu_torch.models.params import save_params_npz
+
+    cfg = voc_config()
+    os.makedirs(os.path.join(ROOT, "work_dirs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix=prefix,
+                            dir=os.path.join(ROOT, "work_dirs"))
+    try:
+        clip_npz = os.path.join(work, "clip.npz")
+        head_npz = os.path.join(work, "head.npz")
+        save_params_npz(clip_npz, clip_cpu)
+        del clip_cpu
+        save_head_npz(head_npz, init_head_params(
+            cfg.head, cfg.num_classes, torch.Generator().manual_seed(1),
+            device="cpu"))
+        yield work, ["--random-init", "--synthetic", str(CLI_SAMPLES),
+                     "--work-dir", work, "--clip-params", clip_npz], head_npz
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+@contextlib.contextmanager
 def _patched(module, name: str, wrap):
     """module.<name> replaced by wrap(module.<name>) inside the block."""
     real = getattr(module, name)
@@ -1879,16 +1931,10 @@ def phase_text_cli(smi: str) -> None:
     predictions. (c) Finite scores, rescore's equal to infer_seg's, every
     kernel of each CLI's path launched (counts reset just before and read
     just after each run), img/s of each sweep."""
-    import shutil
-    import tempfile
-
     from excel_tpu_torch.cli import infer_lam, infer_seg, rescore
     from excel_tpu_torch.config import asset_path, fast, voc_config
-    from excel_tpu_torch.engine.checkpoint import save_head_npz
     from excel_tpu_torch.models.excel import build_text_bank
-    from excel_tpu_torch.models.head import init_head_params
-    from excel_tpu_torch.models.params import (init_clip_params,
-                                               save_params_npz)
+    from excel_tpu_torch.models.params import init_clip_params
     from excel_tpu_torch.text.class_names import prompt_vocabulary
 
     card = smi.replace(", ", " ")
@@ -1921,20 +1967,9 @@ def phase_text_cli(smi: str) -> None:
             raise AssertionError(f"text bank {preset}: card against CPU "
                                  f"{err:.3g} > {tol:.3g}, or rows not unit")
 
-    cfg = voc_config()
-    os.makedirs(os.path.join(ROOT, "work_dirs"), exist_ok=True)
-    work = tempfile.mkdtemp(prefix="text_cli_",
-                            dir=os.path.join(ROOT, "work_dirs"))
-    try:
-        clip_npz = os.path.join(work, "clip.npz")
-        head_npz = os.path.join(work, "head.npz")
-        save_params_npz(clip_npz, clip_cpu)
-        save_head_npz(head_npz, init_head_params(
-            cfg.head, cfg.num_classes, torch.Generator().manual_seed(1),
-            device="cpu"))
-        del clip, clip_cpu
-        flags = ["--random-init", "--synthetic", str(CLI_SAMPLES),
-                 "--work-dir", work, "--clip-params", clip_npz]
+    del clip
+    with cli_workspace(clip_cpu, "text_cli_") as (work, flags, head_npz):
+        del clip_cpu
         runs = [("infer_lam", "fp32", infer_lam,
                  ["--training-free", "--crf-tpu"]),
                 ("infer_lam", "fast", infer_lam,
@@ -2006,8 +2041,6 @@ def phase_text_cli(smi: str) -> None:
         if not (same and again["miou"] == seg_scores["miou"]
                 and again["pAcc"] == seg_scores["pAcc"]):
             raise AssertionError("text_cli: rescore differs from infer_seg")
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
 
 
 # slice 11: the training run from converted weights
@@ -2562,6 +2595,268 @@ def phase_train_cli(smi: str) -> dict:
     return par_repair_check()
 
 
+# slice 12: the host dense CRF
+# the reference's parameter sets (tools/exp_crf_agreement.py:32-37)
+CRF_PARAM_SETS = {
+    "voc": dict(iters=10, pos_w=3.0, pos_xy_std=1.0, bi_w=4.0,
+                bi_xy_std=67.0, bi_rgb_std=3.0),
+    "msc_dev": dict(iters=10, pos_w=3.0, pos_xy_std=3.0, bi_w=4.0,
+                    bi_xy_std=64.0, bi_rgb_std=5.0),
+}
+# (scene, parameter set, coarse stride) -> the most argmax disagreement (%)
+# and per-class IoU difference the card's mean-field CRF may show against
+# the lattice: the bounds of tests/test_crf_tpu.py:57-66 (short range) and
+# :85-92 (the long-range level, voc parameters)
+CRF_AGREEMENT_BOUNDS = {
+    ("blobs", "voc", 0): (3.0, 0.06), ("blobs", "msc_dev", 0): (4.0, 0.11),
+    ("thin", "voc", 0): (4.0, 0.18), ("thin", "msc_dev", 0): (2.5, 0.12),
+    ("texture", "voc", 0): (1.0, 0.01),
+    ("texture", "msc_dev", 0): (6.0, 0.14),
+    ("blobs", "voc", 8): (3.0, 0.06), ("thin", "voc", 8): (4.5, 0.30),
+    ("texture", "voc", 8): (5.0, 0.08),
+}
+# bf16 messages against fp32 ones at the argmax (tests/test_crf_tpu.py:
+# 243-254)
+MIN_CRF_BF16_AGREEMENT = 0.995
+# the kernel wrappers each host-CRF CLI run must launch (fast preset): the
+# MSC sweep's attention; the training-free LAM sweep's attention and fast
+# PAR
+HOST_CRF_KERNELS = {
+    "infer_seg": ("plain_attention", "surgery_attention"),
+    "infer_lam": ("plain_attention", "surgery_attention",
+                  "pad_replicate_valid", "par_affinity",
+                  "par_diffuse_valid_resident"),
+}
+# (d): the lattice timed on VOC-sized images, 21 classes, 10 iterations
+CRF_TIMED_HW = (375, 500)
+CRF_TIMED_IMAGES = 8
+
+
+def _iou_per_class(pred, gt, num_classes: int) -> np.ndarray:
+    ious = np.full(num_classes, np.nan)
+    for c in range(num_classes):
+        union = ((pred == c) | (gt == c)).sum()
+        if union:
+            ious[c] = ((pred == c) & (gt == c)).sum() / union
+    return ious
+
+
+def crf_agreement(device: str) -> None:
+    """(b) of `phase_host_crf`: the mean-field CRF on `device` (row 5 at 72
+    offsets on the card) against the host lattice on the three
+    `crf_scene` kinds (192 x 256, 21 classes), as
+    tools/exp_crf_agreement.py measures it; every case within its bound of
+    CRF_AGREEMENT_BOUNDS, and bf16 messages against fp32 on the long-range
+    (production) cases."""
+    from excel_tpu_torch.crf import DenseCRF
+    from excel_tpu_torch.data.synthetic import crf_scene
+    from excel_tpu_torch.ops.crf_tpu import crf_meanfield
+
+    c = 21
+    failed = []
+    for kind in ("blobs", "thin", "texture"):
+        image, gt, probs = crf_scene(kind, seed=0, num_classes=c)
+        img_d = torch.from_numpy(image)[None].to(device)
+        probs_d = torch.from_numpy(probs)[None].to(device)
+        lattice = {}
+        for (k, pset, stride), (max_dis, max_iou) in \
+                CRF_AGREEMENT_BOUNDS.items():
+            if k != kind:
+                continue
+            p = dict(CRF_PARAM_SETS[pset])
+            iters = p.pop("iters")
+            if pset not in lattice:
+                t0 = time.perf_counter()
+                a_cpp = DenseCRF(iter_max=iters, **p)(image, probs).argmax(0)
+                lattice[pset] = a_cpp, time.perf_counter() - t0
+            a_cpp, lattice_s = lattice[pset]
+            q = crf_meanfield(img_d, probs_d, iters=iters, **p,
+                              coarse_stride=stride)
+            a_mf = q[0].argmax(0).cpu().numpy()
+            dis = 100.0 * float((a_mf != a_cpp).mean())
+            iou_c = _iou_per_class(a_cpp, gt, c)
+            iou_t = _iou_per_class(a_mf, gt, c)
+            present = ~(np.isnan(iou_c) & np.isnan(iou_t))
+            iou_d = float(np.abs(np.nan_to_num(iou_t[present])
+                                 - np.nan_to_num(iou_c[present])).max())
+            ok = dis <= max_dis and iou_d <= max_iou
+            extra = ""
+            if stride:
+                qb = crf_meanfield(img_d, probs_d, iters=iters, **p,
+                                   coarse_stride=stride,
+                                   msg_dtype=torch.bfloat16)
+                agree = float((qb[0].argmax(0) == q[0].argmax(0))
+                              .float().mean())
+                ok = ok and agree > MIN_CRF_BF16_AGREEMENT
+                extra = (f" bf16 messages against fp32: argmax agreement "
+                         f"{agree:.6f} (> {MIN_CRF_BF16_AGREEMENT})")
+            log(f"host_crf agreement {kind} {pset} "
+                f"{'long range s' + str(stride) if stride else 'short range'}"
+                f" ({device} mean-field against the lattice; the lattice "
+                f"{lattice_s:.3f} s): disagreement {dis:.3f}% (bound {max_dis}) max per-class"
+                f" IoU delta {iou_d:.4f} (bound {max_iou}){extra}"
+                f"{'' if ok else ' FAILED'}")
+            if not ok:
+                failed.append((kind, pset, stride))
+    if failed:
+        raise AssertionError(f"host_crf: mean-field CRF outside its bounds "
+                             f"against the lattice: {failed}")
+
+
+def phase_host_crf(smi: str) -> None:
+    """Slice 12, the host dense CRF. (a) The lattice library was built in
+    `phase_build`. (b) `crf_agreement` on the card. (c) The eval CLIs'
+    `main(argv)` in the fast preset on an 8-image synthetic tree (200-400
+    px) with seeded weights at ViT-B/16 width: infer_seg --head --crf
+    --save-preds, then --crf --crf-stream: equal crf_scores, rescore of the
+    _crf PNGs equal to them; infer_lam --training-free --crf --save-preds,
+    then --crf-stream: equal crf_scores, rescore of crf_preds/ equal to
+    them; each run's kernels launched (counts reset just before and read
+    just after). (d) The lattice's times on the host: one call at 375 x 500,
+    21 classes, 10 iterations; `crf_batch` over 8 such images at 1 thread
+    and at `default_workers()`; from (c), the spill's ms an image and the
+    walls of the sweep, the post-pass, the streamed drain and each run."""
+    from excel_tpu_torch import crf as host_crf
+    from excel_tpu_torch.cli import common, infer_lam, infer_seg, rescore
+    from excel_tpu_torch.config import voc_config
+    from excel_tpu_torch.data.synthetic import crf_scene
+    from excel_tpu_torch.engine import crf_post
+    from excel_tpu_torch.models.params import init_clip_params
+
+    card = smi.replace(", ", " ")
+    t_phase = time.perf_counter()
+    crf_agreement("cuda")
+
+    clip_cpu = init_clip_params(voc_config().clip,
+                                torch.Generator().manual_seed(0),
+                                device="cpu")
+    with cli_workspace(clip_cpu, "host_crf_") as (work, flags, head_npz):
+        del clip_cpu
+        timed: dict = {}
+
+        def timing(key):
+            def wrap(real):
+                def call(*a, **k):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = real(*a, **k)
+                    torch.cuda.synchronize()
+                    timed.setdefault(key, []).append(
+                        time.perf_counter() - t0)
+                    return out
+                return call
+            return wrap
+
+        def timed_spiller(real):
+            """The spiller factory, its spills timed one by one."""
+            def make(*a, **k):
+                return timing("spill")(real(*a, **k))
+            return make
+
+        hists = {}
+
+        def keeping(key):
+            def wrap(real):
+                def scores(hist):
+                    hists[key] = np.asarray(
+                        hist.cpu() if isinstance(hist, torch.Tensor)
+                        else hist).astype(np.int64)
+                    return real(hist)
+                return scores
+            return wrap
+
+        for name, cli, spiller, sweep, extra, preds in (
+                ("infer_seg", infer_seg, "seg_logit_spiller",
+                 "run_msc_seg_eval", ["--head", head_npz],
+                 ("preds", "_crf")),
+                ("infer_lam", infer_lam, "lam_spiller", "run_lam_eval",
+                 ["--training-free"], ("crf_preds", ""))):
+            for stream in (False, True):
+                mode = "streamed" if stream else "post-pass"
+                argv = (extra + ["--crf", "--fast"] + flags
+                        + (["--crf-stream"] if stream else ["--save-preds"]))
+                timed.clear()
+                reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with _patched(cli, spiller, timed_spiller), \
+                        _patched(cli, sweep, timing("sweep")), \
+                        _patched(common, "run_crf_post", timing("post")), \
+                        _patched(crf_post.StreamingCrfPost, "finish",
+                                 timing("drain")), \
+                        _patched(common, "scores_from_hist",
+                                 keeping((name, mode))):
+                    _, crf_scores = cli.main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = read_launches("fast", training=False)
+                tail = timed["drain" if stream else "post"][0]
+                log(f"host_crf {name} --crf {mode}: {CLI_SAMPLES} images, "
+                    f"{os.cpu_count()} host cores, {crf_post.default_workers()}"
+                    f" CRF threads: main_s={wall:.3f} sweep_s="
+                    f"{timed['sweep'][0]:.3f} "
+                    f"{'drain' if stream else 'post'}_s={tail:.3f} "
+                    f"spill_ms_per_image="
+                    f"{1e3 * statistics.mean(timed['spill']):.3f} "
+                    f"(host clock; {card}) crf miou="
+                    f"{float(crf_scores['miou']):.6f} launches="
+                    + json.dumps({k: v for k, v in counts.items() if v}))
+                if not np.isfinite(crf_scores["pAcc"]):
+                    raise AssertionError(f"host_crf {name}: non-finite "
+                                         "scores")
+                missing = [k for k in HOST_CRF_KERNELS[name]
+                           if counts[k] <= 0]
+                if missing:
+                    raise AssertionError(f"host_crf {name} {mode}: no launch"
+                                         f" of {missing}")
+            same = np.array_equal(hists[name, "post-pass"],
+                                  hists[name, "streamed"])
+            pred_dir, suffix = preds
+            with _patched(rescore, "scores_from_hist",
+                          keeping((name, "rescore"))):
+                rescore.main(["--pred-dir", os.path.join(work, pred_dir),
+                              "--suffix", suffix, "--fast"] + flags)
+            rescored = np.array_equal(hists[name, "rescore"],
+                                      hists[name, "post-pass"])
+            h = hists[name, "post-pass"]
+            log(f"host_crf {name}: streamed and post-pass crf hists "
+                f"identical: {same}; rescore of the CRF's PNGs identical: "
+                f"{rescored} ({int(h.sum())} pixels, "
+                f"{int(np.trace(h))} on the diagonal)")
+            if not (same and rescored):
+                raise AssertionError(f"host_crf {name}: streamed, post-pass "
+                                     "and rescored CRF scores differ")
+
+    # (d) the lattice alone, VOC-sized
+    scenes = [crf_scene(("blobs", "thin", "texture")[i % 3], seed=i,
+                        hw=CRF_TIMED_HW, num_classes=21)
+              for i in range(CRF_TIMED_IMAGES)]
+    crf = host_crf.DenseCRF(**{("iter_max" if k == "iters" else k): v
+                               for k, v in CRF_PARAM_SETS["voc"].items()})
+    calls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        crf(scenes[0][0], scenes[0][2])
+        calls.append(time.perf_counter() - t0)
+    items = [(image, probs) for image, _, probs in scenes]
+    batch_s = {}
+    for threads in (1, crf_post.default_workers()):
+        t0 = time.perf_counter()
+        out = host_crf.crf_batch(items, crf, num_threads=threads)
+        batch_s[threads] = time.perf_counter() - t0
+        if not all(np.isfinite(q).all() for q in out):
+            raise AssertionError("host_crf: non-finite lattice output")
+    log(f"host_crf lattice {CRF_TIMED_HW[0]}x{CRF_TIMED_HW[1]}, 21 classes, "
+        f"10 iterations (voc parameters), {os.cpu_count()} host cores: one "
+        f"call {1e3 * statistics.median(calls):.1f} ms (median of 3); "
+        f"crf_batch of {CRF_TIMED_IMAGES}: "
+        + ", ".join(f"{t} thread{'s' * (t > 1)} {v:.3f} s "
+                    f"({1e3 * v / CRF_TIMED_IMAGES:.1f} ms an image)"
+                    for t, v in batch_s.items())
+        + f" (host clock; {card})")
+    log(f"host_crf phase: {time.perf_counter() - t_phase:.1f} s")
+
+
 _ATT = "excel_tpu/models/attention_pallas.py"
 _PAR = "excel_tpu/ops/par_pallas.py"
 _CSRC = "excel_tpu_torch/csrc/"
@@ -2623,6 +2918,7 @@ def main() -> int:
         del clip, state
     phase_text_cli(smi)
     records.update(phase_train_cli(smi))
+    phase_host_crf(smi)
     table = []
     for name, (source, replaces) in SOURCES.items():
         r = records[name]

@@ -1,4 +1,5 @@
-"""Build the port's CUDA kernels with nvcc and bind them with ctypes.
+"""Build the port's CUDA kernels with nvcc and bind them with ctypes; build
+the host lattice CRF with g++.
 
 Each source `csrc/<name>.cu` is compiled on its own into
 `_build/lib<name>-<hash>.so`, a shared library with a plain C interface
@@ -6,12 +7,18 @@ Each source `csrc/<name>.cu` is compiled on its own into
 and every header in `csrc/`, so an edited source builds anew and a stale
 library is never loaded. Libraries are built at first use; `build()` builds
 several at once, one nvcc process per source, all started together.
+
+`native/densecrf.cpp` (the permutohedral-lattice dense CRF, a host
+library) is compiled by `build_host()` into `_build/libexcelcrf-<hash>.so`,
+the hash covering the source, the flags and the host's CPU (the library is
+built for it with -march=native).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -19,6 +26,14 @@ import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
+HOST_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "native", "densecrf.cpp")
+GXX = "g++"
+GXX_FLAGS = ("-O3", "-std=c++17", "-funroll-loops", "-shared", "-fPIC")
+# tried in turn: native SIMD with OpenMP, OpenMP alone, neither (the
+# lattice's pragmas degrade to serial loops; its results are equal for any
+# thread count)
+GXX_EXTRA = (("-march=native", "-fopenmp"), ("-fopenmp",), ())
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -115,6 +130,51 @@ def sass(name: str) -> str:
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     return subprocess.run([tool, "-sass", library_path(name)],
                           capture_output=True, text=True, check=True).stdout
+
+
+def _host_cpu() -> str:
+    """The CPU a -march=native build is for: a checkout shared by two kinds
+    of host builds a library for each."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            return next((line for line in f if line.startswith("flags")), "")
+    except OSError:
+        return platform.machine()
+
+
+def host_library_path() -> str:
+    h = hashlib.sha256(" ".join(GXX_FLAGS + sum(GXX_EXTRA, ())).encode())
+    h.update(_host_cpu().encode())
+    with open(HOST_SOURCE, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libexcelcrf-{h.hexdigest()[:12]}.so")
+
+
+def build_host() -> float:
+    """Compile the host lattice CRF unless its library is built; returns the
+    seconds it took (0.0 for a library already built). Each attempt of the
+    flag ladder writes a pid-suffixed file that is renamed into place, so
+    processes building at once never load a half-written library. Raises
+    with g++'s output when every attempt fails."""
+    out = host_library_path()
+    if os.path.exists(out):
+        return 0.0
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    t0 = time.perf_counter()
+    try:
+        for extra in GXX_EXTRA:
+            proc = subprocess.run([GXX, *extra, *GXX_FLAGS, "-o", tmp,
+                                   HOST_SOURCE], capture_output=True,
+                                  text=True)
+            if proc.returncode == 0:
+                os.replace(tmp, out)
+                return time.perf_counter() - t0
+    finally:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+    raise RuntimeError(f"{GXX} failed to build {HOST_SOURCE} "
+                       f"(rc {proc.returncode}):\n{proc.stderr}")
 
 
 def load(name: str, symbol: str):

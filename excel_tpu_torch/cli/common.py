@@ -10,6 +10,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
@@ -18,11 +19,15 @@ from ..config import (ExcelConfig, asset_path, coco_config, fast,
                       tiny_config, voc_config)
 from ..data.datasets import ClsCropDataset, EvalDataset, make_dataset
 from ..device import resolve_device
+from ..engine.crf_post import (StreamingCrfPost, crf_from_cfg,
+                               default_workers, run_crf_post)
 from ..models.excel import build_text_bank
 from ..models.params import (cast_matmul_weights, init_clip_params,
                              load_params_npz)
 from ..ops.tse import load_attr_bank
 from ..text.class_names import class_list, prompt_vocabulary
+from ..utils.logutils import log_sweep_rate
+from ..utils.metrics import format_metrics_table, scores_from_hist
 
 
 def add_common_args(ap: argparse.ArgumentParser) -> None:
@@ -62,28 +67,48 @@ def add_eval_gate_args(ap: argparse.ArgumentParser) -> None:
                          "same protocol resumes a killed sweep")
 
 
-# the host lattice CRF flags of the JAX package's eval CLIs
-HOST_CRF_FLAGS = ("--crf", "--crf-stream", "--crf-workers", "--crf-scale")
+def host_crf_hook(args, cfg: ExcelConfig, dataset, logits_dir: str,
+                  kind: str, spill, save_pred):
+    """-> (the sweep's spill hook, the streamed pass or None) for --crf:
+    the spiller itself, or with --crf-stream a hook that also submits each
+    spilled image to a `StreamingCrfPost`."""
+    if not args.crf_stream:
+        return spill, None
+    post = StreamingCrfPost(dataset, logits_dir, crf_from_cfg(cfg.crf),
+                            cfg.num_classes, kind=kind,
+                            num_workers=args.crf_workers,
+                            save_pred=save_pred)
+
+    def hook(name, *arrays):
+        spill(name, *arrays)
+        post.submit(name)
+
+    return hook, post
 
 
-def add_host_crf_args(ap: argparse.ArgumentParser) -> None:
-    """The host lattice CRF's flags, which the port refuses until it has
-    that CRF; --crf-tpu runs the on-device mean-field CRF."""
-    for flag in HOST_CRF_FLAGS:
-        ap.add_argument(flag, default=None, nargs="?", const=True,
-                        help="not ported: the host lattice CRF "
-                             "(ROADMAP.md module item 5); see --crf-tpu")
-
-
-def refuse_host_crf(ap: argparse.ArgumentParser, args,
-                    also: tuple[str, ...] = ()) -> None:
-    given = [f for f in HOST_CRF_FLAGS + also
-             if getattr(args, f[2:].replace("-", "_"), None)
-             not in (None, False)]
-    if given:
-        ap.error(f"{'/'.join(given)}: the host lattice CRF is not ported "
-                 "yet (ROADMAP.md module item 5, host CRF); --crf-tpu runs "
-                 "the on-device mean-field CRF")
+def host_crf_scores(args, cfg: ExcelConfig, dataset, logits_dir: str,
+                    kind: str, post, save_pred, logger) -> dict:
+    """The host CRF after the sweep: drain the streamed pass `post`, or run
+    the post-pass over the spill directory; logs and returns
+    crf_seg_score. The hist is the process's own (one process)."""
+    t0 = time.perf_counter()
+    if post is not None:
+        logger.info("crf post-processing (streamed, draining)...")
+        hist = post.finish()
+    else:
+        workers = args.crf_workers or default_workers()
+        logger.info("crf post-processing (%d images, %d threads)...",
+                    len(dataset), workers)
+        # the eval protocol's parameter set, shared by both CLIs
+        # (tools/infer_seg_voc.py:113-120 == tools/infer_lam.py:189-196)
+        hist = run_crf_post(dataset, logits_dir, crf_from_cfg(cfg.crf),
+                            cfg.num_classes, kind=kind, num_workers=workers,
+                            save_pred=save_pred)
+    log_sweep_rate(logger, len(dataset), t0)
+    crf_scores = scores_from_hist(hist)
+    logger.info("crf_seg_score:\n%s",
+                format_metrics_table(crf_scores, score_names(cfg)))
+    return crf_scores
 
 
 def check_expected_miou(args, scores, logger) -> None:

@@ -4,7 +4,7 @@ excel_tpu/cli/infer_lam.py).
     # training-free (no checkpoint)
     python -m excel_tpu_torch.cli.infer_lam --dataset voc \
         --data-root /data/VOC2012 --clip-params clip_vit_b16.npz \
-        --training-free [--crf-tpu] [--fast]
+        --training-free [--crf | --crf-tpu] [--fast]
 
     # trained (flip-fused LVC-calibrated LAMs)
     python -m excel_tpu_torch.cli.infer_lam ... --head head_30000.npz
@@ -14,9 +14,12 @@ excel_tpu/cli/infer_lam.py).
         --random-init --synthetic 4 --training-free
 
 CAM overlays (--save-cam, --save-cls-cam) are written as PNG files by the
-port's own encoder. The host lattice CRF (--crf and its --crf-stream,
---crf-workers, --save-preds) is not ported yet: those flags exit with an
-error; --crf-tpu runs the on-device mean-field CRF.
+port's own encoder. --crf is the reference's protocol: the sweep spills
+each image's background and present-class cams to work_dir/lam_logits/,
+the host lattice CRF refines them (after the sweep, or beside it with
+--crf-stream) and crf_seg_score scores the refined labels; --save-preds
+writes those labels to work_dir/crf_preds/. --crf-tpu runs the on-device
+mean-field CRF inside the sweep instead.
 """
 from __future__ import annotations
 
@@ -29,14 +32,15 @@ import torch
 
 from ..data.png import write_png
 from ..engine.checkpoint import load_head_npz
+from ..engine.crf_post import lam_spiller
 from ..engine.evaluate import run_lam_eval
 from ..models.excel import init_excel_params
 from ..utils.logutils import log_sweep_rate, setup_logger
 from ..utils.metrics import format_metrics_table
-from ..utils.visual import cam_overlay
-from .common import (add_common_args, add_eval_gate_args, add_host_crf_args,
-                     check_expected_miou, eval_dataset, refuse_host_crf,
-                     resolve, score_names)
+from ..utils.visual import cam_overlay, save_palette_png
+from .common import (add_common_args, add_eval_gate_args,
+                     check_expected_miou, eval_dataset, host_crf_hook,
+                     host_crf_scores, resolve, score_names)
 
 
 def main(argv=None):
@@ -51,18 +55,37 @@ def main(argv=None):
                          "work_dir/cams/")
     ap.add_argument("--save-cls-cam", action="store_true",
                     help="per-class CAM overlays instead of the max")
+    ap.add_argument("--crf", action="store_true",
+                    help="the reference's host CRF protocol: spill each "
+                         "image's background + present-class normed cams "
+                         "and their keys to work_dir/lam_logits/, refine "
+                         "them with the host lattice dense CRF, map the "
+                         "argmax back through the keys, report "
+                         "crf_seg_score")
+    ap.add_argument("--crf-workers", type=int, default=None,
+                    help="the CRF's thread-pool width (default 0.6 x "
+                         "cpu_count, the reference's joblib sizing)")
+    ap.add_argument("--crf-stream", action="store_true",
+                    help="run the host CRF beside the device sweep (each "
+                         "image submitted as its cams spill): the same "
+                         "scores, wall about max(sweep, CRF) on a host "
+                         "with cores to spare")
     ap.add_argument("--crf-tpu", action="store_true",
                     help="the on-device conv mean-field CRF branch inside "
-                         "the sweep; reports crf_tpu_seg_score")
+                         "the sweep (no spill, no host lattice; approximates "
+                         "--crf); reports crf_tpu_seg_score")
     ap.add_argument("--crf-tpu-long-range", dest="crf_tpu_lr",
                     action=argparse.BooleanOptionalAction, default=None,
                     help="override CrfConfig.long_range for --crf-tpu")
-    add_host_crf_args(ap)
     ap.add_argument("--save-preds", action="store_true",
-                    help="not ported: the host CRF's label maps (--crf)")
+                    help="with --crf: write the CRF-refined label maps as "
+                         "palette PNGs to work_dir/crf_preds/")
     add_eval_gate_args(ap)
     args = ap.parse_args(argv)
-    refuse_host_crf(ap, args, also=("--save-preds",))
+    if ((args.crf_stream or args.crf_workers is not None
+         or args.save_preds) and not args.crf):
+        ap.error("--crf-stream/--crf-workers/--save-preds require --crf "
+                 "(the host lattice pass)")
 
     logger = setup_logger()
     cfg, clip_params, text_attr = resolve(args)
@@ -113,10 +136,26 @@ def main(argv=None):
                 write_png(os.path.join(cam_dir, name + ".png"),
                           cam_overlay(image, fg.max(axis=0)))
 
+    lam_logits_dir = os.path.join(args.work_dir, "lam_logits")
+    save_lam_crf = post = crf_save_pred = None
+    if args.crf:
+        if args.save_preds:
+            pred_dir = os.path.join(args.work_dir, "crf_preds")
+            os.makedirs(pred_dir, exist_ok=True)
+
+            def crf_save_pred(name, pred):
+                save_palette_png(pred, os.path.join(pred_dir, name + ".png"),
+                                 num_classes=cfg.num_classes)
+
+        save_lam_crf, post = host_crf_hook(
+            args, cfg, dataset, lam_logits_dir, "lam",
+            lam_spiller(lam_logits_dir), crf_save_pred)
+
     t0 = time.perf_counter()
     scores = run_lam_eval(params, dataset, text_attr, cfg, mode=mode,
                           batch_size=batch, progress=progress,
-                          save_cam=save_cam, crf_tpu=args.crf_tpu,
+                          save_cam=save_cam, save_lam_crf=save_lam_crf,
+                          crf_tpu=args.crf_tpu,
                           checkpoint_path=args.hist_ckpt, device=device)
     crf_tpu_scores = None
     if args.crf_tpu:
@@ -129,6 +168,13 @@ def main(argv=None):
     if crf_tpu_scores is not None:
         logger.info("crf_tpu_seg_score (on-device mean-field CRF):\n%s",
                     format_metrics_table(crf_tpu_scores, names))
+
+    if args.crf:
+        crf_scores = host_crf_scores(args, cfg, dataset, lam_logits_dir,
+                                     "lam", post, crf_save_pred, logger)
+        check_expected_miou(args, crf_scores, logger)
+        return scores, crf_scores
+    if crf_tpu_scores is not None:
         check_expected_miou(args, crf_tpu_scores, logger)
         return scores, crf_tpu_scores
     check_expected_miou(args, scores, logger)

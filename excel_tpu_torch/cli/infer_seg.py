@@ -1,14 +1,16 @@
-"""MSC+flip segmentation evaluation on the GPU, optionally with the
-on-device mean-field CRF (counterpart of excel_tpu/cli/infer_seg.py).
+"""MSC+flip segmentation evaluation on the GPU, optionally with a dense CRF
+(counterpart of excel_tpu/cli/infer_seg.py).
 
     python -m excel_tpu_torch.cli.infer_seg --dataset voc \
         --data-root /data/VOC2012 --clip-params clip_vit_b16.npz \
-        --head head_30000.npz [--crf-tpu] [--save-preds] [--fast]
+        --head head_30000.npz [--crf | --crf-tpu] [--save-preds] [--fast]
 
 --save-preds writes palette PNGs (the VOC evaluation server's format) to
-work_dir/preds/, which `rescore` reads. The host lattice CRF (--crf,
---crf-scale, --crf-stream, --crf-workers) is not ported yet: those flags
-exit with an error.
+work_dir/preds/, which `rescore` reads; with --crf also the host CRF's maps
+as <name>_crf.png. --crf is the reference's protocol: the sweep spills each
+image's pre-CRF logits to work_dir/logits/ and the host lattice CRF scores
+them (after the sweep, or beside it with --crf-stream). --crf-tpu runs the
+on-device mean-field CRF inside the sweep instead.
 """
 from __future__ import annotations
 
@@ -20,14 +22,15 @@ import time
 import torch
 
 from ..engine.checkpoint import load_head_npz
+from ..engine.crf_post import seg_logit_spiller
 from ..engine.evaluate import run_msc_seg_eval
 from ..models.excel import init_excel_params
 from ..utils.logutils import log_sweep_rate, setup_logger
 from ..utils.metrics import format_metrics_table
 from ..utils.visual import save_palette_png
-from .common import (add_common_args, add_eval_gate_args, add_host_crf_args,
-                     check_expected_miou, eval_dataset, refuse_host_crf,
-                     resolve, score_names)
+from .common import (add_common_args, add_eval_gate_args,
+                     check_expected_miou, eval_dataset, host_crf_hook,
+                     host_crf_scores, resolve, score_names)
 
 
 def main(argv=None):
@@ -38,19 +41,42 @@ def main(argv=None):
     ap.add_argument("--split", default=None)
     ap.add_argument("--scales", default="1.0,0.7,1.2,1.5",
                     help="MSC scales (x crop size)")
+    ap.add_argument("--crf", action="store_true",
+                    help="the host lattice dense CRF over the pre-CRF fused "
+                         "logits (the reference's protocol): the sweep "
+                         "spills one npy an image to work_dir/logits/, "
+                         "then a thread pool streams them through the "
+                         "lattice with bounded memory")
+    ap.add_argument("--crf-scale", type=float, default=None,
+                    help="spill the logits at this fraction of the label "
+                         "resolution (a disk bound; the CRF pass upsamples "
+                         "them before the softmax). Default 1.0, and 0.2 "
+                         "for COCO, the reference's disk bound")
+    ap.add_argument("--crf-workers", type=int, default=None,
+                    help="the CRF's thread-pool width (default 0.6 x "
+                         "cpu_count, the reference's joblib sizing)")
+    ap.add_argument("--crf-stream", action="store_true",
+                    help="run the host CRF beside the device sweep (each "
+                         "image submitted as its logits spill): the same "
+                         "scores, wall about max(sweep, CRF) instead of "
+                         "their sum on a host with cores to spare")
     ap.add_argument("--crf-tpu", action="store_true",
                     help="the on-device convolutional mean-field CRF on the "
-                         "fused logits before the argmax")
+                         "fused logits before the argmax; affects "
+                         "raw_seg_score and --save-preds only: with --crf "
+                         "the host pass still takes the pre-CRF logits")
     ap.add_argument("--crf-tpu-long-range", dest="crf_tpu_lr",
                     action=argparse.BooleanOptionalAction, default=None,
                     help="override CrfConfig.long_range for --crf-tpu")
     ap.add_argument("--save-preds", action="store_true",
                     help="write palette PNGs (VOC server format) to "
-                         "work_dir/preds/")
-    add_host_crf_args(ap)
+                         "work_dir/preds/; with --crf also the host CRF's "
+                         "as <name>_crf.png")
     add_eval_gate_args(ap)
     args = ap.parse_args(argv)
-    refuse_host_crf(ap, args)
+    if (args.crf_stream or args.crf_workers is not None) and not args.crf:
+        ap.error("--crf-stream/--crf-workers require --crf (the host "
+                 "lattice pass); --crf-tpu runs inside the sweep instead")
 
     logger = setup_logger()
     cfg, clip_params, text_attr = resolve(args)
@@ -80,20 +106,41 @@ def main(argv=None):
         save_palette_png(label, os.path.join(pred_dir, name + ".png"),
                          num_classes=cfg.num_classes)
 
+    logits_dir = os.path.join(args.work_dir, "logits")
+    save_crf_pred = ((lambda n, p: save_pred(n + "_crf", p))
+                     if args.save_preds else None)
+    save_logits = post = None
+    if args.crf:
+        crf_scale = args.crf_scale
+        if crf_scale is None:
+            # the reference's disk bound: COCO logits spill at 0.2 x the
+            # label resolution (tools/infer_seg_coco.py:62-64), VOC's at 1
+            crf_scale = 0.2 if args.dataset == "coco" else 1.0
+        save_logits, post = host_crf_hook(
+            args, cfg, dataset, logits_dir, "seg",
+            seg_logit_spiller(logits_dir, scale=crf_scale), save_crf_pred)
+
     logger.info("MSC+flip seg eval: scales=%s, %d images, device %s",
                 scales, len(dataset), device)
     t0 = time.perf_counter()
     scores = run_msc_seg_eval(
         params, dataset, text_attr, cfg, scales=scales, batch_size=batch,
         save_pred=save_pred if args.save_preds else None,
-        crf_tpu=args.crf_tpu, checkpoint_path=args.hist_ckpt, device=device)
+        save_logits=save_logits, crf_tpu=args.crf_tpu,
+        checkpoint_path=args.hist_ckpt, device=device)
     log_sweep_rate(logger, len(dataset), t0)
     logger.info("raw_seg_score:\n%s",
                 format_metrics_table(scores, score_names(cfg),
                                      metrics=("confusion", "precision",
                                               "recall", "iou")))
-    check_expected_miou(args, scores, logger)
-    return scores
+    if not args.crf:
+        check_expected_miou(args, scores, logger)
+        return scores
+
+    crf_scores = host_crf_scores(args, cfg, dataset, logits_dir, "seg",
+                                 post, save_crf_pred, logger)
+    check_expected_miou(args, crf_scores, logger)
+    return scores, crf_scores
 
 
 if __name__ == "__main__":

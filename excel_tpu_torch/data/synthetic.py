@@ -8,6 +8,9 @@ losslessly as PNG bytes under the layout's `JPEGImages/<name>.jpg` name
 (the machine with the card has no JPEG decoder, and a lossless image makes
 every reader see the same pixels). Readers that detect the format from the
 file's signature (Pillow, `datasets.read_image`) read it as it is.
+
+`crf_scene` makes the structured scenes on which the host lattice CRF and
+the on-device mean-field CRF are held against each other.
 """
 from __future__ import annotations
 
@@ -34,6 +37,62 @@ def _draw_sample(rng: np.random.Generator, size_range=(200, 400),
         image[blob] = palette[cls]
         label[blob] = cls
     return image, label
+
+
+def crf_scene(kind: str, seed: int = 0, hw=(192, 256), num_classes: int = 21):
+    """Structured scene for CRF validation -> (image u8 [H,W,3], gt [H,W],
+    probs [C,H,W]).
+
+    kinds: 'blobs' (smooth colored regions — the CRF's best case), 'thin'
+    (3-px structures the bilateral kernel must preserve), 'texture'
+    (high-frequency intra-region color noise degrading the bilateral term).
+    The unary is the GT at ~0.6 confidence with blocky label flips (spatially
+    correlated noise, the realistic failure mode of coarse seg logits).
+    """
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    gt = np.zeros((h, w), np.int64)
+    palette = np.asarray([(60, 60, 60), (200, 50, 40), (40, 170, 60),
+                          (40, 80, 210), (210, 200, 50)], np.float32)
+    if kind == "blobs":
+        ys, xs = np.ogrid[:h, :w]
+        for cls, (cy, cx, ry, rx) in enumerate(
+                [(60, 70, 45, 55), (130, 180, 50, 60), (50, 200, 30, 40),
+                 (150, 60, 35, 45)], start=1):
+            blob = ((ys - cy) / ry) ** 2 + ((xs - cx) / rx) ** 2 <= 1
+            gt[blob] = cls
+        noise_std = 6.0
+    elif kind == "thin":
+        for cls, x0 in enumerate(range(20, w - 20, 34), start=1):
+            c = 1 + (cls - 1) % 4
+            gt[:, x0:x0 + 3] = c
+        gt[h // 2:h // 2 + 3, :] = 4                    # one horizontal bar
+        noise_std = 6.0
+    elif kind == "texture":
+        gt[:, w // 3: 2 * w // 3] = 1
+        gt[:, 2 * w // 3:] = 2
+        gt[: h // 3, :] = np.where(gt[: h // 3, :] == 0, 3, gt[: h // 3, :])
+        noise_std = 35.0                                # intra-region texture
+    else:
+        raise ValueError(kind)
+    image = palette[np.minimum(gt, len(palette) - 1)]
+    image = image + rng.normal(0, noise_std, image.shape)
+    image = np.clip(image, 0, 255).astype(np.uint8)
+
+    # blocky spatially-correlated label flips at 16-px granularity
+    noisy = gt.copy()
+    for _ in range(18):
+        by = int(rng.integers(0, h - 16))
+        bx = int(rng.integers(0, w - 16))
+        noisy[by:by + 16, bx:bx + 16] = int(rng.integers(0, 5))
+    conf = 0.55 + 0.15 * rng.random((h, w)).astype(np.float32)
+    probs = np.full((num_classes, h, w), 0.0, np.float32)
+    rest = (1.0 - conf) / (num_classes - 1)
+    probs[:] = rest[None]
+    ys, xs = np.mgrid[0:h, 0:w]
+    probs[noisy, ys, xs] = conf
+    probs /= probs.sum(0, keepdims=True)
+    return image, gt, probs
 
 
 def make_voc_tree(root: str, num_images: int = 8, seed: int = 0,

@@ -103,8 +103,12 @@ def _pseudo_on_canvas(lams, attn_weights, guide_images, cls_label, valid_hw,
                       num_iter=cfg.refine.par_iters, valid_hw=valid_hw,
                       dtype=torch.bfloat16 if cfg.refine.par_bf16 else None)
     if class_slots is not None:
-        return slot_label_to_class(argmax_label(cams, cls_sel), idx), normed
-    return argmax_label(cams, cls_label), normed
+        slot = argmax_label(cams, cls_sel,
+                            ignore_index=cfg.refine.ignore_index)
+        return slot_label_to_class(slot, idx), normed
+    labels = argmax_label(cams, cls_label,
+                          ignore_index=cfg.refine.ignore_index)
+    return labels, normed
 
 
 def lam_eval_step(params: dict, images_u8, cls_label, valid_hw, text_attr,

@@ -106,7 +106,7 @@ def pseudo_labels(lams: torch.Tensor, attn_weights: torch.Tensor,
                       dilations=tuple(cfg.refine.par_dilations),
                       num_iter=cfg.refine.par_iters,
                       dtype=torch.bfloat16 if cfg.refine.par_bf16 else None)
-    label = argmax_label(cams, cls_sel)
+    label = argmax_label(cams, cls_sel, ignore_index=cfg.refine.ignore_index)
     return label if idx is None else slot_label_to_class(label, idx)
 
 

@@ -113,6 +113,21 @@ def aggregate_attn(attn_weights: torch.Tensor, attn_layers: int,
     return merged * seg_attn
 
 
+def refine_lams(lams: torch.Tensor, attn: torch.Tensor, caa_threshold: float,
+                grid_hw: tuple[int, int]) -> torch.Tensor:
+    """SVC refinement of every class map of one image (the reference's
+    affutils.py:200-221). lams [C, hw] raw LAM scores (min-max normalised,
+    patch tokens only), attn [hw, hw] aggregated attention
+    (`aggregate_attn`). Returns refined [C, hw] (absent classes give garbage
+    rows; they are masked downstream). Leading batch dimensions ([B, C, hw]
+    with [B, hw, hw]) are mapped over."""
+    h, w = grid_hw
+    trans = compute_trans_mat(attn)
+    masks = scoremap_box_mask(lams.reshape(-1, h, w), caa_threshold)
+    masked = masks.reshape(lams.shape) * lams
+    return torch.matmul(trans, masked.transpose(-1, -2)).transpose(-1, -2)
+
+
 def refine_lams_batch(lams: torch.Tensor, attn_weights: torch.Tensor,
                       caa_threshold: float, grid_hw: tuple[int, int],
                       attn_layers: int = 6,
@@ -120,8 +135,7 @@ def refine_lams_batch(lams: torch.Tensor, attn_weights: torch.Tensor,
     """Batched SVC. lams [B, C, hw] raw LAM scores; attn_weights either the
     per-block stack [L, B, N, N] or the pre-aggregated block mean [B, N, N]
     (the encoder's attn_mode="mean" output, only valid without seg_attn).
-    Returns refined [B, C, hw] (absent classes give garbage rows; they are
-    masked downstream)."""
+    Returns refined [B, C, hw]: `refine_lams` of each image."""
     if attn_weights.dim() == 3:
         if seg_attn is not None:
             raise ValueError("pre-aggregated attention cannot drive the "
@@ -130,9 +144,4 @@ def refine_lams_batch(lams: torch.Tensor, attn_weights: torch.Tensor,
     else:
         agg = aggregate_attn(attn_weights.transpose(0, 1), attn_layers,
                              seg_attn)
-    b, c, hw = lams.shape
-    h, w = grid_hw
-    trans = compute_trans_mat(agg)
-    masks = scoremap_box_mask(lams.reshape(b * c, h, w), caa_threshold)
-    masked = masks.reshape(b, c, hw) * lams
-    return torch.matmul(trans, masked.transpose(1, 2)).transpose(1, 2)
+    return refine_lams(lams, agg, caa_threshold, grid_hw)

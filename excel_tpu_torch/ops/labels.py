@@ -1,6 +1,4 @@
-"""Pseudo-label utilities (counterpart of excel_tpu/ops/labels.py, the
-parts the LAM eval and training paths use; `lam_to_label` and
-`boxes_to_masks` are not ported yet).
+"""Pseudo-label utilities (counterpart of excel_tpu/ops/labels.py).
 
 The per-image resizes reproduce `jax.image.scale_and_translate` with the
 linear kernel (no antialiasing, as the JAX package's canvas upscales call
@@ -20,6 +18,43 @@ import torch
 import torch.nn.functional as F
 
 _EPS32 = float(np.finfo(np.float32).eps)
+
+
+def lam_to_label(cam: torch.Tensor, cls_label: torch.Tensor,
+                 bkg_thre: float = 0.5, high_thre: float = 0.7,
+                 low_thre: float = 0.25, ignore_mid: bool = False,
+                 ignore_index: int = 255,
+                 box_mask: torch.Tensor | None = None):
+    """cam [B, C_fg, H, W], cls_label [B, C_fg] {0, 1} (the reference's
+    camutils.py:123-143, batched).
+
+    Returns (valid_cam, pseudo_label [B, H, W] int32): 0 is the background,
+    1..C_fg the classes; ignore_index in the mid band (ignore_mid) and
+    outside box_mask [B, H, W] bool."""
+    valid_cam = cls_label[:, :, None, None] * cam
+    cam_value = valid_cam.amax(dim=1)
+    label = valid_cam.argmax(dim=1).to(torch.int32) + 1
+    ignore = torch.tensor(ignore_index, dtype=torch.int32,
+                          device=label.device)
+    zero = torch.zeros_like(label)
+    if ignore_mid:
+        label = torch.where(cam_value <= high_thre, ignore, label)
+        label = torch.where(cam_value <= low_thre, zero, label)
+    else:
+        label = torch.where(cam_value <= bkg_thre, zero, label)
+    if box_mask is not None:
+        label = torch.where(box_mask, label, ignore)
+    return valid_cam, label
+
+
+def boxes_to_masks(img_box: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """[B, 4] (y0, y1, x0, x1) valid-crop boxes -> [B, h, w] bool masks."""
+    dev = img_box.device
+    ys = torch.arange(h, device=dev)[None, :, None]
+    xs = torch.arange(w, device=dev)[None, None, :]
+    b = img_box[:, :, None, None]
+    return ((ys >= b[:, 0]) & (ys < b[:, 1]) &
+            (xs >= b[:, 2]) & (xs < b[:, 3]))
 
 
 def linear_weight_mat(in_size: int, out_size: int, scale: torch.Tensor,
@@ -193,11 +228,17 @@ def slot_label_to_class(slot_label: torch.Tensor,
     return out
 
 
-def argmax_label(cams: torch.Tensor, cls_label: torch.Tensor) -> torch.Tensor:
+def argmax_label(cams: torch.Tensor, cls_label: torch.Tensor,
+                 box_mask: torch.Tensor | None = None,
+                 ignore_index: int = 255) -> torch.Tensor:
     """[B, 1+C_fg, H, W] scores -> [B, H, W] int32 labels, absent classes
-    excluded (set to -inf before the argmax; ties take the first index).
-    (The training path's box mask belongs to the training slice.)"""
+    excluded (set to -inf before the argmax; ties take the first index);
+    ignore_index outside box_mask [B, H, W] bool."""
     full = torch.cat([torch.ones_like(cls_label[:, :1]), cls_label], dim=1)
     scores = torch.where(full[:, :, None, None] > 0, cams,
                          torch.full_like(cams, -torch.inf))
-    return scores.argmax(dim=1).to(torch.int32)
+    label = scores.argmax(dim=1).to(torch.int32)
+    if box_mask is not None:
+        label = torch.where(box_mask, label,
+                            torch.full_like(label, ignore_index))
+    return label

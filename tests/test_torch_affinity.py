@@ -80,6 +80,28 @@ def test_refine_lams_batch_stack_and_mean_match():
                                seg_attn=t(np.ones((2, 16, 16), np.float32)))
 
 
+def test_refine_lams_one_image_matches_and_batch_stacks_it():
+    """refine_lams on one image against the JAX package's (the tolerance of
+    the batched test above), and refine_lams_batch equal to stacking it."""
+    import torch
+
+    rng = np.random.default_rng(5)
+    lams = _score_maps(6, m=6, h=4, w=4).reshape(2, 3, 16)
+    attn = rng.random((2, 16, 16), dtype=np.float32) + 0.01
+    got = [paff.refine_lams(t(lams[i]), t(attn[i]), 0.79, (4, 4))
+           for i in range(2)]
+    for i in range(2):
+        ref = jaff.refine_lams(jnp.asarray(lams[i]), jnp.asarray(attn[i]),
+                               0.79, (4, 4))
+        np.testing.assert_allclose(n(got[i]), np.asarray(ref), rtol=1e-5,
+                                   atol=1e-7)
+    pre = np.concatenate([np.zeros((2, 1, 17), np.float32),
+                          np.concatenate([np.zeros((2, 16, 1), np.float32),
+                                          attn], axis=2)], axis=1)
+    batch = paff.refine_lams_batch(t(lams), t(pre), 0.79, (4, 4))
+    assert torch.equal(batch, torch.stack(got))
+
+
 def _propagate_every_sweep(mask):
     """The propagation as it tested convergence after every sweep (one
     device wait a sweep): the reference for the batched test."""

@@ -1,5 +1,6 @@
 """The port's eval CLIs (excel_tpu_torch.cli.infer_lam, infer_seg,
-rescore) on the CPU, tiny config, a 4-image synthetic tree, against the
+rescore) on the CPU, tiny config, a 4-image synthetic tree (a 2-image one
+for the host CRF's runs, held against `excel_tpu`'s post-pass), against the
 JAX package's sweeps on the same tree with the same parameters: CLIP
 weights written by the JAX package's `save_params_npz`, a head by its
 `save_head_npz`, the seeded random text bank of --random-init. The JAX
@@ -20,7 +21,7 @@ from excel_tpu.engine import evaluate as jev
 from excel_tpu.engine.checkpoint import save_head_npz
 from excel_tpu.models.params import init_clip_params, load_params_npz
 from excel_tpu.models.params import save_params_npz as jax_save_params_npz
-from excel_tpu_torch.cli import infer_lam, infer_seg, rescore
+from excel_tpu_torch.cli import common, infer_lam, infer_seg, rescore
 from excel_tpu_torch.engine import evaluate as pev
 from excel_tpu_torch.models.params import save_params_npz
 from torch_port_common import jax_clip_tree, jax_head_tree, port_params
@@ -123,16 +124,94 @@ def test_infer_seg_matches_jax_and_rescore_equals_it(run, monkeypatch):
 
 
 @pytest.mark.parametrize("cli,extra", [
-    (infer_lam, ["--crf"]), (infer_lam, ["--crf-stream"]),
-    (infer_lam, ["--crf-workers", "2"]), (infer_lam, ["--save-preds"]),
-    (infer_seg, ["--crf"]), (infer_seg, ["--crf-scale", "0.2"])])
-def test_host_crf_flags_refuse(run, cli, extra, capsys):
+    ("infer_lam", ["--crf-stream"]), ("infer_lam", ["--crf-workers", "2"]),
+    ("infer_lam", ["--save-preds"]), ("infer_seg", ["--crf-stream"]),
+    ("infer_seg", ["--crf-workers", "2"])])
+def test_host_crf_flag_gates(run, cli, extra, capsys):
+    """The host CRF's companion flags without --crf: both packages' CLIs
+    exit 2 with the same message, before any weights are read."""
+    import importlib
+
     _, flags, _, _ = run
-    with pytest.raises(SystemExit) as e:
-        cli.main(["--device", "cpu", "--training-free"] * (cli is infer_lam)
-                 + extra + flags)
-    assert e.value.code == 2
-    assert "module item 5" in capsys.readouterr().err
+    argv = ["--training-free"] * (cli == "infer_lam") + extra + flags
+    errors = []
+    for package in ("excel_tpu.cli", "excel_tpu_torch.cli"):
+        main = importlib.import_module(f"{package}.{cli}").main
+        with pytest.raises(SystemExit) as e:
+            main(argv)
+        assert e.value.code == 2
+        errors.append(capsys.readouterr().err.strip().splitlines()[-1])
+    assert "require --crf" in errors[0]
+    assert errors[0].split("error: ")[1] == errors[1].split("error: ")[1]
+
+
+@pytest.fixture(scope="module")
+def run2(run, tmp_path_factory):
+    """The flags of `run` on a 2-image tree of its own."""
+    _, flags, clip_npz, head_npz = run
+    work = str(tmp_path_factory.mktemp("cli_crf"))
+    flags = list(flags)
+    flags[flags.index("--synthetic") + 1] = "2"
+    flags[flags.index("--work-dir") + 1] = work
+    return work, flags, clip_npz, head_npz
+
+
+def _jax_crf_hist(work, flags, subdir, kind):
+    """excel_tpu's post-pass over the spill directory the port's CLI
+    wrote, on the JAX package's own dataset of the same tree."""
+    from excel_tpu.engine import crf_post as jpost
+
+    cfg, _, _, ds = _jax_resolve(flags)
+    return jpost.run_crf_post(ds, os.path.join(work, subdir),
+                              jpost.crf_from_cfg(cfg.crf), cfg.num_classes,
+                              kind=kind, num_workers=2)
+
+
+def test_infer_seg_host_crf_post_and_streamed_match_jax(run2, monkeypatch):
+    """infer_seg --crf and --crf --crf-stream: equal scores; excel_tpu's
+    post-pass over the port CLI's logits/ gives its crf hist exactly; the
+    _crf PNGs rescore to the same scores."""
+    work, flags, _, head_npz = run2
+    hists = _capture(monkeypatch, common)
+    argv = ["--device", "cpu", "--head", head_npz, "--scales", "1.0",
+            "--crf"] + flags
+    raw, crf = infer_seg.main(argv + ["--save-preds"])
+    raw_s, crf_s = infer_seg.main(argv + ["--crf-stream", "--crf-workers",
+                                          "2"])
+    np.testing.assert_equal(raw_s, raw)        # NaN (absent class) == NaN
+    np.testing.assert_equal(crf_s, crf)
+    np.testing.assert_array_equal(hists[0], hists[1])
+    np.testing.assert_array_equal(hists[0],
+                                  _jax_crf_hist(work, flags, "logits", "seg"))
+    preds = sorted(os.listdir(os.path.join(work, "preds")))
+    assert preds == [f"synth_{i:06d}{sfx}.png" for i in range(2)
+                     for sfx in ("", "_crf")]
+    again = rescore.main(["--device", "cpu", "--pred-dir",
+                          os.path.join(work, "preds"), "--suffix", "_crf"]
+                         + flags)
+    np.testing.assert_equal(again, crf)
+
+
+def test_infer_lam_host_crf_post_and_streamed_match_jax(run2, monkeypatch):
+    """infer_lam --training-free --crf --save-preds, then with
+    --crf-stream: equal scores; excel_tpu's post-pass over the port CLI's
+    lam_logits/ gives its crf hist exactly; the crf_preds/ PNGs rescore to
+    it."""
+    work, flags, _, _ = run2
+    hists = _capture(monkeypatch, common)
+    argv = ["--device", "cpu", "--training-free", "--crf"] + flags
+    lam, crf = infer_lam.main(argv + ["--save-preds"])
+    lam_s, crf_s = infer_lam.main(argv + ["--crf-stream"])
+    np.testing.assert_equal(lam_s, lam)
+    np.testing.assert_equal(crf_s, crf)
+    np.testing.assert_array_equal(hists[0], hists[1])
+    np.testing.assert_array_equal(
+        hists[0], _jax_crf_hist(work, flags, "lam_logits", "lam"))
+    pred_dir = os.path.join(work, "crf_preds")
+    assert sorted(os.listdir(pred_dir)) == [f"synth_{i:06d}.png"
+                                            for i in range(2)]
+    again = rescore.main(["--device", "cpu", "--pred-dir", pred_dir] + flags)
+    np.testing.assert_equal(again, crf)
 
 
 def test_clis_need_a_gpu_unless_cpu_is_asked(run):

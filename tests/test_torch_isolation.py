@@ -52,7 +52,8 @@ def test_port_imports_with_jax_blocked(tmp_path):
     """Import every port module (and chip_smoke) in a fresh interpreter in
     which importing jax, excel_tpu, PIL or regex raises; then tokenize and
     run the eval CLIs at the tiny config on a 2-image synthetic tree (CAM
-    overlays and palette PNGs written, the PNGs rescored), and the train
+    overlays and palette PNGs written, the PNGs rescored; infer_seg and
+    infer_lam with the host CRF, the lattice built by g++), and the train
     CLI for 2 steps with validation, TensorBoard events and PNG panels."""
     modules = []
     for path in _port_files():
@@ -79,6 +80,10 @@ infer_lam.main(flags + ["--training-free", "--save-cam"])
 seg = infer_seg.main(flags + ["--scales", "1.0", "--save-preds"])
 again = rescore.main(flags + ["--pred-dir", {str(tmp_path / "preds")!r}])
 assert again["miou"] == seg["miou"]
+_, crf = infer_seg.main(flags + ["--scales", "1.0", "--crf"])
+_, lam_crf = infer_lam.main(flags + ["--training-free", "--crf",
+                                     "--crf-stream", "--save-preds"])
+assert crf["pAcc"] > 0 and lam_crf["pAcc"] > 0
 from excel_tpu_torch.cli import train
 state = train.main(flags + ["--max-iters", "2", "--eval-iters", "2",
                             "--log-iters", "1", "--tensorboard", "--viz"])

@@ -3,6 +3,8 @@ package's, including the zeros that scale_and_translate writes beyond each
 image's valid extent."""
 import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 from excel_tpu.ops import labels as jlab
 from excel_tpu_torch.ops import labels as plab
@@ -134,3 +136,60 @@ def test_radius_mask_and_affinity_label_exact():
                                   None if m is None else jnp.asarray(m))
         got = plab.affinity_label(t(label), None if m is None else t(m))
         np.testing.assert_array_equal(n(got), np.asarray(ref))
+
+
+# ---------------------------------------------------------------------------
+# lam_to_label, boxes_to_masks, argmax_label's box mask
+# ---------------------------------------------------------------------------
+
+def _boxes(rng, b, h, w):
+    y0 = rng.integers(0, h // 2, b)
+    x0 = rng.integers(0, w // 2, b)
+    return np.stack([y0, rng.integers(h // 2, h + 1, b), x0,
+                     rng.integers(w // 2, w + 1, b)], axis=1).astype(np.int32)
+
+
+def test_boxes_to_masks_exact():
+    boxes = _boxes(np.random.default_rng(7), 3, 12, 16)
+    np.testing.assert_array_equal(
+        n(plab.boxes_to_masks(t(boxes), 12, 16)),
+        np.asarray(jlab.boxes_to_masks(jnp.asarray(boxes), 12, 16)))
+
+
+@pytest.mark.parametrize("ignore_mid", [False, True])
+@pytest.mark.parametrize("boxed", [False, True])
+def test_lam_to_label_exact(ignore_mid, boxed):
+    rng = np.random.default_rng(8)
+    cam = rng.random((3, 5, 12, 16), dtype=np.float32)
+    cam[0, 2] = cam[0, 1]                      # a tie: first index wins
+    cls = (rng.random((3, 5)) < 0.5).astype(np.float32)
+    cls[2] = 0                                 # no class: all background
+    box = _boxes(rng, 3, 12, 16) if boxed else None
+    pbox = plab.boxes_to_masks(t(box), 12, 16) if boxed else None
+    jbox = jlab.boxes_to_masks(jnp.asarray(box), 12, 16) if boxed else None
+    pv, pl = plab.lam_to_label(t(cam), t(cls), ignore_mid=ignore_mid,
+                               ignore_index=254, box_mask=pbox)
+    jv, jl = jlab.lam_to_label(jnp.asarray(cam), jnp.asarray(cls),
+                               ignore_mid=ignore_mid, ignore_index=254,
+                               box_mask=jbox)
+    np.testing.assert_array_equal(n(pv), np.asarray(jv))
+    np.testing.assert_array_equal(n(pl), np.asarray(jl))
+    assert pl.dtype == torch.int32
+    assert (n(pl) == 254).any() == (ignore_mid or boxed)
+
+
+def test_argmax_label_box_mask_exact():
+    rng = np.random.default_rng(9)
+    cams = rng.random((2, 4, 10, 12), dtype=np.float32)
+    cls = np.asarray([[1, 0, 1], [0, 1, 0]], np.float32)
+    box = _boxes(rng, 2, 10, 12)
+    for ignore_index in (255, 77):
+        pl = plab.argmax_label(t(cams), t(cls),
+                               box_mask=plab.boxes_to_masks(t(box), 10, 12),
+                               ignore_index=ignore_index)
+        jl = jlab.argmax_label(jnp.asarray(cams), jnp.asarray(cls),
+                               box_mask=jlab.boxes_to_masks(
+                                   jnp.asarray(box), 10, 12),
+                               ignore_index=ignore_index)
+        np.testing.assert_array_equal(n(pl), np.asarray(jl))
+        assert (n(pl) == ignore_index).any()
