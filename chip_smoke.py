@@ -107,6 +107,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    at `default_workers()` threads), the spill's ms an image and the walls
    of sweep, post-pass, streamed drain and each CLI run.
 
+10. multi-process runs (one process a device, `excel_tpu_torch.parallel`;
+   the machine has one card and NCCL refuses two ranks on one device):
+   (a) NCCL as a group of one on cuda:0 (torchrun's variables set in this
+   process): one fast train step and one LAM batch (`run_lam_eval`, its
+   hist through `global_sum_host`), losses and scores bit for bit those of
+   the same calls without a group; (b) two gloo ranks sharing cuda:0, each
+   this script with `--rank-worker <dir>` and torchrun's variables: one
+   fp32 step of the calibrated seg-affinity phase at full width, B=2 a
+   rank, against one process at B=4 (the ranks' gradients and heads bit
+   for bit equal, the summed losses and the reduced gradients within 1e-4
+   of the one process's); (c) the same ranks in the fast preset on an
+   8-image synthetic tree: `cli.train` for 4 steps with validation over
+   each rank's shard (the ranks' loss lines and heads identical, the
+   logged losses and the head within 1e-4 of one process's at B=4),
+   `infer_lam --training-free --crf-tpu` and `infer_seg --crf-tpu --crf`
+   with that one process's trained head: the hists they score and their
+   scores (device and host CRF) bit for bit those of one process's runs,
+   whose hists hold hits (pixels on the diagonal, pAcc > 0); the 1-rank
+   and 2-rank walls. Each step runs once untimed first.
+
 The JSON kernel table has one line per Pallas function (rows 1-4 for each
 dtype; row 5 for PAR's step and for the CRF's message pass in fp32 and
 bf16; row 11 for the affinity's slab kernel and for its direct kernel,
@@ -116,8 +136,9 @@ function (the attention wrappers' attribution by mode and token count, the
 fp32 and bf16 steps on valid or full extents, the step at the CRF's 72
 offsets) over all main-path runs: the eval slices with their CRF sweeps,
 the MSC slices, the train steps, the two trained sweeps, the CLIs, the
-train CLI's two runs, the COCO steps, (d)'s two refinements and the host
-CRF's four CLI runs.
+train CLI's two runs, the COCO steps, (d)'s two refinements, the host
+CRF's four CLI runs and the multi-process phase's runs (both ranks' and the
+one process's they are held against).
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": N}}.
 It imports neither jax nor excel_tpu. It exits non-zero without a CUDA
@@ -127,6 +148,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import logging
 import os
 import re
 import statistics
@@ -2857,6 +2879,448 @@ def phase_host_crf(smi: str) -> None:
     log(f"host_crf phase: {time.perf_counter() - t_phase:.1f} s")
 
 
+# slice 13: multi-process runs. One process drives one device; the card's
+# machine has one card, and NCCL refuses two ranks on one device, so the
+# phase runs NCCL as a group of one, and two gloo ranks that share the card
+RANKS, RANK_B = 2, 2
+# the 2-rank step against one process at B = RANKS x RANK_B: losses (the
+# ranks' shares summed) and the reduced head gradients, fp32 rounding of
+# the same sums split in two (the CPU tests hold 1e-5 at the tiny config)
+RANK_LOSS_RTOL = 1e-4
+RANK_GRAD_RTOL_OF_MAX = 1e-4
+RANK_CLI_SAMPLES = 8
+RANK_TRAIN_STEPS = 4
+# the ranks' whole run (start-up, the step, four CLI runs); a run beyond
+# it has hung
+RANK_TIMEOUT_S = 480
+# the kernels each counted run of the phase must launch (the CLIs' device
+# CRF is row 5 at 72 offsets: par_diffuse)
+RANK_KERNELS = {
+    "train_cli": ("plain_attention", "surgery_attention",
+                  "pad_replicate_valid", "par_affinity",
+                  "par_diffuse_valid_resident"),
+    "infer_lam": CLI_KERNELS["infer_lam", "fast"],
+    "infer_seg": ("plain_attention", "surgery_attention", "par_diffuse"),
+}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def torchrun_env(rank: int, world: int, port: int) -> dict:
+    """The variables torchrun sets for rank `rank` of `world` on one host
+    (gloo over the loopback interface)."""
+    return {"RANK": str(rank), "WORLD_SIZE": str(world),
+            "LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world),
+            "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port),
+            "GLOO_SOCKET_IFNAME": "lo"}
+
+
+def _flat_scores(scores: dict) -> list:
+    """A scores dict as one list (NaN as None): pAcc, mAcc, mIoU, then each
+    per-class metric."""
+    vals = [scores["pAcc"], scores["mAcc"], scores["miou"]]
+    for m in ("iou", "confusion", "precision", "recall"):
+        vals += [scores[m][c] for c in sorted(scores[m])]
+    return [None if np.isnan(v) else float(v) for v in vals]
+
+
+def _check_launched(what: str, counts: dict, names) -> None:
+    missing = [k for k in names if counts[k] <= 0]
+    if missing:
+        raise AssertionError(f"ranks {what}: no launch of {missing}")
+
+
+def rank_step_setup(preset: str):
+    """(cfg, CLIP, text bank, images, cls) of the multi-process step: the
+    preset's voc_config() at full width, seeded random CLIP (seed 0), 4
+    one-class 320 px crops (random weights tie classes, ROADMAP §3) on
+    the current card."""
+    from excel_tpu_torch.config import fast, voc_config
+    from excel_tpu_torch.models.params import (cast_matmul_weights,
+                                               init_clip_params)
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = voc_config() if preset == "fp32" else fast(voc_config())
+    clip = init_clip_params(cfg.clip, torch.Generator().manual_seed(0),
+                            device=dev)
+    if preset == "fast":
+        clip = cast_matmul_weights(clip, torch.bfloat16)
+    crops = synthetic_samples(RANKS * RANK_B, cfg.num_fg, seed=1,
+                              extents=[(TRAIN_CROP, TRAIN_CROP)],
+                              max_classes=1)
+    images = torch.from_numpy(np.stack([s["image"] for s in crops])).to(dev)
+    cls = torch.from_numpy(np.stack([s["cls_label"] for s in crops])).to(dev)
+    return cfg, clip, text_bank(cfg, seed=0).to(dev), images, cls
+
+
+def rank_step(preset: str, cfg, clip, text, images, cls) -> dict:
+    """One train step of the calibrated seg-affinity phase (full class
+    stack, dropout drawn from step 0's generator) from the seeded head
+    (seed 1) on this rank's rows of the batch (the whole batch without a
+    group), after one such step that warms the process up; the second's
+    launches counted and wall timed: {"losses": [total, seg, diversity] (a
+    rank's shares), "grads" and "head" (flattened, after the step's
+    reduction and update), "wall_ms", "counts"}."""
+    from excel_tpu_torch.engine.train import (init_train_state,
+                                              step_generator, train_step)
+    from excel_tpu_torch.models.head import init_head_params
+    from excel_tpu_torch.parallel import shard_local_batch
+
+    dev = images.device
+    imgs, cl = shard_local_batch((images, cls))
+    for _ in range(2):
+        head = init_head_params(cfg.head, cfg.num_classes,
+                                torch.Generator().manual_seed(1), device=dev)
+        state = init_train_state(head, cfg.train)
+        gen = step_generator(cfg.train, 0, dev)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = train_step(state, clip, imgs, cl, text, gen, cfg,
+                              calibrated=True, seg_affinity=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = read_launches(preset, training=True)
+    params = list(state.head.parameters())
+    return {"losses": [float(m[k]) for k in ("loss", "seg_loss",
+                                             "diver_loss")],
+            "grads": torch.cat([p.grad.reshape(-1) for p in params]).cpu(),
+            "head": torch.cat([p.detach().reshape(-1)
+                               for p in params]).cpu(),
+            "wall_ms": wall, "counts": counts}
+
+
+class _LossLines(logging.Handler):
+    """[iteration, seg_loss, diver_loss] of each of the train CLI's loss
+    lines, from the record's arguments (full precision, not the %.4f
+    text)."""
+
+    def __init__(self, out: list):
+        super().__init__()
+        self.out = out
+
+    def emit(self, record):
+        if record.msg.startswith("Iter:"):
+            self.out.append([record.args[0], *record.args[-2:]])
+
+
+def rank_cli_runs(work: str, head_npz: str, batch: int,
+                  device_flags: list) -> dict:
+    """The fast preset's CLIs on the 8-image synthetic tree under `work`:
+    `cli.train` for RANK_TRAIN_STEPS steps with validation (per-rank batch
+    `batch`), `infer_lam --training-free --crf-tpu` and `infer_seg --head
+    --crf-tpu --crf` (`head_npz` written before infer_seg runs), each run's
+    launches counted and its wall timed: {run: {"scores" (flattened) and
+    "hists" (each scored hist, in order) | "head" (flattened, on the host)
+    and "losses" (the logged ones), "wall_s", "counts"}}."""
+    from excel_tpu_torch.cli import common, infer_lam, infer_seg, train
+    from excel_tpu_torch.engine import evaluate
+
+    flags = ["--fast", "--random-init", "--synthetic", str(RANK_CLI_SAMPLES),
+             "--work-dir", work] + device_flags
+    runs = [("train_cli", train, [
+                "--batch-size", str(batch), "--max-iters",
+                str(RANK_TRAIN_STEPS), "--eval-iters", str(RANK_TRAIN_STEPS),
+                "--log-iters", "1", "--num-workers", "2"]),
+            ("infer_lam", infer_lam, ["--training-free", "--crf-tpu"]),
+            ("infer_seg", infer_seg, ["--head", head_npz, "--crf-tpu",
+                                      "--crf"])]
+    hists: list = []
+    losses: list = []
+
+    def keeping(real):
+        def scores(hist):
+            hists.append(np.asarray(
+                hist.cpu() if isinstance(hist, torch.Tensor) else hist
+            ).tolist())
+            return real(hist)
+        return scores
+
+    def loss_lines(real):
+        def setup(*a, **k):
+            logger = real(*a, **k)
+            logger.addHandler(_LossLines(losses))
+            return logger
+        return setup
+
+    out = {}
+    for name, cli, extra in runs:
+        hists.clear()
+        losses.clear()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _patched(evaluate, "scores_from_hist", keeping), \
+                _patched(common, "scores_from_hist", keeping), \
+                _patched(train, "setup_logger", loss_lines):
+            got = cli.main(flags + extra)
+        torch.cuda.synchronize()
+        rec = {"wall_s": time.perf_counter() - t0,
+               "counts": read_launches("fast", training=cli is train)}
+        if cli is train:
+            rec["head"] = torch.cat([p.detach().reshape(-1).cpu()
+                                     for p in got.head.parameters()])
+            rec["step"] = got.step
+            rec["losses"] = list(losses)
+        else:
+            rec["scores"] = [_flat_scores(s) for s in got]
+            rec["hists"] = list(hists)
+        out[name] = rec
+    return out
+
+
+def rank_head_npz(work: str) -> str:
+    """The head that infer_seg runs with in the one process and on the
+    ranks: the one process's train CLI run's last head (a seeded head
+    before training predicts no class of the tree at all: scores of such a
+    hist hold no count that the ranks' sum could miss)."""
+    return os.path.join(work, "one", f"head_{RANK_TRAIN_STEPS}.npz")
+
+
+def rank_worker(work: str) -> int:
+    """One of the RANKS gloo ranks that share cuda:0 (started by
+    `phase_ranks` with torchrun's variables): the fp32 step, then the fast
+    preset's CLIs; writes rank<r>.json (and the step's tensors as
+    rank<r>_step.pt) under `work`."""
+    sys.path.insert(0, ROOT)
+    from excel_tpu_torch.cli.common import exact_matmuls
+    from excel_tpu_torch.parallel import initialize
+    from excel_tpu_torch.parallel.distributed import rank
+
+    exact_matmuls()
+    if not initialize("cuda:0", "gloo"):
+        raise RuntimeError("rank_worker: no process group")
+    step = rank_step("fp32", *rank_step_setup("fp32"))
+    r = rank()
+    torch.cuda.empty_cache()
+    clis = rank_cli_runs(os.path.join(work, "ranks"), rank_head_npz(work),
+                         RANK_B,
+                         ["--device", "cuda:0", "--dist-backend", "gloo"])
+    torch.save({"grads": step.pop("grads"), "head": step.pop("head"),
+                "cli_head": clis["train_cli"].pop("head")},
+               os.path.join(work, f"rank{r}_step.pt"))
+    with open(os.path.join(work, f"rank{r}.json"), "w") as f:
+        json.dump({"step": step, "cli": clis, "rows": ROW_LAUNCHES}, f)
+    return 0
+
+
+def nccl_group_of_one(smi: str) -> None:
+    """(a) A group of one NCCL rank on cuda:0: one fast train step and one
+    LAM batch (`run_lam_eval` over 4 samples, its hist through
+    global_sum_host) with the group, bit for bit the same losses and
+    scores as the same calls without one; the group's launches counted."""
+    import torch.distributed as dist
+
+    from excel_tpu_torch.engine.evaluate import run_lam_eval
+    from excel_tpu_torch.parallel import initialize
+
+    cfg, clip, text, images, cls = rank_step_setup("fast")
+    # one canvas and one slot bucket: one batch
+    samples = synthetic_samples(4, cfg.num_fg, seed=2,
+                                extents=[VOC_EXTENTS[0]], max_classes=1)
+
+    def lam():
+        reset_launches()
+        scores = run_lam_eval({"clip": clip}, samples, text, cfg,
+                              batch_size=4, device="cuda")
+        return _flat_scores(scores), read_launches("fast", training=False)
+
+    alone = rank_step("fast", cfg, clip, text, images, cls)
+    alone_lam, _ = lam()
+    env = torchrun_env(0, 1, _free_port())
+    os.environ.update(env)
+    try:
+        if not initialize("cuda", "nccl") or dist.get_backend() != "nccl":
+            raise AssertionError("ranks: no NCCL group of one")
+        group = rank_step("fast", cfg, clip, text, images, cls)
+        group_lam, lam_counts = lam()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k)
+    same = (group["losses"] == alone["losses"] and group_lam == alone_lam)
+    log(f"ranks nccl group of one (fast): losses {group['losses']} "
+        f"(without a group {alone['losses']}), LAM batch scores equal: "
+        f"{group_lam == alone_lam}; step wall_ms {group['wall_ms']:.2f} "
+        f"(without a group {alone['wall_ms']:.2f}; {smi}) launches "
+        + json.dumps({k: v for k, v in group["counts"].items() if v}))
+    if not same:
+        raise AssertionError("ranks: the NCCL group of one differs from no "
+                             "group")
+    if group["counts"] != TRAIN_LAUNCHES["fast", True]:
+        raise AssertionError(f"ranks nccl step launches {group['counts']}")
+    if lam_counts != LAUNCHES_PER_BATCH["fast"]:
+        raise AssertionError(f"ranks nccl LAM launches {lam_counts}")
+
+
+def phase_ranks(smi: str) -> None:
+    """Slice 13, multi-process runs: (a) `nccl_group_of_one`; (b) two gloo
+    ranks sharing cuda:0, each this script in rank-worker mode with
+    torchrun's variables: one fp32 step of the calibrated seg-affinity
+    phase at full width, B=2 a rank, against one process at B=4 (ranks'
+    gradients and heads bit for bit equal, losses and gradients within
+    RANK_LOSS_RTOL / RANK_GRAD_RTOL_OF_MAX of the one process's); (c) the
+    same ranks in the fast preset: the train CLI (4 steps, validation
+    over each rank's shard; the ranks' loss lines and heads identical, and
+    the logged losses and the head within RANK_LOSS_RTOL /
+    RANK_GRAD_RTOL_OF_MAX of one process's at B=4), infer_lam
+    --training-free --crf-tpu and infer_seg --crf-tpu --crf with the one
+    process's trained head (`rank_head_npz`): the hists they scored and
+    their scores bit for bit those of one process's runs, whose hists hit
+    (a nonzero diagonal, pAcc > 0); the 1-rank and 2-rank walls; the
+    ranks' launches counted."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    card = smi.replace(", ", " ")
+    nccl_group_of_one(card)
+    torch.cuda.empty_cache()
+    os.makedirs(os.path.join(ROOT, "work_dirs"), exist_ok=True)
+    work = tempfile.mkdtemp(prefix="ranks_",
+                            dir=os.path.join(ROOT, "work_dirs"))
+    procs = []
+    try:
+        one = rank_step("fp32", *rank_step_setup("fp32"))
+        torch.cuda.empty_cache()
+        one_cli = rank_cli_runs(os.path.join(work, "one"),
+                                rank_head_npz(work), RANKS * RANK_B,
+                                ["--device", "cuda"])
+        torch.cuda.empty_cache()
+        port = _free_port()
+        logs = [open(os.path.join(work, f"rank{r}.log"), "w")
+                for r in range(RANKS)]
+        t0 = time.perf_counter()
+        for r in range(RANKS):
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--rank-worker",
+                 work], env={**os.environ, **torchrun_env(r, RANKS, port)},
+                stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT))
+        rcs = [p.wait(timeout=RANK_TIMEOUT_S) for p in procs]
+        ranks_s = time.perf_counter() - t0
+        for f in logs:
+            f.close()
+        outs = []
+        for r in range(RANKS):
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                outs.append(f.read())
+        if any(rcs):
+            raise AssertionError(f"ranks: exit codes {rcs}; rank logs:\n"
+                                 + "\n".join(o[-3000:] for o in outs))
+        recs = []
+        for r in range(RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                recs.append(json.load(f))
+            recs[r]["step"].update(torch.load(
+                os.path.join(work, f"rank{r}_step.pt")))
+        check_rank_runs(one, one_cli, recs, outs, card)
+        for rec in recs:
+            for name, n in rec["rows"].items():
+                ROW_LAUNCHES[name] = ROW_LAUNCHES.get(name, 0) + n
+        log(f"ranks walls (1 rank at B={RANKS * RANK_B} / {RANKS} gloo "
+            f"ranks sharing the card at B={RANK_B}; {card}): step_ms "
+            f"{one['wall_ms']:.2f} / "
+            + " ".join(f"{rec['step']['wall_ms']:.2f}" for rec in recs)
+            + "; " + "; ".join(
+                f"{name}_s {one_cli[name]['wall_s']:.2f} / " + " ".join(
+                    f"{rec['cli'][name]['wall_s']:.2f}" for rec in recs)
+                for name in one_cli)
+            + f"; ranks' processes start to exit {ranks_s:.1f} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"ranks phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+LOSS_LINE = re.compile(r"Iter: (\d+); .*?(LR: .*)$", re.M)
+
+
+def check_rank_runs(one: dict, one_cli: dict, recs: list, outs: list,
+                    card: str) -> None:
+    """(b) and (c)'s checks of the ranks' records against one process's."""
+    steps = [rec["step"] for rec in recs]
+    for s in steps[1:]:
+        if not (torch.equal(s["grads"], steps[0]["grads"])
+                and torch.equal(s["head"], steps[0]["head"])):
+            raise AssertionError("ranks: the ranks' gradients or heads "
+                                 "differ")
+    summed = np.sum([s["losses"] for s in steps], axis=0)
+    loss_err = float(np.max(np.abs(summed - one["losses"])
+                            / np.abs(one["losses"])))
+    g = one["grads"]
+    grad_err = max_err(steps[0]["grads"], g) / float(g.abs().max())
+    log(f"ranks step fp32 (calibrated, seg affinity; {RANKS} x B={RANK_B} "
+        f"against 1 x B={RANKS * RANK_B}): losses {summed.tolist()} "
+        f"(one process {one['losses']}) max rel err {loss_err:.3g} (bound "
+        f"{RANK_LOSS_RTOL}); grads max abs err / max|g| {grad_err:.3g} "
+        f"(bound {RANK_GRAD_RTOL_OF_MAX}); ranks' heads equal")
+    if not (loss_err <= RANK_LOSS_RTOL and grad_err <= RANK_GRAD_RTOL_OF_MAX):
+        raise AssertionError("ranks: the 2-rank step misses one process's")
+    for s in steps:
+        if s["counts"] != TRAIN_LAUNCHES["fp32", True]:
+            raise AssertionError(f"ranks step launches {s['counts']}")
+    for name in ("infer_lam", "infer_seg"):
+        want = one_cli[name]
+        same = all(rec["cli"][name]["scores"] == want["scores"]
+                   and rec["cli"][name]["hists"] == want["hists"]
+                   for rec in recs)
+        diag = [int(np.trace(np.array(h))) for h in want["hists"]]
+        total = [int(np.sum(h)) for h in want["hists"]]
+        pacc = [sc[0] for sc in want["scores"]]
+        log(f"ranks {name} fast: hists and scores (raw, CRF) equal to one "
+            f"process's: {same}; one process's hists: {diag} of {total} "
+            f"pixels on the diagonal, pAcc {pacc}, miou "
+            f"{[sc[2] for sc in want['scores']]}")
+        if not same:
+            raise AssertionError(f"ranks {name}: hists or scores differ from"
+                                 " one process's")
+        if len(want["hists"]) != 2 or not (min(diag) > 0 and min(pacc) > 0):
+            raise AssertionError(f"ranks {name}: one process's hists hold no"
+                                 " hit")
+    lines = [LOSS_LINE.findall(o) for o in outs]
+    cli_heads = [s["cli_head"] for s in steps]
+    one_train = one_cli["train_cli"]
+    want = np.array(one_train["losses"])
+    got = np.array(recs[0]["cli"]["train_cli"]["losses"])
+    heads_equal = all(torch.equal(h, cli_heads[0]) for h in cli_heads)
+    same_shape = got.shape == want.shape == (RANK_TRAIN_STEPS, 3)
+    cli_loss_err = (float(np.max(np.abs(got[:, 1:] - want[:, 1:])
+                                 / np.abs(want[:, 1:])))
+                    if same_shape else float("inf"))
+    ref = one_train["head"]
+    cli_head_err = max_err(cli_heads[0], ref) / float(ref.abs().max())
+    log(f"ranks train_cli fast: {len(lines[0])} loss lines, identical on "
+        f"the ranks: {all(x == lines[0] for x in lines)}; heads equal: "
+        f"{heads_equal}; against one process at B={RANKS * RANK_B}: losses "
+        f"max rel err {cli_loss_err:.3g} (bound {RANK_LOSS_RTOL}), head max "
+        f"abs err / max|head| {cli_head_err:.3g} (bound "
+        f"{RANK_GRAD_RTOL_OF_MAX}); " + "; ".join(
+            f"{i}: {txt}" for i, txt in lines[0]))
+    if not (len(lines[0]) == RANK_TRAIN_STEPS
+            and all(x == lines[0] for x in lines) and heads_equal
+            and all(rec["cli"]["train_cli"]["step"] == RANK_TRAIN_STEPS
+                    for rec in recs)):
+        raise AssertionError("ranks train_cli: loss lines or heads differ")
+    if not (same_shape and np.array_equal(got[:, 0], want[:, 0])
+            and cli_loss_err <= RANK_LOSS_RTOL
+            and cli_head_err <= RANK_GRAD_RTOL_OF_MAX):
+        raise AssertionError("ranks train_cli: the 2-rank run misses one "
+                             "process's")
+    for rec in recs:
+        for name, names in RANK_KERNELS.items():
+            _check_launched(name, rec["cli"][name]["counts"], names)
+
+
 _ATT = "excel_tpu/models/attention_pallas.py"
 _PAR = "excel_tpu/ops/par_pallas.py"
 _CSRC = "excel_tpu_torch/csrc/"
@@ -2919,6 +3383,7 @@ def main() -> int:
     phase_text_cli(smi)
     records.update(phase_train_cli(smi))
     phase_host_crf(smi)
+    phase_ranks(smi)
     table = []
     for name, (source, replaces) in SOURCES.items():
         r = records[name]
@@ -2938,4 +3403,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-worker"]:
+        sys.exit(rank_worker(sys.argv[2]))
     sys.exit(main())

@@ -1,9 +1,11 @@
 """Shared CLI plumbing of the port (counterpart of excel_tpu/cli/common.py):
 config resolution, weights, the text bank, the synthetic dataset.
 
-One process on one device: `--device` (default cuda) picks it, and a cuda
-request on a machine without a GPU raises. The JAX package's multi-host
-initialisation and mesh have no counterpart yet.
+One process a device: `--device` (default cuda) picks it, and a cuda
+request on a machine without a GPU raises. Under torchrun (one process a
+device) `resolve` first joins the process group (parallel.initialize):
+"cuda" is then the rank's own card, and `--dist-backend gloo` lets ranks
+share one card, named with its index (`--device cuda:0`).
 """
 from __future__ import annotations
 
@@ -25,6 +27,8 @@ from ..models.excel import build_text_bank
 from ..models.params import (cast_matmul_weights, init_clip_params,
                              load_params_npz)
 from ..ops.tse import load_attr_bank
+from ..parallel.distributed import (BACKENDS, barrier, global_sum_host,
+                                    initialize, is_primary)
 from ..text.class_names import class_list, prompt_vocabulary
 from ..utils.logutils import log_sweep_rate
 from ..utils.metrics import format_metrics_table, scores_from_hist
@@ -51,8 +55,14 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
     ap.add_argument("--work-dir", default="work_dirs/run")
     ap.add_argument("--batch-size", type=int, default=None)
     ap.add_argument("--device", default="cuda",
-                    help="cuda (the CUDA kernels) or cpu (their plain "
-                         "PyTorch versions)")
+                    help="cuda (the CUDA kernels; under torchrun the "
+                         "rank's own card) or cpu (their plain PyTorch "
+                         "versions)")
+    ap.add_argument("--dist-backend", default=None, choices=BACKENDS,
+                    help="the process group's backend under torchrun "
+                         "(default: nccl for cuda, gloo for cpu); gloo for "
+                         "ranks that share one card (--device cuda:0); "
+                         "given at world size 1, it forms a group of one")
 
 
 def add_eval_gate_args(ap: argparse.ArgumentParser) -> None:
@@ -90,7 +100,8 @@ def host_crf_scores(args, cfg: ExcelConfig, dataset, logits_dir: str,
                     kind: str, post, save_pred, logger) -> dict:
     """The host CRF after the sweep: drain the streamed pass `post`, or run
     the post-pass over the spill directory; logs and returns
-    crf_seg_score. The hist is the process's own (one process)."""
+    crf_seg_score. The hist is the rank's shard's, summed over the
+    process group before it is scored."""
     t0 = time.perf_counter()
     if post is not None:
         logger.info("crf post-processing (streamed, draining)...")
@@ -105,9 +116,10 @@ def host_crf_scores(args, cfg: ExcelConfig, dataset, logits_dir: str,
                             cfg.num_classes, kind=kind, num_workers=workers,
                             save_pred=save_pred)
     log_sweep_rate(logger, len(dataset), t0)
-    crf_scores = scores_from_hist(hist)
-    logger.info("crf_seg_score:\n%s",
-                format_metrics_table(crf_scores, score_names(cfg)))
+    crf_scores = scores_from_hist(global_sum_host(hist))
+    if is_primary():
+        logger.info("crf_seg_score:\n%s",
+                    format_metrics_table(crf_scores, score_names(cfg)))
     return crf_scores
 
 
@@ -178,7 +190,9 @@ def load_text_bank(args, cfg: ExcelConfig, clip_params,
 def build_synthetic(args, cfg: ExcelConfig) -> ExcelConfig:
     """Generate a synthetic tree under work_dir (or reuse one whose
     completion marker names the same parameters, whichever package wrote
-    it) and point cfg.data at it."""
+    it) and point cfg.data at it. Under a process group rank 0 alone
+    generates it, on the shared work_dir, and the other ranks wait for it
+    at a barrier."""
     from ..data.synthetic import make_voc_tree
 
     root = os.path.join(args.work_dir, "synthetic_data")
@@ -188,19 +202,24 @@ def build_synthetic(args, cfg: ExcelConfig) -> ExcelConfig:
     # size / seed / class count regenerates rather than reusing stale data
     spec = (f"{int(args.synthetic)}:{cfg.train.seed}:{cfg.num_fg}:"
             f"{size_range}")
-    try:
-        with open(marker) as f:
-            reuse = f.read() == spec
-    except OSError:
-        reuse = False
-    if reuse:
-        split_dir = os.path.join(root, "splits")
-    else:
-        split_dir = make_voc_tree(root, num_images=int(args.synthetic),
-                                  seed=cfg.train.seed, num_fg=cfg.num_fg,
-                                  size_range=size_range)
+
+    def marker_matches() -> bool:
+        try:
+            with open(marker) as f:
+                return f.read() == spec
+        except OSError:
+            return False
+
+    if is_primary() and not marker_matches():
+        make_voc_tree(root, num_images=int(args.synthetic),
+                      seed=cfg.train.seed, num_fg=cfg.num_fg,
+                      size_range=size_range)
         with open(marker, "w") as f:
             f.write(spec)
+    barrier()
+    if not marker_matches():
+        raise RuntimeError(f"no synthetic tree for {spec} at {root}")
+    split_dir = os.path.join(root, "splits")
     data = dataclasses.replace(cfg.data, root_dir=root, split_dir=split_dir,
                                # synthetic trees always use the VOC layout
                                dataset="synthetic_voc", train_split="train_aug",
@@ -229,9 +248,11 @@ def exact_matmuls() -> None:
 
 
 def resolve(args):
-    """(cfg, clip_params, text_attr) on args.device. The text bank is built
-    from the uncast weights in the preset's compute type; then, in bf16,
-    the matmul weights are cast once."""
+    """(cfg, clip_params, text_attr) on args.device, after joining the
+    process group where torchrun started this process. The text bank is
+    built from the uncast weights in the preset's compute type; then, in
+    bf16, the matmul weights are cast once."""
+    initialize(args.device, args.dist_backend)
     device = resolve_device(args.device)
     exact_matmuls()
     cfg = resolve_config(args)

@@ -20,6 +20,11 @@ the host lattice CRF refines them (after the sweep, or beside it with
 --crf-stream) and crf_seg_score scores the refined labels; --save-preds
 writes those labels to work_dir/crf_preds/. --crf-tpu runs the on-device
 mean-field CRF inside the sweep instead.
+
+Under torchrun (one process a device; `--dist-backend gloo --device cuda:0`
+for ranks that share one card) each rank sweeps its round-robin shard of
+the images, the scores (the device CRF's and the host CRF's too) are those
+of the hists summed over the ranks, and rank 0 alone logs the tables.
 """
 from __future__ import annotations
 
@@ -35,6 +40,8 @@ from ..engine.checkpoint import load_head_npz
 from ..engine.crf_post import lam_spiller
 from ..engine.evaluate import run_lam_eval
 from ..models.excel import init_excel_params
+from ..parallel import is_primary
+from ..parallel.distributed import shard_dataset
 from ..utils.logutils import log_sweep_rate, setup_logger
 from ..utils.metrics import format_metrics_table
 from ..utils.visual import cam_overlay, save_palette_png
@@ -93,7 +100,7 @@ def main(argv=None):
     if args.crf_tpu_lr is not None:
         cfg = dataclasses.replace(
             cfg, crf=dataclasses.replace(cfg.crf, long_range=args.crf_tpu_lr))
-    dataset = eval_dataset(cfg, split=args.split)
+    dataset = shard_dataset(eval_dataset(cfg, split=args.split))
     batch = args.batch_size or 4
 
     if args.training_free:
@@ -161,11 +168,12 @@ def main(argv=None):
     if args.crf_tpu:
         scores, crf_tpu_scores = scores
     log_sweep_rate(logger, len(dataset), t0)
-    logger.info("Training_free:%s, LAM_score:\n%s", args.training_free,
-                format_metrics_table(scores, names,
-                                     metrics=("confusion", "precision",
-                                              "recall", "iou")))
-    if crf_tpu_scores is not None:
+    if is_primary():
+        logger.info("Training_free:%s, LAM_score:\n%s", args.training_free,
+                    format_metrics_table(scores, names,
+                                         metrics=("confusion", "precision",
+                                                  "recall", "iou")))
+    if crf_tpu_scores is not None and is_primary():
         logger.info("crf_tpu_seg_score (on-device mean-field CRF):\n%s",
                     format_metrics_table(crf_tpu_scores, names))
 

@@ -11,6 +11,11 @@ as <name>_crf.png. --crf is the reference's protocol: the sweep spills each
 image's pre-CRF logits to work_dir/logits/ and the host lattice CRF scores
 them (after the sweep, or beside it with --crf-stream). --crf-tpu runs the
 on-device mean-field CRF inside the sweep instead.
+
+Under torchrun (one process a device; `--dist-backend gloo --device cuda:0`
+for ranks that share one card) each rank sweeps its round-robin shard of
+the images, the scores (the host CRF's too) are those of the hists summed
+over the ranks, and rank 0 alone logs the tables.
 """
 from __future__ import annotations
 
@@ -25,6 +30,8 @@ from ..engine.checkpoint import load_head_npz
 from ..engine.crf_post import seg_logit_spiller
 from ..engine.evaluate import run_msc_seg_eval
 from ..models.excel import init_excel_params
+from ..parallel import is_primary
+from ..parallel.distributed import shard_dataset
 from ..utils.logutils import log_sweep_rate, setup_logger
 from ..utils.metrics import format_metrics_table
 from ..utils.visual import save_palette_png
@@ -85,7 +92,7 @@ def main(argv=None):
         cfg = dataclasses.replace(
             cfg, crf=dataclasses.replace(cfg.crf, long_range=args.crf_tpu_lr))
     stage = "test" if args.split == "test" else "val"
-    dataset = eval_dataset(cfg, split=args.split, stage=stage)
+    dataset = shard_dataset(eval_dataset(cfg, split=args.split, stage=stage))
     batch = args.batch_size or 4
     scales = tuple(float(s) for s in args.scales.split(","))
 
@@ -129,10 +136,11 @@ def main(argv=None):
         save_logits=save_logits, crf_tpu=args.crf_tpu,
         checkpoint_path=args.hist_ckpt, device=device)
     log_sweep_rate(logger, len(dataset), t0)
-    logger.info("raw_seg_score:\n%s",
-                format_metrics_table(scores, score_names(cfg),
-                                     metrics=("confusion", "precision",
-                                              "recall", "iou")))
+    if is_primary():
+        logger.info("raw_seg_score:\n%s",
+                    format_metrics_table(scores, score_names(cfg),
+                                         metrics=("confusion", "precision",
+                                                  "recall", "iou")))
     if not args.crf:
         check_expected_miou(args, scores, logger)
         return scores

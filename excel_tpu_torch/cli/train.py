@@ -21,9 +21,20 @@ files (`--viz`; the JAX package writes JPEGs through Pillow).
 stream at its first batch, as the JAX package's driver does: a resumed run
 does not see the batches an unbroken run would.
 
-One process on one device. The JAX package's multi-host path (a mesh over
-every host's chips, the full-class-stack step `TrainStepCache.full`, each
-process's loader shard, sharded validation) has no counterpart yet.
+Data parallel over N devices: one process a device, started by torchrun,
+
+    torchrun --nproc_per_node N -m excel_tpu_torch.cli.train ...
+
+(`--dist-backend gloo --device cuda:0` for ranks that share one card).
+`--batch-size` is per rank: the global batch is batch_size x N, each rank
+feeds its loader shard (rows [r*B, (r+1)*B) of the global batch), takes
+the full-class-stack step (`TrainStepCache.full`, the same program on
+every rank) and holds the same head after each step (engine/train). The
+logged losses are the global batch's, summed over the ranks when they are
+logged. Validation runs on every rank over its round-robin shard of the
+val set, with the hists summed over the ranks. Rank 0 alone writes the
+log file, the checkpoints, the head files, the TensorBoard events and the
+panels; every rank logs to its console.
 """
 from __future__ import annotations
 
@@ -41,6 +52,8 @@ from ..engine.evaluate import _to_device, run_validation
 from ..engine.train import (TrainStepCache, _phase, init_train_state,
                             step_generator)
 from ..models.excel import init_excel_params
+from ..parallel import is_primary, replicate
+from ..parallel.distributed import group_sum, rank, shard_dataset, world
 from ..utils.logutils import AverageMeter, Eta, setup_logger
 from ..utils.metrics import format_metrics_table
 from .common import (add_common_args, eval_dataset, resolve, score_names,
@@ -71,17 +84,19 @@ def main(argv=None):
                          "min(10, cpu_count))")
     args = ap.parse_args(argv)
 
-    os.makedirs(args.work_dir, exist_ok=True)
-    logger = setup_logger(os.path.join(args.work_dir, "train.log"))
     cfg, clip_params, text_attr = resolve(args)
     device = text_attr.device
+    os.makedirs(args.work_dir, exist_ok=True)
+    logger = setup_logger(os.path.join(args.work_dir, "train.log")
+                          if is_primary() else None)
     overrides = {k: getattr(args, k) for k in
                  ("max_iters", "eval_iters", "log_iters") if getattr(args, k)}
     if overrides:
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, **overrides))
     batch_size = args.batch_size or cfg.train.batch_size
-    logger.info("device: %s", device)
+    logger.info("device: %s (rank %d of %d, global batch %d)", device,
+                rank(), world(), batch_size * world())
     logger.info("config: %s", cfg)
 
     params = init_excel_params(
@@ -94,18 +109,20 @@ def main(argv=None):
         if latest:
             state = restore_checkpoint(latest, state)
             logger.info("resumed from %s (step %d)", latest, state.step)
+    replicate(state.head, state.optimizer)
 
     dataset = train_dataset(cfg)
-    val_ds = None if args.no_eval else eval_dataset(cfg)
+    val_ds = None if args.no_eval else shard_dataset(eval_dataset(cfg))
     logger.info("train samples: %d", len(dataset))
     workers = args.num_workers
     if workers is None:
         workers = min(10, os.cpu_count() or 1)
     batches = train_batches(dataset, batch_size, seed=cfg.train.seed,
-                            num_workers=workers)
+                            num_workers=workers, process_index=rank(),
+                            process_count=world())
 
     tb = None
-    if args.tensorboard:
+    if args.tensorboard and is_primary():
         from ..utils.tb import SummaryWriter
         tb = SummaryWriter(os.path.join(args.work_dir, "tb"))
     try:
@@ -131,7 +148,9 @@ def _train_loop(args, cfg, state, clip_params, text_attr, batches, val_ds,
     count = 0
     for n_iter in range(start, cfg.train.max_iters):
         batch = next(batches)
-        step_fn = steps(_phase(cfg, n_iter), batch["cls_label"])
+        phase = _phase(cfg, n_iter)
+        step_fn = (steps.full(phase) if world() > 1
+                   else steps(phase, batch["cls_label"]))
         images, cls = _to_device((batch["image"], batch["cls_label"]),
                                  device)
         state, metrics = step_fn(
@@ -146,8 +165,9 @@ def _train_loop(args, cfg, state, clip_params, text_attr, batches, val_ds,
         it = n_iter + 1
         if it % cfg.train.log_iters == 0:
             elapsed, remaining = eta(it - start)
-            means = dict(zip(DEVICE_METRICS, (
-                torch.stack([sums[k] for k in DEVICE_METRICS]).cpu()
+            # each rank's losses are its shares of the global batch's
+            means = dict(zip(DEVICE_METRICS, (group_sum(
+                torch.stack([sums[k] for k in DEVICE_METRICS])).cpu()
                 / count).tolist()))
             sums.clear()
             count = 0
@@ -164,12 +184,15 @@ def _train_loop(args, cfg, state, clip_params, text_attr, batches, val_ds,
             path = save_checkpoint(ckpt_dir, state)
             save_head_npz(os.path.join(args.work_dir, f"head_{it}.npz"),
                           state.head)
-            logger.info("checkpoint: %s", path)
+            if is_primary():
+                logger.info("checkpoint: %s", path)
             if val_ds is None:
                 continue
             eval_params = {"clip": clip_params, "head": state.head}
             pseudo, seg = run_validation(eval_params, val_ds, text_attr, cfg,
                                          batch_size=batch_size, device=device)
+            if not is_primary():
+                continue
             logger.info("val @%d:\n[pseudo]\n%s\n[seg]\n%s", it,
                         format_metrics_table(pseudo, names),
                         format_metrics_table(seg, names))

@@ -8,8 +8,9 @@ order; normalisation happens on the device. The index stream comes from
 one seed-shared permutation sequence, and every sample's augmentation
 generator is seeded from (seed, step, slot) rather than drawn from a
 shared generator, so the stream is the same for any worker count and
-equal to the JAX package's. Under multi-process sharding process p would
-take rows [p*B, (p+1)*B) of each global batch; the port runs one process.
+equal to the JAX package's. Under a process group of N ranks, rank p takes
+rows [p*B, (p+1)*B) of each global batch of B * N: the rows, and their
+augmentations, that one process streaming the global batch would give.
 """
 from __future__ import annotations
 
@@ -58,8 +59,8 @@ def train_batches(dataset, batch_size: int, seed: int = 0,
 
     batch_size is per process; the global batch is batch_size *
     process_count and process p materialises rows [p*B, (p+1)*B) of it
-    (the port runs one process; the arguments mirror the JAX package's for
-    multi-device). The stream is the same for every worker count."""
+    (the rank and world size of a process group). The stream is the same
+    for every worker count."""
     gb = batch_size * process_count
     lo = process_index * batch_size
 

@@ -8,6 +8,10 @@ draws need no state of their own: each step's generator is seeded from
 draws what an unbroken one would. The JAX package's orbax checkpoint
 directories are not read; its head `.npz` files are, both ways: one array
 per leaf, keyed by `jax.tree_util.keystr` of its path in the head tree.
+
+Under a process group every rank holds the same head: rank 0 alone writes
+the files, and every rank waits at a barrier until they are written, so
+that every rank restores the same file on resume.
 """
 from __future__ import annotations
 
@@ -20,18 +24,21 @@ from ..config import HeadConfig
 from ..models.head import LvcHead
 from ..models.params import (_insert, _keystr_path, head_from_jax_params,
                              head_to_jax_tree, save_npz_tree)
+from ..parallel.distributed import barrier, is_primary
 from .train import TrainState
 
 
 def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
-    """Write `<ckpt_dir>/step_<n>.pt` (over an existing one, atomically);
-    returns its path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Write `<ckpt_dir>/step_<n>.pt` (over an existing one, atomically;
+    rank 0 writes, every rank waits); returns its path."""
     path = os.path.join(os.path.abspath(ckpt_dir), f"step_{state.step}.pt")
-    tmp = path + ".tmp"
-    torch.save({"step": state.step, "head": state.head.state_dict(),
-                "optimizer": state.optimizer.state_dict()}, tmp)
-    os.replace(tmp, path)
+    if is_primary():
+        os.makedirs(ckpt_dir, exist_ok=True)
+        tmp = path + ".tmp"
+        torch.save({"step": state.step, "head": state.head.state_dict(),
+                    "optimizer": state.optimizer.state_dict()}, tmp)
+        os.replace(tmp, path)
+    barrier()
     return path
 
 
@@ -59,8 +66,11 @@ def restore_checkpoint(path: str, template: TrainState) -> TrainState:
 
 
 def save_head_npz(path: str, head: LvcHead) -> None:
-    """The head in the JAX package's `save_head_npz` layout."""
-    save_npz_tree(path, head_to_jax_tree(head))
+    """The head in the JAX package's `save_head_npz` layout (rank 0
+    writes, every rank waits)."""
+    if is_primary():
+        save_npz_tree(path, head_to_jax_tree(head))
+    barrier()
 
 
 def load_head_npz(path: str, cfg: HeadConfig, num_classes: int,

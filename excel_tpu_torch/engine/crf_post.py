@@ -15,8 +15,9 @@ format is the JAX package's, so each package reads the other's files.
   (tools/infer_seg_voc.py:164-165).
 - Decoding the image and its label happens inside the pooled job.
 
-The returned hist is the process's own: with one process (the port has no
-multi-device path yet) it is the whole dataset's.
+The returned hist is the process's own, over the dataset it was given: a
+rank of a process group passes its shard, and the eval CLIs sum the ranks'
+hists (`parallel.distributed.global_sum_host`) before scoring them.
 """
 from __future__ import annotations
 

@@ -23,8 +23,14 @@ of the reference, so its flip is not computed), upscaled to each image's
 valid extent and summed over scales on the canvas; then the argmax, or
 first the convolutional mean-field CRF (ops/crf_tpu.py) on their softmax
 against the canvas-resolution image. The LAM sweep has the same CRF branch
-over its pre-PAR class maps. Multi-device sharding (`mesh` in the JAX
-package) is not ported.
+over its pre-PAR class maps.
+
+Multi-device: one process a device. Each rank of a process group sweeps
+its own shard of the dataset (`parallel.distributed.shard_dataset`) and
+the sweeps sum their hists over the ranks (`global_sum_host`) before
+scoring, as the JAX package does across processes; its `mesh` argument,
+which spreads one process's batch over its local devices, has no
+counterpart, since here a host's devices are ranks of their own.
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from ..ops.labels import (argmax_label, cams_with_background_canvas,
                           class_slot_index, slot_label_to_class,
                           upscale_to_canvas, upscale_to_canvas_align)
 from ..ops.par import par_refine
+from ..parallel.distributed import global_sum_host, rank, world
 from ..utils.metrics import init_hist, scores_from_hist, update_hist
 from .pipeline import attn_mode_for, normalize_images
 
@@ -400,6 +407,12 @@ def _bucketed_batches(dataset, batch_size: int, pad: int,
         yield key[:2], buf
 
 
+def _rank_path(path: str | None) -> str | None:
+    """A sweep checkpoint of its own for each rank of a group (the ranks'
+    partial hists must not share one file)."""
+    return f"{path}.p{rank()}" if path and world() > 1 else path
+
+
 def _sweep_resume(path: str | None, fingerprint: str, num_classes: int,
                   device):
     """-> (hist, batches_done); restores only a checkpoint whose fingerprint
@@ -469,7 +482,8 @@ def run_lam_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
     device = resolve_device(device)
     resize = resize or cfg.clip.image_size
     fp = (f"lam:sg1:{len(dataset)}:{batch_size}:{mode}:{resize}:"
-          f"{cfg.num_classes}:{cfg.data.eval_pad}:proc0/1")
+          f"{cfg.num_classes}:{cfg.data.eval_pad}:proc{rank()}/{world()}")
+    checkpoint_path = _rank_path(checkpoint_path)
     dumps = save_cam is not None or save_lam_crf is not None
     if dumps or crf_tpu:
         checkpoint_path = None
@@ -536,8 +550,9 @@ def run_lam_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
             progress(len(samples))
     _sweep_done(checkpoint_path)
     if crf_tpu:
-        return scores_from_hist(hist), scores_from_hist(crf_hist)
-    return scores_from_hist(hist)
+        return (scores_from_hist(global_sum_host(hist)),
+                scores_from_hist(global_sum_host(crf_hist)))
+    return scores_from_hist(global_sum_host(hist))
 
 
 def run_validation(params: dict, dataset, text_attr, cfg: ExcelConfig,
@@ -562,7 +577,8 @@ def run_validation(params: dict, dataset, text_attr, cfg: ExcelConfig,
                                        class_slots=slots)
         if progress:
             progress(len(samples))
-    return scores_from_hist(hist_p), scores_from_hist(hist_s)
+    return (scores_from_hist(global_sum_host(hist_p)),
+            scores_from_hist(global_sum_host(hist_s)))
 
 
 def run_msc_seg_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
@@ -588,7 +604,9 @@ def run_msc_seg_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
     # a resumed hist must not blend predictions of different CRF settings
     crf_fp = f"{cfg.crf}" if crf_tpu else ""
     fp = (f"msc:{len(dataset)}:{batch_size}:{base}:{scales}:{crf_tpu}:"
-          f"{crf_fp}:{cfg.num_classes}:{cfg.data.eval_pad}:proc0/1")
+          f"{crf_fp}:{cfg.num_classes}:{cfg.data.eval_pad}"
+          f":proc{rank()}/{world()}")
+    checkpoint_path = _rank_path(checkpoint_path)
     want_dumps = save_logits is not None or save_pred is not None
     if want_dumps:
         checkpoint_path = None
@@ -631,4 +649,4 @@ def run_msc_seg_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
         if progress:
             progress(len(samples))
     _sweep_done(checkpoint_path)
-    return scores_from_hist(hist)
+    return scores_from_hist(global_sum_host(hist))

@@ -20,6 +20,18 @@ Differences of form from the JAX package, none of them numeric:
 - Dropout draws come from a `torch.Generator` seeded from
   (cfg.train.seed, step) (`step_generator`); JAX's PRNGKey stream cannot be
   reproduced, so the parity tests run with dropout off.
+
+Data parallel (one process a device, parallel/): the JAX step runs on a
+mesh over every process, where its losses, attn_pred's mean and the LVC
+calibration's mean are global reductions. Under a process group each rank
+feeds its rows of the global batch and the step takes those reductions
+over the group (models/losses' divisors and the head's dropout draw
+always, the two means through excel_forward's `global_batch`), so that
+each rank's loss is its share of the global loss, and after the backward
+one all_reduce sums the head's gradients: the sum, not a mean, since the
+shares already sum to the global loss. Every rank then takes the same
+AdamW update. Without a group the step is the single-process one,
+collective-free.
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ExcelConfig, TrainConfig
 from ..models.excel import excel_forward
@@ -117,7 +130,9 @@ def train_losses(head: LvcHead, clip_params: dict, images_u8: torch.Tensor,
                  class_slots: int | None = None):
     """The forward of one training iteration: (total loss, seg loss,
     diversity loss, pseudo-labels [B, H, W] int32), the losses as 0-d
-    tensors that autograd can take back to the head."""
+    tensors that autograd can take back to the head. Under a process group
+    the losses are this rank's shares of the global batch's (module
+    docstring)."""
     images = normalize_images(images_u8)
     crop_hw = tuple(images.shape[1:3])
     grid = crop_hw[0] // cfg.clip.patch_size
@@ -128,11 +143,11 @@ def train_losses(head: LvcHead, clip_params: dict, images_u8: torch.Tensor,
     out = excel_forward(params, images, text_attr, cfg,
                         dropout_generator=generator,
                         attn_mode="stack" if calibrated
-                        else attn_mode_for(cfg))
+                        else attn_mode_for(cfg), global_batch=True)
     lams = out.lams
     if calibrated:
         lams = excel_forward(params, images, text_attr, cfg,
-                             ex_feats=out.fused)
+                             ex_feats=out.fused, global_batch=True)
     pseudos = pseudo_labels(
         lams, out.attn_weights, par_imgs, cls_label, cfg, crop_hw,
         cfg.refine.caa_threshold,
@@ -166,7 +181,9 @@ def train_step(state: TrainState, clip_params: dict,
     path. Returns (state, metrics): "loss", "seg_loss" and "diver_loss" as
     0-d tensors on the step's device, read by the caller only when it logs
     (a float here would wait for the device every step), and "lr", the
-    float rate of this update; the state is updated in place."""
+    float rate of this update; the state is updated in place. Under a
+    process group the losses are the rank's shares (their sum over the
+    ranks is the global batch's) and the update is every rank's."""
     total, l_seg, l_aff, _ = train_losses(
         state.head, clip_params, images_u8, cls_label, text_attr, generator,
         cfg, calibrated=calibrated, seg_affinity=seg_affinity,
@@ -176,10 +193,21 @@ def train_step(state: TrainState, clip_params: dict,
         group["lr"] = lr
     state.optimizer.zero_grad(set_to_none=True)
     total.backward()
+    if dist.is_initialized():
+        _sum_gradients(list(state.head.parameters()))
     state.optimizer.step()
     state.step += 1
     return state, {"loss": total.detach(), "seg_loss": l_seg.detach(),
                    "diver_loss": l_aff.detach(), "lr": lr}
+
+
+def _sum_gradients(params: list) -> None:
+    """The head's gradients summed over the process group, in one
+    all_reduce of their concatenation (the JAX mesh's psum)."""
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    dist.all_reduce(flat)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad.copy_(g.view_as(p))
 
 
 def phased_train_steps(cfg: ExcelConfig) -> dict:
@@ -208,6 +236,15 @@ class TrainStepCache:
 
     def __call__(self, phase: tuple[bool, bool], cls_batch):
         slots = self.slots_for(cls_batch)
+        return self._step(phase, slots)
+
+    def full(self, phase: tuple[bool, bool]):
+        """The full-class-stack step (no slot compaction): the ranks of a
+        group take it whatever their local batches' label cardinality, so
+        that every rank runs the same program."""
+        return self._step(phase, None)
+
+    def _step(self, phase: tuple[bool, bool], slots: int | None):
         key = (*phase, slots)
         if key not in self._steps:
             self._steps[key] = functools.partial(

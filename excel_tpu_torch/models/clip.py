@@ -67,13 +67,14 @@ def _patch_embed(images: torch.Tensor, w: torch.Tensor,
 
 def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
                    ex_feats: torch.Tensor | None = None,
-                   attn_mode: str = "stack"):
+                   attn_mode: str = "stack", global_batch: bool = False):
     """Surgery ViT forward.
 
     images: [B, H, W, 3] (NHWC, already normalised).
     ex_feats: optional [B, C, h, w] LVC features; their
       `external_feature_attention`, rounded to the compute type as in the
-      JAX package, is added to every surgery block's patch-patch mix.
+      JAX package, is added to every surgery block's patch-patch mix
+      (its mean over the process group's batch with global_batch).
     attn_mode:
       "stack" — attn = [L, B, N, N] per-block weights (head-mean for
                 single-path blocks, head-sum for surgery blocks), L =
@@ -109,7 +110,8 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
 
     ex_attn = None
     if ex_feats is not None:
-        ex_attn = external_feature_attention(ex_feats).to(x.dtype)
+        ex_attn = external_feature_attention(
+            ex_feats, global_batch=global_batch).to(x.dtype)
 
     window = cfg.attn_out_layers or cfg.vision_layers
     win_start = cfg.vision_layers - window
@@ -181,10 +183,11 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
 
 def encode_image(params: dict, images: torch.Tensor, cfg: ClipConfig,
                  ex_feats: torch.Tensor | None = None,
-                 attn_mode: str = "stack"):
+                 attn_mode: str = "stack", global_batch: bool = False):
     """vision_forward, then the reference's L2 norm over the TOKEN dimension
     (dim 1 of [B, N, C]), not the feature dimension."""
-    out = vision_forward(params, images, cfg, ex_feats, attn_mode=attn_mode)
+    out = vision_forward(params, images, cfg, ex_feats, attn_mode=attn_mode,
+                         global_batch=global_batch)
     feats = out["projected"]
     out["projected"] = feats / _norm(feats, dim=1)
     return out

@@ -42,14 +42,18 @@ def excel_forward(params: dict, images: torch.Tensor,
                   text_attr: torch.Tensor, cfg: ExcelConfig, *,
                   ex_feats: torch.Tensor | None = None,
                   dropout_generator: torch.Generator | None = None,
-                  attn_mode: str = "stack"):
+                  attn_mode: str = "stack", global_batch: bool = False):
     """Full forward. images: [B, H, W, 3] normalised NHWC.
 
     ex_feats: optional [B, hw, embed] LVC features; when given, runs the
     LAM-only calibrated encoder pass (attention outputs skipped) and
     returns just the LAMs. dropout_generator: the head's Dropout2d draws
     (training); None runs without dropout. attn_mode: the encoder's
-    attention output, as in models/clip.vision_forward.
+    attention output, as in models/clip.vision_forward. global_batch: the
+    images are this rank's rows of a batch over the process group (the
+    train step): attn_pred's mean (models/head) and the LVC calibration's
+    mean (models/layers) are the whole batch's. The head's dropout draw
+    is the group's always (models/head.dropout2d).
 
     `fused` is returned detached, but `attn_pred` is computed from the live
     one: the diversity loss trains the head through it; `segs` and
@@ -60,7 +64,8 @@ def excel_forward(params: dict, images: torch.Tensor,
         ex_nchw = ex_feats.transpose(1, 2).reshape(b, c, grid, grid)
         with torch.no_grad():
             out = encode_image(params["clip"], images, cfg.clip,
-                               ex_feats=ex_nchw, attn_mode="none")
+                               ex_feats=ex_nchw, attn_mode="none",
+                               global_batch=global_batch)
             return compute_lams(out, text_attr, cfg.num_fg)
 
     with torch.no_grad():
@@ -73,7 +78,8 @@ def excel_forward(params: dict, images: torch.Tensor,
     segs, seg_attn = decoder_forward(head, fused)
     return ExcelOutputs(segs=segs, fused=fused.detach(), lams=lams,
                         attn_weights=out["attn"],
-                        attn_pred=feature_affinity(fused), seg_attn=seg_attn)
+                        attn_pred=feature_affinity(fused, global_batch),
+                        seg_attn=seg_attn)
 
 
 def init_excel_params(cfg: ExcelConfig, clip_params: dict,

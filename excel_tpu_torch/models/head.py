@@ -20,6 +20,7 @@ import torch.nn as nn
 
 from ..config import HeadConfig
 from ..device import resolve_device
+from ..parallel.distributed import group_mean, rank, world
 from .layers import layer_norm, linear, mlp, multi_head_attention
 
 
@@ -81,10 +82,14 @@ def dropout2d(x: torch.Tensor, rate: float,
               generator: torch.Generator) -> torch.Tensor:
     """torch Dropout2d on tokens-major [B, hw, C]: whole channels are kept
     per sample with probability 1 - rate (one draw per (b, c)) and scaled
-    by 1 / (1 - rate)."""
+    by 1 / (1 - rate). Under a process group x is rank r's rows of a
+    batch of B * world; the draw is the whole batch's [B * world, 1, C] and
+    the rank keeps rows [r*B, (r+1)*B), so the ranks drop what one process
+    of the whole batch would."""
     b, _, c = x.shape
-    keep = torch.rand((b, 1, c), generator=generator,
-                      device=x.device) < 1.0 - rate
+    r, w = rank(), world()
+    keep = torch.rand((b * w, 1, c), generator=generator,
+                      device=x.device)[r * b:(r + 1) * b] < 1.0 - rate
     return x * keep / (1.0 - rate)
 
 
@@ -92,7 +97,8 @@ def segformer_fuse(head: LvcHead, feats: torch.Tensor,
                    dropout_generator: torch.Generator | None = None,
                    dropout_rate: float = 0.0) -> torch.Tensor:
     """feats [num_blocks, B, hw, in_channels] -> fused [B, hw, D] in fp32.
-    Dropout2d runs only when a generator is given (training)."""
+    Dropout2d runs only when a generator is given (training), over the
+    process group's batch."""
     outs = []
     for i, p in enumerate(head.fuse_mlps):
         x = linear(feats[i].float(), p["proj"])
@@ -116,12 +122,18 @@ def decoder_forward(head: LvcHead, x: torch.Tensor):
     return linear(x, head.classifier), torch.stack(attns, dim=0)
 
 
-def feature_affinity(fused: torch.Tensor) -> torch.Tensor:
+def feature_affinity(fused: torch.Tensor,
+                     global_batch: bool = False) -> torch.Tensor:
     """attn_pred: sigmoid(3 (g - mean g)) of the gram g of the
     channel-normalised features [B, hw, C]; the mean is GLOBAL over the
-    whole batch tensor. Returns [B, hw, hw] fp32."""
+    whole batch tensor. Returns [B, hw, hw] fp32.
+
+    global_batch: under a process group the mean is the whole group's
+    batch's, as in the JAX package's mesh (`group_mean`, differentiable);
+    at world size 1 the local mean bit for bit."""
     f = fused.float()
     f = f / torch.clamp(torch.linalg.vector_norm(f, dim=-1, keepdim=True),
                         min=1e-12)
     g = torch.matmul(f, f.transpose(1, 2))
-    return torch.sigmoid((g - g.mean()) * 3.0)
+    mean = group_mean(g.mean()) if global_batch else g.mean()
+    return torch.sigmoid((g - mean) * 3.0)

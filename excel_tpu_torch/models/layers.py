@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from ..parallel.distributed import group_mean
 from .attention_kernels import fused_plain_attention, fused_surgery_attention
 
 
@@ -176,17 +177,21 @@ def surgery_attention_fused(y: torch.Tensor, p: dict, heads: int,
 
 
 def external_feature_attention(ex_feats: torch.Tensor, beta: float = 1.0,
-                               gamma: float = 3.0) -> torch.Tensor:
+                               gamma: float = 3.0,
+                               global_batch: bool = False) -> torch.Tensor:
     """LVC feature-affinity calibration mask: ex_feats [B, C, H, W] ->
     softmax over the channel-normalised cosine similarity, centred on its
     mean over the WHOLE batch tensor, scaled by gamma, entries below 0 set
-    to -inf; [B, HW, HW] float32."""
+    to -inf; [B, HW, HW] float32. global_batch: the mean over the process
+    group's batch (`parallel.distributed.group_mean`), as the JAX
+    package's mesh takes it in the train step."""
     b, c, h, w = ex_feats.shape
     flat = ex_feats.reshape(b, c, h * w).float()
     flat = flat / torch.clamp(torch.linalg.vector_norm(flat, dim=1,
                                                        keepdim=True),
                               min=1e-12)
     sim = torch.matmul(flat.transpose(1, 2), flat)
-    sim = (sim - sim.mean() * beta) * gamma
+    mean = group_mean(sim.mean()) if global_batch else sim.mean()
+    sim = (sim - mean * beta) * gamma
     sim = torch.where(sim < 0.0, torch.full_like(sim, -torch.inf), sim)
     return torch.softmax(sim, dim=-1)
