@@ -107,7 +107,26 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    at `default_workers()` threads), the spill's ms an image and the walls
    of sweep, post-pass, streamed drain and each CLI run.
 
-10. multi-process runs (one process a device, `excel_tpu_torch.parallel`;
+10. the modules that had no counterpart: (a) vanilla CLIP's ModifiedResNet
+   (RN50: layers (3, 4, 6, 3), width 64, 32 heads, embed 1024) from an
+   OpenAI-named state dict of seeded weights and BatchNorm statistics
+   through `convert_resnet_tower`, B=16 at 224 px and B=4 at 320 px (the
+   positional grid resized 7 -> 10), card against the CPU forward within
+   1e-4 of max|CPU|, device ms, peak memory, FLOPs counted from the layer
+   shapes and their bound at the fp32 peak; (b) `cli.make_attr_bank` from
+   seeded full-width ViT-B/16 weights (`save_params_npz`): VOC's
+   descriptors (20 x 20 sentences, K=112) on the card and with `--device
+   cpu` (class flags equal, banks within 1e-5), COCO's (80 x 20, K=224)
+   once on the card (shapes, a flag in every class), the text encoder's ms
+   and the KMeans's s; (c) the JPEG fixtures of tests/torch_fixtures/jpeg
+   decoded without Pillow, each to its recorded SHA-256 of Pillow's
+   decode, the 500 x 375 4:2:0 one timed (median of 20 decodes in one
+   thread), img/s of all of them through the loader's thread pool at 8
+   threads, and `infer_lam --training-free --fast` over the eval CLIs'
+   8-image synthetic tree whose first 4 images are their JPEG fixtures: its
+   hist counts every pixel of the 8 images, its kernels launched.
+
+11. multi-process runs (one process a device, `excel_tpu_torch.parallel`;
    the machine has one card and NCCL refuses two ranks on one device):
    (a) NCCL as a group of one on cuda:0 (torchrun's variables set in this
    process): one fast train step and one LAM batch (`run_lam_eval`, its
@@ -146,6 +165,7 @@ device.
 """
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import logging
@@ -155,6 +175,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -421,13 +442,17 @@ def phase_build() -> None:
     from excel_tpu_torch import build
 
     t0 = time.perf_counter()
-    seconds = build.build()
-    log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
-        + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
-    host_s = build.build_host()
-    log(f"build: host lattice CRF (g++) {host_s:.2f} s -> "
-        f"{os.path.relpath(build.host_library_path(), ROOT)}; host "
-        f"os.cpu_count()={os.cpu_count()}")
+    # the host libraries (g++) build while nvcc does
+    with ThreadPoolExecutor(len(build.HOST_SOURCES)) as pool:
+        host = {name: pool.submit(build.build_host, name)
+                for name in build.HOST_SOURCES}
+        seconds = build.build()
+        log(f"build: {time.perf_counter() - t0:.1f} s wall, per source "
+            + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
+        for name, done in host.items():
+            log(f"build: host {name} (g++) {done.result():.2f} s -> "
+                f"{os.path.relpath(build.host_library_path(name), ROOT)}")
+    log(f"build: host os.cpu_count()={os.cpu_count()}")
     for name in build.ENTRY_POINTS:
         with open(build.library_path(name) + ".log") as f:
             for line in f:
@@ -3321,6 +3346,439 @@ def check_rank_runs(one: dict, one_cli: dict, recs: list, outs: list,
             _check_launched(name, rec["cli"][name]["counts"], names)
 
 
+# the modules that had no counterpart: ModifiedResNet, the attribute-bank
+# tool, JPEG
+RN50 = {"layers": (3, 4, 6, 3), "width": 64, "heads": 32, "embed_dim": 1024,
+        "image_size": 224}
+RESNET_RUNS = ((16, 224), (4, 320))          # (batch, pixels)
+# card against CPU: fp32 convolutions (cuDNN, TF32 off) and products
+# summed in another order through 16 bottlenecks
+RESNET_TOL_OF_MAX = 1e-4
+ATTR_BANK_TOL = 1e-5
+JPEG_DIR = os.path.join(ROOT, "tests", "torch_fixtures", "jpeg")
+JPEG_TIMED = "photo_500x375.jpg"
+JPEG_SYNTH = 4                # synth_000000-3.jpg: the CLIs' first images
+JPEG_THREADS = 8
+JPEG_BATCH = 16               # the crop pipeline's batches of JPEG_TIMED
+JPEG_TREE = 32
+JPEG_BATCHES = 32
+# infer_lam --training-free --fast without a CRF: the encoder's attention
+# and the fast PAR (pad-clamp, affinity, resident diffusion)
+JPEG_CLI_KERNELS = ("plain_attention", "surgery_attention",
+                    "pad_replicate_valid", "par_affinity",
+                    "par_diffuse_valid_resident")
+
+
+def openai_resnet_state_dict(gen: torch.Generator, layers, width: int,
+                             embed_dim: int, image_size: int) -> dict:
+    """A visual state dict in OpenAI's RN naming of seeded weights:
+    He-scaled convolutions, BatchNorm scales, biases, running means and
+    variances drawn too (so the inference-form BatchNorm does work)."""
+    sd = {}
+
+    def conv(key, cout, cin, k):
+        sd[key] = (torch.randn(cout, cin, k, k, generator=gen)
+                   * (2.0 / (cin * k * k)) ** 0.5)
+
+    def bn(prefix, c):
+        sd[prefix + ".weight"] = torch.rand(c, generator=gen) + 0.5
+        sd[prefix + ".bias"] = torch.randn(c, generator=gen) * 0.1
+        sd[prefix + ".running_mean"] = torch.randn(c, generator=gen) * 0.5
+        sd[prefix + ".running_var"] = torch.rand(c, generator=gen) + 0.5
+
+    half = width // 2
+    for i, (cout, cin) in enumerate(((half, 3), (half, half), (width, half)),
+                                    start=1):
+        conv(f"visual.conv{i}.weight", cout, cin, 3)
+        bn(f"visual.bn{i}", cout)
+    cin = width
+    for li, n_blocks in enumerate(layers, start=1):
+        planes = width * 2 ** (li - 1)
+        for bi in range(n_blocks):
+            pre = f"visual.layer{li}.{bi}"
+            conv(pre + ".conv1.weight", planes, cin, 1)
+            bn(pre + ".bn1", planes)
+            conv(pre + ".conv2.weight", planes, planes, 3)
+            bn(pre + ".bn2", planes)
+            conv(pre + ".conv3.weight", planes * 4, planes, 1)
+            bn(pre + ".bn3", planes * 4)
+            if bi == 0:
+                conv(pre + ".downsample.0.weight", planes * 4, cin, 1)
+                bn(pre + ".downsample.1", planes * 4)
+            cin = planes * 4
+    feat, grid = width * 32, image_size // 32
+    ap = "visual.attnpool"
+    sd[ap + ".positional_embedding"] = (
+        torch.randn(grid * grid + 1, feat, generator=gen) * feat ** -0.5)
+    for name, out in (("q_proj", feat), ("k_proj", feat), ("v_proj", feat),
+                      ("c_proj", embed_dim)):
+        sd[f"{ap}.{name}.weight"] = (torch.randn(out, feat, generator=gen)
+                                     * feat ** -0.5)
+        sd[f"{ap}.{name}.bias"] = torch.randn(out, generator=gen) * 0.02
+    return sd
+
+
+def resnet_flops(cfg, h: int, w: int) -> float:
+    """2 x the multiply-adds of one image's forward, from the layer shapes:
+    the stem's three convolutions, each bottleneck's (the 3x3 before its
+    anti-aliasing pool, the downsample 1x1 after it) and the attention
+    pooling's projections and products."""
+    def conv(cin, cout, k, hw):
+        return 2.0 * cin * cout * k * k * hw[0] * hw[1]
+
+    half = cfg.width // 2
+    hw = ((h - 1) // 2 + 1, (w - 1) // 2 + 1)             # conv1, stride 2
+    f = conv(3, half, 3, hw) + conv(half, half, 3, hw) + conv(half, cfg.width,
+                                                              3, hw)
+    hw = (hw[0] // 2, hw[1] // 2)
+    cin = cfg.width
+    for li, n_blocks in enumerate(cfg.layers):
+        planes = cfg.width * 2 ** li
+        for bi in range(n_blocks):
+            stride = 2 if li > 0 and bi == 0 else 1
+            f += conv(cin, planes, 1, hw) + conv(planes, planes, 3, hw)
+            hw = (hw[0] // stride, hw[1] // stride)
+            f += conv(planes, planes * 4, 1, hw)
+            if bi == 0:
+                f += conv(cin, planes * 4, 1, hw)
+            cin = planes * 4
+    n, c = hw[0] * hw[1] + 1, cfg.feat_dim
+    return f + 2.0 * n * c * (3 * c + cfg.embed_dim) + 4.0 * n * n * c
+
+
+def remainder_resnet(card: str) -> None:
+    """(a) RN50 at full width: card against the CPU forward."""
+    from excel_tpu_torch.models import resnet
+
+    sd = openai_resnet_state_dict(torch.Generator().manual_seed(14), **{
+        k: v for k, v in RN50.items() if k != "heads"})
+    cfg = resnet.infer_resnet_config(sd)
+    if (cfg.layers, cfg.width, cfg.heads, cfg.embed_dim, cfg.image_size) \
+            != tuple(RN50.values()):
+        raise AssertionError(f"remainder resnet: inferred {cfg}")
+    params_cpu = resnet.convert_resnet_tower(sd, cfg, device="cpu")
+    params = resnet.convert_resnet_tower(sd, cfg, device="cuda")
+    gen = torch.Generator().manual_seed(15)
+    for b, px in RESNET_RUNS:
+        images = torch.randn(b, px, px, 3, generator=gen)
+        x = images.cuda()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            got = resnet.resnet_forward(params, x, cfg)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            ms = time_ms(lambda: resnet.resnet_forward(params, x, cfg), 10)
+            t0 = time.perf_counter()
+            ref = resnet.resnet_forward(params_cpu, images, cfg)
+            cpu_s = time.perf_counter() - t0
+        tokens = 1 + (px // 32) ** 2
+        err = max_err(got.cpu(), ref)
+        tol = RESNET_TOL_OF_MAX * float(ref.abs().max())
+        flops = b * resnet_flops(cfg, px, px)
+        log(f"remainder resnet RN50 B={b} {px}px: out {tuple(got.shape)} "
+            f"device_ms={ms:.3f} (CUDA events, median of 10; {card}) "
+            f"peak_mem={peak:.3f} GiB flops={flops:.4g} bound_ms="
+            f"{flops / PEAK_FP32_FLOPS * 1e3:.3f} (fp32 peak) cpu_s="
+            f"{cpu_s:.2f} max_abs_err={err:.3g} (bound {tol:.3g}; "
+            f"max|CPU| {float(ref.abs().max()):.4g})")
+        if not (got.shape == (b, tokens, cfg.embed_dim)
+                and bool(torch.isfinite(got).all()) and err <= tol):
+            raise AssertionError(f"remainder resnet B={b} {px}px: card "
+                                 f"against CPU {err:.3g} > {tol:.3g}")
+
+
+def remainder_attr_bank(card: str, flags: list, work: str) -> None:
+    """(b) make_attr_bank at full ViT-B/16 width, card and CPU."""
+    from excel_tpu_torch.cli import make_attr_bank as bank_cli
+
+    timings = {"text": [], "kmeans": []}
+
+    def timing(key, sync):
+        def wrap(real):
+            def timed(*a, **k):
+                if sync:
+                    torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = real(*a, **k)
+                if sync:
+                    torch.cuda.synchronize()
+                timings[key].append(time.perf_counter() - t0)
+                return out
+            return timed
+        return wrap
+
+    clip_flags = flags[flags.index("--clip-params"):][:2]
+    banks = {}
+    for name, extra in (("voc_card", []), ("voc_cpu", ["--device", "cpu"]),
+                        ("coco_card", ["--dataset", "coco"])):
+        out = os.path.join(work, f"bank_{name}.npz")
+        for v in timings.values():
+            v.clear()
+        t0 = time.perf_counter()
+        with _patched(bank_cli, "text_forward", timing("text", True)), \
+                _patched(bank_cli, "kmeans", timing("kmeans", False)):
+            bank_cli.main(clip_flags + extra + ["--out", out])
+        wall = time.perf_counter() - t0
+        with np.load(out) as z:
+            banks[name] = (z["cluster_bank"], z["class_flags"])
+        bank, flags_ = banks[name]
+        log(f"remainder make_attr_bank {name}: bank {bank.shape} flags "
+            f"{flags_.shape} text_encode_ms={sum(timings['text']) * 1e3:.1f} "
+            f"({len(timings['text'])} classes) kmeans_s="
+            f"{timings['kmeans'][0]:.3f} main_s={wall:.2f} ({card}; host "
+            f"os.cpu_count()={os.cpu_count()})")
+        k = 224 if name.startswith("coco") else 112
+        n_cls = 80 if name.startswith("coco") else 20
+        if not (bank.shape == (512, k) and flags_.shape == (n_cls, k)
+                and np.isfinite(bank).all()
+                and (flags_.sum(axis=1) >= 1).all()):
+            raise AssertionError(f"remainder make_attr_bank {name}: shapes "
+                                 "or flags")
+    err = float(np.abs(banks["voc_card"][0] - banks["voc_cpu"][0]).max())
+    same = np.array_equal(banks["voc_card"][1], banks["voc_cpu"][1])
+    log(f"remainder make_attr_bank voc card against cpu: class_flags equal "
+        f"{same}, cluster_bank max_abs_err={err:.3g} (bound {ATTR_BANK_TOL})")
+    if not (same and err <= ATTR_BANK_TOL):
+        raise AssertionError("remainder make_attr_bank: card against CPU")
+
+
+@contextlib.contextmanager
+def _without_pillow():
+    """`import PIL` raises inside the block (the card's machine may have
+    Pillow; the port's readers must not need it)."""
+    saved = {k: v for k, v in sys.modules.items()
+             if k == "PIL" or k.startswith("PIL.")}
+    for k in saved:
+        del sys.modules[k]
+    sys.modules["PIL"] = None
+    try:
+        yield
+    finally:
+        del sys.modules["PIL"]
+        sys.modules.update(saved)
+
+
+def host_package(dist: str) -> str:
+    """A distribution's installed version from its metadata (nothing is
+    imported), or "absent"."""
+    import importlib.metadata
+
+    try:
+        return importlib.metadata.version(dist)
+    except importlib.metadata.PackageNotFoundError:
+        return "absent"
+
+
+def jpeg_train_dataset(root: str, photo: bytes, shape: tuple):
+    """The crop pipeline's dataset over a VOC tree of JPEG_TREE copies of
+    one VOC-sized photo, each with a two-class mask."""
+    import dataclasses
+
+    from excel_tpu_torch.cli import common
+    from excel_tpu_torch.config import voc_config
+    from excel_tpu_torch.data.png import encode_png
+
+    for sub in ("JPEGImages", "SegmentationClassAug", "splits"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    mask = np.zeros(shape, np.uint8)
+    mask[shape[0] // 4:shape[0] * 3 // 4, shape[1] // 3:] = 15
+    mask[:, :4] = 255
+    mask_png = encode_png(mask)
+    names = [f"jpeg_{i:03d}" for i in range(JPEG_TREE)]
+    for name in names:
+        with open(os.path.join(root, "JPEGImages", name + ".jpg"), "wb") as f:
+            f.write(photo)
+        with open(os.path.join(root, "SegmentationClassAug", name + ".png"),
+                  "wb") as f:
+            f.write(mask_png)
+    with open(os.path.join(root, "splits", "train_aug.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    cfg = voc_config()
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, root_dir=root, split_dir=os.path.join(root, "splits"),
+        dataset="synthetic_voc", train_split="train_aug"))
+    return common.train_dataset(cfg)
+
+
+def _pillow_jpeg(real):
+    """`datasets._read` with JPEG files opened by Pillow, as the readers
+    did before the port had a decoder (timed only, like a library call)."""
+    from PIL import Image
+
+    from excel_tpu_torch.data import jpeg
+
+    def read(path):
+        with open(path, "rb") as f:
+            header = f.read(3)
+        return Image.open(path) if jpeg.is_jpeg(header) else real(path)
+    return read
+
+
+def remainder_jpeg_routes(card: str, pillow: str, expected: dict,
+                          work: str) -> None:
+    """`read_image` over JPEG files through the port's decoder and, where
+    Pillow is installed, through Pillow, in turns (Pillow, decoder,
+    decoder, Pillow): one thread, JPEG_THREADS threads of the loader's pool
+    on the VOC-sized file and on all fixtures, and the crop pipeline's
+    batch stream at JPEG_THREADS workers."""
+    from excel_tpu_torch.data import datasets
+    from excel_tpu_torch.data.loader import _ordered_pool_map, train_batches
+
+    timed = os.path.join(JPEG_DIR, JPEG_TIMED)
+    paths = [os.path.join(JPEG_DIR, n) for n in sorted(expected)]
+    with open(timed, "rb") as f:
+        dataset = jpeg_train_dataset(os.path.join(work, "jpeg_tree"),
+                                     f.read(),
+                                     tuple(expected[JPEG_TIMED]["shape"][:2]))
+
+    def pool_rate(files):
+        t0 = time.perf_counter()
+        n = sum(1 for _ in _ordered_pool_map(datasets.read_image, files,
+                                             JPEG_THREADS, JPEG_THREADS))
+        return n / (time.perf_counter() - t0)
+
+    turns = ["decoder"]
+    if pillow != "absent":
+        turns = ["pillow", "decoder", "decoder", "pillow"]
+    for route in turns:
+        with (_patched(datasets, "_read", _pillow_jpeg) if route == "pillow"
+              else contextlib.nullcontext()):
+            if isinstance(datasets._read(timed), tuple) != (route ==
+                                                            "decoder"):
+                raise AssertionError(f"remainder jpeg: read_image did not "
+                                     f"take the {route} route")
+            times = []
+            for _ in range(21):
+                t0 = time.perf_counter()
+                datasets.read_image(timed)
+                times.append((time.perf_counter() - t0) * 1e3)
+            one = statistics.median(times[1:])
+            timed_rate = pool_rate([timed] * 80)
+            reps = 10
+            fixtures_rate = pool_rate(paths * reps)
+            t0 = time.perf_counter()
+            batches = train_batches(dataset, JPEG_BATCH, seed=0,
+                                    num_workers=JPEG_THREADS)
+            for _ in range(JPEG_BATCHES):
+                next(batches)
+            batch_ms = (time.perf_counter() - t0) * 1e3 / JPEG_BATCHES
+            batches.close()
+        log(f"remainder jpeg route={route} (Pillow {pillow}): {JPEG_TIMED} "
+            f"read_image_ms={one:.3f} (median of 20, one thread), "
+            f"{timed_rate:.1f} img/s at {JPEG_THREADS} threads "
+            f"({timed_rate * one / 1e3:.2f}x one thread); the "
+            f"{len(paths)} fixtures x {reps} through _ordered_pool_map at "
+            f"{JPEG_THREADS} threads {fixtures_rate:.1f} img/s; "
+            f"train_batches B={JPEG_BATCH} at {JPEG_THREADS} workers over "
+            f"{JPEG_TREE} copies of {JPEG_TIMED} batch_ms={batch_ms:.1f} "
+            f"(the first {JPEG_BATCHES} batches' wall over their count; "
+            f"{card}; host os.cpu_count()={os.cpu_count()})")
+
+
+def remainder_jpeg(card: str, flags: list, work: str) -> None:
+    """(c) JPEG on the card's host: both read routes timed, then with
+    Pillow blocked the fixtures' digests and an eval CLI over a tree of
+    real JPEG files."""
+    with open(os.path.join(JPEG_DIR, "expected.json")) as f:
+        expected = json.load(f)
+    pillow = host_package("pillow")
+    remainder_jpeg_routes(card, pillow, expected, work)
+    with _without_pillow():
+        _remainder_jpeg(card, flags, work, expected, pillow)
+
+
+def _remainder_jpeg(card: str, flags: list, work: str, expected: dict,
+                    pillow: str) -> None:
+    import hashlib
+
+    from excel_tpu_torch.cli import common, infer_lam
+    from excel_tpu_torch.config import voc_config
+    from excel_tpu_torch.data import jpeg
+    from excel_tpu_torch.data.datasets import read_label
+    from excel_tpu_torch.engine import evaluate
+
+    files = {}
+    for name in sorted(expected):
+        with open(os.path.join(JPEG_DIR, name), "rb") as f:
+            files[name] = f.read()
+    bad = []
+    for name, data in files.items():
+        if not jpeg.supported(data):
+            bad.append(f"{name}: {jpeg.unsupported_variant(data)}")
+            continue
+        pixels = jpeg.decode_jpeg(data)
+        if (list(pixels.shape) != expected[name]["shape"]
+                or hashlib.sha256(pixels.tobytes()).hexdigest()
+                != expected[name]["sha256"]):
+            bad.append(name)
+    log(f"remainder jpeg: {len(files)} fixtures, {len(files) - len(bad)} "
+        f"equal to their recorded SHA-256 of Pillow's decode (Pillow "
+        f"{pillow}, blocked)")
+    if bad:
+        raise AssertionError(f"remainder jpeg: {bad}")
+
+    # the CLIs' synthetic tree with its first images as JPEG files
+    args = argparse.Namespace(
+        work_dir=work, synthetic=flags[flags.index("--synthetic") + 1],
+        tiny=False)
+    cfg = common.build_synthetic(args, voc_config())
+    img_dir = os.path.join(cfg.data.root_dir, "JPEGImages")
+    for i in range(JPEG_SYNTH):
+        with open(os.path.join(img_dir, f"synth_{i:06d}.jpg"), "wb") as f:
+            f.write(files[f"synth_{i:06d}.jpg"])
+    label_dir = os.path.join(cfg.data.root_dir, "SegmentationClassAug")
+    valid = sum(int((read_label(os.path.join(label_dir, fn)) != 255).sum())
+                for fn in sorted(os.listdir(label_dir)))
+    hists = []
+
+    def keeping(real):
+        def scores(hist):
+            hists.append(hist.cpu().clone())
+            return real(hist)
+        return scores
+
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _patched(evaluate, "scores_from_hist", keeping):
+        out = infer_lam.main(["--training-free", "--fast"] + flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_launches("fast", training=False)
+    counted = int(hists[0].sum())
+    log(f"remainder jpeg infer_lam --training-free --fast: {CLI_SAMPLES} "
+        f"images ({JPEG_SYNTH} JPEG) main_s={wall:.3f} ({card}) miou="
+        f"{float(out['miou']):.4f} hist {counted} pixels of {valid} valid; "
+        "launches=" + json.dumps({k: v for k, v in counts.items() if v}))
+    missing = [k for k in JPEG_CLI_KERNELS if counts[k] <= 0]
+    if counted != valid or missing or not np.isfinite(out["miou"]):
+        raise AssertionError(f"remainder jpeg infer_lam: {counted} of "
+                             f"{valid} pixels, no launch of {missing}")
+
+
+def phase_remainder(smi: str) -> None:
+    """The ModifiedResNet tower, the attribute-bank tool with its own
+    KMeans, and JPEG without Pillow (module docstring, phase 10)."""
+    from excel_tpu_torch.config import voc_config
+    from excel_tpu_torch.models.params import init_clip_params
+
+    card = smi.replace(", ", " ")
+    t0 = time.perf_counter()
+    log("remainder: host packages (their metadata; nothing imported): "
+        + ", ".join(f"{d} {host_package(d)}"
+                    for d in ("pillow", "scikit-learn", "scipy")))
+    remainder_resnet(card)
+    clip_cpu = init_clip_params(voc_config().clip,
+                                torch.Generator().manual_seed(0),
+                                device="cpu")
+    with cli_workspace(clip_cpu, "remainder_") as (work, flags, _):
+        del clip_cpu
+        remainder_attr_bank(card, flags, work)
+        remainder_jpeg(card, flags, work)
+    log(f"remainder: phase {time.perf_counter() - t0:.1f} s")
+
+
 _ATT = "excel_tpu/models/attention_pallas.py"
 _PAR = "excel_tpu/ops/par_pallas.py"
 _CSRC = "excel_tpu_torch/csrc/"
@@ -3383,6 +3841,7 @@ def main() -> int:
     phase_text_cli(smi)
     records.update(phase_train_cli(smi))
     phase_host_crf(smi)
+    phase_remainder(smi)
     phase_ranks(smi)
     table = []
     for name, (source, replaces) in SOURCES.items():

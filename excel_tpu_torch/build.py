@@ -8,9 +8,10 @@ and every header in `csrc/`, so an edited source builds anew and a stale
 library is never loaded. Libraries are built at first use; `build()` builds
 several at once, one nvcc process per source, all started together.
 
-`native/densecrf.cpp` (the permutohedral-lattice dense CRF, a host
-library) is compiled by `build_host()` into `_build/libexcelcrf-<hash>.so`,
-the hash covering the source, the flags and the host's CPU (the library is
+The host libraries, `native/densecrf.cpp` (the permutohedral-lattice dense
+CRF) and `native/jpeg.cpp` (the JPEG decoder), are compiled by
+`build_host(name)` into `_build/<library>-<hash>.so` (`HOST_SOURCES`), the
+hash covering the source, the flags and the host's CPU (the library is
 built for it with -march=native).
 """
 from __future__ import annotations
@@ -26,8 +27,11 @@ import time
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
-HOST_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           "native", "densecrf.cpp")
+NATIVE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "native")
+# host source name -> (its file, its library's name)
+HOST_SOURCES = {"densecrf": (os.path.join(NATIVE, "densecrf.cpp"),
+                             "libexcelcrf"),
+                "jpeg": (os.path.join(NATIVE, "jpeg.cpp"), "libexceljpeg")}
 GXX = "g++"
 GXX_FLAGS = ("-O3", "-std=c++17", "-funroll-loops", "-shared", "-fPIC")
 # tried in turn: native SIMD with OpenMP, OpenMP alone, neither (the
@@ -142,21 +146,23 @@ def _host_cpu() -> str:
         return platform.machine()
 
 
-def host_library_path() -> str:
+def host_library_path(name: str = "densecrf") -> str:
+    source, lib = HOST_SOURCES[name]
     h = hashlib.sha256(" ".join(GXX_FLAGS + sum(GXX_EXTRA, ())).encode())
     h.update(_host_cpu().encode())
-    with open(HOST_SOURCE, "rb") as f:
+    with open(source, "rb") as f:
         h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libexcelcrf-{h.hexdigest()[:12]}.so")
+    return os.path.join(BUILD_DIR, f"{lib}-{h.hexdigest()[:12]}.so")
 
 
-def build_host() -> float:
-    """Compile the host lattice CRF unless its library is built; returns the
-    seconds it took (0.0 for a library already built). Each attempt of the
-    flag ladder writes a pid-suffixed file that is renamed into place, so
-    processes building at once never load a half-written library. Raises
-    with g++'s output when every attempt fails."""
-    out = host_library_path()
+def build_host(name: str = "densecrf") -> float:
+    """Compile the host library `name` of HOST_SOURCES unless it is built;
+    returns the seconds it took (0.0 for a library already built). Each
+    attempt of the flag ladder writes a pid-suffixed file that is renamed
+    into place, so processes building at once never load a half-written
+    library. Raises with g++'s output when every attempt fails."""
+    source = HOST_SOURCES[name][0]
+    out = host_library_path(name)
     if os.path.exists(out):
         return 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -165,15 +171,14 @@ def build_host() -> float:
     try:
         for extra in GXX_EXTRA:
             proc = subprocess.run([GXX, *extra, *GXX_FLAGS, "-o", tmp,
-                                   HOST_SOURCE], capture_output=True,
-                                  text=True)
+                                   source], capture_output=True, text=True)
             if proc.returncode == 0:
                 os.replace(tmp, out)
                 return time.perf_counter() - t0
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
-    raise RuntimeError(f"{GXX} failed to build {HOST_SOURCE} "
+    raise RuntimeError(f"{GXX} failed to build {source} "
                        f"(rc {proc.returncode}):\n{proc.stderr}")
 
 

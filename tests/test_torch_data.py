@@ -241,21 +241,26 @@ def test_jax_readers_see_the_ports_samples(tmp_path):
 
 
 def test_read_image_without_pillow(tmp_path, monkeypatch):
-    """A JPEG goes through Pillow when it is installed (as the JAX
-    package's reader), and raises a clear error when it is not; a PNG never
-    needs it."""
+    """A JPEG decodes without Pillow (the port's decoder), equal to the JAX
+    package's reader (Pillow); a PNG never needs Pillow; a GIF, which the
+    port does not decode, raises a clear error naming Pillow where it is
+    absent."""
     from excel_tpu.data.datasets import read_image as jax_read_image
 
     photo = _photo(np.random.default_rng(4))
     jpg = str(tmp_path / "a.jpg")
     Image.fromarray(photo).save(jpg, quality=90)
-    np.testing.assert_array_equal(pds.read_image(jpg), jax_read_image(jpg))
+    gif = str(tmp_path / "a.gif")
+    Image.fromarray(photo).save(gif)
+    ref = jax_read_image(jpg)
+    np.testing.assert_array_equal(pds.read_image(gif), jax_read_image(gif))
     png = str(tmp_path / "a.png")
     with open(png, "wb") as f:
         f.write(encode_png(photo[..., 0]))
     monkeypatch.setitem(sys.modules, "PIL", None)
+    np.testing.assert_array_equal(pds.read_image(jpg), ref)
     with pytest.raises(RuntimeError, match="Pillow"):
-        pds.read_image(jpg)
+        pds.read_image(gif)
     np.testing.assert_array_equal(pds.read_image(png),
                                   np.repeat(photo[..., :1], 3, axis=2))
 

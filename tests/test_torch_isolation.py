@@ -1,9 +1,10 @@
 """The port stands alone: no module of excel_tpu_torch and no line of
 chip_smoke.py or of the port's kernel timing tools imports jax or
-excel_tpu; with jax, excel_tpu, Pillow and regex blocked (the machine with
-the card has neither of the last two) every module imports and the eval
-and train CLIs run; and its entry points refuse to fall back to the CPU
-when no GPU is present."""
+excel_tpu; with jax, excel_tpu, Pillow, regex and scikit-learn blocked
+(the port must need none of them where the card is) every module
+imports, the eval and train CLIs and the attribute-bank tool run, the
+ResNet tower runs and a JPEG is read; and its entry points refuse to fall
+back to the CPU when no GPU is present."""
 import ast
 import os
 import subprocess
@@ -15,7 +16,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "excel_tpu")
 # absent where the card is: blocked when the port runs below
-BLOCKED = FORBIDDEN + ("PIL", "regex")
+BLOCKED = FORBIDDEN + ("PIL", "regex", "sklearn")
 
 
 def _port_files():
@@ -50,22 +51,34 @@ def test_port_sources_import_no_jax():
 
 def test_port_imports_with_jax_blocked(tmp_path):
     """Import every port module (and chip_smoke) in a fresh interpreter in
-    which importing jax, excel_tpu, PIL or regex raises; then tokenize and
-    run the eval CLIs at the tiny config on a 2-image synthetic tree (CAM
-    overlays and palette PNGs written, the PNGs rescored; infer_seg and
-    infer_lam with the host CRF, the lattice built by g++), and the train
-    CLI for 2 steps with validation, TensorBoard events and PNG panels."""
+    which importing jax, excel_tpu, PIL, regex or sklearn raises; then
+    tokenize and run the eval CLIs at the tiny config on a 2-image
+    synthetic tree (CAM overlays and palette PNGs written, the PNGs
+    rescored; infer_seg and infer_lam with the host CRF, the lattice built
+    by g++), the train CLI for 2 steps with validation, TensorBoard events
+    and PNG panels, make_attr_bank (the tiny config with the tokenizer's
+    context and vocabulary; its own KMeans), a tiny ResNet tower's forward,
+    and read_image / read_label on the JPEG fixtures (the decoder built by
+    g++)."""
     modules = []
     for path in _port_files():
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
         modules.append(rel[:-len(".__init__")] if rel.endswith("__init__")
                        else rel)
     code = f"""
-import sys
+import importlib.abc, importlib.machinery, sys
+class Refuse(importlib.abc.Loader):
+    def create_module(self, spec):
+        raise ImportError("blocked " + spec.name)
+    def exec_module(self, module):
+        pass
 class Block:
+    # a spec without an origin whose import raises: `import x` fails, and a
+    # probe by importlib.util.find_spec (torch's, for optional packages)
+    # sees nothing to load
     def find_spec(self, name, path=None, target=None):
         if any(name == f or name.startswith(f + ".") for f in {BLOCKED!r}):
-            raise ImportError("blocked " + name)
+            return importlib.machinery.ModuleSpec(name, Refuse())
 sys.meta_path.insert(0, Block())
 sys.path.insert(0, {ROOT!r})
 import importlib
@@ -88,6 +101,55 @@ from excel_tpu_torch.cli import train
 state = train.main(flags + ["--max-iters", "2", "--eval-iters", "2",
                             "--log-iters", "1", "--tensorboard", "--viz"])
 assert state.step == 2
+import dataclasses
+import numpy as np
+import torch
+from excel_tpu_torch.cli import common, make_attr_bank
+tiny = common.tiny_config
+common.tiny_config = lambda: dataclasses.replace(tiny(), clip=dataclasses.replace(
+    tiny().clip, context_length=77, vocab_size=49408))
+bank = {str(tmp_path / "bank.npz")!r}
+make_attr_bank.main(["--tiny", "--random-init", "--device", "cpu",
+                     "--out", bank])
+with np.load(bank) as z:
+    assert z["cluster_bank"].shape == (32, 12) and z["class_flags"].shape == (20, 12)
+    assert (z["class_flags"].sum(axis=1) >= 1).all()
+from excel_tpu_torch.models import resnet
+g = torch.Generator().manual_seed(0)
+sd = {{}}
+def conv(key, o, i, k):
+    sd[key] = torch.randn(o, i, k, k, generator=g) * (i * k * k) ** -0.5
+def bn(prefix, c):
+    sd[prefix + ".weight"], sd[prefix + ".bias"] = torch.ones(c), torch.zeros(c)
+    sd[prefix + ".running_mean"], sd[prefix + ".running_var"] = torch.zeros(c), torch.ones(c)
+for j, (o, i) in enumerate(((4, 3), (4, 4), (8, 4)), 1):
+    conv(f"visual.conv{{j}}.weight", o, i, 3)
+    bn(f"visual.bn{{j}}", o)
+cin = 8
+for li in range(1, 5):
+    p = f"visual.layer{{li}}.0"
+    planes = 8 * 2 ** (li - 1)
+    conv(p + ".conv1.weight", planes, cin, 1); bn(p + ".bn1", planes)
+    conv(p + ".conv2.weight", planes, planes, 3); bn(p + ".bn2", planes)
+    conv(p + ".conv3.weight", planes * 4, planes, 1); bn(p + ".bn3", planes * 4)
+    conv(p + ".downsample.0.weight", planes * 4, cin, 1); bn(p + ".downsample.1", planes * 4)
+    cin = planes * 4
+sd["visual.attnpool.positional_embedding"] = torch.randn(5, 256, generator=g)
+for name, out in (("q_proj", 256), ("k_proj", 256), ("v_proj", 256), ("c_proj", 16)):
+    sd[f"visual.attnpool.{{name}}.weight"] = torch.randn(out, 256, generator=g) / 16
+    sd[f"visual.attnpool.{{name}}.bias"] = torch.zeros(out)
+cfg = resnet.infer_resnet_config(sd)
+params = resnet.convert_resnet_tower(sd, cfg, device="cpu")
+out = resnet.resnet_forward(params, torch.randn(2, 96, 64, 3, generator=g), cfg)
+assert out.shape == (2, 7, 16) and torch.isfinite(out).all()
+import json, os
+from excel_tpu_torch.data.datasets import read_image, read_label
+fixtures = os.path.join({ROOT!r}, "tests", "torch_fixtures", "jpeg")
+with open(os.path.join(fixtures, "expected.json")) as f:
+    expected = json.load(f)
+for name in ("synth_000000.jpg", "progressive.jpg"):
+    assert list(read_image(os.path.join(fixtures, name)).shape) == expected[name]["shape"]
+assert list(read_label(os.path.join(fixtures, "grey.jpg")).shape) == expected["grey.jpg"]["shape"]
 assert not any(k.split(".")[0] in {BLOCKED!r} for k in sys.modules)
 """
     env = dict(os.environ, OMP_NUM_THREADS="1")
