@@ -21,7 +21,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    resident launch against row 7's 20 chained steps), and the fast train
    step's pad-clamp, affinity and resident diffusion at its shapes (the
    resident launch also against 20 step launches; `F.pad` timed as
-   pad-clamp's library call there; the affinity's bound from the
+   pad-clamp's library call there, and at the eval shape beside the kernel
+   on full extents; the affinity's bound from the
    instructions of its SASS); the attention kernels
    without weights and without ex at the MSC scales' token counts (197,
    577, 901 at 2 x 4 images; plain attention there and at 401 with
@@ -124,9 +125,34 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    thread), img/s of all of them through the loader's thread pool at 8
    threads, and `infer_lam --training-free --fast` over the eval CLIs'
    8-image synthetic tree whose first 4 images are their JPEG fixtures: its
-   hist counts every pixel of the 8 images, its kernels launched.
+   hist counts every pixel of the 8 images, its kernels launched; then,
+   where the host has Pillow, the same run with the JPEG files read
+   through Pillow and through the decoder in turns (Pillow, decoder,
+   decoder, Pillow; its one prefetch thread reads), walls and equal scores.
 
-11. multi-process runs (one process a device, `excel_tpu_torch.parallel`;
+11. the repository's entry points that needed JAX, with jax, excel_tpu and
+   Pillow blocked: (a) the four reference-style wrappers scripts/torch/*.sh
+   at once, each with bash from a directory holding the weights as
+   assets/clip_vit_b16.npz and a `python` on PATH that runs this script's
+   entry worker (`--entry-worker`: the module as __main__, its launches
+   written back): run_train.sh for 2 steps with validation and
+   infer_lam.sh --training-free over the CLIs' 8-image tree,
+   infer_seg_voc.sh with a seeded head over it, infer_seg_coco.sh over a
+   4-image COCO tree (palette masks, its cls_labels.npz written by
+   make_cls_labels) with a seeded COCO head; each exits 0, writes what its
+   CLI writes and launches its kernels; (b) `cli.make_cls_labels` over the
+   CLIs' tree, equal to the masks' classes; (c) `cli.demo` at its defaults
+   (fp32, 320 px, B=4) on the card: OK, 2 x the eval batch's launches,
+   labels against `--device cpu` >= 0.999, its steady-state time; (d) the
+   two protocols of tests/test_convergence.py at tiny_config in fp32 on the
+   card, held to its thresholds (last-5 mean seg loss < 0.8 x first-5,
+   loss-step correlation < -0.3; trained mIoU > the random head's + 0.05),
+   then the mIoU protocol at full width in the fast preset with its own
+   schedule (B=4, crop 320, 200 steps on a 16-image tree): the losses
+   finite and falling, the trend, both heads' mIoU and the steps' wall
+   reported.
+
+12. multi-process runs (one process a device, `excel_tpu_torch.parallel`;
    the machine has one card and NCCL refuses two ranks on one device):
    (a) NCCL as a group of one on cuda:0 (torchrun's variables set in this
    process): one fast train step and one LAM batch (`run_lam_eval`, its
@@ -156,8 +182,10 @@ fp32 and bf16 steps on valid or full extents, the step at the CRF's 72
 offsets) over all main-path runs: the eval slices with their CRF sweeps,
 the MSC slices, the train steps, the two trained sweeps, the CLIs, the
 train CLI's two runs, the COCO steps, (d)'s two refinements, the host
-CRF's four CLI runs and the multi-process phase's runs (both ranks' and the
-one process's they are held against).
+CRF's four CLI runs, the JPEG routes' CLI runs, the entry points' runs
+(the wrappers', the demo's, the convergence runs' steps and sweeps) and
+the multi-process phase's runs (both ranks' and the one process's they are
+held against).
 The line before the last is the JSON kernel table; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": <name>, "count": N}}.
 It imports neither jax nor excel_tpu. It exits non-zero without a CUDA
@@ -167,6 +195,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import io
 import json
 import logging
 import os
@@ -745,6 +774,26 @@ def phase_kernels_fast() -> dict:
     # (check_fast_train_par); at these valid extents no one call computes it
     records["pad_replicate_valid"] = dict(rec, bound_by="bytes",
                                           library_ms=None)
+    # F.pad (replicate) of both tensors at this shape, timed beside the
+    # kernel with full extents, where the two compute the same canvas
+    full = torch.tensor([[PAR_H, PAR_W]] * B, device="cuda",
+                        dtype=torch.int32)
+    full_ms = lib_ms = 0.0
+    for x in (images, masks):
+        got = pk.pad_replicate_valid(x, full, PAR_PAD)
+        hp, wp = got.shape[2:]
+        lib_pad = (PAR_PAD, wp - PAR_W - PAR_PAD, PAR_PAD,
+                   hp - PAR_H - PAR_PAD)
+        if not torch.equal(F.pad(x, lib_pad, mode="replicate"), got):
+            raise AssertionError("pad_replicate_valid != F.pad replicate at "
+                                 "the eval shape's full extents")
+        full_ms += time_ms(lambda: pk.pad_replicate_valid(x, full, PAR_PAD),
+                           20)
+        lib_ms += time_ms(lambda: F.pad(x, lib_pad, mode="replicate"), 20)
+    log(f"kernel pad_replicate_valid eval shape, full extents, images fp32 + "
+        f"masks bf16 [{B}, ., {PAR_H}, {PAR_W}] -> {tuple(got.shape[2:])}: "
+        f"equal to F.pad replicate; kernel_ms={full_ms:.4f} library_ms "
+        f"(F.pad replicate, both)={lib_ms:.4f}")
 
     # -- affinity: padded fp32 image -> bf16 [B, 48, 384, 512] ------------
     ip = pk.pad_replicate_valid(images, valid, PAR_PAD)
@@ -3543,19 +3592,26 @@ def remainder_attr_bank(card: str, flags: list, work: str) -> None:
         raise AssertionError("remainder make_attr_bank: card against CPU")
 
 
+# absent where the card is (jax, the JAX package) or not needed by the port
+# (Pillow): the entry points run with each of them blocked
+ENTRY_BLOCKED = ("jax", "jaxlib", "excel_tpu", "PIL")
+
+
 @contextlib.contextmanager
-def _without_pillow():
-    """`import PIL` raises inside the block (the card's machine may have
-    Pillow; the port's readers must not need it)."""
+def _without(names=ENTRY_BLOCKED):
+    """`import <name>` (and of its submodules) raises inside the block, for
+    each of `names`."""
     saved = {k: v for k, v in sys.modules.items()
-             if k == "PIL" or k.startswith("PIL.")}
+             if k.split(".")[0] in names}
     for k in saved:
         del sys.modules[k]
-    sys.modules["PIL"] = None
+    for name in names:
+        sys.modules[name] = None
     try:
         yield
     finally:
-        del sys.modules["PIL"]
+        for name in names:
+            del sys.modules[name]
         sys.modules.update(saved)
 
 
@@ -3684,8 +3740,40 @@ def remainder_jpeg(card: str, flags: list, work: str) -> None:
         expected = json.load(f)
     pillow = host_package("pillow")
     remainder_jpeg_routes(card, pillow, expected, work)
-    with _without_pillow():
+    with _without(("PIL",)):
         _remainder_jpeg(card, flags, work, expected, pillow)
+    if pillow != "absent":
+        remainder_jpeg_sweep_routes(card, pillow, flags)
+
+
+def remainder_jpeg_sweep_routes(card: str, pillow: str, flags: list) -> None:
+    """`infer_lam --training-free --fast` over the tree of `_remainder_jpeg`
+    (its first JPEG_SYNTH images JPEG files) with the JPEG files read
+    through Pillow and through the decoder in turns (Pillow, decoder,
+    decoder, Pillow): the sweep reads in its one prefetch thread while the
+    main thread launches kernels. Scores equal in every turn."""
+    from excel_tpu_torch.cli import infer_lam
+    from excel_tpu_torch.data import datasets
+
+    walls, scores = {}, []
+    for turn, route in enumerate(("pillow", "decoder", "decoder", "pillow")):
+        with (_patched(datasets, "_read", _pillow_jpeg) if route == "pillow"
+              else contextlib.nullcontext()):
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = infer_lam.main(["--training-free", "--fast"] + flags)
+            torch.cuda.synchronize()
+            walls[f"{route}{turn}"] = time.perf_counter() - t0
+            read_launches("fast", training=False)
+        scores.append(json.dumps(_flat_scores(out)))
+    log(f"remainder jpeg infer_lam --training-free --fast by route "
+        f"(Pillow {pillow}; {CLI_SAMPLES} images, {JPEG_SYNTH} JPEG; one "
+        f"prefetch thread; {card}; host clock) main_s "
+        + " ".join(f"{k}={v:.3f}" for k, v in walls.items())
+        + f"; scores equal in every turn: {len(set(scores)) == 1}")
+    if len(set(scores)) != 1:
+        raise AssertionError("remainder jpeg: the routes' scores differ")
 
 
 def _remainder_jpeg(card: str, flags: list, work: str, expected: dict,
@@ -3779,6 +3867,461 @@ def phase_remainder(smi: str) -> None:
     log(f"remainder: phase {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the repository's entry points without JAX
+# ---------------------------------------------------------------------------
+
+WRAPPER_TIMEOUT_S = 600
+COCO_SAMPLES = 4
+# wrapper -> the kernel wrappers its run must launch (the fast preset)
+WRAPPER_KERNELS = {
+    "run_train": ("plain_attention", "surgery_attention",
+                  "pad_replicate_valid", "par_affinity",
+                  "par_diffuse_valid_resident"),
+    "infer_lam": ("plain_attention", "surgery_attention",
+                  "pad_replicate_valid", "par_affinity",
+                  "par_diffuse_valid_resident"),
+    "infer_seg_voc": ("plain_attention", "surgery_attention"),
+    "infer_seg_coco": ("plain_attention", "surgery_attention"),
+}
+DEMO_CALLS = 2          # run_demo's first and steady-state calls
+# the convergence protocols of tests/test_convergence.py (tiny_config):
+# (steps, schedule overrides, tree size range)
+CONV_LOSS = (40, dict(max_iters=400, warmup_iters=5, lr=5e-4), (64, 96))
+CONV_MIOU = (60, dict(max_iters=200, warmup_iters=5, lr=5e-4), (100, 150))
+CONV_MIOU_PAD = 160
+# the same at full width in the fast preset: B=4, crop 320, on a 16-image
+# tree, with the preset's own schedule (its first 200 steps: the warmup to
+# a head rate of 1e-3 by step 50); the tiny protocols' schedule reaches 5x
+# that rate 10x sooner, and the full-width head's seg loss diverges there
+CONV_FULL_STEPS, CONV_FULL_IMAGES = 200, 16
+CONV_WORKERS = 8
+
+
+def entry_worker(out_json: str, argv: list) -> int:
+    """A wrapper's `python -m <module> ...`, run by `run_wrappers` through
+    the `python` it puts on PATH: the module as __main__ with ENTRY_BLOCKED
+    blocked, its kernel launches written to `out_json`."""
+    import runpy
+
+    if argv[:1] != ["-m"] or not argv[1].startswith("excel_tpu_torch.cli."):
+        raise SystemExit(f"entry worker: not a module of the port's CLIs: "
+                         f"{argv[:2]}")
+    sys.path.insert(0, ROOT)
+    module = argv[1]
+    with _without():
+        reset_launches()
+        sys.argv = [module] + argv[2:]
+        runpy.run_module(module, run_name="__main__", alter_sys=True)
+        counts = read_launches("fast" if "--fast" in argv else "fp32",
+                               training=module.endswith(".train"))
+    with open(out_json, "w") as f:
+        json.dump({"module": module, "counts": counts, "rows": ROW_LAUNCHES},
+                  f)
+    return 0
+
+
+def start_wrappers(work: str, clip_npz: str, voc_root: str,
+                   head_npz: str) -> dict:
+    """Each scripts/torch wrapper started with bash from `<work>/wrappers`
+    (its assets/clip_vit_b16.npz: `clip_npz`), with a `python` on PATH that
+    runs `entry_worker`: run_train for 2 steps with validation and
+    infer_lam --training-free over the CLIs' VOC tree, infer_seg_voc with
+    `head_npz` over it, infer_seg_coco with a seeded COCO head over a COCO
+    tree of COCO_SAMPLES images (its cls_labels.npz written by
+    make_cls_labels). Returns {wrapper: (process, its work dir, its
+    launches' json, its log)}; the four run at once on the card."""
+    from excel_tpu_torch.cli import make_cls_labels
+    from excel_tpu_torch.config import coco_config
+    from excel_tpu_torch.data.synthetic import make_coco_tree
+    from excel_tpu_torch.engine.checkpoint import save_head_npz
+    from excel_tpu_torch.models.head import init_head_params
+
+    cwd = os.path.join(work, "wrappers")
+    os.makedirs(os.path.join(cwd, "assets"))
+    os.symlink(clip_npz, os.path.join(cwd, "assets", "clip_vit_b16.npz"))
+    coco_root = os.path.join(work, "coco")
+    coco_split = make_coco_tree(coco_root, "val", num_images=COCO_SAMPLES,
+                                seed=1)
+    with _without(), contextlib.redirect_stdout(sys.stderr):
+        make_cls_labels.main(["--dataset", "coco", "--data-root", coco_root,
+                              "--split-dir", coco_split, "--splits", "val",
+                              "--out", os.path.join(coco_split,
+                                                    "cls_labels.npz")])
+    cfg = coco_config()
+    coco_head = os.path.join(work, "coco_head.npz")
+    save_head_npz(coco_head, init_head_params(
+        cfg.head, cfg.num_classes, torch.Generator().manual_seed(1),
+        device="cpu"))
+    voc_split = os.path.join(voc_root, "splits")
+    runs = {
+        "run_train": ["voc", voc_root, "--split-dir", voc_split,
+                      "--max-iters", "2", "--eval-iters", "2", "--log-iters",
+                      "1"],
+        "infer_lam": ["voc", voc_root, "--split-dir", voc_split,
+                      "--training-free", "--save-cam"],
+        "infer_seg_voc": [voc_root, "--split-dir", voc_split,
+                          "--save-preds"],
+        "infer_seg_coco": [coco_root, "--split-dir", coco_split,
+                           "--save-preds"],
+    }
+    started = {}
+    for name, args in runs.items():
+        out = os.path.join(cwd, "out_" + name)
+        bin_dir = os.path.join(cwd, "bin_" + name)
+        os.makedirs(bin_dir)
+        launches = os.path.join(cwd, name + ".json")
+        shim = os.path.join(bin_dir, "python")
+        with open(shim, "w") as f:
+            f.write(f'#!/bin/sh\nexec "{sys.executable}" '
+                    f'"{os.path.join(ROOT, "chip_smoke.py")}" --entry-worker '
+                    f'"{launches}" "$@"\n')
+        os.chmod(shim, 0o755)
+        # the positional arguments: (dataset,) data root, work dir, (head)
+        lead = args[:2] if name in ("run_train", "infer_lam") else args[:1]
+        rest = args[len(lead):]
+        head = ([head_npz] if name == "infer_seg_voc" else
+                [coco_head] if name == "infer_seg_coco" else [])
+        log_path = os.path.join(cwd, name + ".log")
+        env = dict(os.environ,
+                   PATH=bin_dir + os.pathsep + os.environ.get("PATH", ""))
+        with open(log_path, "w") as log_f:
+            proc = subprocess.Popen(
+                ["bash", os.path.join(ROOT, "scripts", "torch", name + ".sh")]
+                + lead + [out] + head + rest, cwd=cwd, env=env,
+                stdout=log_f, stderr=subprocess.STDOUT)
+        started[name] = (proc, out, launches, log_path)
+    return started
+
+
+def check_wrappers(started: dict, card: str, t_start: float) -> None:
+    """Wait for each wrapper's process, check what its CLI writes and its
+    kernels' launches, and add them to ROW_LAUNCHES; on any failure (a
+    wrapper past WRAPPER_TIMEOUT_S too) the processes still running are
+    killed."""
+    try:
+        for name, run in started.items():
+            _check_wrapper(name, *run, card, t_start)
+    finally:
+        for proc, *_ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+
+def _check_wrapper(name: str, proc, out: str, launches: str, log_path: str,
+                   card: str, t_start: float) -> None:
+    rc = proc.wait(timeout=max(1.0, WRAPPER_TIMEOUT_S - (
+        time.perf_counter() - t_start)))
+    with open(log_path) as f:
+        text = f.read()
+    if rc != 0:
+        raise AssertionError(f"wrapper {name}: exit code {rc}:\n"
+                             + text[-3000:])
+    with open(launches) as f:
+        rec = json.load(f)
+    for row, n in rec["rows"].items():
+        ROW_LAUNCHES[row] = ROW_LAUNCHES.get(row, 0) + n
+    if name == "run_train":
+        wrote = [f for f in ("head_2.npz", "checkpoints/step_2.pt",
+                             "train.log")
+                 if os.path.exists(os.path.join(out, f))]
+        want = 3
+    else:
+        sub = "cams" if name == "infer_lam" else "preds"
+        d = os.path.join(out, sub)
+        wrote = sorted(os.listdir(d)) if os.path.isdir(d) else []
+        want = COCO_SAMPLES if name == "infer_seg_coco" else CLI_SAMPLES
+    miou = re.findall(r"mIoU\s+([0-9.]+)", text)
+    missing = [k for k in WRAPPER_KERNELS[name] if rec["counts"][k] <= 0]
+    log(f"entry wrapper scripts/torch/{name}.sh -> {rec['module']} "
+        f"(jax, excel_tpu and PIL blocked): exit 0, wrote {len(wrote)} "
+        f"of {want} ({', '.join(wrote[:2])}, ...), "
+        f"mIoU lines {miou}; launches="
+        + json.dumps({k: v for k, v in rec["counts"].items() if v})
+        + f" ({card})")
+    if len(wrote) != want or missing or not miou:
+        raise AssertionError(f"wrapper {name}: wrote {wrote}, no launch "
+                             f"of {missing}, mIoU lines {miou}")
+
+
+def entry_cls_labels(voc_root: str, work: str) -> None:
+    """make_cls_labels over the CLIs' VOC tree (both splits), equal to the
+    labels recomputed from the masks and to the tree's own file."""
+    from excel_tpu_torch.cli import make_cls_labels
+    from excel_tpu_torch.data.datasets import read_label
+
+    out = os.path.join(work, "cls_labels.npz")
+    split_dir = os.path.join(voc_root, "splits")
+    buf = io.StringIO()
+    with _without(), contextlib.redirect_stdout(buf):
+        make_cls_labels.main(["--dataset", "voc", "--data-root", voc_root,
+                              "--split-dir", split_dir, "--splits",
+                              "train_aug", "val", "--out", out])
+    with np.load(out) as z:
+        names, labels = z["names"], z["labels"]
+    want = np.zeros_like(labels)
+    for i, name in enumerate(names):
+        mask = read_label(os.path.join(voc_root, "SegmentationClassAug",
+                                       f"{name}.png"))
+        present = np.unique(mask)
+        want[i, present[(present > 0) & (present != 255)] - 1] = 1
+    with np.load(os.path.join(split_dir, "cls_labels.npz")) as z:
+        own = z["labels"]
+    same = (labels.dtype == np.uint8 and np.array_equal(labels, want)
+            and np.array_equal(labels[:len(own)], own))
+    log(f"entry make_cls_labels (jax, excel_tpu and PIL blocked): "
+        f"{len(names)} entries {labels.shape} {labels.dtype}, equal to the "
+        f"masks' classes and to the tree's file: {same}; printed "
+        f"{buf.getvalue().strip()!r}")
+    if not same or len(names) != 2 * CLI_SAMPLES:
+        raise AssertionError("entry make_cls_labels: labels differ")
+
+
+def entry_demo_cpu() -> np.ndarray:
+    """`cli.demo --device cpu` at its defaults: the labels the card's run
+    is held against."""
+    from excel_tpu_torch.cli import demo
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with _without(), contextlib.redirect_stdout(buf):
+        labels = demo.main(["--device", "cpu"])
+    log(f"entry demo --device cpu: {time.perf_counter() - t0:.1f} s "
+        f"(torch threads {torch.get_num_threads()}); "
+        + " | ".join(buf.getvalue().strip().splitlines()))
+    return labels
+
+
+def entry_demo(card: str, cpu_labels: np.ndarray) -> None:
+    """`cli.demo` at its defaults on the card (fp32, voc_config() width,
+    320 px, B=4): OK printed, every call's launches, labels against the
+    CPU's."""
+    from excel_tpu_torch.cli import demo
+
+    buf = io.StringIO()
+    reset_launches()
+    with _without(), contextlib.redirect_stdout(buf):
+        labels = demo.main([])
+    counts = read_launches("fp32", training=False)
+    out = buf.getvalue().strip().splitlines()
+    steady = re.search(r"steady-state: ([0-9.]+)ms", buf.getvalue())
+    agree = float((labels == cpu_labels).mean())
+    want = {k: DEMO_CALLS * v for k, v in LAUNCHES_PER_BATCH["fp32"].items()}
+    log(f"entry demo (the card, defaults; {card}): " + " | ".join(out))
+    log(f"entry demo steady_state_ms={steady and steady.group(1)} (B=4, "
+        f"320 px, fp32, host clock to a synchronise; {card}); labels "
+        f"against --device cpu: agreement {agree:.6f} (bound "
+        f"{MIN_LABEL_AGREEMENT}); launches=" + json.dumps(counts))
+    if (out[-1] != "OK" or not steady or agree < MIN_LABEL_AGREEMENT
+            or counts != want):
+        raise AssertionError(f"entry demo: last line {out[-1]!r}, agreement "
+                             f"{agree}, launches {counts} (want {want})")
+
+
+def conv_data(root: str, cfg, size_range, num_images: int):
+    """(crop dataset, eval dataset over the val split) of a synthetic VOC
+    tree at `root`, as tests/test_convergence.py builds them."""
+    from excel_tpu_torch.data.datasets import (ClsCropDataset, EvalDataset,
+                                               VocDataset)
+    from excel_tpu_torch.data.synthetic import make_voc_tree
+
+    split_dir = make_voc_tree(root, num_images=num_images, seed=0,
+                              num_fg=cfg.num_fg, size_range=size_range)
+    base = VocDataset(root, split_dir, "train_aug", "train")
+    vbase = VocDataset(root, split_dir, "val", "val")
+    base.num_fg = vbase.num_fg = cfg.num_fg
+    return (ClsCropDataset(base, crop_size=cfg.data.crop_size),
+            EvalDataset(vbase))
+
+
+def conv_train(cfg, params: dict, ds, text: torch.Tensor, steps: int,
+               workers: int = 1):
+    """`steps` uncalibrated steps without seg affinity from `params`' head
+    (trained in place) over `train_batches(ds, B, seed=0)`, dropout drawn
+    by `step_generator`: (seg losses, wall s to a synchronise)."""
+    from excel_tpu_torch.data.loader import train_batches
+    from excel_tpu_torch.engine.train import (init_train_state,
+                                              step_generator, train_step)
+
+    state = init_train_state(params["head"], cfg.train)
+    batches = train_batches(ds, cfg.train.batch_size, seed=0,
+                            num_workers=workers)
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        b = next(batches)
+        images = torch.from_numpy(b["image"]).cuda(non_blocking=True)
+        cls = torch.from_numpy(b["cls_label"].astype(np.float32)).cuda()
+        state, m = train_step(state, params["clip"], images, cls, text,
+                              step_generator(cfg.train, i, "cuda"), cfg,
+                              calibrated=False, seg_affinity=False)
+        losses.append(m["seg_loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    batches.close()
+    return [float(x) for x in losses], wall
+
+
+def conv_miou(cfg, params, eval_ds, text) -> float:
+    from excel_tpu_torch.engine.evaluate import run_msc_seg_eval
+
+    return float(run_msc_seg_eval(params, eval_ds, text, cfg, scales=(1.0,),
+                                  batch_size=2, device="cuda")["miou"])
+
+
+def conv_setup(cfg, root: str, size_range, num_images: int, cast: bool):
+    """(params, crops, eval dataset, text bank) of a convergence run: seeded
+    CLIP (seed 0; matmul weights cast to bf16 under the fast preset) and
+    head (seed 0) on the card, the protocol's numpy text bank."""
+    from excel_tpu_torch.models.excel import init_excel_params
+    from excel_tpu_torch.models.params import (cast_matmul_weights,
+                                               init_clip_params)
+
+    clip = init_clip_params(cfg.clip, torch.Generator().manual_seed(0),
+                            device="cuda")
+    if cast:
+        clip = cast_matmul_weights(clip, torch.bfloat16)
+    params = init_excel_params(cfg, clip, torch.Generator().manual_seed(0),
+                               device="cuda")
+    ds, eval_ds = conv_data(root, cfg, size_range, num_images)
+    text = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(cfg.num_fg + 3, cfg.clip.embed_dim)).astype(np.float32)).cuda()
+    return params, ds, eval_ds, text
+
+
+def _loss_trend(losses: list):
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    corr = float(np.corrcoef(np.arange(len(losses)), losses)[0, 1])
+    return first, last, corr
+
+
+def entry_convergence(card: str, work: str) -> None:
+    """tests/test_convergence.py's two protocols on the card at tiny_config
+    in fp32, held to its thresholds; then the mIoU protocol at full width
+    in the fast preset with the preset's schedule (B=4, crop 320,
+    CONV_FULL_STEPS steps on a CONV_FULL_IMAGES-image tree): its losses,
+    trend and both heads' mIoU reported, the losses finite and falling.
+    Every run's launches counted."""
+    import dataclasses
+
+    from excel_tpu_torch.config import fast, tiny_config, voc_config
+
+    def schedule(cfg, **train):
+        return dataclasses.replace(cfg, train=dataclasses.replace(
+            cfg.train, **train))
+
+    # (a) the loss protocol
+    steps, sched, size_range = CONV_LOSS
+    cfg = schedule(tiny_config(), **sched)
+    params, ds, _, text = conv_setup(cfg, os.path.join(work, "conv_loss"),
+                                     size_range, 4, cast=False)
+    reset_launches()
+    losses, wall = conv_train(cfg, params, ds, text, steps)
+    counts = read_launches("fp32", training=True)
+    first, last, corr = _loss_trend(losses)
+    ok = (np.isfinite(losses).all() and last < 0.8 * first and corr < -0.3)
+    log(f"entry convergence tiny fp32 loss protocol ({steps} steps, B="
+        f"{cfg.train.batch_size}): seg loss first-5 mean {first:.4f} last-5 "
+        f"mean {last:.4f} (ratio {last / first:.4f}, bound < 0.8) corr "
+        f"{corr:.4f} (bound < -0.3) wall_s={wall:.2f} ({card}); launches="
+        + json.dumps({k: v for k, v in counts.items() if v}))
+    if not ok:
+        raise AssertionError(f"entry convergence tiny loss: {first} -> "
+                             f"{last}, corr {corr}")
+
+    # (b) the mIoU protocol
+    steps, sched, size_range = CONV_MIOU
+    cfg = schedule(tiny_config(), **sched)
+    cfg = dataclasses.replace(cfg, data=dataclasses.replace(
+        cfg.data, eval_pad=CONV_MIOU_PAD))
+    params, ds, eval_ds, text = conv_setup(
+        cfg, os.path.join(work, "conv_miou"), size_range, 4, cast=False)
+    reset_launches()
+    base = conv_miou(cfg, params, eval_ds, text)
+    read_launches("fp32", training=False)
+    reset_launches()
+    losses, wall = conv_train(cfg, params, ds, text, steps)
+    read_launches("fp32", training=True)
+    reset_launches()
+    trained = conv_miou(cfg, params, eval_ds, text)
+    read_launches("fp32", training=False)
+    log(f"entry convergence tiny fp32 mIoU protocol ({steps} steps): mIoU "
+        f"random head {base:.4f}, trained {trained:.4f} (bound: trained > "
+        f"random + 0.05) wall_s={wall:.2f} ({card})")
+    if not trained > base + 0.05:
+        raise AssertionError(f"entry convergence tiny mIoU: {base} -> "
+                             f"{trained}")
+
+    # (c) full width, the fast preset and its schedule
+    cfg = fast(voc_config())
+    params, ds, eval_ds, text = conv_setup(
+        cfg, os.path.join(work, "conv_full"), (200, 400), CONV_FULL_IMAGES,
+        cast=True)
+    reset_launches()
+    base = conv_miou(cfg, params, eval_ds, text)
+    read_launches("fast", training=False)
+    reset_launches()
+    losses, wall = conv_train(cfg, params, ds, text, CONV_FULL_STEPS,
+                              workers=CONV_WORKERS)
+    counts = read_launches("fast", training=True)
+    reset_launches()
+    trained = conv_miou(cfg, params, eval_ds, text)
+    read_launches("fast", training=False)
+    first, last, corr = _loss_trend(losses)
+    log(f"entry convergence full width fast ({CONV_FULL_STEPS} steps, B="
+        f"{cfg.train.batch_size}, crop {cfg.data.crop_size}, "
+        f"{CONV_FULL_IMAGES} images, train_batches at {CONV_WORKERS} "
+        f"workers): seg loss first-5 mean {first:.4f} last-5 mean "
+        f"{last:.4f} (ratio {last / first:.4f}; the tiny bound < 0.8 would "
+        f"say {last < 0.8 * first}) corr {corr:.4f} (< -0.3 would say "
+        f"{corr < -0.3}); mIoU random head {base:.4f} trained "
+        f"{trained:.4f} (> random + 0.05 would say "
+        f"{trained > base + 0.05}); steps wall_s={wall:.2f} "
+        f"({wall / CONV_FULL_STEPS * 1e3:.2f} ms a step, host clock, the "
+        f"loader's threads beside; {card}); launches="
+        + json.dumps({k: v for k, v in counts.items() if v}))
+    log("entry convergence full width seg losses: "
+        + " ".join(f"{x:.4f}" for x in losses))
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"entry convergence full width: {first} -> "
+                             f"{last}")
+
+
+def phase_entry_points(smi: str) -> None:
+    """The repository's entry points that needed JAX, in the port (module
+    docstring, phase 11): the four wrappers at once in subprocesses while
+    make_cls_labels and the demo's CPU run go here, then the demo on the
+    card and the convergence runs."""
+    from excel_tpu_torch.cli import common
+    from excel_tpu_torch.config import voc_config
+    from excel_tpu_torch.models.params import init_clip_params
+
+    card = smi.replace(", ", " ")
+    t0 = time.perf_counter()
+    clip_cpu = init_clip_params(voc_config().clip,
+                                torch.Generator().manual_seed(0),
+                                device="cpu")
+    with cli_workspace(clip_cpu, "entry_") as (work, flags, head_npz):
+        del clip_cpu
+        args = argparse.Namespace(work_dir=work, synthetic=str(CLI_SAMPLES),
+                                  tiny=False)
+        voc_root = common.build_synthetic(args, voc_config()).data.root_dir
+        started = start_wrappers(work, flags[flags.index("--clip-params")
+                                             + 1], voc_root, head_npz)
+        try:
+            entry_cls_labels(voc_root, work)
+            cpu_labels = entry_demo_cpu()
+        finally:
+            check_wrappers(started, card, t0)
+        log(f"entry: wrappers and the demo's CPU run "
+            f"{time.perf_counter() - t0:.1f} s")
+        entry_demo(card, cpu_labels)
+        entry_convergence(card, work)
+    log(f"entry: phase {time.perf_counter() - t0:.1f} s")
+
+
 _ATT = "excel_tpu/models/attention_pallas.py"
 _PAR = "excel_tpu/ops/par_pallas.py"
 _CSRC = "excel_tpu_torch/csrc/"
@@ -3842,6 +4385,7 @@ def main() -> int:
     records.update(phase_train_cli(smi))
     phase_host_crf(smi)
     phase_remainder(smi)
+    phase_entry_points(smi)
     phase_ranks(smi)
     table = []
     for name, (source, replaces) in SOURCES.items():
@@ -3864,4 +4408,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--rank-worker"]:
         sys.exit(rank_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--entry-worker"]:
+        sys.exit(entry_worker(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -9,6 +9,11 @@ losslessly as PNG bytes under the layout's `JPEGImages/<name>.jpg` name
 every reader see the same pixels). Readers that detect the format from the
 file's signature (Pillow, `datasets.read_image`) read it as it is.
 
+`make_coco_tree` writes the same kind of samples in the COCO layout, with
+palette masks (as COCO's SegmentationClass PNGs are) and an ignore band,
+for the tools and CLIs that read COCO trees; the JAX package has no
+counterpart.
+
 `crf_scene` makes the structured scenes on which the host lattice CRF and
 the on-device mean-field CRF are held against each other.
 """
@@ -124,4 +129,39 @@ def make_voc_tree(root: str, num_images: int = 8, seed: int = 0,
             f.write("\n".join(names) + "\n")
     np.savez(os.path.join(split_dir, "cls_labels.npz"),
              names=np.asarray(names), labels=np.stack(onehots))
+    return split_dir
+
+
+# COCO's file-name prefixes; `CocoDataset.label_path` drops them
+COCO_PREFIX = {"train": "COCO_train2014_", "val": "COCO_val2014_"}
+
+
+def make_coco_tree(root: str, split: str = "val", num_images: int = 8,
+                   seed: int = 0, num_fg: int = 80,
+                   size_range=(200, 400)) -> str:
+    """Write a COCO-layout tree under `root`: JPEGImages/<sub>/<name>.jpg
+    (PNG bytes) and SegmentationClass/<sub>/<id>.png palette masks, whose
+    blobs take classes 1..num_fg and whose top rows hold the ignore value
+    255, for the split's subset <sub> (train or val), and splits/<split>.txt
+    listing the names; returns the split dir. No cls_labels.npz: the
+    readers derive the labels from the masks."""
+    sub = "train" if "train" in split else "val"
+    img_dir = os.path.join(root, "JPEGImages", sub)
+    lab_dir = os.path.join(root, "SegmentationClass", sub)
+    split_dir = os.path.join(root, "splits")
+    for d in (img_dir, lab_dir, split_dir):
+        os.makedirs(d, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    palette = rng.integers(0, 256, (256, 3)).astype(np.uint8)
+    names = []
+    for i in range(num_images):
+        stem = f"{i + 1:012d}"
+        name = COCO_PREFIX[sub] + stem
+        image, label = _draw_sample(rng, size_range, num_fg)
+        label[:int(rng.integers(1, 8))] = 255
+        write_png(os.path.join(img_dir, name + ".jpg"), image)
+        write_png(os.path.join(lab_dir, stem + ".png"), label, palette)
+        names.append(name)
+    with open(os.path.join(split_dir, split + ".txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
     return split_dir

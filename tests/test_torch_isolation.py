@@ -2,9 +2,10 @@
 chip_smoke.py or of the port's kernel timing tools imports jax or
 excel_tpu; with jax, excel_tpu, Pillow, regex and scikit-learn blocked
 (the port must need none of them where the card is) every module
-imports, the eval and train CLIs and the attribute-bank tool run, the
-ResNet tower runs and a JPEG is read; and its entry points refuse to fall
-back to the CPU when no GPU is present."""
+imports, the eval and train CLIs, the attribute-bank and label-file tools
+and the demo run, the ResNet tower runs and a JPEG is read; the port's
+wrappers (scripts/torch/*.sh) run only the port's modules; and its entry
+points refuse to fall back to the CPU when no GPU is present."""
 import ast
 import os
 import subprocess
@@ -58,8 +59,9 @@ def test_port_imports_with_jax_blocked(tmp_path):
     by g++), the train CLI for 2 steps with validation, TensorBoard events
     and PNG panels, make_attr_bank (the tiny config with the tokenizer's
     context and vocabulary; its own KMeans), a tiny ResNet tower's forward,
-    and read_image / read_label on the JPEG fixtures (the decoder built by
-    g++)."""
+    read_image / read_label on the JPEG fixtures (the decoder built by
+    g++), make_cls_labels on a synthetic tree (the tree's own label file)
+    and the demo with --device cpu at the tiny size."""
     modules = []
     for path in _port_files():
         rel = os.path.relpath(path, ROOT)[:-3].replace(os.sep, ".")
@@ -150,12 +152,38 @@ with open(os.path.join(fixtures, "expected.json")) as f:
 for name in ("synth_000000.jpg", "progressive.jpg"):
     assert list(read_image(os.path.join(fixtures, name)).shape) == expected[name]["shape"]
 assert list(read_label(os.path.join(fixtures, "grey.jpg")).shape) == expected["grey.jpg"]["shape"]
+from excel_tpu_torch.cli import demo, make_cls_labels
+from excel_tpu_torch.data.synthetic import make_voc_tree
+split_dir = make_voc_tree({str(tmp_path / "voc")!r}, num_images=3, size_range=(32, 48))
+labels_npz = {str(tmp_path / "cls_labels.npz")!r}
+make_cls_labels.main(["--dataset", "voc", "--data-root", {str(tmp_path / "voc")!r},
+                      "--split-dir", split_dir, "--splits", "train", "--out", labels_npz])
+with np.load(labels_npz) as z, np.load(os.path.join(split_dir, "cls_labels.npz")) as want:
+    assert (z["labels"] == want["labels"]).all() and (z["names"] == want["names"]).all()
+assert demo.main(["--device", "cpu", "--tiny", "--image-size", "64"]).shape == (4, 64, 64)
 assert not any(k.split(".")[0] in {BLOCKED!r} for k in sys.modules)
 """
     env = dict(os.environ, OMP_NUM_THREADS="1")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=300, env=env)
     assert r.returncode == 0, r.stderr
+
+
+def test_wrappers_name_only_the_ports_modules():
+    """Every python run of scripts/torch/*.sh is `python -m` of a module of
+    excel_tpu_torch, and nothing else of the JAX package is named."""
+    wrap_dir = os.path.join(ROOT, "scripts", "torch")
+    scripts = sorted(f for f in os.listdir(wrap_dir) if f.endswith(".sh"))
+    assert scripts == ["infer_lam.sh", "infer_seg_coco.sh",
+                       "infer_seg_voc.sh", "run_train.sh"]
+    for name in scripts:
+        with open(os.path.join(wrap_dir, name)) as f:
+            words = f.read().replace("\\\n", " ").split()
+        runs = [i for i, w in enumerate(words) if w == "python"]
+        assert runs and all(words[i + 1] == "-m" and words[i + 2].startswith(
+            "excel_tpu_torch.cli.") for i in runs), name
+        named = [w for w in words if "excel_tpu" in w]
+        assert all(w.startswith("excel_tpu_torch.") for w in named), name
 
 
 def test_entry_points_need_a_gpu_unless_cpu_is_asked(tmp_path):
@@ -179,3 +207,8 @@ def test_entry_points_need_a_gpu_unless_cpu_is_asked(tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--tiny", "--random-init", "--synthetic", "2",
                     "--work-dir", str(tmp_path), "--max-iters", "1"])
+    from excel_tpu_torch.cli import demo
+
+    for argv in ([], ["--tiny"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            demo.main(argv)
