@@ -22,6 +22,8 @@ from typing import Iterator
 
 import numpy as np
 
+from ..utils import profiling
+
 
 def _stack(samples: list[dict], keys: tuple[str, ...]) -> dict:
     out = {}
@@ -99,7 +101,8 @@ def _ordered_pool_map(fn, it, workers: int, lookahead: int):
             if not submit_next():
                 break
         while pending:
-            out = pending.popleft().result()
+            with profiling.span("loader_wait"):
+                out = pending.popleft().result()
             submit_next()
             yield out
     finally:
@@ -131,7 +134,8 @@ def prefetch_iter(it: Iterator, depth: int = 2) -> Iterator:
 
     threading.Thread(target=worker, daemon=True).start()
     while True:
-        item = q.get()
+        with profiling.span("wait"):
+            item = q.get()
         if item is done:
             if failure:
                 raise failure[0]

@@ -51,8 +51,9 @@ from ..ops.crf_tpu import crf_meanfield_cfg
 from ..ops.labels import (argmax_label, cams_with_background_canvas,
                           class_slot_index, slot_label_to_class,
                           upscale_to_canvas, upscale_to_canvas_align)
-from ..ops.par import par_refine
+from ..ops.par import fill_counts, par_refine
 from ..parallel.distributed import global_sum_host, rank, world
+from ..utils import profiling
 from ..utils.metrics import init_hist, scores_from_hist, update_hist
 from .pipeline import attn_mode_for, normalize_images
 
@@ -88,34 +89,36 @@ def _pseudo_on_canvas(lams, attn_weights, guide_images, cls_label, valid_hw,
     class_slots: compact to bg + `class_slots` present-class channels before
     SVC/upscale/PAR; exact when every image has <= class_slots present
     classes (callers bucket it from the batch's label cardinality)."""
-    b, hw, c = lams.shape
-    grid = int(round(hw ** 0.5))
-    lams = lams.transpose(1, 2)                           # [B, C, hw]
-    if class_slots is not None and class_slots < c:
-        idx, smask = class_slot_index(cls_label, class_slots)
-        lams = torch.gather(lams, 1, idx[:, :, None].expand(-1, -1, hw))
-        cls_sel = smask
-    else:
-        class_slots = None
-        cls_sel = cls_label
-    refined = refine_lams_batch(
-        lams, attn_weights, caa, (grid, grid),
-        attn_layers=cfg.refine.attn_layers, seg_attn=seg_attn)
-    normed = cams_with_background_canvas(
-        refined.reshape(b, -1, grid, grid), cls_sel, valid_hw, canvas)
-    # the reference PAR resizes its guidance with align_corners=True
-    guide = upscale_to_canvas_align(guide_images, valid_hw, canvas)
-    cams = par_refine(guide, normed,
-                      dilations=tuple(cfg.refine.par_dilations),
-                      num_iter=cfg.refine.par_iters, valid_hw=valid_hw,
-                      dtype=torch.bfloat16 if cfg.refine.par_bf16 else None)
-    if class_slots is not None:
-        slot = argmax_label(cams, cls_sel,
-                            ignore_index=cfg.refine.ignore_index)
-        return slot_label_to_class(slot, idx), normed
-    labels = argmax_label(cams, cls_label,
-                          ignore_index=cfg.refine.ignore_index)
-    return labels, normed
+    with profiling.span("labels"):
+        b, hw, c = lams.shape
+        grid = int(round(hw ** 0.5))
+        lams = lams.transpose(1, 2)                       # [B, C, hw]
+        if class_slots is not None and class_slots < c:
+            idx, smask = class_slot_index(cls_label, class_slots)
+            lams = torch.gather(lams, 1,
+                                idx[:, :, None].expand(-1, -1, hw))
+            cls_sel = smask
+        else:
+            class_slots = None
+            cls_sel = cls_label
+        refined = refine_lams_batch(
+            lams, attn_weights, caa, (grid, grid),
+            attn_layers=cfg.refine.attn_layers, seg_attn=seg_attn)
+        normed = cams_with_background_canvas(
+            refined.reshape(b, -1, grid, grid), cls_sel, valid_hw, canvas)
+        # the reference PAR resizes its guidance with align_corners=True
+        guide = upscale_to_canvas_align(guide_images, valid_hw, canvas)
+        cams = par_refine(
+            guide, normed, dilations=tuple(cfg.refine.par_dilations),
+            num_iter=cfg.refine.par_iters, valid_hw=valid_hw,
+            dtype=torch.bfloat16 if cfg.refine.par_bf16 else None)
+        if class_slots is not None:
+            slot = argmax_label(cams, cls_sel,
+                                ignore_index=cfg.refine.ignore_index)
+            return slot_label_to_class(slot, idx), normed
+        labels = argmax_label(cams, cls_label,
+                              ignore_index=cfg.refine.ignore_index)
+        return labels, normed
 
 
 def lam_eval_step(params: dict, images_u8, cls_label, valid_hw, text_attr,
@@ -133,7 +136,8 @@ def lam_eval_step(params: dict, images_u8, cls_label, valid_hw, text_attr,
     return_cams=True)."""
     if mode not in ("training_free", "trained"):
         raise ValueError(mode)
-    with torch.inference_mode():
+    with torch.inference_mode(), profiling.span(
+            "step", images=images_u8.shape[0]):
         images = normalize_images(images_u8)
         if mode == "training_free":
             out = encode_image(params["clip"], images, cfg.clip,
@@ -273,18 +277,20 @@ def msc_hist_step(hist, params: dict, scale_images: tuple, gt_labels,
     reference saves raw fused logits and runs its host CRF on those)."""
     cfg0 = cfgs[0]
     b = scale_images[0].shape[0]
-    acc = torch.zeros((b, cfg0.num_classes, *canvas), dtype=torch.float32,
-                      device=scale_images[0].device)
-    for imgs, c, kf in zip(scale_images, cfgs, keep_flips):
-        acc = msc_accumulate(params, imgs, valid_hw, text_attr, c, canvas,
-                             acc, keep_flip=kf)
-    logits = acc
-    with torch.inference_mode():
-        if use_crf:
-            acc = crf_meanfield_cfg(canvas_images, torch.softmax(acc, dim=1),
-                                    cfg0.crf, valid_hw=valid_hw)
-        preds = canvas_argmax(acc)
-        hist = update_hist(hist, gt_labels, preds, cfg0.num_classes)
+    with profiling.span("step", images=b):
+        acc = torch.zeros((b, cfg0.num_classes, *canvas),
+                          dtype=torch.float32, device=scale_images[0].device)
+        for imgs, c, kf in zip(scale_images, cfgs, keep_flips):
+            acc = msc_accumulate(params, imgs, valid_hw, text_attr, c,
+                                 canvas, acc, keep_flip=kf)
+        logits = acc
+        with torch.inference_mode():
+            if use_crf:
+                acc = crf_meanfield_cfg(canvas_images,
+                                        torch.softmax(acc, dim=1), cfg0.crf,
+                                        valid_hw=valid_hw)
+            preds = canvas_argmax(acc)
+            hist = update_hist(hist, gt_labels, preds, cfg0.num_classes)
     return (hist, logits, preds) if return_outputs else hist
 
 
@@ -297,34 +303,36 @@ def _prep_batch(samples: list[dict], resize: int, canvas: tuple[int, int],
     """Full-size eval samples -> (images [B,r,r,3] f32, cls [B,C], labels
     [B,*canvas] 255-padded, valid_hw [B,2][, canvas_images [B,*canvas,3]
     uint8, zero beyond each image])."""
-    ch, cw = canvas
-    images, labels, cls, valid, canv = [], [], [], [], []
-    for s in samples:
-        images.append(resize_bilinear(s["image"], (resize, resize)))
-        lab = np.full((ch, cw), 255, np.int32)
-        h, w = s["label"].shape
-        h, w = min(h, ch), min(w, cw)
-        lab[:h, :w] = s["label"][:h, :w]
-        labels.append(lab)
-        cls.append(s["cls_label"])
-        valid.append((h, w))
-        if with_canvas_images:
-            ci = np.zeros((ch, cw, 3), np.uint8)
-            ci[:h, :w] = s["image"][:h, :w]
-            canv.append(ci)
-    out = (np.stack(images), np.stack(cls).astype(np.float32),
-           np.stack(labels), np.asarray(valid, np.int32))
-    return out + (np.stack(canv),) if with_canvas_images else out
+    with profiling.span("prep"):
+        ch, cw = canvas
+        images, labels, cls, valid, canv = [], [], [], [], []
+        for s in samples:
+            images.append(resize_bilinear(s["image"], (resize, resize)))
+            lab = np.full((ch, cw), 255, np.int32)
+            h, w = s["label"].shape
+            h, w = min(h, ch), min(w, cw)
+            lab[:h, :w] = s["label"][:h, :w]
+            labels.append(lab)
+            cls.append(s["cls_label"])
+            valid.append((h, w))
+            if with_canvas_images:
+                ci = np.zeros((ch, cw, 3), np.uint8)
+                ci[:h, :w] = s["image"][:h, :w]
+                canv.append(ci)
+        out = (np.stack(images), np.stack(cls).astype(np.float32),
+               np.stack(labels), np.asarray(valid, np.int32))
+        return out + (np.stack(canv),) if with_canvas_images else out
 
 
 def _prep_msc_batch(samples: list[dict], base: int, canvas: tuple[int, int],
                     scales, with_canvas_images: bool = False):
     """-> (`_prep_batch` at the base size, per scale the images [B, s, s, 3]
     f32 resized to s = int(base * scale))."""
-    prep = _prep_batch(samples, base, canvas, with_canvas_images)
-    return prep, tuple(
-        np.stack([resize_bilinear(s["image"], (int(base * sc),) * 2)
-                  for s in samples]) for sc in scales)
+    with profiling.span("prep.msc"):
+        prep = _prep_batch(samples, base, canvas, with_canvas_images)
+        return prep, tuple(
+            np.stack([resize_bilinear(s["image"], (int(base * sc),) * 2)
+                      for s in samples]) for sc in scales)
 
 
 def _scale_cfgs(cfg: ExcelConfig, base: int, scales) -> tuple:
@@ -385,7 +393,8 @@ def _bucketed_batches(dataset, batch_size: int, pad: int,
     GT blanks (they add nothing to the hist)."""
     buckets: dict = {}
     for i in range(len(dataset)):
-        s = dataset[i]
+        with profiling.span("read"):
+            s = dataset[i]
         key = _bucket_of(s, pad)
         if slot_buckets is not None:
             need = int(np.asarray(s["cls_label"] > 0).sum())
@@ -445,6 +454,23 @@ def _skip_batches(gen, start: int):
             yield item
 
 
+def _count_batch(samples: list, prep=None, canvas=None, num_fg=None,
+                 slots=None) -> None:
+    """The sweep's counters of one batch: `batches`, `images` and, for a
+    LAM batch (its `_prep_batch` arrays, canvas and class-slot bucket),
+    PAR's `par.refined` and `par.useful` channel-pixels
+    (`ops/par.fill_counts`; blank remainders are useless)."""
+    profiling.count("batches")
+    profiling.count("images", len(samples))
+    if prep is not None:
+        refined, useful = fill_counts(
+            prep[1], prep[3], canvas,
+            1 + (num_fg if slots is None else slots),
+            [bool(s.get("_pad")) for s in samples])
+        profiling.count("par.refined", refined)
+        profiling.count("par.useful", useful)
+
+
 def _to_device(arrays, device: torch.device):
     """numpy arrays -> tensors on `device`. A CUDA copy is staged in pinned
     host memory, so that it runs asynchronously (a copy from pageable memory
@@ -452,8 +478,43 @@ def _to_device(arrays, device: torch.device):
     tensors share the arrays' memory."""
     if device.type != "cuda":
         return tuple(torch.from_numpy(a) for a in arrays)
-    return tuple(torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
-                 for a in arrays)
+    with profiling.span("to_device"):
+        return tuple(torch.from_numpy(a).pin_memory().to(device,
+                                                         non_blocking=True)
+                     for a in arrays)
+
+
+def _dump_batch(hist, crf_hist, params, samples, images, cls, labels, valid,
+                canvas_imgs, text_attr, cfg, canvas, mode, slots, crf_tpu,
+                save_cam, save_lam_crf):
+    """One batch of a `run_lam_eval` sweep that hands each image's maps to
+    save_cam / save_lam_crf: returns the updated (hist, crf_hist)."""
+    preds, cams = lam_eval_step(params, images, cls, valid, text_attr, cfg,
+                                canvas, mode, return_cams=True,
+                                class_slots=slots)
+    hist = update_hist(hist, labels, preds, cfg.num_classes)
+    if crf_tpu:
+        crf_preds = lam_crf_refine(cams, canvas_imgs[0], cls, valid, cfg,
+                                   class_slots=slots)
+        crf_hist = update_hist(crf_hist, labels, crf_preds, cfg.num_classes)
+    cams_np = cams.cpu().numpy()
+    for i, s in enumerate(samples):
+        if s.get("_pad"):   # remainder padding: no file emission
+            continue
+        h, w = s["label"].shape
+        if save_cam:
+            save_cam(s["name"], s["image"][:h, :w], cams_np[i, :, :h, :w])
+        if save_lam_crf:
+            keys = np.flatnonzero(np.asarray(s["cls_label"]) > 0)
+            if slots is None:
+                # full stack: channel c+1 is fg class c
+                chans = np.concatenate(([0], keys + 1))
+                valid_lam = cams_np[i][chans][:, :h, :w]
+            else:
+                # compacted: present classes ascending in slots 1..K
+                valid_lam = cams_np[i, :1 + len(keys), :h, :w]
+            save_lam_crf(s["name"], valid_lam, keys)
+    return hist, crf_hist
 
 
 def run_lam_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
@@ -504,44 +565,26 @@ def run_lam_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
     for canvas, samples, prep in prepped:
         slots = None if save_cam is not None else _slots_bucket(
             prep[1], cfg.num_fg, cfg.refine.slot_buckets)
-        images, cls, labels, valid, *canvas_imgs = _to_device(prep, device)
-        if not dumps and not crf_tpu:
-            hist = lam_eval_hist_step(hist, params, images, cls, labels,
-                                      valid, text_attr, cfg, canvas, mode,
-                                      class_slots=slots)
-        elif not dumps:
-            hist, crf_hist = lam_crf_hist_step(
-                hist, crf_hist, params, images, cls, labels, valid,
-                canvas_imgs[0], text_attr, cfg, canvas, mode,
-                class_slots=slots)
-        else:
-            preds, cams = lam_eval_step(params, images, cls, valid, text_attr,
-                                        cfg, canvas, mode, return_cams=True,
-                                        class_slots=slots)
-            hist = update_hist(hist, labels, preds, cfg.num_classes)
-            if crf_tpu:
-                crf_preds = lam_crf_refine(cams, canvas_imgs[0], cls, valid,
-                                           cfg, class_slots=slots)
-                crf_hist = update_hist(crf_hist, labels, crf_preds,
-                                       cfg.num_classes)
-            cams_np = cams.cpu().numpy()
-            for i, s in enumerate(samples):
-                if s.get("_pad"):   # remainder padding: no file emission
-                    continue
-                h, w = s["label"].shape
-                if save_cam:
-                    save_cam(s["name"], s["image"][:h, :w],
-                             cams_np[i, :, :h, :w])
-                if save_lam_crf:
-                    keys = np.flatnonzero(np.asarray(s["cls_label"]) > 0)
-                    if slots is None:
-                        # full stack: channel c+1 is fg class c
-                        chans = np.concatenate(([0], keys + 1))
-                        valid_lam = cams_np[i][chans][:, :h, :w]
-                    else:
-                        # compacted: present classes ascending in slots 1..K
-                        valid_lam = cams_np[i, :1 + len(keys), :h, :w]
-                    save_lam_crf(s["name"], valid_lam, keys)
+        if profiling.enabled():
+            _count_batch(samples, prep, canvas, cfg.num_fg, slots)
+        with profiling.span("batch", batch=n_done // batch_size,
+                            images=len(samples)):
+            images, cls, labels, valid, *canvas_imgs = _to_device(prep,
+                                                                 device)
+            if not dumps and not crf_tpu:
+                hist = lam_eval_hist_step(hist, params, images, cls, labels,
+                                          valid, text_attr, cfg, canvas,
+                                          mode, class_slots=slots)
+            elif not dumps:
+                hist, crf_hist = lam_crf_hist_step(
+                    hist, crf_hist, params, images, cls, labels, valid,
+                    canvas_imgs[0], text_attr, cfg, canvas, mode,
+                    class_slots=slots)
+            else:
+                hist, crf_hist = _dump_batch(
+                    hist, crf_hist, params, samples, images, cls, labels,
+                    valid, canvas_imgs, text_attr, cfg, canvas, mode, slots,
+                    crf_tpu, save_cam, save_lam_crf)
         n_done += len(samples)
         if checkpoint_path and n_done - last_saved >= checkpoint_every:
             _sweep_save(checkpoint_path, hist, n_done // batch_size, fp)
@@ -621,27 +664,32 @@ def run_msc_seg_eval(params: dict, dataset, text_attr, cfg: ExcelConfig,
             _bucketed_batches(dataset, batch_size, cfg.data.eval_pad),
             start))
     for canvas, samples, prep, scale_images in prepped:
-        labels, valid, *canvas_imgs = _to_device(prep[2:], device)
-        out = msc_hist_step(
-            hist, params, _to_device(scale_images, device), labels, valid,
-            text_attr, cfgs, canvas, tuple(sc != 1.0 for sc in scales),
-            canvas_images=canvas_imgs[0] if crf_tpu else None,
-            use_crf=crf_tpu, return_outputs=want_dumps)
-        if want_dumps:
-            hist, logits, preds = out
-            logits_np = logits.cpu().numpy()
-            preds_np = preds.cpu().numpy()
-            for i, s in enumerate(samples):
-                if s.get("_pad"):   # remainder padding: no file emission
-                    continue
-                h, w = s["label"].shape
-                if save_logits:
-                    save_logits(s["name"],
-                                logits_np[i, :, :h, :w] / len(scales))
-                if save_pred:
-                    save_pred(s["name"], preds_np[i, :h, :w])
-        else:
-            hist = out
+        if profiling.enabled():
+            _count_batch(samples)
+        with profiling.span("batch", batch=n_done // batch_size,
+                            images=len(samples)):
+            labels, valid, *canvas_imgs = _to_device(prep[2:], device)
+            out = msc_hist_step(
+                hist, params, _to_device(scale_images, device), labels,
+                valid, text_attr, cfgs, canvas,
+                tuple(sc != 1.0 for sc in scales),
+                canvas_images=canvas_imgs[0] if crf_tpu else None,
+                use_crf=crf_tpu, return_outputs=want_dumps)
+            if want_dumps:
+                hist, logits, preds = out
+                logits_np = logits.cpu().numpy()
+                preds_np = preds.cpu().numpy()
+                for i, s in enumerate(samples):
+                    if s.get("_pad"):   # remainder padding: no files
+                        continue
+                    h, w = s["label"].shape
+                    if save_logits:
+                        save_logits(s["name"],
+                                    logits_np[i, :, :h, :w] / len(scales))
+                    if save_pred:
+                        save_pred(s["name"], preds_np[i, :h, :w])
+            else:
+                hist = out
         n_done += len(samples)
         if checkpoint_path and n_done - last_saved >= checkpoint_every:
             _sweep_save(checkpoint_path, hist, n_done // batch_size, fp)

@@ -14,6 +14,7 @@ from ..ops.affinity import refine_lams_batch
 from ..ops.labels import (argmax_label, cams_with_background,
                           class_slot_index, slot_label_to_class)
 from ..ops.par import par_refine
+from ..utils import profiling
 
 # ImageNet stats in 0-255 space
 IMAGENET_MEAN = (123.675, 116.28, 103.53)
@@ -89,25 +90,27 @@ def pseudo_labels(lams: torch.Tensor, attn_weights: torch.Tensor,
     lams [B, hw, num_fg]; par_images [B, 3, H, W] guidance at out_hw;
     class_slots: refine bg + this many present-class channels only (exact
     when every image has at most that many present classes)."""
-    b, hw, c = lams.shape
-    grid = int(round(hw ** 0.5))
-    lams = lams.transpose(1, 2)                           # [B, C, hw]
-    if class_slots is not None and class_slots < c:
-        idx, cls_sel = class_slot_index(cls_label, class_slots)
-        lams = torch.gather(lams, 1, idx[:, :, None].expand(-1, -1, hw))
-    else:
-        idx, cls_sel = None, cls_label
-    refined = refine_lams_batch(
-        lams, attn_weights, caa_threshold, (grid, grid),
-        attn_layers=cfg.refine.attn_layers, seg_attn=seg_attn)
-    cams = cams_with_background(refined.reshape(b, -1, grid, grid), cls_sel,
-                                out_hw)
-    cams = par_refine(par_images, cams,
-                      dilations=tuple(cfg.refine.par_dilations),
-                      num_iter=cfg.refine.par_iters,
-                      dtype=torch.bfloat16 if cfg.refine.par_bf16 else None)
-    label = argmax_label(cams, cls_sel, ignore_index=cfg.refine.ignore_index)
-    return label if idx is None else slot_label_to_class(label, idx)
+    with profiling.span("labels"):
+        b, hw, c = lams.shape
+        grid = int(round(hw ** 0.5))
+        lams = lams.transpose(1, 2)                           # [B, C, hw]
+        if class_slots is not None and class_slots < c:
+            idx, cls_sel = class_slot_index(cls_label, class_slots)
+            lams = torch.gather(lams, 1, idx[:, :, None].expand(-1, -1, hw))
+        else:
+            idx, cls_sel = None, cls_label
+        refined = refine_lams_batch(
+            lams, attn_weights, caa_threshold, (grid, grid),
+            attn_layers=cfg.refine.attn_layers, seg_attn=seg_attn)
+        cams = cams_with_background(refined.reshape(b, -1, grid, grid),
+                                    cls_sel, out_hw)
+        cams = par_refine(
+            par_images, cams, dilations=tuple(cfg.refine.par_dilations),
+            num_iter=cfg.refine.par_iters,
+            dtype=torch.bfloat16 if cfg.refine.par_bf16 else None)
+        label = argmax_label(cams, cls_sel,
+                             ignore_index=cfg.refine.ignore_index)
+        return label if idx is None else slot_label_to_class(label, idx)
 
 
 @torch.inference_mode()

@@ -47,6 +47,8 @@ from ..models.excel import excel_forward
 from ..models.head import LvcHead
 from ..models.losses import aff_loss, seg_loss
 from ..ops.labels import affinity_label, radius_mask, upsample_linear
+from ..ops.par import fill_counts
+from ..utils import profiling
 from .pipeline import (attn_mode_for, denormalize_images, normalize_images,
                        pseudo_labels)
 
@@ -133,38 +135,42 @@ def train_losses(head: LvcHead, clip_params: dict, images_u8: torch.Tensor,
     tensors that autograd can take back to the head. Under a process group
     the losses are this rank's shares of the global batch's (module
     docstring)."""
-    images = normalize_images(images_u8)
-    crop_hw = tuple(images.shape[1:3])
-    grid = crop_hw[0] // cfg.clip.patch_size
-    par_imgs = denormalize_images(images).permute(0, 3, 1, 2)
-    mask = _radius_mask_on(grid, cfg.refine.radius, images.device)
-    params = {"clip": clip_params, "head": head}
+    with profiling.span("forward"):
+        images = normalize_images(images_u8)
+        crop_hw = tuple(images.shape[1:3])
+        grid = crop_hw[0] // cfg.clip.patch_size
+        par_imgs = denormalize_images(images).permute(0, 3, 1, 2)
+        mask = _radius_mask_on(grid, cfg.refine.radius, images.device)
+        params = {"clip": clip_params, "head": head}
 
-    out = excel_forward(params, images, text_attr, cfg,
-                        dropout_generator=generator,
-                        attn_mode="stack" if calibrated
-                        else attn_mode_for(cfg), global_batch=True)
-    lams = out.lams
-    if calibrated:
-        lams = excel_forward(params, images, text_attr, cfg,
-                             ex_feats=out.fused, global_batch=True)
-    pseudos = pseudo_labels(
-        lams, out.attn_weights, par_imgs, cls_label, cfg, crop_hw,
-        cfg.refine.caa_threshold,
-        seg_attn=out.attn_pred.detach() if calibrated else None,
-        class_slots=class_slots)
+        out = excel_forward(params, images, text_attr, cfg,
+                            dropout_generator=generator,
+                            attn_mode="stack" if calibrated
+                            else attn_mode_for(cfg), global_batch=True)
+        lams = out.lams
+        if calibrated:
+            lams = excel_forward(params, images, text_attr, cfg,
+                                 ex_feats=out.fused, global_batch=True)
+        with profiling.span("pseudo"):
+            pseudos = pseudo_labels(
+                lams, out.attn_weights, par_imgs, cls_label, cfg, crop_hw,
+                cfg.refine.caa_threshold,
+                seg_attn=out.attn_pred.detach() if calibrated else None,
+                class_slots=class_slots)
 
-    b, hw, c = out.segs.shape
-    segs = upsample_linear(out.segs.transpose(1, 2).reshape(b, c, grid, grid),
-                           crop_hw)
-    l_seg = seg_loss(segs, pseudos, ignore_index=cfg.refine.ignore_index)
-    aff_src = segs.detach().argmax(dim=1) if seg_affinity else pseudos
-    aff_target = affinity_label(aff_src, mask=mask,
-                                ignore_index=cfg.refine.ignore_index,
-                                downscale=cfg.clip.patch_size)
-    l_aff = aff_loss(out.attn_pred, aff_target)
-    total = cfg.train.w_seg * l_seg + cfg.train.w_diver * l_aff
-    return total, l_seg, l_aff, pseudos
+        with profiling.span("loss"):
+            b, hw, c = out.segs.shape
+            segs = upsample_linear(
+                out.segs.transpose(1, 2).reshape(b, c, grid, grid), crop_hw)
+            l_seg = seg_loss(segs, pseudos,
+                             ignore_index=cfg.refine.ignore_index)
+            aff_src = segs.detach().argmax(dim=1) if seg_affinity else pseudos
+            aff_target = affinity_label(aff_src, mask=mask,
+                                        ignore_index=cfg.refine.ignore_index,
+                                        downscale=cfg.clip.patch_size)
+            l_aff = aff_loss(out.attn_pred, aff_target)
+            total = cfg.train.w_seg * l_seg + cfg.train.w_diver * l_aff
+        return total, l_seg, l_aff, pseudos
 
 
 def train_step(state: TrainState, clip_params: dict,
@@ -184,18 +190,22 @@ def train_step(state: TrainState, clip_params: dict,
     float rate of this update; the state is updated in place. Under a
     process group the losses are the rank's shares (their sum over the
     ranks is the global batch's) and the update is every rank's."""
-    total, l_seg, l_aff, _ = train_losses(
-        state.head, clip_params, images_u8, cls_label, text_attr, generator,
-        cfg, calibrated=calibrated, seg_affinity=seg_affinity,
-        class_slots=class_slots)
-    lr = lr_schedule(cfg.train)(state.step)
-    for group in state.optimizer.param_groups:
-        group["lr"] = lr
-    state.optimizer.zero_grad(set_to_none=True)
-    total.backward()
-    if dist.is_initialized():
-        _sum_gradients(list(state.head.parameters()))
-    state.optimizer.step()
+    profiling.count("steps")
+    with profiling.span("step", images=images_u8.shape[0], step=state.step):
+        total, l_seg, l_aff, _ = train_losses(
+            state.head, clip_params, images_u8, cls_label, text_attr,
+            generator, cfg, calibrated=calibrated, seg_affinity=seg_affinity,
+            class_slots=class_slots)
+        lr = lr_schedule(cfg.train)(state.step)
+        for group in state.optimizer.param_groups:
+            group["lr"] = lr
+        state.optimizer.zero_grad(set_to_none=True)
+        with profiling.span("backward"):
+            total.backward()
+        if dist.is_initialized():
+            _sum_gradients(list(state.head.parameters()))
+        with profiling.span("optimizer"):
+            state.optimizer.step()
     state.step += 1
     return state, {"loss": total.detach(), "seg_loss": l_seg.detach(),
                    "diver_loss": l_aff.detach(), "lr": lr}
@@ -205,7 +215,8 @@ def _sum_gradients(params: list) -> None:
     """The head's gradients summed over the process group, in one
     all_reduce of their concatenation (the JAX mesh's psum)."""
     flat = torch.cat([p.grad.reshape(-1) for p in params])
-    dist.all_reduce(flat)
+    with profiling.span("allreduce"):
+        dist.all_reduce(flat)
     for p, g in zip(params, flat.split([p.numel() for p in params])):
         p.grad.copy_(g.view_as(p))
 
@@ -236,6 +247,14 @@ class TrainStepCache:
 
     def __call__(self, phase: tuple[bool, bool], cls_batch):
         slots = self.slots_for(cls_batch)
+        if profiling.enabled():
+            crop = self.cfg.data.crop_size
+            cls = np.asarray(cls_batch)
+            refined, useful = fill_counts(
+                cls, [(crop, crop)] * len(cls), (crop, crop),
+                1 + (self.cfg.num_fg if slots is None else slots))
+            profiling.count("par.refined", refined)
+            profiling.count("par.useful", useful)
         return self._step(phase, slots)
 
     def full(self, phase: tuple[bool, bool]):

@@ -21,6 +21,7 @@ import torch
 
 from ..config import ClipConfig
 from ..ops.labels import scale_and_translate
+from ..utils import profiling
 from .layers import (attention_fused, external_feature_attention, layer_norm,
                      mlp, multi_head_attention, surgery_attention_fused)
 
@@ -94,91 +95,93 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"compute_dtype {dtype}: the encoder runs "
                                   "in float32 or bfloat16")
-    p = params["visual"]
-    heads = cfg.vision_heads
-    n_single = cfg.vision_layers - cfg.surgery_blocks
+    with profiling.span("encoder"):
+        p = params["visual"]
+        heads = cfg.vision_heads
+        n_single = cfg.vision_layers - cfg.surgery_blocks
 
-    x = _patch_embed(images.to(dtype), p["patch_embed"].to(dtype),
-                     cfg.patch_size)
-    b, gh, gw, c = x.shape
-    x = x.reshape(b, gh * gw, c)
-    cls = p["class_embedding"].to(x.dtype).expand(b, 1, c)
-    x = torch.cat([cls, x], dim=1)
-    pos = interpolate_pos_embedding(p["positional_embedding"], gh)
-    x = x + pos.to(x.dtype)
-    x = layer_norm(x, p["ln_pre"])
+        x = _patch_embed(images.to(dtype), p["patch_embed"].to(dtype),
+                         cfg.patch_size)
+        b, gh, gw, c = x.shape
+        x = x.reshape(b, gh * gw, c)
+        cls = p["class_embedding"].to(x.dtype).expand(b, 1, c)
+        x = torch.cat([cls, x], dim=1)
+        pos = interpolate_pos_embedding(p["positional_embedding"], gh)
+        x = x + pos.to(x.dtype)
+        x = layer_norm(x, p["ln_pre"])
 
-    ex_attn = None
-    if ex_feats is not None:
-        ex_attn = external_feature_attention(
-            ex_feats, global_batch=global_batch).to(x.dtype)
+        ex_attn = None
+        if ex_feats is not None:
+            ex_attn = external_feature_attention(
+                ex_feats, global_batch=global_batch).to(x.dtype)
 
-    window = cfg.attn_out_layers or cfg.vision_layers
-    win_start = cfg.vision_layers - window
+        window = cfg.attn_out_layers or cfg.vision_layers
+        win_start = cfg.vision_layers - window
 
-    attn_list = []          # "stack": per-block weights
-    attn_acc = None         # "mean": the kernels' in-place accumulator
-    single_feats, ori_feats, ori_residuals = [], [], []
-    x_ori = None
-    for i, blk in enumerate(p["blocks"]):
-        in_win = i >= win_start and attn_mode != "none"
-        fused_acc = attn_acc if attn_mode == "mean" and in_win else None
-        if i < n_single:
-            y, attn_w = attention_fused(layer_norm(x, blk["ln_1"]),
-                                        blk["attn"], heads,
-                                        attn_acc=fused_acc,
-                                        need_weights=in_win)
-            x = x + y
-            x = x + mlp(layer_norm(x, blk["ln_2"]), blk["mlp"])
-            single_feats.append(x)
-        else:
-            # dual path: both streams attend over ln_1 of the ORIGINAL stream
-            src = x if x_ori is None else x_ori
-            dense_res, ori_res, attn_w = surgery_attention_fused(
-                layer_norm(src, blk["ln_1"]), blk["attn"], heads,
-                ex_attn=ex_attn, attn_acc=fused_acc, need_attn=in_win)
-            x_ori = src + ori_res
-            x_ori = x_ori + mlp(layer_norm(x_ori, blk["ln_2"]), blk["mlp"])
-            x = x + dense_res          # dense stream skips the FFN
-            ori_feats.append(x_ori)
-            ori_residuals.append(ori_res)
-        if in_win:
-            if attn_mode == "mean":
-                attn_acc = attn_w          # the kernel added the prior acc
+        attn_list = []          # "stack": per-block weights
+        attn_acc = None         # "mean": the kernels' in-place accumulator
+        single_feats, ori_feats, ori_residuals = [], [], []
+        x_ori = None
+        for i, blk in enumerate(p["blocks"]):
+            in_win = i >= win_start and attn_mode != "none"
+            fused_acc = attn_acc if attn_mode == "mean" and in_win else None
+            if i < n_single:
+                y, attn_w = attention_fused(layer_norm(x, blk["ln_1"]),
+                                            blk["attn"], heads,
+                                            attn_acc=fused_acc,
+                                            need_weights=in_win)
+                x = x + y
+                x = x + mlp(layer_norm(x, blk["ln_2"]), blk["mlp"])
+                single_feats.append(x)
             else:
-                attn_list.append(attn_w)
+                # dual path: both streams attend over ln_1 of the ORIGINAL
+                # stream
+                src = x if x_ori is None else x_ori
+                dense_res, ori_res, attn_w = surgery_attention_fused(
+                    layer_norm(src, blk["ln_1"]), blk["attn"], heads,
+                    ex_attn=ex_attn, attn_acc=fused_acc, need_attn=in_win)
+                x_ori = src + ori_res
+                x_ori = x_ori + mlp(layer_norm(x_ori, blk["ln_2"]), blk["mlp"])
+                x = x + dense_res          # dense stream skips the FFN
+                ori_feats.append(x_ori)
+                ori_residuals.append(ori_res)
+            if in_win:
+                if attn_mode == "mean":
+                    attn_acc = attn_w          # the kernel added the prior acc
+                else:
+                    attn_list.append(attn_w)
 
-    # CLS token from the original path
-    if x_ori is not None:
-        x = torch.cat([x_ori[:, :1], x[:, 1:]], dim=1)
+        # CLS token from the original path
+        if x_ori is not None:
+            x = torch.cat([x_ori[:, :1], x[:, 1:]], dim=1)
 
-    # per-block feature stack with the reference's effective values (its
-    # appended views are mutated by later in-place updates):
-    #   blocks 0..n_single-2: clean single-path outputs
-    #   block  n_single-1:    the FINAL dense stream (CLS already swapped)
-    #   surgery blocks i<last: x_ori after block i + block i+1's attention
-    #                          residual (pre-MLP)
-    #   last surgery block:   clean x_ori
-    if ori_feats:
-        feat_list = single_feats[:-1] + [x]
-        for j in range(len(ori_feats) - 1):
-            feat_list.append(ori_feats[j] + ori_residuals[j + 1])
-        feat_list.append(ori_feats[-1])
-    else:
-        feat_list = single_feats
+        # per-block feature stack with the reference's effective values (its
+        # appended views are mutated by later in-place updates):
+        #   blocks 0..n_single-2: clean single-path outputs
+        #   block  n_single-1:    the FINAL dense stream (CLS already swapped)
+        #   surgery blocks i<last: x_ori after block i + block i+1's attention
+        #                          residual (pre-MLP)
+        #   last surgery block:   clean x_ori
+        if ori_feats:
+            feat_list = single_feats[:-1] + [x]
+            for j in range(len(ori_feats) - 1):
+                feat_list.append(ori_feats[j] + ori_residuals[j + 1])
+            feat_list.append(ori_feats[-1])
+        else:
+            feat_list = single_feats
 
-    x = layer_norm(x, p["ln_post"])
-    projected = torch.matmul(x, p["proj"].to(x.dtype))
+        x = layer_norm(x, p["ln_post"])
+        projected = torch.matmul(x, p["proj"].to(x.dtype))
 
-    if attn_mode == "none":
-        attn_out = None
-    elif attn_mode == "mean":
-        attn_out = attn_acc / window
-    else:
-        attn_out = torch.stack(attn_list, dim=0)
+        if attn_mode == "none":
+            attn_out = None
+        elif attn_mode == "mean":
+            attn_out = attn_acc / window
+        else:
+            attn_out = torch.stack(attn_list, dim=0)
 
-    return {"projected": projected, "attn": attn_out,
-            "feats": torch.stack(feat_list, dim=0)}
+        return {"projected": projected, "attn": attn_out,
+                "feats": torch.stack(feat_list, dim=0)}
 
 
 def encode_image(params: dict, images: torch.Tensor, cfg: ClipConfig,

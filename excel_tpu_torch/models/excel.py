@@ -15,6 +15,7 @@ import torch
 from ..config import ExcelConfig
 from ..ops.surgery import clip_feature_surgery
 from ..ops.tse import attr_aggregate
+from ..utils import profiling
 from .clip import encode_image, encode_text_ensemble
 from .head import (LvcHead, decoder_forward, feature_affinity,
                    init_head_params, segformer_fuse)
@@ -34,8 +35,9 @@ def compute_lams(image_out: dict, text_attr: torch.Tensor,
                  num_fg: int) -> torch.Tensor:
     """Feature surgery -> fg LAMs [B, hw, num_fg] (drop the CLS row and the
     background-class columns)."""
-    maps = clip_feature_surgery(image_out["projected"], text_attr)
-    return maps[:, 1:, :num_fg]
+    with profiling.span("lams"):
+        maps = clip_feature_surgery(image_out["projected"], text_attr)
+        return maps[:, 1:, :num_fg]
 
 
 def excel_forward(params: dict, images: torch.Tensor,
@@ -62,7 +64,7 @@ def excel_forward(params: dict, images: torch.Tensor,
     if ex_feats is not None:
         b, n, c = ex_feats.shape
         ex_nchw = ex_feats.transpose(1, 2).reshape(b, c, grid, grid)
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("calibrate"):
             out = encode_image(params["clip"], images, cfg.clip,
                                ex_feats=ex_nchw, attn_mode="none",
                                global_batch=global_batch)
@@ -73,12 +75,13 @@ def excel_forward(params: dict, images: torch.Tensor,
                            attn_mode=attn_mode)
         lams = compute_lams(out, text_attr, cfg.num_fg)
     head: LvcHead = params["head"]
-    fused = segformer_fuse(head, out["feats"][:, :, 1:, :],
-                           dropout_generator, cfg.head.dropout)
-    segs, seg_attn = decoder_forward(head, fused)
+    with profiling.span("head"):
+        fused = segformer_fuse(head, out["feats"][:, :, 1:, :],
+                               dropout_generator, cfg.head.dropout)
+        segs, seg_attn = decoder_forward(head, fused)
+        attn_pred = feature_affinity(fused, global_batch)
     return ExcelOutputs(segs=segs, fused=fused.detach(), lams=lams,
-                        attn_weights=out["attn"],
-                        attn_pred=feature_affinity(fused, global_batch),
+                        attn_weights=out["attn"], attn_pred=attn_pred,
                         seg_attn=seg_attn)
 
 

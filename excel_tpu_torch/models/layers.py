@@ -24,6 +24,7 @@ from __future__ import annotations
 import torch
 
 from ..parallel.distributed import group_mean
+from ..utils import profiling
 from .attention_kernels import fused_plain_attention, fused_surgery_attention
 
 
@@ -148,10 +149,11 @@ def attention_fused(y: torch.Tensor, p: dict, heads: int,
     """`attention` (no mask) through the plain attention kernel. attn_acc:
     optional [B, N, N] fp32 accumulator the kernel adds its head-mean onto
     in place; need_weights=False skips the weights output."""
-    q, k, v = qkv_projection(y, p, heads)
-    ctx, w = fused_plain_attention(q, k, v, acc=attn_acc,
-                                   need_weights=need_weights)
-    return linear(merge_heads(ctx), p["out"]), w
+    with profiling.span("attn"):
+        q, k, v = qkv_projection(y, p, heads)
+        ctx, w = fused_plain_attention(q, k, v, acc=attn_acc,
+                                       need_weights=need_weights)
+        return linear(merge_heads(ctx), p["out"]), w
 
 
 def surgery_attention_fused(y: torch.Tensor, p: dict, heads: int,
@@ -164,16 +166,17 @@ def surgery_attention_fused(y: torch.Tensor, p: dict, heads: int,
     the kernel as fp32 [B, N, N] with a zero CLS row and column, which adds
     it to the patch-patch block only. The dense context shared @ v is one
     product outside the kernel."""
-    q, k, v = qkv_projection(y, p, heads)
-    ex = None
-    if ex_attn is not None:
-        ex = torch.nn.functional.pad(ex_attn.float(), (1, 0, 1, 0))
-    shared, attn_sum, ctx_ori = fused_surgery_attention(
-        q, k, v, ex_attn=ex, acc=attn_acc, need_attn=need_attn)
-    ctx_dense = torch.matmul(shared[:, None].to(v.dtype), v)
-    dense_out = linear(merge_heads(ctx_dense), p["out"])
-    ori_out = linear(merge_heads(ctx_ori), p["out"])
-    return dense_out, ori_out, attn_sum
+    with profiling.span("attn"):
+        q, k, v = qkv_projection(y, p, heads)
+        ex = None
+        if ex_attn is not None:
+            ex = torch.nn.functional.pad(ex_attn.float(), (1, 0, 1, 0))
+        shared, attn_sum, ctx_ori = fused_surgery_attention(
+            q, k, v, ex_attn=ex, acc=attn_acc, need_attn=need_attn)
+        ctx_dense = torch.matmul(shared[:, None].to(v.dtype), v)
+        dense_out = linear(merge_heads(ctx_dense), p["out"])
+        ori_out = linear(merge_heads(ctx_ori), p["out"])
+        return dense_out, ori_out, attn_sum
 
 
 def external_feature_attention(ex_feats: torch.Tensor, beta: float = 1.0,

@@ -12,6 +12,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import profiling
+
 
 def compute_trans_mat(attn: torch.Tensor) -> torch.Tensor:
     """Sinkhorn-style normalisation + symmetrise + one squaring.
@@ -42,18 +44,20 @@ def _propagate_labels(mask: torch.Tensor) -> torch.Tensor:
     tests it every sweep inside a device loop)."""
     m, h, w = mask.shape
     big = h * w
-    lab = torch.where(
-        mask, torch.arange(big, device=mask.device).reshape(1, h, w),
-        torch.full((1, h, w), big, device=mask.device))
-    while True:
-        before = lab
-        for _ in range(SWEEPS_PER_TEST):
-            p = torch.nn.functional.pad(lab, (1, 1, 1, 1), value=big)
-            neigh = torch.stack([p[:, dy:dy + h, dx:dx + w]
-                                 for dy in range(3) for dx in range(3)])
-            lab = torch.where(mask, neigh.amin(dim=0), big)
-        if torch.equal(lab, before):
-            return lab
+    with profiling.span("svc.propagate"):
+        lab = torch.where(
+            mask, torch.arange(big, device=mask.device).reshape(1, h, w),
+            torch.full((1, h, w), big, device=mask.device))
+        while True:
+            before = lab
+            for _ in range(SWEEPS_PER_TEST):
+                p = torch.nn.functional.pad(lab, (1, 1, 1, 1), value=big)
+                neigh = torch.stack([p[:, dy:dy + h, dx:dx + w]
+                                     for dy in range(3) for dx in range(3)])
+                lab = torch.where(mask, neigh.amin(dim=0), big)
+            profiling.count("svc.syncs")      # the test waits for the device
+            if torch.equal(lab, before):
+                return lab
 
 
 def scoremap_box_mask(score: torch.Tensor, threshold: float) -> torch.Tensor:
@@ -136,12 +140,13 @@ def refine_lams_batch(lams: torch.Tensor, attn_weights: torch.Tensor,
     per-block stack [L, B, N, N] or the pre-aggregated block mean [B, N, N]
     (the encoder's attn_mode="mean" output, only valid without seg_attn).
     Returns refined [B, C, hw]: `refine_lams` of each image."""
-    if attn_weights.dim() == 3:
-        if seg_attn is not None:
-            raise ValueError("pre-aggregated attention cannot drive the "
-                             "seg_attn keep-mask (needs the per-block stack)")
-        agg = attn_weights[:, 1:, 1:].float()
-    else:
-        agg = aggregate_attn(attn_weights.transpose(0, 1), attn_layers,
-                             seg_attn)
-    return refine_lams(lams, agg, caa_threshold, grid_hw)
+    if attn_weights.dim() == 3 and seg_attn is not None:
+        raise ValueError("pre-aggregated attention cannot drive the "
+                         "seg_attn keep-mask (needs the per-block stack)")
+    with profiling.span("svc"):
+        if attn_weights.dim() == 3:
+            agg = attn_weights[:, 1:, 1:].float()
+        else:
+            agg = aggregate_attn(attn_weights.transpose(0, 1), attn_layers,
+                                 seg_attn)
+        return refine_lams(lams, agg, caa_threshold, grid_hw)

@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import CrfConfig
+from ..utils import profiling
 from .labels import scale_and_translate
 from .par_kernels import offsets_tensor, par_diffuse
 
@@ -237,11 +238,12 @@ def crf_meanfield(images: torch.Tensor, probs: torch.Tensor, iters: int = 10,
     store = msg_dtype or torch.float32
     aff_m = aff.to(store).contiguous()
     offsets = offsets_tensor(offs, dev)
-    for _ in range(iters):
-        m = par_diffuse(q.to(store).contiguous(), aff_m, offsets).float()
-        if coarse_msg is not None:
-            m = m + coarse_msg(q)
-        q = torch.softmax(unary + m, dim=1)
+    with profiling.span("crf"):
+        for _ in range(iters):
+            m = par_diffuse(q.to(store).contiguous(), aff_m, offsets).float()
+            if coarse_msg is not None:
+                m = m + coarse_msg(q)
+            q = torch.softmax(unary + m, dim=1)
     return q
 
 

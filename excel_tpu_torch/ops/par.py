@@ -44,6 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils import profiling
 from .par_kernels import (offsets_tensor, pad_replicate_valid, par_affinity,
                           par_diffuse, par_diffuse_valid_resident)
 
@@ -120,6 +121,23 @@ def _affinity(imgs: torch.Tensor, dilations, w1: float,
     return aff + w2 * pos[None, :, None, None]
 
 
+def fill_counts(cls_label, valid_hw, canvas: tuple[int, int],
+                channels: int, blank=None) -> tuple[int, int]:
+    """(refined, useful) channel-pixels of one `par_refine` over a batch,
+    from host values: refined, the batch's images x `channels` (background
+    + the class slots, or + every class on the full stack) x the canvas's
+    pixels; useful, over the images that are not `blank` (remainder
+    padding), (1 + their present classes) x their valid pixels.
+    cls_label [B, num_fg]; valid_hw [B, 2]; blank [B] bool or None."""
+    cls = np.asarray(cls_label)
+    present = (cls > 0).sum(axis=1)
+    area = np.prod(np.asarray(valid_hw, np.int64), axis=1)
+    useful = (1 + present) * area
+    if blank is not None:
+        useful = useful[~np.asarray(blank, bool)]
+    return (len(cls) * channels * canvas[0] * canvas[1], int(useful.sum()))
+
+
 def bf16_route(dilations) -> str:
     """The route of bf16 `par_refine` at these dilations, from the shapes
     alone, as the JAX package picks its Pallas route: "padded" (pad-clamp,
@@ -143,24 +161,25 @@ def par_refine(imgs: torch.Tensor, masks: torch.Tensor,
     store = dtype or torch.float32
     if store not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"PAR storage {dtype}: float32 or bfloat16")
-    if store == torch.bfloat16 and bf16_route(dilations) == "padded":
-        return _par_refine_bf16(imgs, masks, dilations, num_iter, w1, w2,
-                                valid_hw)
-    # the per-step route: fp32, or bf16 storage at a pad that is not a
-    # multiple of 8
-    imgs = imgs.float()
-    masks = masks.float()
-    if valid_hw is not None:
-        masks = _replicate_valid(masks, valid_hw)
-        imgs = _replicate_valid(imgs, valid_hw)
-    aff = _affinity(imgs, dilations, w1, w2).to(store).contiguous()
-    offsets = offsets_tensor(_offsets(dilations), masks.device)
-    m = masks.to(store).contiguous()
-    for _ in range(num_iter):
-        m = par_diffuse(m, aff, offsets)
+    with profiling.span("par"):
+        if store == torch.bfloat16 and bf16_route(dilations) == "padded":
+            return _par_refine_bf16(imgs, masks, dilations, num_iter, w1, w2,
+                                    valid_hw)
+        # the per-step route: fp32, or bf16 storage at a pad that is not a
+        # multiple of 8
+        imgs = imgs.float()
+        masks = masks.float()
         if valid_hw is not None:
-            m = _replicate_valid(m, valid_hw)
-    return m.float()
+            masks = _replicate_valid(masks, valid_hw)
+            imgs = _replicate_valid(imgs, valid_hw)
+        aff = _affinity(imgs, dilations, w1, w2).to(store).contiguous()
+        offsets = offsets_tensor(_offsets(dilations), masks.device)
+        m = masks.to(store).contiguous()
+        for _ in range(num_iter):
+            m = par_diffuse(m, aff, offsets)
+            if valid_hw is not None:
+                m = _replicate_valid(m, valid_hw)
+        return m.float()
 
 
 def _par_refine_bf16(imgs, masks, dilations, num_iter, w1, w2, valid_hw):

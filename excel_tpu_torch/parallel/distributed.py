@@ -28,6 +28,7 @@ import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
+from ..utils import profiling
 
 BACKENDS = ("nccl", "gloo")
 
@@ -132,7 +133,8 @@ def global_sum_host(x):
     if t.dtype.is_floating_point or t.dtype.is_complex:
         raise TypeError(f"global_sum_host sums integer hists, got {t.dtype}")
     t = t.to(_group_device(), torch.int64, copy=True)
-    dist.all_reduce(t)
+    with profiling.span("allreduce"):
+        dist.all_reduce(t)
     return t.cpu().numpy()
 
 

@@ -6,6 +6,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import profiling
+
 
 def init_hist(num_classes: int, device="cpu") -> torch.Tensor:
     return torch.zeros((num_classes, num_classes), dtype=torch.int64,
@@ -16,12 +18,14 @@ def update_hist(hist: torch.Tensor, label_true: torch.Tensor,
                 label_pred: torch.Tensor, num_classes: int) -> torch.Tensor:
     """hist [C, C] + counts of (true, pred) pairs over the pixels whose true
     and predicted labels both lie in [0, C) (255-ignore pixels drop out)."""
-    lt = label_true.reshape(-1).long()
-    lp = label_pred.reshape(-1).long()
-    valid = (lt >= 0) & (lt < num_classes) & (lp >= 0) & (lp < num_classes)
-    counts = torch.bincount(lt[valid] * num_classes + lp[valid],
-                            minlength=num_classes * num_classes)
-    return hist + counts.reshape(num_classes, num_classes)
+    with profiling.span("hist"):
+        lt = label_true.reshape(-1).long()
+        lp = label_pred.reshape(-1).long()
+        valid = ((lt >= 0) & (lt < num_classes) & (lp >= 0)
+                 & (lp < num_classes))
+        counts = torch.bincount(lt[valid] * num_classes + lp[valid],
+                                minlength=num_classes * num_classes)
+        return hist + counts.reshape(num_classes, num_classes)
 
 
 def update_hist_pseudo(hist: torch.Tensor, label_true: torch.Tensor,

@@ -111,16 +111,23 @@ def test_float_images_and_crc_of_large_records(tmp_path):
 
 
 def test_profiling_on_the_cpu(tmp_path):
-    """trace writes a Chrome trace with the block's ops; benchmark times
-    the CPU with the host clock."""
+    """trace writes a Chrome trace with the block's ops and the program's
+    spans, and the spans' snapshot beside it; the spans are off again
+    after the block."""
     import json
 
     x = torch.randn(64, 64)
     with profiling.trace(str(tmp_path)):
-        (x @ x).sum()
+        with profiling.span("outer", n=2):
+            profiling.count("calls", 2)
+            (x @ x).sum()
     with open(tmp_path / "trace.json") as f:
         names = {e.get("name") for e in json.load(f)["traceEvents"]}
-    assert "aten::mm" in names
-    r = profiling.benchmark(torch.mm, x, x, iters=3, warmup=1)
-    assert r["clock"] == "host" and r["ms"] > 0
-    assert r["calls_per_s"] == pytest.approx(1e3 / r["ms"])
+    assert {"aten::mm", "excel.outer"} <= names
+    with open(tmp_path / "spans.json") as f:
+        spans = json.load(f)
+    assert spans["counters"] == {"calls": 2}
+    assert spans["spans"]["outer"]["count"] == 1
+    assert 0 < spans["spans"]["outer"]["self_s"] <= \
+        spans["spans"]["outer"]["total_s"]
+    assert not profiling.enabled()
