@@ -33,7 +33,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    counts (1, 15, 17, 63, 65) with D = 64 and 32; row 5's kernel at
    the mean-field CRF's shapes (72 offsets up to 55 px; [4, 21, 384, 512],
    [2, 81, 480, 640], [16, 4, 384, 512]) through its fp32 and its bf16
-   entry point, both bit for bit;
+   entry point, both bit for bit; the seg loss's upsample backward at the
+   fast train step's [4, 21, 20, 20] -> 320 and COCO's [4, 81, 28, 28] ->
+   448 against its plain version and PyTorch's atomic backward (timed as
+   its library call), two launches bit for bit;
 4. the eval slices: `run_lam_eval` (training-free LAM eval at full
    ViT-B/16 width, seeded random weights) over synthetic VOC-sized samples
    in `voc_config()` (fp32) and `fast(voc_config())` (bf16 encoder with its
@@ -55,7 +58,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    logits, predictions, and the CPU's CRF + argmax on the card's logits;
 6. the training slice, for each preset: the LVC head's training steps at
    B=4, crop 320 through the three phases (pre-calibration, calibrated,
-   calibrated + seg affinity), each step's launch counts checked, the head
+   calibrated + seg affinity), each step's launch counts checked (one
+   upsample backward a step, none in a sweep), the head
    moved and CLIP unchanged, median step times and a profiled step; one
    calibrated step's forward and backward at B=2 on the card and on the
    CPU (pseudo-labels, losses, head gradients; the card's pseudo-labels
@@ -175,7 +179,8 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 The JSON kernel table has one line per Pallas function (rows 1-4 for each
 dtype; row 5 for PAR's step and for the CRF's message pass in fp32 and
 bf16; row 11 for the affinity's slab kernel and for its direct kernel,
-the latter timed at pad 56); `launches` counts the launches of the route
+the latter timed at pad 56), and one for the seg loss's upsample backward,
+which replaces no Pallas function; `launches` counts the launches of the route
 that stands for that
 function (the attention wrappers' attribution by mode and token count, the
 fp32 and bf16 steps on valid or full extents, the step at the CRF's 72
@@ -282,6 +287,13 @@ PADDED_CHANNELS = (5, 9)
 # order; the stated bound over 20 chained steps (a wrong offset or chunk is
 # off by > 1e-3)
 TOL_ROW8 = 1e-5
+# the seg loss's upsample backward, (B, C, h, w, H, W): the fast train
+# step's logits [4, 21, 20, 20] -> 320 and COCO's [4, 81, 28, 28] -> 448;
+# fp32 sums of up to ~4 s_y s_x terms in another order, within this share
+# of each cell's summed term magnitudes (tests/test_torch_kernels_gpu.py's
+# bound; one wrong tap weight is off by ~1e-3)
+UPSAMPLE_SHAPES = ((4, 21, 20, 20, 320, 320), (4, 81, 28, 28, 448, 448))
+TOL_UPSAMPLE = 2e-6
 # card against CPU on one calibrated train step at B=2: the losses (fp32
 # sums over 2 x 320 x 320 pixels in other orders, plus the pixels whose
 # pseudo-label moves) and the head's gradient (relative to its norm)
@@ -1050,6 +1062,58 @@ def check_fast_train_par(records: dict) -> None:
         records[name]["max_abs_err"] = max(records[name]["max_abs_err"], e)
 
 
+def check_upsample_backward() -> dict:
+    """The seg loss's upsample backward (csrc/upsample_linear.cu) at the
+    fast train step's [4, 21, 20, 20] -> 320 and COCO's [4, 81, 28, 28] ->
+    448: against its plain version and against PyTorch's
+    `upsample_bilinear2d_backward` (atomics) on the card, within
+    TOL_UPSAMPLE of each cell's summed term magnitudes, and two launches bit
+    for bit; times of the kernel, the plain version and that library call
+    (timed only: the port does not call it). Returns the record of the
+    train shape, with the largest absolute error over both shapes."""
+    from excel_tpu_torch.ops import upsample_kernels as uk
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rec = None
+    for b, c, h, w, big_h, big_w in UPSAMPLE_SHAPES:
+        g = torch.randn((b, c, big_h, big_w), device="cuda", generator=gen)
+
+        def library():
+            return torch.ops.aten.upsample_bilinear2d_backward(
+                g, [big_h, big_w], [b, c, h, w], False)
+
+        got = uk.upsample_linear_backward(g, (h, w))
+        again = uk.upsample_linear_backward(g, (h, w))
+        wy = uk.linear_taps(h, big_h, "cuda").double()
+        wx = uk.linear_taps(w, big_w, "cuda").double()
+        mag = torch.einsum("bcyx,xj,yi->bcij", g.double().abs(), wx, wy)
+        diff = [(got.double() - ref.double()).abs() for ref in (
+            uk.upsample_linear_backward_reference(g, (h, w)), library())]
+        err = max(float((d / mag).max()) for d in diff)
+        abs_err = max(float(d.max()) for d in diff)
+        if not (err <= TOL_UPSAMPLE and torch.equal(got, again)):
+            raise AssertionError(f"upsample_linear_backward {(b, c, h, w)} "
+                                 f"-> {(big_h, big_w)}: err {err}, two "
+                                 f"launches equal {torch.equal(got, again)}")
+        kernel = time_ms(lambda: uk.upsample_linear_backward(g, (h, w)), 50)
+        plain = time_ms(lambda: uk.upsample_linear_backward_reference(
+            g, (h, w)), 10)
+        lib = time_ms(library, 10)
+        bnd, by = bound_ms(0, (g.numel() + got.numel()) * 4)
+        log(f"kernel upsample_linear_backward (none: the JAX package leaves "
+            f"jax.image.resize's gradient to XLA) [{b}, {c}, {h}, {w}] -> "
+            f"[{big_h}, {big_w}] fp32: max_abs_err={abs_err:.3g}, err / "
+            f"magnitude={err:.3g} (tol "
+            f"{TOL_UPSAMPLE}) two launches bit for bit; kernel_ms="
+            f"{kernel:.4f} plain_ms={plain:.4f} library_ms (upsample_"
+            f"bilinear2d_backward)={lib:.4f} bound_ms={bnd:.4f} ({by})")
+        if rec is None:
+            rec = dict(ms=kernel, plain_ms=plain, library_ms=lib,
+                       bound_ms=bnd, bound_by=by, max_abs_err=abs_err)
+        rec["max_abs_err"] = max(rec["max_abs_err"], abs_err)
+    return {"upsample_linear_backward": rec}
+
+
 # VOC-typical label extents (h, w): landscape and portrait images
 VOC_EXTENTS = [(375, 500), (333, 500), (500, 375), (375, 500), (366, 500),
                (500, 333), (375, 500), (353, 500)]
@@ -1100,13 +1164,15 @@ def _kernel_wrappers():
     from excel_tpu_torch.models.attention_kernels import (
         fused_plain_attention, fused_surgery_attention)
     from excel_tpu_torch.ops import par_kernels as pk
+    from excel_tpu_torch.ops import upsample_kernels as uk
     return {"plain_attention": fused_plain_attention,
             "surgery_attention": fused_surgery_attention,
             "par_diffuse": pk.par_diffuse,
             "pad_replicate_valid": pk.pad_replicate_valid,
             "par_affinity": pk.par_affinity,
             "par_diffuse_padded_valid": pk.par_diffuse_padded_valid,
-            "par_diffuse_valid_resident": pk.par_diffuse_valid_resident}
+            "par_diffuse_valid_resident": pk.par_diffuse_valid_resident,
+            "upsample_linear_backward": uk.upsample_linear_backward}
 
 
 def reset_launches() -> None:
@@ -1156,7 +1222,8 @@ def read_launches(preset: str, training: bool) -> dict:
             "par_diffuse_padded" if training else "par_diffuse_padded_valid":
                 counts["par_diffuse_padded_valid"]}
     rows.update({name: counts[name] for name in (
-        "pad_replicate_valid", "par_diffuse_valid_resident")})
+        "pad_replicate_valid", "par_diffuse_valid_resident",
+        "upsample_linear_backward")})
     by_kernel = wrappers["par_affinity"].launches_by_kernel
     rows.update(par_affinity=by_kernel["slab"],
                 par_affinity_direct=by_kernel["direct"])
@@ -1168,14 +1235,16 @@ def read_launches(preset: str, training: bool) -> dict:
 # launches of each kernel wrapper per batch of each slice's main path:
 # blocks 0-6 (plain attention), blocks 7-11 (surgery attention), then PAR:
 # fp32, 20 steps; fast, pad-clamp of the images and of the masks, the
-# affinity, and one resident launch of all 20 steps
+# affinity, and one resident launch of all 20 steps; no backward
 LAUNCHES_PER_BATCH = {
     "fp32": {"plain_attention": 7, "surgery_attention": 5, "par_diffuse": 20,
              "pad_replicate_valid": 0, "par_affinity": 0,
-             "par_diffuse_padded_valid": 0, "par_diffuse_valid_resident": 0},
+             "par_diffuse_padded_valid": 0, "par_diffuse_valid_resident": 0,
+             "upsample_linear_backward": 0},
     "fast": {"plain_attention": 7, "surgery_attention": 5, "par_diffuse": 0,
              "pad_replicate_valid": 2, "par_affinity": 1,
-             "par_diffuse_padded_valid": 0, "par_diffuse_valid_resident": 1},
+             "par_diffuse_padded_valid": 0, "par_diffuse_valid_resident": 1,
+             "upsample_linear_backward": 0},
 }
 
 
@@ -1330,11 +1399,13 @@ def phase_card_vs_cpu(preset, params, text, cfg, samples,
 # validation and trained-LAM sweeps): pre-calibration (and validation), one
 # encoder pass; calibrated (and the trained LAM sweep, whose batch is
 # [x, flip x]), the head's pass and the calibrated pass; then PAR as in the
-# eval slices (full extents in training)
+# eval slices (full extents in training); and a train step's one backward
+# of the seg loss's upsample (none in a sweep)
 TRAIN_LAUNCHES = {
     (preset, calibrated): {
         name: (n * (2 if calibrated and "attention" in name else 1))
         for name, n in LAUNCHES_PER_BATCH[preset].items()}
+        | {"upsample_linear_backward": 1}
     for preset in ("fp32", "fast") for calibrated in (False, True)}
 
 
@@ -1629,7 +1700,8 @@ def phase_trained_eval(preset, cfg, clip, state, text,
             f"{n_batches} seconds={dt:.3f} img_per_s={n_samples / dt:.3f} "
             f"miou={miou} launches=" + json.dumps(
                 {k: v for k, v in counts.items() if v}))
-        for name, per_batch in TRAIN_LAUNCHES[preset, calibrated].items():
+        for name, per_batch in dict(TRAIN_LAUNCHES[preset, calibrated],
+                                    upsample_linear_backward=0).items():
             if counts[name] != per_batch * n_batches:
                 raise AssertionError(
                     f"{what} {preset}, {name}: {counts[name]} launches, "
@@ -2145,7 +2217,8 @@ TRAIN_CLI_SAMPLES = 16
 # bf16, the resident diffusion, pad-clamp and the affinity
 TRAIN_CLI_ROWS = ("plain_attention_bf16", "plain_attention_rows_hb_bf16",
                   "surgery_attention_bf16", "par_diffuse_valid_resident",
-                  "pad_replicate_valid", "par_affinity")
+                  "pad_replicate_valid", "par_affinity",
+                  "upsample_linear_backward")
 # COCO's production train phase (calibrated, no seg affinity) at B=32, its
 # classes in the 8-slot bucket (PAR at C=9)
 COCO_B, COCO_SLOTS, COCO_BG = 32, 8, 23
@@ -2972,7 +3045,7 @@ RANK_TIMEOUT_S = 480
 RANK_KERNELS = {
     "train_cli": ("plain_attention", "surgery_attention",
                   "pad_replicate_valid", "par_affinity",
-                  "par_diffuse_valid_resident"),
+                  "par_diffuse_valid_resident", "upsample_linear_backward"),
     "infer_lam": CLI_KERNELS["infer_lam", "fast"],
     "infer_seg": ("plain_attention", "surgery_attention", "par_diffuse"),
 }
@@ -3877,7 +3950,7 @@ COCO_SAMPLES = 4
 WRAPPER_KERNELS = {
     "run_train": ("plain_attention", "surgery_attention",
                   "pad_replicate_valid", "par_affinity",
-                  "par_diffuse_valid_resident"),
+                  "par_diffuse_valid_resident", "upsample_linear_backward"),
     "infer_lam": ("plain_attention", "surgery_attention",
                   "pad_replicate_valid", "par_affinity",
                   "par_diffuse_valid_resident"),
@@ -4348,6 +4421,7 @@ SOURCES = {
     "pad_replicate_valid": ("par_pad_clamp.cu", f"{_PAR}:845"),
     "par_affinity": ("par_affinity.cu", f"{_PAR}:931"),
     "par_affinity_direct": ("par_affinity.cu", f"{_PAR}:931"),
+    "upsample_linear_backward": ("upsample_linear.cu", "none"),
 }
 
 
@@ -4364,6 +4438,7 @@ def main() -> int:
     records.update(phase_kernels_padded())
     check_fast_train_par(records)
     records.update(check_crf_diffuse())
+    records.update(check_upsample_backward())
     for preset, bound in (("fp32", MIN_LABEL_AGREEMENT),
                           ("fast", MIN_FAST_LABEL_AGREEMENT)):
         _, params, text, cfg, samples = phase_slice(preset)

@@ -50,6 +50,7 @@ _AFFINITY = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P]
 _VALID_STEP = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _VALID_RESIDENT = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                    _I, _P]
+_UPSAMPLE_BWD = [_P, _P, _I, _I, _I, _I, _I, _P]
 # source name -> {C entry point: argument types}; every entry point returns
 # the cudaError_t of its launch as an int
 ENTRY_POINTS = {
@@ -66,6 +67,7 @@ ENTRY_POINTS = {
     "par_diffuse_valid": {
         "excel_par_diffuse_valid_step_bf16": _VALID_STEP,
         "excel_par_diffuse_valid_resident_bf16": _VALID_RESIDENT},
+    "upsample_linear": {"excel_upsample_linear_bwd_f32": _UPSAMPLE_BWD},
 }
 
 _loaded: dict = {}

@@ -15,7 +15,8 @@ import functools
 
 import numpy as np
 import torch
-import torch.nn.functional as F
+
+from .upsample_kernels import UpsampleLinear
 
 _EPS32 = float(np.finfo(np.float32).eps)
 
@@ -150,13 +151,14 @@ def upsample_linear(x: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
     `jax.image.resize(..., "linear")` equals `F.interpolate(bilinear,
     align_corners=False)` there: both weight the same two neighbours and
     hold the edge value beyond the outermost sample centres. Other factors
-    raise: the two resizes part ways when downsampling (jax antialiases)."""
+    raise: the two resizes part ways when downsampling (jax antialiases).
+    The backward is a gather (ops/upsample_kernels.py), a CUDA kernel on
+    the card."""
     h, w = x.shape[-2:]
     if out_hw[0] % h or out_hw[1] % w or out_hw[0] < h or out_hw[1] < w:
         raise ValueError(f"upsample_linear: {h}x{w} -> {out_hw} is not an "
                          "integer upsample")
-    return F.interpolate(x.float(), size=tuple(out_hw), mode="bilinear",
-                         align_corners=False)
+    return UpsampleLinear.apply(x.float(), tuple(out_hw))
 
 
 def cams_with_background(refined: torch.Tensor, cls_label: torch.Tensor,

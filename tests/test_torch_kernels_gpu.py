@@ -872,3 +872,83 @@ def test_diffuse_valid_resident_72_offsets_bitwise(gen, c):
                                                       40, 200, n)
         torch.cuda.synchronize()
         assert torch.equal(res, ref), n
+
+
+# -- the seg loss's upsample backward (csrc/upsample_linear.cu) --------------
+
+# (B, C, h, w, H, W): the fast train step's logits [4, 21, 20, 20] -> 320
+# and COCO's [4, 81, 28, 28] -> 448; 1 and 3 planes; factors 1, 2 and 16;
+# unequal factors; widths that are no multiple of 4 (4-byte loads); 70
+# columns at factor 32, whose output columns take two tiles of the kernel
+UPSAMPLE_SHAPES = [(4, 21, 20, 20, 320, 320), (4, 81, 28, 28, 448, 448),
+                   (1, 1, 5, 7, 5, 7), (1, 3, 6, 4, 12, 8),
+                   (1, 3, 3, 5, 48, 80), (2, 3, 4, 5, 12, 35),
+                   (1, 3, 7, 3, 14, 21), (1, 2, 3, 70, 6, 2240)]
+# fp32 sums of up to ~4 s_y s_x terms in another order: 2e-6 of each cell's
+# summed term magnitudes (the CPU's autograd reads at most 3.3e-7 of it
+# against float64; one wrong tap weight, ~1e-3)
+UPSAMPLE_TOL = 2e-6
+
+
+def _upsample_close(got, g, in_hw, ref) -> None:
+    from excel_tpu_torch.ops import upsample_kernels as uk
+
+    gc = g.cpu()
+    wy = uk.linear_taps(in_hw[0], g.shape[-2]).double()
+    wx = uk.linear_taps(in_hw[1], g.shape[-1]).double()
+    mag = torch.einsum("bcyx,xj,yi->bcij", gc.double().abs(), wx, wy)
+    assert ((got.cpu().double() - ref.cpu().double()).abs()
+            <= UPSAMPLE_TOL * mag).all()
+
+
+@pytest.mark.parametrize("b,c,h,w,big_h,big_w", UPSAMPLE_SHAPES)
+def test_upsample_linear_backward_kernel(gen, b, c, h, w, big_h, big_w):
+    """The gather against its plain version and against F.interpolate's own
+    autograd gradient (atomics); two launches give the same bits."""
+    import torch.nn.functional as F
+
+    from excel_tpu_torch.ops import upsample_kernels as uk
+
+    g = torch.randn((b, c, big_h, big_w), device="cuda", generator=gen)
+    before = uk.upsample_linear_backward.launches
+    got = uk.upsample_linear_backward(g, (h, w))
+    again = uk.upsample_linear_backward(g, (h, w))
+    x = torch.zeros((b, c, h, w), device="cuda", requires_grad=True)
+    F.interpolate(x, size=(big_h, big_w), mode="bilinear",
+                  align_corners=False).backward(g)
+    torch.cuda.synchronize()
+    assert uk.upsample_linear_backward.launches == before + 2
+    assert got.shape == (b, c, h, w) and torch.equal(got, again)
+    _upsample_close(got, g, (h, w),
+                    uk.upsample_linear_backward_reference(g.cpu(), (h, w)))
+    _upsample_close(got, g, (h, w), x.grad)
+
+
+def test_upsample_linear_backward_unaligned_side_stream_and_autograd(gen):
+    """A gradient one element past a 16-byte boundary takes the 4-byte
+    loads, a launch on a side stream gives the same bits, and
+    `upsample_linear`'s autograd runs the kernel once a backward."""
+    from excel_tpu_torch.ops import labels as plab
+    from excel_tpu_torch.ops import upsample_kernels as uk
+
+    g = torch.randn((4, 21, 320, 320), device="cuda", generator=gen)
+    big = torch.empty((g.numel() + 1,), device="cuda")
+    g_u = big[1:].view(g.shape).copy_(g)
+    ref = uk.upsample_linear_backward(g, (20, 20))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got_u = uk.upsample_linear_backward(g_u, (20, 20))
+        got_s = uk.upsample_linear_backward(g, (20, 20))
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got_s, ref)
+    _upsample_close(got_u, g, (20, 20), ref)
+
+    x = torch.randn((4, 21, 20, 20), device="cuda", generator=gen,
+                    requires_grad=True)
+    before = uk.upsample_linear_backward.launches
+    plab.upsample_linear(x, (320, 320)).backward(g)
+    torch.cuda.synchronize()
+    assert uk.upsample_linear_backward.launches == before + 1
+    assert torch.equal(x.grad, ref)

@@ -5,9 +5,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from excel_tpu.ops import labels as jlab
 from excel_tpu_torch.ops import labels as plab
+from excel_tpu_torch.ops import upsample_kernels as uk
 from torch_port_common import n, t
 
 # one-step bilinear weights renormalised in another order: 1e-6 abs on
@@ -108,6 +110,81 @@ def test_upsample_linear_equals_jax_resize_with_gradient():
                                rtol=1e-5)
     with pytest.raises(ValueError):
         plab.upsample_linear(xt, (6, 7))
+
+
+# (h, w) -> (H, W): factors 1, 2, 16 and unequal ones; a 1-row input
+UPSAMPLE_CASES = [((5, 4), (5, 4)), ((3, 5), (6, 10)), ((4, 5), (64, 80)),
+                  ((3, 5), (9, 20)), ((1, 6), (7, 42))]
+
+
+def _upsample_magnitude(g, in_hw):
+    """Per input cell, the sum of its gradient terms' magnitudes in float64:
+    the scale of fp32's error on the cell's sum."""
+    wy = uk.linear_taps(in_hw[0], g.shape[-2]).double()
+    wx = uk.linear_taps(in_hw[1], g.shape[-1]).double()
+    return torch.einsum("bcyx,xj,yi->bcij", g.double().abs(), wx, wy)
+
+
+@pytest.mark.parametrize("in_hw,out_hw", UPSAMPLE_CASES)
+def test_upsample_backward_plain_equals_jax_vjp_and_torch_autograd(in_hw,
+                                                                   out_hw):
+    """The plain separable backward equals jax.vjp of jax.image.resize
+    (linear) and torch's autograd of F.interpolate (bilinear,
+    align_corners=False) within 1e-6 of each cell's summed term magnitudes
+    (fp32 sums of up to ~4 s_y s_x terms in another order; a wrong tap
+    weight moves a cell by ~1e-2 of it). It is what `upsample_linear`'s
+    backward runs on the CPU: one "upsample.bwd" count a call, no kernel
+    launch."""
+    import jax
+
+    from excel_tpu_torch.utils import profiling
+
+    rng = np.random.default_rng(sum(in_hw) * 100 + sum(out_hw))
+    x = rng.standard_normal((2, 3, *in_hw)).astype(np.float32)
+    g = rng.standard_normal((2, 3, *out_hw)).astype(np.float32)
+    got = uk.upsample_linear_backward_reference(t(g), in_hw)
+    _, vjp = jax.vjp(lambda a: jax.image.resize(a, (2, 3, *out_hw),
+                                                method="linear"),
+                     jnp.asarray(x))
+    ref_jax = np.asarray(vjp(jnp.asarray(g))[0])
+    xt = t(x).requires_grad_()
+    F.interpolate(xt, size=out_hw, mode="bilinear",
+                  align_corners=False).backward(t(g))
+    lim = 1e-6 * n(_upsample_magnitude(t(g), in_hw))
+    assert got.dtype == torch.float32 and got.shape == (2, 3, *in_hw)
+    assert (np.abs(n(got) - ref_jax) <= lim).all()
+    assert (np.abs(n(got) - n(xt.grad)) <= lim).all()
+
+    launches = uk.upsample_linear_backward.launches
+    xp = t(x).requires_grad_()
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        plab.upsample_linear(xp, out_hw).backward(t(g))
+        counted = profiling.snapshot()["counters"].get("upsample.bwd")
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    assert counted == 1
+    assert uk.upsample_linear_backward.launches == launches
+    assert torch.equal(xp.grad, got)
+
+
+def test_upsample_forward_is_f_interpolate_and_backward_checks_shapes():
+    """The forward is F.interpolate's, bit for bit (any input dtype, as a
+    float32 result), under no_grad too; the backward takes only integer
+    upsamples of float32 [B, C, H, W] gradients."""
+    x = torch.randn((2, 3, 5, 7), dtype=torch.float64)
+    ref = F.interpolate(x.float(), size=(20, 21), mode="bilinear",
+                        align_corners=False)
+    assert torch.equal(plab.upsample_linear(x, (20, 21)), ref)
+    with torch.no_grad():
+        assert torch.equal(plab.upsample_linear(x, (20, 21)), ref)
+    with pytest.raises(ValueError):
+        uk.upsample_linear_backward(torch.zeros((1, 1, 20, 22)), (5, 7))
+    with pytest.raises(ValueError):
+        uk.upsample_linear_backward(
+            torch.zeros((1, 1, 20, 21), dtype=torch.float64), (5, 7))
 
 
 def test_cams_with_background_matches():
