@@ -30,7 +30,11 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    case again for two launches bit for bit and mode acc == mode out + the
    accumulator bit for bit; every mode of both
    attention kernels, surgery with and without ex, at ragged and tiny token
-   counts (1, 15, 17, 63, 65) with D = 64 and 32; row 5's kernel at
+   counts (1, 15, 17, 63, 65) with D = 64 and 32; both attention kernels
+   at OpenCLIP ViT-H/14's sweep shape (D = 80, 16 heads, 577 tokens, B=4:
+   plain none and out, surgery acc with and without ex), timed against
+   bound_ms and plain none against SDPA (the final JSON line's
+   `attention_hd80`); row 5's kernel at
    the mean-field CRF's shapes (72 offsets up to 55 px; [4, 21, 384, 512],
    [2, 81, 480, 640], [16, 4, 384, 512]) through its fp32 and its bf16
    entry point, both bit for bit; the seg loss's upsample backward at the
@@ -47,6 +51,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    valid pixels; then the same sweep with its on-device CRF branch,
    `run_lam_eval(crf_tpu=True)`: the batch's launches plus 10 of row 5's
    kernel at 72 offsets (fp32 entry point; bf16 under the fast preset);
+   then `run_lam_eval` of the fast preset over OpenCLIP ViT-H/14 at full
+   width (8 samples, batch 4), its launches per batch checked (27 plain,
+   5 surgery, the fast preset's PAR) and its D = 80 launches by the
+   profiling counter `attn.hd80` (32 a batch);
 5. the MSC slice, for each preset: `run_msc_seg_eval` (MSC+flip
    segmentation eval, seeded random CLIP and head) on 8 synthetic samples,
    batch 4, scales (1.0, 0.7, 1.2, 1.5) x 320 px, without and with the
@@ -580,6 +588,66 @@ TIMED_CASE = {"plain_attention": ("out", 401, 16, False),
 # token counts of the MSC scales 0.7, 1.2 and 1.5 of 320 px (1.0: N_TOK)
 MSC_TOKENS = (197, 577, 901)
 EDGE_TOKENS = (1, 15, 17, 63, 65)
+# OpenCLIP ViT-H/14's sweep at 336 px (voc-vith14-fast.lam_sweep): a batch
+# of 4 images of 577 tokens, 16 heads of 80; (kernel, mode, with ex): plain
+# none (blocks 0-25) and out (block 26), surgery acc (blocks 27-31), and
+# surgery acc with ex. Each case's record (dtype, times, bound) is kept in
+# HD80_RECORDS and printed in the final JSON line
+HD80_B, HD80_HEADS, HD80_TOKENS = 4, 16, 577
+HD80_CASES = (("plain", "none", False), ("plain", "out", False),
+              ("surgery", "acc", False), ("surgery", "acc", True))
+HD80_RECORDS: list = []
+
+
+def attention_case(gen, dtype, name, kind, mode, n, b, with_ex,
+                   heads=HEADS, d=HEAD_DIM) -> dict:
+    """One attention case (`check_attention_case`) on fresh inputs, then the
+    kernel, its plain version and (plain attention without weights)
+    `scaled_dot_product_attention` timed, and the case's bound_ms. Returns
+    {max_abs_err, ms, plain_ms, library_ms, bound_ms, bound_by}."""
+    from excel_tpu_torch.models.attention_kernels import (
+        fused_plain_attention, fused_surgery_attention,
+        plain_attention_reference, surgery_attention_reference)
+
+    bf16 = dtype == torch.bfloat16
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
+    el = torch.empty((), dtype=dtype).element_size()
+    tol = (f"fp32 <= {TOL_ATTN}, bf16 <= 2^-7 |ref| + 2^-20 max|v| + the "
+           f"rounding allowance of p" if bf16 else f"<= {TOL_ATTN}")
+    q, k, v = _qkv(gen, b, n, dtype, heads=heads, d=d)
+    acc0 = torch.rand((b, n, n), device="cuda", generator=gen)
+    nn = b * n * n * 4
+    nbytes = 4 * b * heads * n * d * el + {"none": 0, "out": nn,
+                                           "acc": 2 * nn}[mode]
+    if kind == "plain":
+        kw = dict(need_weights=mode != "none")
+        fused, plain = fused_plain_attention, plain_attention_reference
+        flops = 2 * 2 * n * n * d * heads * b
+    else:
+        ex = (torch.rand((b, n, n), device="cuda", generator=gen) / n
+              if with_ex else None)
+        if ex is not None:
+            ex = ex.to(dtype).float()
+        kw = dict(ex_attn=ex, need_attn=mode != "none")
+        fused, plain = fused_surgery_attention, surgery_attention_reference
+        flops = 5 * 2 * n * n * d * heads * b
+        nbytes += nn + (nn if with_ex else 0)   # shared out, ex in
+    what = f"{name} mode={mode} B={b} H={heads} N={n} D={d}"
+    err = check_attention_case(fused, plain, q, k, v, acc0, mode, kw, what)
+    acc = acc0.clone()
+    kernel_ms = time_ms(lambda: fused(
+        q, k, v, acc=acc if mode == "acc" else None, **kw), 10)
+    plain_ms = time_ms(lambda: plain(
+        q, k, v, acc=acc if mode == "acc" else None, **kw),
+        5 if kind == "plain" else 3)
+    library = (time_ms(lambda: F.scaled_dot_product_attention(q, k, v), 10)
+               if (kind, mode) == ("plain", "none") else None)
+    bnd, by = bound_ms(flops, nbytes, peak)
+    log(f"kernel {what} ex={with_ex}: max_abs_err={err:.3g} ({tol}) "
+        f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library} bound_ms={bnd:.4f} ({by})")
+    return dict(max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=library, bound_ms=bnd, bound_by=by)
 
 
 def check_attention(gen, dtype) -> dict:
@@ -587,17 +655,16 @@ def check_attention(gen, dtype) -> dict:
     at the main paths' shapes in `dtype` (float32 also runs the surgery
     kernel at N=901 with ex; both run the train step's modes at its B=4,
     the surgery kernel with ex among them, and the MSC batch's: no weights,
-    no ex, N = 197, 577 and 901 at 2 x 4 images), then every mode at the
-    EDGE_TOKENS with D = 64 and 32. Returns {kernel name: record} for the
-    JSON table, one per Pallas row, timed at TIMED_CASE."""
+    no ex, N = 197, 577 and 901 at 2 x 4 images), OpenCLIP ViT-H/14's
+    sweep at D = 80 (HD80_CASES), then every mode at the EDGE_TOKENS with
+    D = 64 and 32. Returns {kernel name: record} for the JSON table, one
+    per Pallas row, timed at TIMED_CASE."""
     from excel_tpu_torch.models.attention_kernels import (
         fused_plain_attention, fused_surgery_attention,
         plain_attention_reference, surgery_attention_reference)
 
     bf16 = dtype == torch.bfloat16
     suffix = "_bf16" if bf16 else ""
-    peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
-    el = torch.empty((), dtype=dtype).element_size()
     tol = (f"fp32 <= {TOL_ATTN}, bf16 <= 2^-7 |ref| + 2^-20 max|v| + the "
            f"rounding allowance of p" if bf16 else f"<= {TOL_ATTN}")
     records = {}
@@ -622,49 +689,26 @@ def check_attention(gen, dtype) -> dict:
     cases += [(kind, "none", n, MSC_B2, False) for n in MSC_TOKENS
               for kind in ("plain", "surgery")]
     for kind, mode, n, b, with_ex in cases:
-        q, k, v = _qkv(gen, b, n, dtype)
-        acc0 = torch.rand((b, n, n), device="cuda", generator=gen)
-        nn = b * n * n * 4
-        nbytes = (4 * b * HEADS * n * HEAD_DIM * el
-                  + {"none": 0, "out": nn, "acc": 2 * nn}[mode])
-        if kind == "plain":
-            kw = dict(need_weights=mode != "none")
-            fused, plain = fused_plain_attention, plain_attention_reference
-            flops = 2 * 2 * n * n * HEAD_DIM * HEADS * b
-        else:
-            ex = (torch.rand((b, n, n), device="cuda", generator=gen) / n
-                  if with_ex else None)
-            if ex is not None:
-                ex = ex.to(dtype).float()
-            kw = dict(ex_attn=ex, need_attn=mode != "none")
-            fused, plain = fused_surgery_attention, surgery_attention_reference
-            flops = 5 * 2 * n * n * HEAD_DIM * HEADS * b
-            nbytes += nn + (nn if with_ex else 0)   # shared out, ex in
         # the Pallas row the JAX package routes the case to: row 2 (plain,
         # no weights, N <= 512) or row 1; row 3 or (N > 640) row 4
         row = ("_rows_hb" if mode == "none" and n <= 512 else "") \
             if kind == "plain" else ("_rows" if n > 640 else "")
         name = f"{kind}_attention{row}{suffix}"
-        what = f"{name} mode={mode} B={b} H={HEADS} N={n} D={HEAD_DIM}"
-        err = check_attention_case(fused, plain, q, k, v, acc0, mode, kw,
-                                   what)
-        acc = acc0.clone()
-        kernel_ms = time_ms(lambda: fused(
-            q, k, v, acc=acc if mode == "acc" else None, **kw), 10)
-        plain_ms = time_ms(lambda: plain(
-            q, k, v, acc=acc if mode == "acc" else None, **kw),
-            5 if kind == "plain" else 3)
-        library = (time_ms(lambda: F.scaled_dot_product_attention(q, k, v),
-                           10) if (kind, mode) == ("plain", "none") else None)
-        bnd, by = bound_ms(flops, nbytes, peak)
-        log(f"kernel {what} ex={with_ex}: max_abs_err={err:.3g} ({tol}) "
-            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library} bound_ms={bnd:.4f} ({by})")
         rec = records.setdefault(name, dict(max_abs_err=0.0))
-        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        got = attention_case(gen, dtype, name, kind, mode, n, b, with_ex)
+        rec["max_abs_err"] = max(rec["max_abs_err"], got["max_abs_err"])
         if (mode, n, b, with_ex) == TIMED_CASE[name.removesuffix(suffix)]:
-            rec.update(ms=kernel_ms, plain_ms=plain_ms, library_ms=library,
-                       bound_ms=bnd, bound_by=by)
+            rec.update({k: got[k] for k in ("ms", "plain_ms", "library_ms",
+                                            "bound_ms", "bound_by")})
+    # OpenCLIP ViT-H/14's sweep (16 heads of 80, 577 tokens, B=4): timed
+    # against bound_ms (plain none against SDPA too), kept apart from the
+    # table's rows in HD80_RECORDS
+    for kind, mode, with_ex in HD80_CASES:
+        got = attention_case(gen, dtype, f"{kind}_attention{suffix}", kind,
+                             mode, HD80_TOKENS, HD80_B, with_ex,
+                             heads=HD80_HEADS, d=80)
+        HD80_RECORDS.append(dict(got, kind=kind, mode=mode, ex=with_ex,
+                                 dtype=str(dtype).split(".")[-1]))
     # ragged and tiny token counts (one key, tails of 1 and 15 rows on
     # either side of the 16-row fragments and 64-row tiles) and D=32, every
     # mode, surgery with and without ex; not timed
@@ -1303,6 +1347,75 @@ def phase_slice(preset: str, n_samples: int = 32, batch: int = 16):
     if not (0.0 <= scores["miou"] <= 1.0 and np.isfinite(scores["pAcc"])):
         raise AssertionError(f"bad scores {scores['miou']} {scores['pAcc']}")
     return counts, params, text, cfg, samples
+
+
+# OpenCLIP ViT-H/14's sweep at full width (the voc-vith14-fast.lam_sweep
+# cell's program): 27 plain blocks and 5 surgery blocks a batch, every one
+# at D = 80, and the fast preset's PAR launches
+VITH_SAMPLES, VITH_B = 8, 4
+
+
+def phase_slice_vith() -> None:
+    """run_lam_eval of fast(voc_config()) over OpenCLIP ViT-H/14 (seeded
+    weights at its published widths, matmul weights cast to bf16 once):
+    every kernel's launches per batch, counted from 0 just before the sweep,
+    the D = 80 launches by the profiling counter attn.hd80, finite scores,
+    and the sweep's img/s."""
+    from excel_tpu_torch.config import fast, voc_config, with_backbone
+    from excel_tpu_torch.engine.evaluate import _bucketed_batches, run_lam_eval
+    from excel_tpu_torch.models.params import (cast_matmul_weights,
+                                               init_clip_params)
+    from excel_tpu_torch.utils import profiling
+
+    cfg = with_backbone(fast(voc_config()), "openclip-vit-h-14")
+    clip = cast_matmul_weights(init_clip_params(
+        cfg.clip, torch.Generator().manual_seed(0), device="cuda"),
+        torch.bfloat16)
+    params = {"clip": clip}
+    text = text_bank(cfg, seed=0).cuda()
+    samples = synthetic_samples(VITH_SAMPLES, cfg.num_fg, seed=0)
+    n_batches = sum(1 for _ in _bucketed_batches(
+        samples, VITH_B, cfg.data.eval_pad, cfg.refine.slot_buckets,
+        cfg.num_fg))
+    run_lam_eval(params, samples[:VITH_B], text, cfg, batch_size=VITH_B,
+                 device="cuda")
+    reset_launches()
+    profiling.reset()
+    profiling.enable()
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = run_lam_eval(params, samples, text, cfg,
+                              batch_size=VITH_B, device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        hd80 = profiling.snapshot()["counters"].get("attn.hd80", 0)
+    finally:
+        profiling.enable(False)
+        profiling.reset()
+    counts = {name: fn.launches for name, fn in _kernel_wrappers().items()}
+    log(f"slice vith14: run_lam_eval fast(voc_config()) OpenCLIP ViT-H/14 "
+        f"N={cfg.clip.tokens} D={cfg.clip.vision_width // cfg.clip.vision_heads}"
+        f" act={cfg.clip.activation} samples={VITH_SAMPLES} batch={VITH_B} "
+        f"batches={n_batches} seconds={dt:.3f} img_per_s="
+        f"{VITH_SAMPLES / dt:.3f} miou={scores['miou']:.4f} "
+        f"pAcc={scores['pAcc']:.4f}")
+    log("slice vith14 launches: " + json.dumps(dict(counts, attn_hd80=hd80)))
+    layers, surgery = cfg.clip.vision_layers, cfg.clip.surgery_blocks
+    expected = dict(LAUNCHES_PER_BATCH["fast"],
+                    plain_attention=layers - surgery,
+                    surgery_attention=surgery)
+    for name, per_batch in expected.items():
+        if counts[name] != per_batch * n_batches:
+            raise AssertionError(
+                f"vith14 slice, {name}: {counts[name]} launches, expected "
+                f"{per_batch} x {n_batches} batches")
+    if hd80 != layers * n_batches:
+        raise AssertionError(f"vith14 slice: attn.hd80 read {hd80}, "
+                             f"expected {layers} x {n_batches} batches")
+    if not (0.0 <= scores["miou"] <= 1.0 and np.isfinite(scores["pAcc"])):
+        raise AssertionError(f"bad scores {scores['miou']} {scores['pAcc']}")
+    del params, clip
 
 
 def _device_profile(step):
@@ -4446,6 +4559,7 @@ def main() -> int:
         phase_card_vs_cpu(preset, params, text, cfg, samples, bound)
         phase_lam_crf(preset, params, text, cfg, samples)
         del params
+    phase_slice_vith()
     for preset in ("fp32", "fast"):
         cfg, params, text, samples = phase_msc(preset)
         phase_msc_card_vs_cpu(preset, cfg, params, text, samples)
@@ -4474,6 +4588,7 @@ def main() -> int:
                       "library_ms": r["library_ms"]})
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": table}))
+    log(json.dumps({"attention_hd80": HD80_RECORDS}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -17,8 +17,9 @@ import time
 import numpy as np
 import torch
 
-from ..config import (ExcelConfig, asset_path, coco_config, fast,
-                      tiny_config, voc_config)
+from ..config import (BACKBONES, DEFAULT_BACKBONE, ExcelConfig, asset_path,
+                      coco_config, fast, tiny_config, voc_config,
+                      with_backbone)
 from ..data.datasets import ClsCropDataset, EvalDataset, make_dataset
 from ..device import resolve_device
 from ..engine.crf_post import (StreamingCrfPost, crf_from_cfg,
@@ -47,6 +48,7 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
                     help="random weights + random text bank (smoke runs)")
     ap.add_argument("--tiny", action="store_true",
                     help="tiny model config (CI / smoke)")
+    add_backbone_arg(ap)
     ap.add_argument("--fast", action="store_true",
                     help="bf16 production preset (fp32 by default)")
     ap.add_argument("--synthetic", default=None, metavar="N",
@@ -63,6 +65,14 @@ def add_common_args(ap: argparse.ArgumentParser) -> None:
                          "(default: nccl for cuda, gloo for cpu); gloo for "
                          "ranks that share one card (--device cuda:0); "
                          "given at world size 1, it forms a group of one")
+
+
+def add_backbone_arg(ap: argparse.ArgumentParser) -> None:
+    ap.add_argument("--backbone", default=DEFAULT_BACKBONE,
+                    choices=sorted(BACKBONES),
+                    help="the CLIP tower (config.BACKBONES; with --tiny its "
+                         "tiny form: the same head dim, activation and "
+                         "patch)")
 
 
 def add_eval_gate_args(ap: argparse.ArgumentParser) -> None:
@@ -145,6 +155,8 @@ def build_config(args) -> ExcelConfig:
         cfg = coco_config()
     else:
         cfg = voc_config()
+    cfg = with_backbone(cfg, getattr(args, "backbone", DEFAULT_BACKBONE),
+                        tiny=args.tiny)
     data = cfg.data
     if args.data_root:
         data = dataclasses.replace(data, root_dir=args.data_root)
@@ -158,7 +170,8 @@ def load_clip(args, cfg: ExcelConfig, device: torch.device) -> dict:
         return load_params_npz(args.clip_params, cfg.clip, device)
     if not args.random_init:
         default = asset_path("clip_vit_b16.npz")
-        if os.path.exists(default):
+        if (getattr(args, "backbone", DEFAULT_BACKBONE) == DEFAULT_BACKBONE
+                and os.path.exists(default)):
             return load_params_npz(default, cfg.clip, device)
         raise SystemExit("no CLIP weights: pass --clip-params (a .npz "
                          "written by save_params_npz) or --random-init")

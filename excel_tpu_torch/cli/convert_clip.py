@@ -1,11 +1,18 @@
-"""Convert an OpenAI CLIP checkpoint (.pt) into the weights file the port's
-CLIs read (`--clip-params`): the JAX package's `save_params_npz` format,
-which either package loads (counterpart of excel_tpu/cli/convert_clip.py).
+"""Convert a CLIP checkpoint (.pt) in OpenAI's key layout into the weights
+file the port's CLIs read (`--clip-params`): the JAX package's
+`save_params_npz` format, which either package loads (counterpart of
+excel_tpu/cli/convert_clip.py).
 
     python -m excel_tpu_torch.cli.convert_clip ViT-B-16.pt clip_vit_b16.npz
+    python -m excel_tpu_torch.cli.convert_clip --backbone openclip-vit-h-14 \
+        open_clip_pytorch_model.bin clip_vit_h14.npz
 
 The checkpoint may be a `torch.jit` archive (as OpenAI publishes them) or a
-plain state dict. A one-time conversion on the host; it needs no GPU.
+plain state dict (OpenCLIP's). The head width and the activation are not
+in its shapes: `--backbone` names the tower (`config.BACKBONES`), whose
+widths the shapes must match; without it, OpenAI's rule (heads = width /
+64, QuickGELU). The CLIs take the same name. A one-time conversion on the
+host; it needs no GPU.
 """
 from __future__ import annotations
 
@@ -38,8 +45,12 @@ def _is_jit_archive(path: str) -> bool:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("src", help="OpenAI CLIP .pt (jit archive or state dict)")
+    ap.add_argument("src", help="CLIP .pt / .bin (jit archive or state "
+                                "dict) in OpenAI's key layout")
     ap.add_argument("dst", help="output .npz")
+    ap.add_argument("--backbone", default=None,
+                    help="the tower by name (heads and activation from it; "
+                         "default: OpenAI's width / 64 and QuickGELU)")
     args = ap.parse_args(argv)
 
     from ..models.params import (convert_torch_state_dict, infer_clip_config,
@@ -49,10 +60,11 @@ def main(argv=None):
     sd = {k: v for k, v in sd.items()
           if not k.startswith("input_resolution")
           and k not in ("context_length", "vocab_size")}
-    cfg = infer_clip_config(sd)
+    cfg = infer_clip_config(sd, args.backbone)
     print(f"detected: vision {cfg.vision_layers}x{cfg.vision_width} "
-          f"patch {cfg.patch_size}, text {cfg.text_layers}x{cfg.text_width}, "
-          f"embed {cfg.embed_dim}")
+          f"({cfg.vision_heads} heads) patch {cfg.patch_size}, text "
+          f"{cfg.text_layers}x{cfg.text_width} ({cfg.text_heads} heads), "
+          f"embed {cfg.embed_dim}, {cfg.activation}")
     save_npz_tree(args.dst, convert_torch_state_dict(sd, cfg))
     print(f"saved -> {args.dst}")
     return cfg

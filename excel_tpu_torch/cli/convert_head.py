@@ -9,6 +9,8 @@ layout, which the `--head` flag of both packages' CLIs reads.
 
     python -m excel_tpu_torch.cli.convert_head model_iter_30000.pth head.npz
     python -m excel_tpu_torch.cli.convert_head --dataset coco ckpt.pth h.npz
+    python -m excel_tpu_torch.cli.convert_head --backbone openclip-vit-h-14 \
+        ckpt.pth h.npz                  # a head over 32 blocks of width 1280
 
 A one-time conversion on the host; it needs no GPU.
 """
@@ -18,15 +20,18 @@ import argparse
 
 
 def main(argv=None):
+    from .common import add_backbone_arg
+
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("src", help="reference .pth (full ExCEL_model state "
                                 "dict, DDP 'module.' prefix ok)")
     ap.add_argument("dst", help="output head .npz")
     ap.add_argument("--dataset", default="voc", choices=["voc", "coco"],
                     help="head geometry preset (block/layer counts)")
+    add_backbone_arg(ap)
     args = ap.parse_args(argv)
 
-    from ..config import coco_config, voc_config
+    from ..config import coco_config, voc_config, with_backbone
     from ..engine.checkpoint import save_head_npz
     from ..models.excel import convert_torch_head
     from .convert_clip import load_torch_state_dict
@@ -34,7 +39,8 @@ def main(argv=None):
     sd = load_torch_state_dict(args.src)
     sd = {k[len("module."):] if k.startswith("module.") else k: v
           for k, v in sd.items()}
-    cfg = coco_config() if args.dataset == "coco" else voc_config()
+    cfg = with_backbone(coco_config() if args.dataset == "coco"
+                        else voc_config(), args.backbone)
     head = convert_torch_head(sd, cfg)
     save_head_npz(args.dst, head)
     n = sum(v.size for v in sd.values())

@@ -19,6 +19,7 @@ packages the same one. `--tiny` runs the tiny test config (the classes
 
     python -m excel_tpu_torch.cli.demo                    # the card
     python -m excel_tpu_torch.cli.demo --device cpu --tiny --image-size 64
+    python -m excel_tpu_torch.cli.demo --backbone openclip-vit-h-14  # 336 px
 """
 from __future__ import annotations
 
@@ -30,11 +31,11 @@ import time
 import numpy as np
 import torch
 
-from ..config import tiny_config, voc_config
+from ..config import DEFAULT_BACKBONE, tiny_config, voc_config, with_backbone
 from ..device import resolve_device
 from ..engine.pipeline import training_free_step
 from ..models.params import init_clip_params, load_params_npz
-from .common import exact_matmuls
+from .common import add_backbone_arg, exact_matmuls
 
 DEMO_CLASSES = (0, 7, 14)
 
@@ -102,9 +103,11 @@ def main(argv=None) -> np.ndarray:
     ap.add_argument("--params", default=None,
                     help="converted CLIP params .npz (default: random init)")
     ap.add_argument("--batch", type=int, default=4)
-    ap.add_argument("--image-size", type=int, default=320)
+    ap.add_argument("--image-size", type=int, default=None,
+                    help="default 320, or a named --backbone's size")
     ap.add_argument("--tiny", action="store_true",
                     help="tiny model config (CI / smoke)")
+    add_backbone_arg(ap)
     ap.add_argument("--device", default="cuda",
                     help="cuda (the CUDA kernels) or cpu (their plain "
                          "PyTorch versions)")
@@ -112,7 +115,11 @@ def main(argv=None) -> np.ndarray:
 
     device = resolve_device(args.device)
     exact_matmuls()
-    cfg = tiny_config() if args.tiny else voc_config()
+    cfg = with_backbone(tiny_config() if args.tiny else voc_config(),
+                        args.backbone, tiny=args.tiny)
+    if args.image_size is None:
+        args.image_size = (320 if args.backbone == DEFAULT_BACKBONE
+                           else cfg.clip.image_size)
     if args.image_size != cfg.clip.image_size:
         cfg = dataclasses.replace(
             cfg, clip=dataclasses.replace(cfg.clip,

@@ -27,7 +27,8 @@ def asset_path(*parts: str) -> str:
 
 @dataclasses.dataclass(frozen=True)
 class ClipConfig:
-    """ViT-B/16 CLIP with ExCEL architecture surgery."""
+    """A CLIP ViT with ExCEL architecture surgery; the defaults are OpenAI's
+    ViT-B/16 (`BACKBONES` names the others)."""
     image_size: int = 320
     patch_size: int = 16
     vision_width: int = 768
@@ -51,6 +52,9 @@ class ClipConfig:
     # (None = all). SVC only ever consumes the last `refine.attn_layers`.
     # Presets set 6; None keeps the full stack (parity tests).
     attn_out_layers: int | None = None
+    # the MLP activation of both towers' blocks: "quick_gelu" (OpenAI's
+    # x * sigmoid(1.702 x)) or "gelu" (exact, erf; OpenCLIP's nn.GELU)
+    activation: str = "quick_gelu"
 
     @property
     def grid(self) -> int:
@@ -202,6 +206,55 @@ def tiny_config(**overrides) -> ExcelConfig:
         num_attr_clusters=12,
     )
     return dataclasses.replace(cfg, **overrides)
+
+
+# CLIP towers the port runs, by name: each entry's "full" fields are its
+# published shape (ClipConfig fields; the ExCEL head follows the vision
+# width and depth), its "tiny" fields what `tiny_config` changes for the
+# CPU tests and `--tiny` runs (the head dim, activation and patch kept).
+# The head width and the activation are not in a checkpoint's shapes, so a
+# backbone is named, never inferred.
+BACKBONES = {
+    # OpenAI CLIP ViT-B/16 (github.com/openai/CLIP): the ClipConfig
+    # defaults and tiny_config's widths as they are
+    "openai-vit-b-16": {"full": {}, "tiny": {}},
+    # OpenCLIP ViT-H/14 (github.com/mlfoundations/open_clip,
+    # src/open_clip/model_configs/ViT-H-14.json, laion2b_s32b_b79k):
+    # 32 blocks of width 1280, head_width 80 (16 heads), MLP 5120, patch
+    # 14, pretraining grid 16; text 24 x 1024, 16 heads; embed 1024;
+    # quick_gelu false. 336 px: ExCEL's 320 is not a multiple of 14 (24
+    # patches, as CLIP's L/14@336).
+    "openclip-vit-h-14": {
+        "full": dict(image_size=336, patch_size=14, vision_width=1280,
+                     vision_layers=32, vision_heads=16, embed_dim=1024,
+                     pretrain_grid=16, text_width=1024, text_heads=16,
+                     text_layers=24, activation="gelu"),
+        "tiny": dict(image_size=56, patch_size=14, vision_width=160,
+                     vision_heads=2, activation="gelu"),
+    },
+}
+DEFAULT_BACKBONE = "openai-vit-b-16"
+
+
+def with_backbone(cfg: ExcelConfig, name: str,
+                  tiny: bool = False) -> ExcelConfig:
+    """cfg with the named CLIP tower (`BACKBONES`): its encoder fields, the
+    head's in_channels / num_blocks set to the vision width and depth, and
+    a training crop of the tower's image size where the patch does not
+    divide the preset's."""
+    if name not in BACKBONES:
+        raise ValueError(f"unknown backbone {name!r}; known: "
+                         f"{', '.join(BACKBONES)}")
+    fields = BACKBONES[name]["tiny" if tiny else "full"]
+    if not fields:
+        return cfg
+    clip = dataclasses.replace(cfg.clip, **fields)
+    head = dataclasses.replace(cfg.head, in_channels=clip.vision_width,
+                               num_blocks=clip.vision_layers)
+    data = cfg.data
+    if data.crop_size % clip.patch_size:
+        data = dataclasses.replace(data, crop_size=clip.image_size)
+    return dataclasses.replace(cfg, clip=clip, head=head, data=data)
 
 
 def fast(cfg: ExcelConfig) -> ExcelConfig:

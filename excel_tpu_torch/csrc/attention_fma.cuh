@@ -14,10 +14,11 @@
 // slot from them.
 //
 // Thread (tx = tid % 8, ty = tid / 8) of a block holds rows RT ty + i and
-// keys tx + 8 j of a tile; the 8 lanes that share a row are neighbours in a
-// warp, so row statistics combine by shuffles, and P goes from the logits'
-// layout to the P V product's through a shared-memory tile (written in one
-// step, read in the next). Tiles are [rows][D + 4] floats: the padding puts
+// keys tx + 8 j of a tile (and in P V context columns 4 tx + 32 g, with
+// D = 80's last 16 as 2 tx + 64); the 8 lanes that share a row are
+// neighbours in a warp, so row statistics combine by shuffles, and P goes
+// from the logits' layout to the P V product's through a shared-memory
+// tile (written in one step, read in the next). Tiles are [rows][D + 4] floats: the padding puts
 // the 8 rows that 8 lanes read together on 8 different bank groups.
 //
 // Steps run through one two-stage `cp.async` ring of single 64-row tiles.
@@ -152,6 +153,8 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int ROWS = 16 * RT;
   constexpr int P = kSurgery ? 4 : 1;
   constexpr int NG = D / 32;  // groups of 4 context columns a thread
+  constexpr int NT = (D % 32) / 8;  // then NT columns (D = 80: 2)
+  static_assert(D % 32 == 0 || D % 32 == 16, "head dims 32 k or 32 k + 16");
   float* At = smem_f32;       // [ROWS][TS]
   float* ring = At + ROWS * TS;  // [2][64][TS]
   float* Ps = ring + 2 * T;      // [ROWS][kPS]
@@ -189,11 +192,11 @@ __global__ void __launch_bounds__(kThreads)
 
   RowStat<RT> st;
   stat_init(st);
-  float O[RT][NG * 4];
+  float O[RT][NG * 4 + NT];
 #pragma unroll
   for (int i = 0; i < RT; ++i)
 #pragma unroll
-    for (int x = 0; x < NG * 4; ++x) O[i][x] = 0.f;
+    for (int x = 0; x < NG * 4 + NT; ++x) O[i][x] = 0.f;
 
   prefetch(0);
   for (int step = 0; step < steps; ++step) {
@@ -249,7 +252,8 @@ __global__ void __launch_bounds__(kThreads)
             Ps[(ty * RT + i) * kPS + tx + 8 * j] =
                 exp2f(fmaf(S[i][j], c, -st.m[i])) * st.s[i];
       } else {
-        // the same chunk of V: O += P V, columns 32 g + 4 tx + (0..3)
+        // the same chunk of V: O += P V, columns 32 g + 4 tx + (0..3),
+        // then 32 NG + 2 tx + (0, 1) where NT = 2
 #pragma unroll 2
         for (int key = 0; key < kTile; key += 4) {
           float pa[RT][4];
@@ -273,6 +277,18 @@ __global__ void __launch_bounds__(kThreads)
                 O[i][g * 4 + 3] = fmaf(pa[i][u4], x.w, O[i][g * 4 + 3]);
               }
             }
+          if constexpr (NT == 2) {
+#pragma unroll
+            for (int u4 = 0; u4 < 4; ++u4) {
+              const float2 x = *reinterpret_cast<const float2*>(
+                  Bt + (key + u4) * TS + NG * 32 + tx * 2);
+#pragma unroll
+              for (int i = 0; i < RT; ++i) {
+                O[i][NG * 4] = fmaf(pa[i][u4], x.x, O[i][NG * 4]);
+                O[i][NG * 4 + 1] = fmaf(pa[i][u4], x.y, O[i][NG * 4 + 1]);
+              }
+            }
+          }
         }
       }
     }
@@ -290,6 +306,10 @@ __global__ void __launch_bounds__(kThreads)
                                  tx * 4) =
           make_float4(O[i][g * 4], O[i][g * 4 + 1], O[i][g * 4 + 2],
                       O[i][g * 4 + 3]);
+    if constexpr (NT == 2)
+      *reinterpret_cast<float2*>(ctx + base + (size_t)row * D + NG * 32 +
+                                 tx * 2) =
+          make_float2(O[i][NG * 4], O[i][NG * 4 + 1]);
   }
 }
 

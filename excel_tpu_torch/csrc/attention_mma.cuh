@@ -1,7 +1,8 @@
 // Tensor-core attention for bf16 q/k/v: the two kernels behind the bf16
 // entry points of attention_plain.cu and attention_surgery.cu.
 // attention_common.cuh says what the two kernels do; this file is their
-// bf16 arithmetic.
+// bf16 arithmetic, at head dims 32, 64 and 80 (80 = 5 k-steps of 16: the
+// k-steps, the P V column pairs and the tile layout follow D).
 //
 // What bounds them: not the products any more. Every product (q k^T, q q^T,
 // k k^T, v v^T, P V) is `mma.sync.m16n8k16` on bf16 tiles with fp32 sums
@@ -19,7 +20,7 @@
 // operand as they lie ([key][d] row-major); V feeds P V through
 // `ldmatrix.trans`. Tiles are [64][D] bf16 with the 16-byte chunks of a row
 // XOR-swizzled by the row, so `ldmatrix` reads 8 rows without a bank
-// conflict and without padding.
+// conflict and without padding (`swz`: D = 80 splits its rows in two).
 //
 // The rows kernel's ring stage holds the chunk's K, V (and Q for surgery);
 // the sums kernel's holds one head's tiles (q rows and k keys; for the mix
@@ -75,11 +76,22 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // ---------------------------------------------------------------------------
 
 // Element offset of the 16-byte chunk c of row r in a swizzled [64][D] tile:
-// 8 consecutive rows at one c land on 8 different bank groups.
+// 8 consecutive rows at one c land on 8 different bank groups. D = 80 has
+// ten chunks a row (160 bytes: row-major, rows r and r + 4 would share a
+// bank group), so its tile is two: chunks 0-7 of every row as D = 64's
+// [64][64] tile, then chunks 8 and 9 as a [64][16] tile whose two chunks
+// swap every four rows.
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
-  return D == 64 ? r * 64 + ((c ^ (r & 7)) << 3)
-                 : r * 32 + ((c ^ ((r >> 1) & 3)) << 3);
+  static_assert(D == 32 || D == 64 || D == 80, "head dims 32, 64, 80");
+  if constexpr (D == 64) {
+    return r * 64 + ((c ^ (r & 7)) << 3);
+  } else if constexpr (D == 32) {
+    return r * 32 + ((c ^ ((r >> 1) & 3)) << 3);
+  } else {
+    return c < 8 ? r * 64 + ((c ^ (r & 7)) << 3)
+                 : kTile * 64 + r * 16 + (((c - 8) ^ ((r >> 2) & 1)) << 3);
+  }
 }
 
 // Rows [r0, r0 + 64) of the row-major [n, D] matrix src into the tile dst;
@@ -132,6 +144,35 @@ __device__ __forceinline__ void warp_logits(float (&S)[8][4],
       ldsm4(b, Bt + swz<D>(key, 2 * ks + ((lane >> 3) & 1)));
       mma16816(S[2 * jp], a[ks], b[0], b[1]);
       mma16816(S[2 * jp + 1], a[ks], b[2], b[3]);
+    }
+  }
+}
+
+// warp_logits with the A fragments (rows [row0, row0 + 16) of the tile At)
+// loaded one k-step at a time, for the sums kernel: at D = 80 all five
+// k-steps held beside both head sums spill (ptxas: 708 bytes), and at D =
+// 32 and 64 it is as fast as holding them. Each S[j] takes the same
+// products in the same k-step order as warp_logits: the same bits.
+template <int D>
+__device__ __forceinline__ void warp_logits_streamed(float (&S)[8][4],
+                                                     const bf16* At, int row0,
+                                                     const bf16* Bt) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) S[j][e] = 0.f;
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    uint32_t a[4];
+    ldsm4(a, At + swz<D>(row0 + (lane & 15), 2 * ks + (lane >> 4)));
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      const int key = jp * 16 + (lane & 7) + ((lane >> 4) << 3);
+      uint32_t b[4];
+      ldsm4(b, Bt + swz<D>(key, 2 * ks + ((lane >> 3) & 1)));
+      mma16816(S[2 * jp], a, b[0], b[1]);
+      mma16816(S[2 * jp + 1], a, b[2], b[3]);
     }
   }
 }
@@ -407,21 +448,17 @@ __global__ void __launch_bounds__(kThreads)
     cp_async_wait_step(h + 1 < H);
     __syncthreads();
     const bf16* st = ring + (h & 1) * NT * T;
-    uint32_t a[D / 16][4];
     float S[8][4];
-    load_a<D>(a, st, warp * 16);
     if constexpr (kAttn) {
-      warp_logits<D>(S, a, st + T);
+      warp_logits_streamed<D>(S, st, warp * 16, st + T);
       add_softmax(acc_attn, S, mc[0], w[0]);
     }
     if constexpr (kMix) {
-      warp_logits<D>(S, a, st + 4 * T);
+      warp_logits_streamed<D>(S, st, warp * 16, st + 4 * T);
       add_softmax(acc_mix, S, mc[1], w[1]);
-      load_a<D>(a, st + 2 * T, warp * 16);
-      warp_logits<D>(S, a, st + T);
+      warp_logits_streamed<D>(S, st + 2 * T, warp * 16, st + T);
       add_softmax(acc_mix, S, mc[2], w[2]);
-      load_a<D>(a, st + 3 * T, warp * 16);
-      warp_logits<D>(S, a, st + 5 * T);
+      warp_logits_streamed<D>(S, st + 3 * T, warp * 16, st + 5 * T);
       add_softmax(acc_mix, S, mc[3], w[3]);
     }
     __syncthreads();

@@ -59,11 +59,14 @@ static int plain_entry(const T* q, const T* k, const T* v, T* ctx,
     return plain_dispatch<64>(q, k, v, ctx, weights, stats, B, H, N, mode, s);
   if (D == 32)
     return plain_dispatch<32>(q, k, v, ctx, weights, stats, B, H, N, mode, s);
+  if (D == 80)
+    return plain_dispatch<80>(q, k, v, ctx, weights, stats, B, H, N, mode, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace excel
 
+// D (the head dim): 32, 64 or 80; any other returns cudaErrorInvalidValue.
 // q, k, v, ctx: [B, H, N, D] of the entry point's type; weights [B, N, N]
 // fp32. mode: 0 none (weights unused), 1 out (weights written), 2 acc
 // (weights read and updated in place). stats: fp32 scratch [B, H, N, 2]

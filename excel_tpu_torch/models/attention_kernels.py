@@ -23,10 +23,14 @@ in place onto an accumulator, the cross-block mean of the training-free
 path; bit for bit "out" + the accumulator) and "none" (never written); it
 is fp32 for either input type. A launch gives the same bits every time.
 
+The kernels take head dims 32, 64 (OpenAI's ViTs) and 80 (OpenCLIP
+ViT-H/14: 16 heads of 80, five k-steps of the tensor cores' 16).
+
 On a CPU tensor a wrapper computes its plain PyTorch version; on a CUDA
 tensor it launches its kernel or raises. Each wrapper counts the calls of
 its C entry point (one launch of the rows kernel and of the sums kernels
-back to back) in its `launches` attribute, and in `launches_by_row` under the
+back to back) in its `launches` attribute, those at D = 80 also in the
+profiling counter "attn.hd80", and in `launches_by_row` under the
 Pallas function the JAX package would route the same call to: plain
 attention without weights at N <= 512 to `_plain_kernel_rows_hb`, every
 other plain call to `_plain_kernel`; surgery attention at N <= 640 to
@@ -37,9 +41,10 @@ from __future__ import annotations
 import torch
 
 from .. import build
+from ..utils import profiling
 
 _MODES = {"none": 0, "out": 1, "acc": 2}
-_KERNEL_HEAD_DIMS = (32, 64)
+_KERNEL_HEAD_DIMS = (32, 64, 80)
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # the JAX package's routing thresholds (attention_pallas.py), which
 # `launches_by_row` follows; the CUDA kernels take any N
@@ -193,6 +198,8 @@ def fused_plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    _stream(q)),
                 "attention_plain")
     fused_plain_attention.launches += 1
+    if d == 80:
+        profiling.count("attn.hd80")
     row = ("_plain_kernel_rows_hb" if mode == "none" and n <= _ROWS_HB_MAX_N
            else "_plain_kernel")
     fused_plain_attention.launches_by_row[row] += 1
@@ -264,6 +271,8 @@ def fused_surgery_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    _ptr(stats), b, heads, n, d, _MODES[mode], _stream(q)),
                 "attention_surgery")
     fused_surgery_attention.launches += 1
+    if d == 80:
+        profiling.count("attn.hd80")
     fused_surgery_attention.launches_by_row[
         "_kernel" if n <= _WHOLE_N_MAX_N else "_kernel_rows"] += 1
     return shared, attn_sum, ctx_ori

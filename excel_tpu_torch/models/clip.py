@@ -1,5 +1,7 @@
-"""Frozen CLIP ViT-B/16 with ExCEL architecture surgery, and the CLIP text
-transformer (counterpart of excel_tpu/models/clip.py). With `ex_feats` (the
+"""Frozen CLIP ViT with ExCEL architecture surgery, and the CLIP text
+transformer (counterpart of excel_tpu/models/clip.py): OpenAI's ViT-B/16 by
+default, any tower of `config.BACKBONES` (OpenCLIP ViT-H/14: head dim 80,
+exact GELU) by its ClipConfig. With `ex_feats` (the
 LVC head's fused features) the surgery blocks' dense path is calibrated by
 their feature affinity, as in the trained forward's second pass.
 
@@ -22,8 +24,9 @@ import torch
 from ..config import ClipConfig
 from ..ops.labels import scale_and_translate
 from ..utils import profiling
-from .layers import (attention_fused, external_feature_attention, layer_norm,
-                     mlp, multi_head_attention, surgery_attention_fused)
+from .layers import (ACTIVATIONS, attention_fused, external_feature_attention,
+                     layer_norm, mlp, multi_head_attention,
+                     surgery_attention_fused)
 
 
 def interpolate_pos_embedding(pos: torch.Tensor,
@@ -66,6 +69,20 @@ def _patch_embed(images: torch.Tensor, w: torch.Tensor,
     return torch.matmul(x, w.reshape(w.shape[0], -1).t())
 
 
+def _block_mlp(x: torch.Tensor, blk: dict, act: str) -> torch.Tensor:
+    """A block's MLP branch on its residual stream x: mlp(ln_2(x)), inside
+    the span "mlp" (attr act)."""
+    with profiling.span("mlp", act=act):
+        return mlp(layer_norm(x, blk["ln_2"]), blk["mlp"], act)
+
+
+def _activation(cfg: ClipConfig) -> str:
+    if cfg.activation not in ACTIVATIONS:
+        raise ValueError(f"activation {cfg.activation!r}: the towers take "
+                         f"{', '.join(ACTIVATIONS)}")
+    return cfg.activation
+
+
 def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
                    ex_feats: torch.Tensor | None = None,
                    attn_mode: str = "stack", global_batch: bool = False):
@@ -92,6 +109,7 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
         raise ValueError("attn_mode='mean' needs an explicit attn_out_layers "
                          "window")
     dtype = cfg.compute_dtype
+    act = _activation(cfg)
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"compute_dtype {dtype}: the encoder runs "
                                   "in float32 or bfloat16")
@@ -131,7 +149,7 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
                                             attn_acc=fused_acc,
                                             need_weights=in_win)
                 x = x + y
-                x = x + mlp(layer_norm(x, blk["ln_2"]), blk["mlp"])
+                x = x + _block_mlp(x, blk, act)
                 single_feats.append(x)
             else:
                 # dual path: both streams attend over ln_1 of the ORIGINAL
@@ -141,7 +159,7 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
                     layer_norm(src, blk["ln_1"]), blk["attn"], heads,
                     ex_attn=ex_attn, attn_acc=fused_acc, need_attn=in_win)
                 x_ori = src + ori_res
-                x_ori = x_ori + mlp(layer_norm(x_ori, blk["ln_2"]), blk["mlp"])
+                x_ori = x_ori + _block_mlp(x_ori, blk, act)
                 x = x + dense_res          # dense stream skips the FFN
                 ori_feats.append(x_ori)
                 ori_residuals.append(ori_res)
@@ -217,6 +235,7 @@ def text_forward(params: dict, tokens: torch.Tensor,
     tokens by the fp32 `text_projection` formed in fp32 (its `jnp.dot`
     promotes a bf16 operand) and rounded to the compute type."""
     p = params["text"]
+    act = _activation(cfg)
     tokens = tokens.long()
     x = p["token_embedding"][tokens].to(cfg.compute_dtype)
     x = x + p["positional_embedding"].to(x.dtype)
@@ -228,7 +247,7 @@ def text_forward(params: dict, tokens: torch.Tensor,
         y, _ = multi_head_attention(layer_norm(x, blk["ln_1"]), blk["attn"],
                                     cfg.text_heads, mask=causal)
         x = x + y
-        x = x + mlp(layer_norm(x, blk["ln_2"]), blk["mlp"])
+        x = x + _block_mlp(x, blk, act)
 
     x = layer_norm(x, p["ln_final"])
     eot = tokens.argmax(dim=-1)

@@ -11,6 +11,10 @@ Numerics as in the JAX package, for float32 and bfloat16 activations:
   scalar), and the sigmoid as 1 / (1 + exp(-z)) with each op rounded
   (`torch.sigmoid` rounds once, and `1.702 * x` keeps the constant in fp32;
   each moved about a quarter of the bf16 results by an ulp);
+- exact GELU (OpenCLIP's towers, `activation="gelu"`; the JAX package has
+  none) is 0.5 x (1 + erf(x / sqrt 2)) formed in fp32 from the activation
+  and rounded once to its type (`F.gelu`'s own rounding point for bf16
+  input on the CPU and the card);
 - standard attention returns the head-MEAN of its softmax weights (torch
   nn.MultiheadAttention need_weights semantics), while the surgery attention
   returns the head-SUM of its original-path weights; SVC consumes a mix of
@@ -47,6 +51,13 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-(_GELU_ALPHA[x.dtype] * x))))
 
 
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.gelu(x)
+
+
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu}
+
+
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     out = torch.matmul(x, p["w"].to(x.dtype).t())
     if "b" in p:
@@ -54,8 +65,9 @@ def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
     return out
 
 
-def mlp(x: torch.Tensor, p: dict) -> torch.Tensor:
-    return linear(quick_gelu(linear(x, p["fc"])), p["proj"])
+def mlp(x: torch.Tensor, p: dict, act: str = "quick_gelu") -> torch.Tensor:
+    """fc, the activation named by `act` (`ACTIVATIONS`), proj."""
+    return linear(ACTIVATIONS[act](linear(x, p["fc"])), p["proj"])
 
 
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:

@@ -20,7 +20,7 @@ import re
 import numpy as np
 import torch
 
-from ..config import ClipConfig, HeadConfig
+from ..config import BACKBONES, ClipConfig, HeadConfig
 from ..device import resolve_device
 
 _LINEAR_KEYS = ("qkv", "out", "fc", "proj")
@@ -246,9 +246,39 @@ def _block_from_torch(sd: dict, prefix: str) -> dict:
     }
 
 
-def infer_clip_config(sd: dict) -> ClipConfig:
-    """The architecture of an OpenAI CLIP state dict from its tensor
-    shapes (heads: width / 64)."""
+def infer_clip_config(sd: dict, backbone: str | None = None) -> ClipConfig:
+    """The architecture of a CLIP state dict in OpenAI's key layout (which
+    OpenCLIP's checkpoints share) from its tensor shapes.
+
+    Neither the head width nor the activation is in the shapes. Without
+    `backbone`, OpenAI's own rule (its `build_model`): heads = width / 64,
+    QuickGELU. With a name of `config.BACKBONES`, that tower's config
+    (heads, activation, image size), whose published widths the shapes
+    must match (OpenCLIP ViT-H/14: width 1280 in 16 heads of 80, where
+    width / 64 gives 20)."""
+    cfg = _shape_config(sd)
+    if backbone is None:
+        return cfg
+    if backbone not in BACKBONES:
+        raise ValueError(f"unknown backbone {backbone!r}; known: "
+                         f"{', '.join(BACKBONES)}")
+    named = ClipConfig(**BACKBONES[backbone]["full"])
+    wrong = [f"{f}: {getattr(cfg, f)} in the state dict, {getattr(named, f)} "
+             f"in {backbone}" for f in _SHAPE_FIELDS
+             if getattr(cfg, f) != getattr(named, f)]
+    if wrong:
+        raise ValueError("the state dict is not " + backbone + ": "
+                         + "; ".join(wrong))
+    return named
+
+
+# the ClipConfig fields that a state dict's shapes determine
+_SHAPE_FIELDS = ("patch_size", "vision_width", "vision_layers", "embed_dim",
+                 "pretrain_grid", "context_length", "vocab_size",
+                 "text_width", "text_layers")
+
+
+def _shape_config(sd: dict) -> ClipConfig:
     vision_width = sd["visual.conv1.weight"].shape[0]
     grid = int(round((sd["visual.positional_embedding"].shape[0] - 1)
                      ** 0.5))

@@ -202,7 +202,7 @@ def _check_attention(kind, q, k, v, mode, acc, ex=None):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["none", "out", "acc"])
 @pytest.mark.parametrize("tokens", [1, 15, 17, 63, 65])
-@pytest.mark.parametrize("d", [32, 64])
+@pytest.mark.parametrize("d", [32, 64, 80])
 def test_attention_kernels_edge_tokens(gen, d, tokens, mode, dtype):
     q, k, v = _qkv(gen, 2, 3, tokens, d, dtype)
     acc = torch.rand((2, tokens, tokens), device="cuda", generator=gen)
@@ -240,6 +240,73 @@ def test_attention_kernels_deterministic_and_acc_is_out_plus_acc(gen, kind,
     assert torch.equal(first[0], out[0] + acc)
     for a, o in zip(first[1:], out[1:]):
         assert torch.equal(a, o)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["none", "out", "acc"])
+def test_attention_kernels_hd80_every_mode_with_ex(gen, mode, dtype):
+    """OpenCLIP ViT-H/14's heads (16 of 80) at its 577 tokens: both kernels
+    against their plain versions in every mode, surgery with and without
+    ex, each launch counted in the profiling counter "attn.hd80"."""
+    from excel_tpu_torch.utils import profiling
+
+    n = 577
+    q, k, v = _qkv(gen, 2, 16, n, 80, dtype)
+    acc = torch.rand((2, n, n), device="cuda", generator=gen)
+    ex = (torch.rand((2, n, n), device="cuda", generator=gen)
+          / n).to(dtype).float()
+    profiling.reset()
+    profiling.enable(True)
+    try:
+        _check_attention("plain", q, k, v, mode, acc)
+        _check_attention("surgery", q, k, v, mode, acc)
+        _check_attention("surgery", q, k, v, mode, acc, ex)
+    finally:
+        profiling.enable(False)
+    assert profiling.snapshot()["counters"]["attn.hd80"] == 3
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["plain", "surgery"])
+def test_attention_kernels_hd80_deterministic_and_acc_is_out_plus_acc(
+        gen, kind, dtype):
+    """At D = 80 as at 64: two launches give the same bits, with ex too,
+    and mode acc equals mode out + the accumulator bit for bit."""
+    n = 577
+    q, k, v = _qkv(gen, 4, 16, n, 80, dtype)
+    acc = torch.rand((4, n, n), device="cuda", generator=gen)
+    ex = (torch.rand((4, n, n), device="cuda", generator=gen)
+          / n).to(dtype).float() if kind == "surgery" else None
+    first, _ = _attention(kind, q, k, v, "acc", acc, ex)
+    again, _ = _attention(kind, q, k, v, "acc", acc, ex)
+    out, _ = _attention(kind, q, k, v, "out", acc, ex)
+    torch.cuda.synchronize()
+    for a, b2 in zip(first, again):
+        assert torch.equal(a, b2)
+    assert torch.equal(first[0], out[0] + acc)
+    for a, o in zip(first[1:], out[1:]):
+        assert torch.equal(a, o)
+
+
+def test_attention_kernels_keep_their_recorded_bits(gen):
+    """The D = 32 and 64 kernels give the bits they gave before D = 80
+    came: tools/attention_ab.py's DIGEST_CASES (every mode, surgery with
+    and without ex, fp32 and bf16, inputs drawn on the CPU from a seed)
+    against the digests recorded from them
+    (tests/torch_fixtures/attention_digests.json)."""
+    import importlib.util
+    import json
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "attention_ab", os.path.join(root, "tools", "attention_ab.py"))
+    ab = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ab)
+    with open(os.path.join(root, "tests", "torch_fixtures",
+                           "attention_digests.json")) as f:
+        recorded = json.load(f)
+    assert ab.output_digests(torch, ak, ab.DIGEST_CASES) == recorded
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
