@@ -40,21 +40,27 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    entry point, both bit for bit; the seg loss's upsample backward at the
    fast train step's [4, 21, 20, 20] -> 320 and COCO's [4, 81, 28, 28] ->
    448 against its plain version and PyTorch's atomic backward (timed as
-   its library call), two launches bit for bit;
+   its library call), two launches bit for bit; the encoder's residual add
+   + LayerNorm (csrc/layer_norm.cu) at ViT-B/16's [4, 401, 768] and
+   ViT-H/14's [4, 577, 1280], both forms, bf16 and fp32, against its plain
+   version, device times beside `x + y` + `F.layer_norm` (timed only);
 4. the eval slices: `run_lam_eval` (training-free LAM eval at full
    ViT-B/16 width, seeded random weights) over synthetic VOC-sized samples
    in `voc_config()` (fp32) and `fast(voc_config())` (bf16 encoder with its
    matmul weights cast once, bf16 PAR), every kernel's launch count over
-   each run checked against the number of batches; a device-time profile
-   of one batch of each; one batch of 2 of each through `lam_eval_step` on
-   the card and on the CPU (plain versions), labels compared over the
-   valid pixels; then the same sweep with its on-device CRF branch,
-   `run_lam_eval(crf_tpu=True)`: the batch's launches plus 10 of row 5's
-   kernel at 72 offsets (fp32 entry point; bf16 under the fast preset);
+   each run checked against the number of batches (the LayerNorm kernel:
+   3 plain and 2L - 1 residual launches an encoder pass); a device-time
+   profile of one batch of each; one batch of 2 of each through
+   `lam_eval_step` on the card and on the CPU (plain versions), labels
+   compared over the valid pixels; then the same sweep with its on-device
+   CRF branch, `run_lam_eval(crf_tpu=True)`: the batch's launches plus 10
+   of row 5's kernel at 72 offsets (fp32 entry point; bf16 under the fast
+   preset);
    then `run_lam_eval` of the fast preset over OpenCLIP ViT-H/14 at full
    width (8 samples, batch 4), its launches per batch checked (27 plain,
-   5 surgery, the fast preset's PAR) and its D = 80 launches by the
-   profiling counter `attn.hd80` (32 a batch);
+   5 surgery, 3 + 63 LayerNorm, the fast preset's PAR) and its D = 80
+   launches by the profiling counter `attn.hd80` (32 a batch), its
+   LayerNorms by `ln.fused` (66 a batch);
 5. the MSC slice, for each preset: `run_msc_seg_eval` (MSC+flip
    segmentation eval, seeded random CLIP and head) on 8 synthetic samples,
    batch 4, scales (1.0, 0.7, 1.2, 1.5) x 320 px, without and with the
@@ -302,6 +308,17 @@ TOL_ROW8 = 1e-5
 # bound; one wrong tap weight is off by ~1e-3)
 UPSAMPLE_SHAPES = ((4, 21, 20, 20, 320, 320), (4, 81, 28, 28, 448, 448))
 TOL_UPSAMPLE = 2e-6
+# the encoder's residual add + LayerNorm (csrc/layer_norm.cu), (B, N, C):
+# ViT-B/16's lam batch and ViT-H/14's; against the plain version on the
+# card (PyTorch's reductions for mean and variance, in another order): fp32
+# within TOL_LN of the output's largest magnitude, bf16 within one bf16 ulp
+# of the element + LN_BF16_CANCEL of the output's largest magnitude (where
+# the terms cancel), with at least LN_BF16_MIN_EQUAL of the elements equal
+# (tests/test_torch_kernels_gpu.py's bounds and their reasons)
+LN_SHAPES = ((4, 401, 768), (4, 577, 1280))
+TOL_LN = 2e-6
+LN_BF16_CANCEL = 2.0 ** -20
+LN_BF16_MIN_EQUAL = 0.99
 # card against CPU on one calibrated train step at B=2: the losses (fp32
 # sums over 2 x 320 x 320 pixels in other orders, plus the pixels whose
 # pseudo-label moves) and the head's gradient (relative to its norm)
@@ -1158,6 +1175,110 @@ def check_upsample_backward() -> dict:
     return {"upsample_linear_backward": rec}
 
 
+def ln_error(got, ref) -> tuple[float, float, int]:
+    """(max |got - ref| / max |ref|, share of equal elements, elements
+    more than one bf16 ulp apart); raises past the bounds (fp32 TOL_LN;
+    bf16 one ulp + LN_BF16_CANCEL max |ref|, LN_BF16_MIN_EQUAL equal)."""
+    g, r = got.float(), ref.float()
+    scale = r.abs().max()
+    err = float((g - r).abs().max() / scale)
+    equal = float((got == ref).float().mean())
+    beyond = 0
+    if got.dtype == torch.float32:
+        ok = err <= TOL_LN
+    else:
+        big = torch.maximum(g.abs(), r.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+        mask = (g - r).abs() > ulp
+        beyond = int(mask.sum())
+        if beyond:
+            log(f"layer_norm {tuple(got.shape)}: {beyond} elements beyond "
+                f"one ulp, |ref| there up to {float(r.abs()[mask].max()):.3g}"
+                f", |got - ref| up to {float((g - r).abs()[mask].max()):.3g}"
+                f" (max |ref| {float(scale):.3g})")
+        ok = (bool(((g - r).abs() <= ulp + LN_BF16_CANCEL * scale).all())
+              and equal >= LN_BF16_MIN_EQUAL)
+    if not ok:
+        raise AssertionError(f"layer_norm {got.dtype} {tuple(got.shape)}: "
+                             f"err {err}, equal share {equal}, {beyond} "
+                             "beyond one ulp")
+    return err, equal, beyond
+
+
+def check_layer_norm() -> dict:
+    """The encoder's residual add + LayerNorm (csrc/layer_norm.cu) at
+    ViT-B/16's and ViT-H/14's lam batch, bf16 and fp32, residual and plain
+    form, against the plain version on the card (x + y, then
+    `layer_norm`): the sums bit for bit, the rows within the bounds, two
+    launches bit for bit; device times of the kernel, the plain version and
+    the library's `x + y` + `F.layer_norm` (timed only: the port does not
+    call it) beside the bytes bound. Returns the record of ViT-H's residual
+    form in bf16, with the largest error over every case."""
+    from excel_tpu_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rec, worst = None, 0.0
+    for (b, n, c), dtype, residual in (
+            (shape, dtype, residual) for dtype in (torch.bfloat16,
+                                                   torch.float32)
+            for shape in LN_SHAPES for residual in (True, False)):
+        x = (3.0 * torch.randn((b, n, c), device="cuda", generator=gen)
+             + 0.5).to(dtype)
+        y = torch.randn((b, n, c), device="cuda", generator=gen).to(dtype)
+        p = {"scale": 1.0 + 0.1 * torch.randn(c, device="cuda",
+                                              generator=gen),
+             "bias": 0.1 * torch.randn(c, device="cuda", generator=gen)}
+        lib_w, lib_b = p["scale"].to(dtype), p["bias"].to(dtype)
+        if residual:
+            def kernel():
+                return L.add_layer_norm_fused(x, y, p)
+
+            def plain():
+                s = x + y
+                return s, L.layer_norm(s, p)
+
+            def library():
+                return F.layer_norm(x + y, (c,), lib_w, lib_b, 1e-5)
+        else:
+            def kernel():
+                return x, L.layer_norm_fused(x, p)
+
+            def plain():
+                return x, L.layer_norm(x, p)
+
+            def library():
+                return F.layer_norm(x, (c,), lib_w, lib_b, 1e-5)
+        (s, out), (s2, out2), (ref_s, ref) = kernel(), kernel(), plain()
+        err, equal, beyond = ln_error(out, ref)
+        if not (torch.equal(s, ref_s) and torch.equal(s2, s)
+                and torch.equal(out2, out)):
+            raise AssertionError(f"layer_norm {(b, n, c)} {dtype}: sums or "
+                                 "repeated launches differ")
+        # device time of a call's kernels over many calls (profiler), after
+        # a warm-up: the kernels' own time, without the host's gaps that
+        # single launches of a few microseconds would be timed with
+        times = []
+        for fn, reps in ((kernel, 200), (plain, 50), (library, 50)):
+            fn()
+            times.append(_device_profile(
+                lambda: [fn() for _ in range(reps)])[0] / reps)
+        kernel_ms, plain_ms, lib_ms = times
+        bnd, by = bound_ms(0, (4 if residual else 2) * x.numel()
+                           * x.element_size() + 2 * c * 4)
+        log(f"kernel layer_norm (none: the JAX package leaves LayerNorm to "
+            f"XLA) {'residual' if residual else 'plain'} [{b}, {n}, {c}] "
+            f"{str(dtype).split('.')[-1]}: err / max|ref|={err:.3g} equal="
+            f"{equal:.6f} beyond one ulp={beyond} (where the terms cancel) "
+            f"sums and two launches bit for bit; device "
+            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms "
+            f"(x + y, F.layer_norm)={lib_ms:.4f} bound_ms={bnd:.4f} ({by})")
+        if rec is None and c == 1280:
+            rec = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bnd, bound_by=by)
+        worst = max(worst, float((out.float() - ref.float()).abs().max()))
+    return {"layer_norm": dict(rec, max_abs_err=worst)}
+
+
 # VOC-typical label extents (h, w): landscape and portrait images
 VOC_EXTENTS = [(375, 500), (333, 500), (500, 375), (375, 500), (366, 500),
                (500, 333), (375, 500), (353, 500)]
@@ -1208,9 +1329,12 @@ def _kernel_wrappers():
     from excel_tpu_torch.models.attention_kernels import (
         fused_plain_attention, fused_surgery_attention)
     from excel_tpu_torch.ops import par_kernels as pk
+    from excel_tpu_torch.models import layers as L
     from excel_tpu_torch.ops import upsample_kernels as uk
     return {"plain_attention": fused_plain_attention,
             "surgery_attention": fused_surgery_attention,
+            "layer_norm_fused": L.layer_norm_fused,
+            "add_layer_norm_fused": L.add_layer_norm_fused,
             "par_diffuse": pk.par_diffuse,
             "pad_replicate_valid": pk.pad_replicate_valid,
             "par_affinity": pk.par_affinity,
@@ -1248,7 +1372,8 @@ def read_launches(preset: str, training: bool) -> dict:
     (eval) row 5 and on full extents (training's pseudo-labels) row 8, the
     CRF's message pass (72 offsets) row 5 at its own lines, fp32 and bf16;
     likewise the bf16 single step, row 7 or row 6; the affinity's slab
-    and direct kernels (row 11) each at its own line."""
+    and direct kernels (row 11) each at its own line; the encoder's
+    LayerNorm kernel, both forms, at the line `layer_norm`."""
     wrappers = _kernel_wrappers()
     counts = {name: fn.launches for name, fn in wrappers.items()}
     sfx = "_bf16" if preset == "fast" else ""
@@ -1268,6 +1393,8 @@ def read_launches(preset: str, training: bool) -> dict:
     rows.update({name: counts[name] for name in (
         "pad_replicate_valid", "par_diffuse_valid_resident",
         "upsample_linear_backward")})
+    rows["layer_norm"] = (counts["layer_norm_fused"]
+                          + counts["add_layer_norm_fused"])
     by_kernel = wrappers["par_affinity"].launches_by_kernel
     rows.update(par_affinity=by_kernel["slab"],
                 par_affinity_direct=by_kernel["direct"])
@@ -1277,15 +1404,21 @@ def read_launches(preset: str, training: bool) -> dict:
 
 
 # launches of each kernel wrapper per batch of each slice's main path:
-# blocks 0-6 (plain attention), blocks 7-11 (surgery attention), then PAR:
-# fp32, 20 steps; fast, pad-clamp of the images and of the masks, the
-# affinity, and one resident launch of all 20 steps; no backward
+# blocks 0-6 (plain attention), blocks 7-11 (surgery attention), the
+# LayerNorms (ln_pre, block 0's ln_1 and ln_post alone, the other 2L - 1 =
+# 23 with the residual add before them), then PAR: fp32, 20 steps; fast,
+# pad-clamp of the images and of the masks, the affinity, and one resident
+# launch of all 20 steps; no backward
 LAUNCHES_PER_BATCH = {
-    "fp32": {"plain_attention": 7, "surgery_attention": 5, "par_diffuse": 20,
+    "fp32": {"plain_attention": 7, "surgery_attention": 5,
+             "layer_norm_fused": 3, "add_layer_norm_fused": 23,
+             "par_diffuse": 20,
              "pad_replicate_valid": 0, "par_affinity": 0,
              "par_diffuse_padded_valid": 0, "par_diffuse_valid_resident": 0,
              "upsample_linear_backward": 0},
-    "fast": {"plain_attention": 7, "surgery_attention": 5, "par_diffuse": 0,
+    "fast": {"plain_attention": 7, "surgery_attention": 5,
+             "layer_norm_fused": 3, "add_layer_norm_fused": 23,
+             "par_diffuse": 0,
              "pad_replicate_valid": 2, "par_affinity": 1,
              "par_diffuse_padded_valid": 0, "par_diffuse_valid_resident": 1,
              "upsample_linear_backward": 0},
@@ -1359,7 +1492,8 @@ def phase_slice_vith() -> None:
     """run_lam_eval of fast(voc_config()) over OpenCLIP ViT-H/14 (seeded
     weights at its published widths, matmul weights cast to bf16 once):
     every kernel's launches per batch, counted from 0 just before the sweep,
-    the D = 80 launches by the profiling counter attn.hd80, finite scores,
+    the D = 80 launches by the profiling counter attn.hd80 and the
+    LayerNorms by ln.fused (2L + 2 = 66 a batch), finite scores,
     and the sweep's img/s."""
     from excel_tpu_torch.config import fast, voc_config, with_backbone
     from excel_tpu_torch.engine.evaluate import _bucketed_batches, run_lam_eval
@@ -1389,7 +1523,9 @@ def phase_slice_vith() -> None:
                               batch_size=VITH_B, device="cuda")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        hd80 = profiling.snapshot()["counters"].get("attn.hd80", 0)
+        counters = profiling.snapshot()["counters"]
+        hd80 = counters.get("attn.hd80", 0)
+        ln_fused = counters.get("ln.fused", 0)
     finally:
         profiling.enable(False)
         profiling.reset()
@@ -1400,11 +1536,13 @@ def phase_slice_vith() -> None:
         f"batches={n_batches} seconds={dt:.3f} img_per_s="
         f"{VITH_SAMPLES / dt:.3f} miou={scores['miou']:.4f} "
         f"pAcc={scores['pAcc']:.4f}")
-    log("slice vith14 launches: " + json.dumps(dict(counts, attn_hd80=hd80)))
+    log("slice vith14 launches: " + json.dumps(
+        dict(counts, attn_hd80=hd80, ln_fused=ln_fused)))
     layers, surgery = cfg.clip.vision_layers, cfg.clip.surgery_blocks
     expected = dict(LAUNCHES_PER_BATCH["fast"],
                     plain_attention=layers - surgery,
-                    surgery_attention=surgery)
+                    surgery_attention=surgery,
+                    add_layer_norm_fused=2 * layers - 1)
     for name, per_batch in expected.items():
         if counts[name] != per_batch * n_batches:
             raise AssertionError(
@@ -1413,6 +1551,9 @@ def phase_slice_vith() -> None:
     if hd80 != layers * n_batches:
         raise AssertionError(f"vith14 slice: attn.hd80 read {hd80}, "
                              f"expected {layers} x {n_batches} batches")
+    if ln_fused != (2 * layers + 2) * n_batches:
+        raise AssertionError(f"vith14 slice: ln.fused read {ln_fused}, "
+                             f"expected {2 * layers + 2} x {n_batches}")
     if not (0.0 <= scores["miou"] <= 1.0 and np.isfinite(scores["pAcc"])):
         raise AssertionError(f"bad scores {scores['miou']} {scores['pAcc']}")
     del params, clip
@@ -1508,6 +1649,9 @@ def phase_card_vs_cpu(preset, params, text, cfg, samples,
     return agree
 
 
+# the wrappers that launch once or more an encoder pass
+ENCODER_KERNELS = ("plain_attention", "surgery_attention",
+                   "layer_norm_fused", "add_layer_norm_fused")
 # launches of each kernel wrapper per train step (per batch of the
 # validation and trained-LAM sweeps): pre-calibration (and validation), one
 # encoder pass; calibrated (and the trained LAM sweep, whose batch is
@@ -1516,7 +1660,7 @@ def phase_card_vs_cpu(preset, params, text, cfg, samples,
 # of the seg loss's upsample (none in a sweep)
 TRAIN_LAUNCHES = {
     (preset, calibrated): {
-        name: (n * (2 if calibrated and "attention" in name else 1))
+        name: (n * (2 if calibrated and name in ENCODER_KERNELS else 1))
         for name, n in LAUNCHES_PER_BATCH[preset].items()}
         | {"upsample_linear_backward": 1}
     for preset in ("fp32", "fast") for calibrated in (False, True)}
@@ -1711,9 +1855,15 @@ def phase_train_card_vs_cpu(preset, cfg, clip, state, text, crops,
     MIN_SAME_INPUT_AGREEMENT, against the CPU's `pseudo_labels` on the
     card's own LAMs, attention and attn_pred: the slot compaction, the
     per-class PAR channels and the labels' argmax, the same inputs on both
-    sides."""
+    sides. Where the labels are only reported, the CPU's step takes the
+    card's pseudo-labels, so that its losses and gradient compare the
+    forward and backward on the same labels: the seg loss and the gradient
+    follow the regions the ties decide (at one state the card's own plain
+    LayerNorm chain read 0.0094 and 0.016 against the CPU on two-class
+    crops whose labels agreed on 98.7%)."""
     import copy
 
+    from excel_tpu_torch.engine import train as engine_train
     from excel_tpu_torch.engine.pipeline import (denormalize_images,
                                                  normalize_images)
     from excel_tpu_torch.engine.train import TrainStepCache, train_losses
@@ -1727,15 +1877,20 @@ def phase_train_card_vs_cpu(preset, cfg, clip, state, text, crops,
     head_cpu, clip_cpu = copy.deepcopy(state.head).cpu(), _tree_to(clip, "cpu")
     for what, (images, cls) in batches.items():
         slots = TrainStepCache(cfg).slots_for(cls)
+        label_bounded = preset == "fp32" or what == "one-class crops"
         out = {}
         for dev, head, params in (("cuda", state.head, clip),
                                   ("cpu", head_cpu, clip_cpu)):
+            replay = dev == "cpu" and not label_bounded
             t0 = time.perf_counter()
             head.zero_grad(set_to_none=True)
-            total, l_seg, l_aff, pseudos = train_losses(
-                head, params, images.to(dev), cls.to(dev), text.to(dev),
-                None, cfg, calibrated=True, seg_affinity=True,
-                class_slots=slots)
+            with (_patched(engine_train, "pseudo_labels",
+                           lambda _: lambda *a, **k: out["cuda"][2])
+                  if replay else contextlib.nullcontext()):
+                total, l_seg, l_aff, pseudos = train_losses(
+                    head, params, images.to(dev), cls.to(dev), text.to(dev),
+                    None, cfg, calibrated=True, seg_affinity=True,
+                    class_slots=slots)
             total.backward()
             grad = torch.cat([p.grad.flatten()
                               for p in head.parameters()]).cpu()
@@ -1744,14 +1899,20 @@ def phase_train_card_vs_cpu(preset, cfg, clip, state, text, crops,
                         time.perf_counter() - t0)
         (s_c, a_c, p_c, g_c, t_c), (s_h, a_h, p_h, g_h, t_h) = (out["cuda"],
                                                                 out["cpu"])
-        agree = float((p_c == p_h).float().mean())
         rel = [abs(s_c - s_h) / abs(s_h), abs(a_c - a_h) / abs(a_h)]
         g_rel = float((g_c - g_h).norm() / g_h.norm())
         same = same_input_agreement(cfg, clip, state.head, images, cls, text,
                                     slots)
-        label_bounded = preset == "fp32" or what == "one-class crops"
+        if not label_bounded:
+            # the CPU's own labels, for the reported agreement
+            with torch.no_grad():
+                p_h = train_losses(head_cpu, clip_cpu, images, cls,
+                                   text.cpu(), None, cfg, calibrated=True,
+                                   seg_affinity=True, class_slots=slots)[3]
+        agree = float((p_c == p_h).float().mean())
         bounds = (f"bounds: labels >= {bound}" if label_bounded
-                  else "labels reported") + (
+                  else "labels reported, losses and gradient on the card's "
+                  "labels") + (
             f", same-input labels >= {MIN_SAME_INPUT_AGREEMENT}, losses "
             f"{TRAIN_LOSS_RTOL}, gradient {TRAIN_GRAD_RTOL}")
         log(f"train_card_vs_cpu {preset} {what} (classes "
@@ -1967,13 +2128,19 @@ def phase_msc(preset: str):
                  for (d, k), v in by_type.items()}))
         want_rows = {r: v * n_batches for r, v in MSC_ROW_LAUNCHES.items()}
         want_crf = {(msg, CRF_K): CRF_ITERS * n_batches} if crf else {}
+        # one encoder pass a scale (the flips in the same batch)
+        want_ln = {k: LAUNCHES_PER_BATCH[preset][k] * len(MSC_SCALES)
+                   * n_batches for k in ENCODER_KERNELS[2:]}
+        got_ln = {k: counts[k] for k in want_ln}
         others = {k: v for k, v in counts.items() if v and k not in (
-            "plain_attention", "surgery_attention", "par_diffuse")}
-        if by_row != want_rows or by_type != want_crf or others:
+            ENCODER_KERNELS + ("par_diffuse",))}
+        if (by_row != want_rows or by_type != want_crf or others
+                or got_ln != want_ln):
             raise AssertionError(
                 f"msc {preset} crf_tpu={crf}: launches by row {by_row} "
                 f"(expected {want_rows}), par_diffuse {by_type} (expected "
-                f"{want_crf}), other kernels {others}")
+                f"{want_crf}), LayerNorm {got_ln} (expected {want_ln}), "
+                f"other kernels {others}")
         if not (0.0 <= scores["miou"] <= 1.0 and np.isfinite(scores["pAcc"])):
             raise AssertionError(f"msc {preset}: bad scores {scores}")
 
@@ -2145,15 +2312,13 @@ CLI_SAMPLES = 8
 # sweep, the MSC sweep; fp32 PAR is row 5's step, fast PAR pad-clamp,
 # affinity and the resident diffusion
 CLI_KERNELS = {
-    ("infer_lam", "fp32"): ("plain_attention", "surgery_attention",
-                            "par_diffuse"),
-    ("infer_lam", "fast"): ("plain_attention", "surgery_attention",
-                            "par_diffuse", "pad_replicate_valid",
-                            "par_affinity", "par_diffuse_valid_resident"),
-    ("infer_lam_head", "fast"): ("plain_attention", "surgery_attention",
-                                 "pad_replicate_valid", "par_affinity",
-                                 "par_diffuse_valid_resident"),
-    ("infer_seg", "fast"): ("plain_attention", "surgery_attention"),
+    ("infer_lam", "fp32"): ENCODER_KERNELS + ("par_diffuse",),
+    ("infer_lam", "fast"): ENCODER_KERNELS + (
+        "par_diffuse", "pad_replicate_valid", "par_affinity",
+        "par_diffuse_valid_resident"),
+    ("infer_lam_head", "fast"): ENCODER_KERNELS + (
+        "pad_replicate_valid", "par_affinity", "par_diffuse_valid_resident"),
+    ("infer_seg", "fast"): ENCODER_KERNELS,
 }
 
 
@@ -2327,11 +2492,12 @@ def phase_text_cli(smi: str) -> None:
 # slice 11: the training run from converted weights
 TRAIN_CLI_SAMPLES = 16
 # the Pallas rows of the fast train path (and its validation): rows 1-3 in
-# bf16, the resident diffusion, pad-clamp and the affinity
+# bf16, the resident diffusion, pad-clamp and the affinity; the seg loss's
+# upsample backward and the encoder's LayerNorm
 TRAIN_CLI_ROWS = ("plain_attention_bf16", "plain_attention_rows_hb_bf16",
                   "surgery_attention_bf16", "par_diffuse_valid_resident",
                   "pad_replicate_valid", "par_affinity",
-                  "upsample_linear_backward")
+                  "upsample_linear_backward", "layer_norm")
 # COCO's production train phase (calibrated, no seg affinity) at B=32, its
 # classes in the 8-slot bucket (PAR at C=9)
 COCO_B, COCO_SLOTS, COCO_BG = 32, 8, 23
@@ -3156,11 +3322,11 @@ RANK_TIMEOUT_S = 480
 # the kernels each counted run of the phase must launch (the CLIs' device
 # CRF is row 5 at 72 offsets: par_diffuse)
 RANK_KERNELS = {
-    "train_cli": ("plain_attention", "surgery_attention",
-                  "pad_replicate_valid", "par_affinity",
-                  "par_diffuse_valid_resident", "upsample_linear_backward"),
+    "train_cli": ENCODER_KERNELS + (
+        "pad_replicate_valid", "par_affinity", "par_diffuse_valid_resident",
+        "upsample_linear_backward"),
     "infer_lam": CLI_KERNELS["infer_lam", "fast"],
-    "infer_seg": ("plain_attention", "surgery_attention", "par_diffuse"),
+    "infer_seg": ENCODER_KERNELS + ("par_diffuse",),
 }
 
 
@@ -3599,9 +3765,8 @@ JPEG_TREE = 32
 JPEG_BATCHES = 32
 # infer_lam --training-free --fast without a CRF: the encoder's attention
 # and the fast PAR (pad-clamp, affinity, resident diffusion)
-JPEG_CLI_KERNELS = ("plain_attention", "surgery_attention",
-                    "pad_replicate_valid", "par_affinity",
-                    "par_diffuse_valid_resident")
+JPEG_CLI_KERNELS = ENCODER_KERNELS + ("pad_replicate_valid", "par_affinity",
+                                      "par_diffuse_valid_resident")
 
 
 def openai_resnet_state_dict(gen: torch.Generator, layers, width: int,
@@ -4061,14 +4226,13 @@ WRAPPER_TIMEOUT_S = 600
 COCO_SAMPLES = 4
 # wrapper -> the kernel wrappers its run must launch (the fast preset)
 WRAPPER_KERNELS = {
-    "run_train": ("plain_attention", "surgery_attention",
-                  "pad_replicate_valid", "par_affinity",
-                  "par_diffuse_valid_resident", "upsample_linear_backward"),
-    "infer_lam": ("plain_attention", "surgery_attention",
-                  "pad_replicate_valid", "par_affinity",
-                  "par_diffuse_valid_resident"),
-    "infer_seg_voc": ("plain_attention", "surgery_attention"),
-    "infer_seg_coco": ("plain_attention", "surgery_attention"),
+    "run_train": ENCODER_KERNELS + (
+        "pad_replicate_valid", "par_affinity", "par_diffuse_valid_resident",
+        "upsample_linear_backward"),
+    "infer_lam": ENCODER_KERNELS + (
+        "pad_replicate_valid", "par_affinity", "par_diffuse_valid_resident"),
+    "infer_seg_voc": ENCODER_KERNELS,
+    "infer_seg_coco": ENCODER_KERNELS,
 }
 DEMO_CALLS = 2          # run_demo's first and steady-state calls
 # the convergence protocols of tests/test_convergence.py (tiny_config):
@@ -4535,6 +4699,7 @@ SOURCES = {
     "par_affinity": ("par_affinity.cu", f"{_PAR}:931"),
     "par_affinity_direct": ("par_affinity.cu", f"{_PAR}:931"),
     "upsample_linear_backward": ("upsample_linear.cu", "none"),
+    "layer_norm": ("layer_norm.cu", "none"),
 }
 
 
@@ -4552,6 +4717,7 @@ def main() -> int:
     check_fast_train_par(records)
     records.update(check_crf_diffuse())
     records.update(check_upsample_backward())
+    records.update(check_layer_norm())
     for preset, bound in (("fp32", MIN_LABEL_AGREEMENT),
                           ("fast", MIN_FAST_LABEL_AGREEMENT)):
         _, params, text, cfg, samples = phase_slice(preset)

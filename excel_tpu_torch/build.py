@@ -51,6 +51,7 @@ _VALID_STEP = [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P]
 _VALID_RESIDENT = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                    _I, _P]
 _UPSAMPLE_BWD = [_P, _P, _I, _I, _I, _I, _I, _P]
+_LAYER_NORM = [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]
 # source name -> {C entry point: argument types}; every entry point returns
 # the cudaError_t of its launch as an int
 ENTRY_POINTS = {
@@ -68,6 +69,8 @@ ENTRY_POINTS = {
         "excel_par_diffuse_valid_step_bf16": _VALID_STEP,
         "excel_par_diffuse_valid_resident_bf16": _VALID_RESIDENT},
     "upsample_linear": {"excel_upsample_linear_bwd_f32": _UPSAMPLE_BWD},
+    "layer_norm": {"excel_layer_norm_f32": _LAYER_NORM,
+                   "excel_layer_norm_bf16": _LAYER_NORM},
 }
 
 _loaded: dict = {}

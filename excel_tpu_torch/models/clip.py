@@ -14,8 +14,10 @@ the reference's aliased views, and the token-dim L2 norm of encode_image.
 `cfg.compute_dtype` is float32 or bfloat16 (the fast preset). In bf16 the
 JAX package's flow is kept: the patch embedding, the residual streams, the
 projections (fp32 accumulation, rounded to bf16) and `projected` are bf16;
-LayerNorm runs in fp32 and casts back; the attention kernels keep their
-softmax and the fp32 head-mean accumulator of the "mean" mode.
+LayerNorm runs in fp32 and casts back (in the vision tower in one kernel
+with the residual add before it: `layers.add_layer_norm_fused`); the
+attention kernels keep their softmax and the fp32 head-mean accumulator of
+the "mean" mode.
 """
 from __future__ import annotations
 
@@ -24,8 +26,9 @@ import torch
 from ..config import ClipConfig
 from ..ops.labels import scale_and_translate
 from ..utils import profiling
-from .layers import (ACTIVATIONS, attention_fused, external_feature_attention,
-                     layer_norm, mlp, multi_head_attention,
+from .layers import (ACTIVATIONS, add_layer_norm_fused, attention_fused,
+                     external_feature_attention, layer_norm,
+                     layer_norm_fused, mlp, multi_head_attention,
                      surgery_attention_fused)
 
 
@@ -69,11 +72,19 @@ def _patch_embed(images: torch.Tensor, w: torch.Tensor,
     return torch.matmul(x, w.reshape(w.shape[0], -1).t())
 
 
-def _block_mlp(x: torch.Tensor, blk: dict, act: str) -> torch.Tensor:
-    """A block's MLP branch on its residual stream x: mlp(ln_2(x)), inside
-    the span "mlp" (attr act)."""
+def _block_mlp(h: torch.Tensor, blk: dict, act: str) -> torch.Tensor:
+    """A block's MLP branch on h = ln_2 of its residual stream, inside the
+    span "mlp" (attr act)."""
     with profiling.span("mlp", act=act):
-        return mlp(layer_norm(x, blk["ln_2"]), blk["mlp"], act)
+        return mlp(h, blk["mlp"], act)
+
+
+def _residual(x: torch.Tensor, y: torch.Tensor, ln: dict | None):
+    """The residual add x + y and, where a LayerNorm follows it (ln),
+    that LayerNorm in the same kernel: (sum, normalised sum or None)."""
+    if ln is None:
+        return x + y, None
+    return add_layer_norm_fused(x, y, ln)
 
 
 def _activation(cfg: ClipConfig) -> str:
@@ -126,7 +137,7 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
         x = torch.cat([cls, x], dim=1)
         pos = interpolate_pos_embedding(p["positional_embedding"], gh)
         x = x + pos.to(x.dtype)
-        x = layer_norm(x, p["ln_pre"])
+        x = layer_norm_fused(x, p["ln_pre"])
 
         ex_attn = None
         if ex_feats is not None:
@@ -140,26 +151,30 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
         attn_acc = None         # "mean": the kernels' in-place accumulator
         single_feats, ori_feats, ori_residuals = [], [], []
         x_ori = None
-        for i, blk in enumerate(p["blocks"]):
+        blocks = p["blocks"]
+        # h: ln_1 of the stream the block attends over, formed by the
+        # previous block's last residual add (block 0: from x itself)
+        h = layer_norm_fused(x, blocks[0]["ln_1"])
+        for i, blk in enumerate(blocks):
             in_win = i >= win_start and attn_mode != "none"
             fused_acc = attn_acc if attn_mode == "mean" and in_win else None
+            ln_next = blocks[i + 1]["ln_1"] if i + 1 < len(blocks) else None
             if i < n_single:
-                y, attn_w = attention_fused(layer_norm(x, blk["ln_1"]),
-                                            blk["attn"], heads,
+                y, attn_w = attention_fused(h, blk["attn"], heads,
                                             attn_acc=fused_acc,
                                             need_weights=in_win)
-                x = x + y
-                x = x + _block_mlp(x, blk, act)
+                x, h = add_layer_norm_fused(x, y, blk["ln_2"])
+                x, h = _residual(x, _block_mlp(h, blk, act), ln_next)
                 single_feats.append(x)
             else:
                 # dual path: both streams attend over ln_1 of the ORIGINAL
-                # stream
+                # stream (src)
                 src = x if x_ori is None else x_ori
                 dense_res, ori_res, attn_w = surgery_attention_fused(
-                    layer_norm(src, blk["ln_1"]), blk["attn"], heads,
-                    ex_attn=ex_attn, attn_acc=fused_acc, need_attn=in_win)
-                x_ori = src + ori_res
-                x_ori = x_ori + _block_mlp(x_ori, blk, act)
+                    h, blk["attn"], heads, ex_attn=ex_attn,
+                    attn_acc=fused_acc, need_attn=in_win)
+                x_ori, h = add_layer_norm_fused(src, ori_res, blk["ln_2"])
+                x_ori, h = _residual(x_ori, _block_mlp(h, blk, act), ln_next)
                 x = x + dense_res          # dense stream skips the FFN
                 ori_feats.append(x_ori)
                 ori_residuals.append(ori_res)
@@ -188,7 +203,7 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
         else:
             feat_list = single_feats
 
-        x = layer_norm(x, p["ln_post"])
+        x = layer_norm_fused(x, p["ln_post"])
         projected = torch.matmul(x, p["proj"].to(x.dtype))
 
         if attn_mode == "none":
@@ -247,7 +262,7 @@ def text_forward(params: dict, tokens: torch.Tensor,
         y, _ = multi_head_attention(layer_norm(x, blk["ln_1"]), blk["attn"],
                                     cfg.text_heads, mask=causal)
         x = x + y
-        x = x + _block_mlp(x, blk, act)
+        x = x + _block_mlp(layer_norm(x, blk["ln_2"]), blk, act)
 
     x = layer_norm(x, p["ln_final"])
     eot = tokens.argmax(dim=-1)

@@ -5,7 +5,10 @@ Numerics as in the JAX package, for float32 and bfloat16 activations:
 - `linear` casts the weight to the activation type, accumulates the product
   in fp32, rounds it to that type and then adds the bias in that type (two
   roundings in bf16, as the JAX package's `dot(...).astype(x.dtype) + b`);
-- LayerNorm always computes in float32 and casts back;
+- LayerNorm always computes in float32 and casts back; the encoder's
+  LayerNorms, and the residual add before each, run through
+  `layer_norm_fused` / `add_layer_norm_fused` (csrc/layer_norm.cu on the
+  card, the same arithmetic);
 - QuickGELU is x * sigmoid(1.702 x) in the activation type, written as
   JAX lowers it: 1.702 rounded to that type first (a weak-typed Python
   scalar), and the sigmoid as 1 / (1 + exp(-z)) with each op rounded
@@ -27,6 +30,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import build
 from ..parallel.distributed import group_mean
 from ..utils import profiling
 from .attention_kernels import fused_plain_attention, fused_surgery_attention
@@ -39,6 +43,91 @@ def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
     var = x32.var(-1, keepdim=True, correction=0)
     out = (x32 - mean) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
     return out.to(orig)
+
+
+_LN_ENTRY = {torch.float32: "excel_layer_norm_f32",
+             torch.bfloat16: "excel_layer_norm_bf16"}
+_LN_MAX_VECS = 16     # csrc/layer_norm.cu's kMaxVecs: 16-byte vectors a lane
+
+
+def _layer_norm_kernel(x: torch.Tensor, y: torch.Tensor | None, p: dict,
+                       eps: float):
+    """csrc/layer_norm.cu on CUDA tensors: (x + y, or None without y; the
+    LayerNorm of that sum, or of x). Raises on what the kernel does not
+    take: another device or dtype, a width that is no multiple of the
+    16-byte vector (8 bf16, 4 fp32) or above 32 x 16 vectors, inputs that
+    are not contiguous or not 16-byte aligned."""
+    if x.device.type != "cuda":
+        raise ValueError(f"layer_norm kernel: unsupported device {x.device}")
+    if x.dtype not in _LN_ENTRY:
+        raise NotImplementedError(f"{x.dtype} LayerNorm: the kernel takes "
+                                  "float32 and bfloat16")
+    c = x.shape[-1]
+    per_vec = 16 // x.element_size()
+    if c < per_vec or c % per_vec or c > 32 * _LN_MAX_VECS * per_vec:
+        raise ValueError(f"layer_norm kernel: width {c} is not a multiple "
+                         f"of {per_vec} up to {32 * _LN_MAX_VECS * per_vec}")
+    for t in (x, y):
+        if t is None:
+            continue
+        if (t.shape != x.shape or t.dtype != x.dtype
+                or t.device != x.device):
+            raise ValueError("layer_norm kernel: x and y must share one "
+                             "shape, dtype and device")
+        if not t.is_contiguous():
+            raise ValueError("layer_norm kernel: inputs must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError("layer_norm kernel: inputs must start on a "
+                             "16-byte boundary")
+    scale, bias = p["scale"].float(), p["bias"].float()
+    for t in (scale, bias):
+        if (t.shape != (c,) or t.device != x.device
+                or not t.is_contiguous()):
+            raise ValueError(f"layer_norm kernel: scale and bias must be "
+                             f"contiguous [{c}] tensors on {x.device}")
+    out = torch.empty_like(x)
+    s = None if y is None else torch.empty_like(x)
+    fn = build.load("layer_norm", _LN_ENTRY[x.dtype])
+    build.check(fn(x.data_ptr(), None if y is None else y.data_ptr(),
+                   None if s is None else s.data_ptr(), out.data_ptr(),
+                   scale.data_ptr(), bias.data_ptr(), x.numel() // c, c, eps,
+                   torch.cuda.current_stream(x.device).cuda_stream),
+                "layer_norm")
+    return s, out
+
+
+def layer_norm_fused(x: torch.Tensor, p: dict,
+                     eps: float = 1e-5) -> torch.Tensor:
+    """`layer_norm` as the encoder runs it: on a CPU tensor `layer_norm`
+    itself, on a CUDA tensor one launch of csrc/layer_norm.cu (its plain
+    form) or a raise. Each call adds to the profiling counter "ln.fused";
+    `launches` counts the kernel's launches."""
+    profiling.count("ln.fused")
+    if x.device.type == "cpu":
+        return layer_norm(x, p, eps)
+    out = _layer_norm_kernel(x, None, p, eps)[1]
+    layer_norm_fused.launches += 1
+    return out
+
+
+def add_layer_norm_fused(x: torch.Tensor, y: torch.Tensor, p: dict,
+                         eps: float = 1e-5):
+    """The encoder's residual add and the LayerNorm after it: (s, out) with
+    s = x + y in x's type and out = layer_norm(s, p). On CPU tensors
+    exactly those two steps; on CUDA tensors one launch of
+    csrc/layer_norm.cu (its residual form), which writes both, or a raise.
+    Counted as in `layer_norm_fused` (its own `launches`)."""
+    profiling.count("ln.fused")
+    if x.device.type == "cpu":
+        s = x + y
+        return s, layer_norm(s, p, eps)
+    s, out = _layer_norm_kernel(x, y, p, eps)
+    add_layer_norm_fused.launches += 1
+    return s, out
+
+
+layer_norm_fused.launches = 0
+add_layer_norm_fused.launches = 0
 
 
 # 1.702 rounded to each activation type on the host: a Python float that

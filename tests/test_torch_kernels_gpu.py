@@ -1019,3 +1019,168 @@ def test_upsample_linear_backward_unaligned_side_stream_and_autograd(gen):
     torch.cuda.synchronize()
     assert uk.upsample_linear_backward.launches == before + 1
     assert torch.equal(x.grad, ref)
+
+
+# -- the encoder's residual add + LayerNorm (csrc/layer_norm.cu) -------------
+
+# (B, N, C): ViT-B/16's lam batch [4, 401, 768] and ViT-H/14's [4, 577,
+# 1280], the MSC token counts 197 and 901 at B=8 (2 x 4 images), and a
+# ragged row count (21: the last block's rows half used) at a width that
+# leaves lanes idle (160: 20 bf16 vectors, 40 fp32)
+LN_SHAPES = [(4, 401, 768), (4, 577, 1280), (8, 197, 768), (8, 901, 768),
+             (3, 7, 160)]
+# the normalised rows against the plain version's on the card, whose mean
+# and variance are PyTorch's reductions in another order: fp32 within 2e-6
+# of the output's largest magnitude; bf16 at most one bf16 ulp of the
+# element apart, plus LN_BF16_CANCEL of the output's largest magnitude, and
+# at least 99% of the elements equal. The second term: the two fp32 means
+# and rsqrts differ by a few fp32 ulps, so the fp32 rows differ by ~1e-7 of
+# their terms, and where (s - mean) rstd scale and bias cancel, the result
+# is so small that this exceeds one bf16 ulp of it (on the card 0.99998 of
+# the elements are equal, and 0-2 a tensor lie beyond one ulp, at |out|
+# <= 3.5e-6)
+LN_F32_TOL = 2e-6
+LN_BF16_CANCEL = 2.0 ** -20
+LN_BF16_MIN_EQUAL = 0.99
+
+
+def _ln_inputs(gen, shape, dtype):
+    from excel_tpu_torch.models import layers as L
+
+    c = shape[-1]
+    x = (3.0 * torch.randn(shape, device="cuda", generator=gen) + 0.5)
+    y = torch.randn(shape, device="cuda", generator=gen)
+    p = {"scale": 1.0 + 0.1 * torch.randn(c, device="cuda", generator=gen),
+         "bias": 0.1 * torch.randn(c, device="cuda", generator=gen)}
+    return L, x.to(dtype), y.to(dtype), p
+
+
+def _ln_close(got, ref) -> None:
+    if got.dtype == torch.float32:
+        assert (got - ref).abs().max() <= LN_F32_TOL * ref.abs().max()
+        return
+    g, r = got.float(), ref.float()
+    big = torch.maximum(g.abs(), r.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    assert ((g - r).abs() <= ulp + LN_BF16_CANCEL * r.abs().max()).all()
+    assert float((got == ref).float().mean()) >= LN_BF16_MIN_EQUAL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("residual", [True, False],
+                         ids=["residual", "plain"])
+@pytest.mark.parametrize("b,n,c", LN_SHAPES)
+def test_layer_norm_kernel(gen, b, n, c, residual, dtype):
+    """Both forms against the plain version (x + y then `layer_norm`) run
+    on the card: the residual sums bit for bit, the normalised rows within
+    the stated bound; two launches give the same bits."""
+    L, x, y, p = _ln_inputs(gen, (b, n, c), dtype)
+    if residual:
+        before = L.add_layer_norm_fused.launches
+        s, out = L.add_layer_norm_fused(x, y, p)
+        s2, out2 = L.add_layer_norm_fused(x, y, p)
+        ref_s = x + y
+        assert L.add_layer_norm_fused.launches == before + 2
+    else:
+        before = L.layer_norm_fused.launches
+        out, out2 = L.layer_norm_fused(x, p), L.layer_norm_fused(x, p)
+        s = s2 = ref_s = x
+        assert L.layer_norm_fused.launches == before + 2
+    ref = L.layer_norm(ref_s, p)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (b, n, c)
+    assert torch.equal(s, ref_s) and torch.equal(s2, ref_s)
+    assert torch.equal(out, out2)
+    _ln_close(out, ref)
+
+
+def test_layer_norm_kernel_unaligned_params_and_side_stream(gen):
+    """scale and bias one float past a 16-byte boundary take the kernel's
+    scalar loads and give the same bits; so does a launch on a side
+    stream."""
+    L, x, y, p = _ln_inputs(gen, (4, 577, 1280), torch.bfloat16)
+    s, out = L.add_layer_norm_fused(x, y, p)
+    big = torch.empty((2, 1281), device="cuda")
+    pu = {"scale": big[0, 1:].copy_(p["scale"]),
+          "bias": big[1, 1:].copy_(p["bias"])}
+    assert pu["scale"].data_ptr() % 16 and pu["bias"].data_ptr() % 16
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        s_u, out_u = L.add_layer_norm_fused(x, y, pu)
+        out_p = L.layer_norm_fused(s, p)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(s_u, s) and torch.equal(out_u, out)
+    assert torch.equal(out_p, out)
+
+
+def test_layer_norm_kernel_refuses_what_it_does_not_take(gen):
+    L, x, y, p = _ln_inputs(gen, (2, 9, 768), torch.bfloat16)
+    flat = torch.empty((x.numel() + 1,), device="cuda", dtype=x.dtype)
+    unaligned = flat[1:].view(x.shape).copy_(x)
+    with pytest.raises(ValueError, match="16-byte"):
+        L.layer_norm_fused(unaligned, p)
+    with pytest.raises(ValueError, match="16-byte"):
+        L.add_layer_norm_fused(x, unaligned, p)
+    with pytest.raises(ValueError, match="contiguous"):
+        L.add_layer_norm_fused(x.transpose(0, 1), y.transpose(0, 1), p)
+    with pytest.raises(ValueError, match="shape"):
+        L.add_layer_norm_fused(x, y[:, :8], p)
+    for c, dtype in ((100, torch.bfloat16), (4104, torch.bfloat16),
+                     (2056, torch.float32), (6, torch.float32)):
+        z = torch.zeros((2, 3, c), device="cuda", dtype=dtype)
+        q = {"scale": torch.ones(c, device="cuda"),
+             "bias": torch.zeros(c, device="cuda")}
+        with pytest.raises(ValueError, match="width"):
+            L.layer_norm_fused(z, q)
+    with pytest.raises(NotImplementedError):
+        L.layer_norm_fused(x.half(), p)
+    with pytest.raises(ValueError, match="scale and bias"):
+        L.layer_norm_fused(x, {"scale": p["scale"][:700],
+                               "bias": p["bias"][:700]})
+
+
+@pytest.mark.parametrize("tower", ["openai-vit-b-16", "openclip-vit-h-14"])
+def test_vision_forward_launches_the_layer_norm_kernel(gen, tower):
+    """The tiny towers' fp32 forward on the card: 2L + 2 launches a pass (3
+    plain, the rest with the residual add), and the outputs of the plain
+    chain of kernels within 1e-5 of their largest magnitude."""
+    import dataclasses
+
+    from excel_tpu_torch.config import tiny_config, with_backbone
+    from excel_tpu_torch.models import clip as clip_mod
+    from excel_tpu_torch.models import layers as L
+    from excel_tpu_torch.models.params import init_clip_params
+
+    cfg = with_backbone(tiny_config(), tower, tiny=True).clip
+    cfg = dataclasses.replace(cfg, attn_out_layers=2)
+    params = init_clip_params(cfg, torch.Generator().manual_seed(0),
+                              device="cuda")
+    for ln in [params["visual"]["ln_pre"], params["visual"]["ln_post"]] + [
+            blk[k] for blk in params["visual"]["blocks"]
+            for k in ("ln_1", "ln_2")]:
+        ln["scale"] += 0.1 * torch.randn(ln["scale"].shape, device="cuda",
+                                         generator=gen)
+        ln["bias"] += 0.1 * torch.randn(ln["bias"].shape, device="cuda",
+                                        generator=gen)
+    images = torch.randn((2, cfg.image_size, cfg.image_size, 3),
+                         device="cuda", generator=gen)
+    plain0, res0 = L.layer_norm_fused.launches, L.add_layer_norm_fused.launches
+    got = clip_mod.vision_forward(params, images, cfg, attn_mode="mean")
+    assert L.layer_norm_fused.launches - plain0 == 3
+    assert (L.add_layer_norm_fused.launches - res0
+            == 2 * cfg.vision_layers - 1)
+
+    def add_ln(x, y, p):
+        return x + y, L.layer_norm(x + y, p)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(clip_mod, "layer_norm_fused", L.layer_norm)
+        mp.setattr(clip_mod, "add_layer_norm_fused", add_ln)
+        want = clip_mod.vision_forward(params, images, cfg, attn_mode="mean")
+    torch.cuda.synchronize()
+    for key in ("projected", "attn", "feats"):
+        err = (got[key] - want[key]).abs().max() / want[key].abs().max()
+        assert float(err) <= 1e-5, key

@@ -181,6 +181,21 @@ def test_train_spans_nest_as_the_layers(model):
         assert 0.0 <= s["self_s"] <= s["total_s"]
 
 
+def test_ln_fused_counts_each_encoder_pass(model):
+    """The encoder's 2L + 2 LayerNorms (models/layers.layer_norm_fused and
+    add_layer_norm_fused) a pass: one pass a sweep batch, two a calibrated
+    train step (the forward's and the calibration's); the head's decoder
+    adds none."""
+    cfg = model[0]
+    per_pass = 2 * cfg.clip.vision_layers + 2
+    profiling.enable(True)
+    _sweep(model)
+    assert profiling.snapshot()["counters"]["ln.fused"] == 2 * per_pass
+    profiling.reset()
+    _train_step(model, _train_state(cfg))
+    assert profiling.snapshot()["counters"]["ln.fused"] == 2 * per_pass
+
+
 def test_records_enclose_their_profiler_ranges(model):
     """The records' stamps are on the clock of the profiler's events: each
     record's [start, end] holds its range, within 1 ms. The profiler
