@@ -47,9 +47,10 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
 4. the eval slices: `run_lam_eval` (training-free LAM eval at full
    ViT-B/16 width, seeded random weights) over synthetic VOC-sized samples
    in `voc_config()` (fp32) and `fast(voc_config())` (bf16 encoder with its
-   matmul weights cast once, bf16 PAR), every kernel's launch count over
-   each run checked against the number of batches (the LayerNorm kernel:
-   3 plain and 2L - 1 residual launches an encoder pass); a device-time
+   matmul weights cast once, bf16 PAR), every C entry point's launch count
+   over each run (the profiling counters `launch.<entry point>`, on for the
+   counted runs only) checked against the number of batches (the LayerNorm
+   kernel: 2L + 2 launches an encoder pass); a device-time
    profile of one batch of each; one batch of 2 of each through
    `lam_eval_step` on the card and on the CPU (plain versions), labels
    compared over the valid pixels; then the same sweep with its on-device
@@ -57,16 +58,15 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    of row 5's kernel at 72 offsets (fp32 entry point; bf16 under the fast
    preset);
    then `run_lam_eval` of the fast preset over OpenCLIP ViT-H/14 at full
-   width (8 samples, batch 4), its launches per batch checked (27 plain,
-   5 surgery, 3 + 63 LayerNorm, the fast preset's PAR) and its D = 80
-   launches by the profiling counter `attn.hd80` (32 a batch), its
-   LayerNorms by `ln.fused` (66 a batch);
+   width (8 samples, batch 4), its launches per batch checked (27 plain
+   and 5 surgery attention launches at D = 80, 66 LayerNorm, the fast
+   preset's PAR);
 5. the MSC slice, for each preset: `run_msc_seg_eval` (MSC+flip
    segmentation eval, seeded random CLIP and head) on 8 synthetic samples,
    batch 4, scales (1.0, 0.7, 1.2, 1.5) x 320 px, without and with the
-   on-device CRF, launches per batch checked by the Pallas row the JAX
-   package would route them to (14 row 2, 14 row 1, 15 row 3, 5 row 4, and
-   10 of row 5 with the CRF); one batch's step profiled, the host's
+   on-device CRF, launches per batch checked (an encoder pass a scale: 28
+   plain, 20 surgery and 104 LayerNorm launches, and 10 of row 5 with the
+   CRF); one batch's step profiled, the host's
    preparation of a batch timed, the CRF's build against its message
    passes; one batch of 2 with the CRF on the card and on the CPU: fused
    logits, predictions, and the CPU's CRF + argmax on the card's logits;
@@ -194,11 +194,10 @@ The JSON kernel table has one line per Pallas function (rows 1-4 for each
 dtype; row 5 for PAR's step and for the CRF's message pass in fp32 and
 bf16; row 11 for the affinity's slab kernel and for its direct kernel,
 the latter timed at pad 56), and one for the seg loss's upsample backward,
-which replaces no Pallas function; `launches` counts the launches of the route
-that stands for that
-function (the attention wrappers' attribution by mode and token count, the
-fp32 and bf16 steps on valid or full extents, the step at the CRF's 72
-offsets) over all main-path runs: the eval slices with their CRF sweeps,
+which replaces no Pallas function; `launches` counts the launches of the C
+entry points of that line's kernel (lines that share an entry point, such
+as rows 1 and 2, report the same count; `SOURCES`) over all main-path
+runs: the eval slices with their CRF sweeps,
 the MSC slices, the train steps, the two trained sweeps, the CLIs, the
 train CLI's two runs, the COCO steps, (d)'s two refinements, the host
 CRF's four CLI runs, the JPEG routes' CLI runs, the entry points' runs
@@ -213,6 +212,7 @@ device.
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import io
 import json
@@ -340,11 +340,6 @@ MSC_SCALES = (1.0, 0.7, 1.2, 1.5)
 MSC_B, MSC_SAMPLES = 4, 8
 CRF_SHAPES = ((4, 21, 384, 512), (2, 81, 480, 640), (16, 4, 384, 512))
 CRF_ITERS = 10
-# launches per MSC batch by Pallas row: 7 plain and 5 surgery launches a
-# forward; scales 1.0 and 0.7 (N <= 512) take row 2 and scales 1.2 and 1.5
-# row 1; scales 1.0, 0.7 and 1.2 (N <= 640) row 3 and scale 1.5 row 4
-MSC_ROW_LAUNCHES = {"_plain_kernel_rows_hb": 14, "_plain_kernel": 14,
-                    "_kernel": 15, "_kernel_rows": 5}
 # card against CPU on one MSC batch: the fused logits within this share of
 # their range (fp32 sums in other orders through 12 blocks and the head at
 # four scales), and the predictions' agreement
@@ -1325,104 +1320,70 @@ def text_bank(cfg, seed: int) -> torch.Tensor:
     return torch.from_numpy(bank)
 
 
-def _kernel_wrappers():
-    from excel_tpu_torch.models.attention_kernels import (
-        fused_plain_attention, fused_surgery_attention)
-    from excel_tpu_torch.ops import par_kernels as pk
-    from excel_tpu_torch.models import layers as L
-    from excel_tpu_torch.ops import upsample_kernels as uk
-    return {"plain_attention": fused_plain_attention,
-            "surgery_attention": fused_surgery_attention,
-            "layer_norm_fused": L.layer_norm_fused,
-            "add_layer_norm_fused": L.add_layer_norm_fused,
-            "par_diffuse": pk.par_diffuse,
-            "pad_replicate_valid": pk.pad_replicate_valid,
-            "par_affinity": pk.par_affinity,
-            "par_diffuse_padded_valid": pk.par_diffuse_padded_valid,
-            "par_diffuse_valid_resident": pk.par_diffuse_valid_resident,
-            "upsample_linear_backward": uk.upsample_linear_backward}
+# launches of each C entry point over every counted main-path run (the
+# JSON kernel table's `launches`), the worker processes' runs added
+LAUNCHES: collections.Counter = collections.Counter()
 
 
-def reset_launches() -> None:
-    """Every wrapper's launch count (and the counts by Pallas row and by
-    type) to 0, just before a main path runs."""
-    wrappers = _kernel_wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    for name in ("plain_attention", "surgery_attention"):
-        by_row = wrappers[name].launches_by_row
-        for row in by_row:
-            by_row[row] = 0
-    wrappers["par_diffuse"].launches_by_type.clear()
-    wrappers["par_affinity"].launches_by_kernel.clear()
+@contextlib.contextmanager
+def counting():
+    """The kernel launches of the block: yields a dict that holds, once the
+    block has ended, {C entry point: launches} from the profiling counters
+    `launch.<entry point>` that `build.launch` adds to (the profiling state
+    on for the block only, reset before and after), and adds them to
+    LAUNCHES."""
+    from excel_tpu_torch.utils import profiling
+
+    profiling.reset()
+    profiling.enable(True)
+    counts: dict = {}
+    try:
+        yield counts
+    finally:
+        counters = profiling.snapshot()["counters"]
+        profiling.enable(False)
+        profiling.reset()
+        counts.update({k[len("launch."):]: v for k, v in counters.items()
+                       if k.startswith("launch.")})
+        LAUNCHES.update(counts)
 
 
-# launches per line of the JSON kernel table (per Pallas function) over all
-# main paths, each read just after its path ran
-ROW_LAUNCHES: dict = {}
-CRF_K = 72      # offsets of the mean-field CRF's message pass (PAR: 48)
+def _missing(counts: dict, names) -> list:
+    """The entry points among `names` that `counts` holds no launch of."""
+    return [k for k in names if counts.get(k, 0) <= 0]
 
 
-def read_launches(preset: str, training: bool) -> dict:
-    """Each wrapper's launches since `reset_launches` (returned), added to
-    ROW_LAUNCHES under the Pallas function whose route they took: the
-    attention wrappers' own attribution (`launches_by_row`: plain without
-    weights at N <= 512 is row 2, else row 1; surgery at N <= 640 row 3,
-    else row 4), counted per dtype; the fp32 step of PAR on valid extents
-    (eval) row 5 and on full extents (training's pseudo-labels) row 8, the
-    CRF's message pass (72 offsets) row 5 at its own lines, fp32 and bf16;
-    likewise the bf16 single step, row 7 or row 6; the affinity's slab
-    and direct kernels (row 11) each at its own line; the encoder's
-    LayerNorm kernel, both forms, at the line `layer_norm`."""
-    wrappers = _kernel_wrappers()
-    counts = {name: fn.launches for name, fn in wrappers.items()}
-    sfx = "_bf16" if preset == "fast" else ""
-    plain = wrappers["plain_attention"].launches_by_row
-    surgery = wrappers["surgery_attention"].launches_by_row
-    by_type = wrappers["par_diffuse"].launches_by_type
-    par_steps = sum(v for (_, k), v in by_type.items() if k != CRF_K)
-    rows = {f"plain_attention{sfx}": plain["_plain_kernel"],
-            f"plain_attention_rows_hb{sfx}": plain["_plain_kernel_rows_hb"],
-            f"surgery_attention{sfx}": surgery["_kernel"],
-            f"surgery_attention_rows{sfx}": surgery["_kernel_rows"],
-            "par_diffuse_padded_hcw" if training else "par_diffuse": par_steps,
-            "par_diffuse_crf": by_type[torch.float32, CRF_K],
-            "par_diffuse_crf_bf16": by_type[torch.bfloat16, CRF_K],
-            "par_diffuse_padded" if training else "par_diffuse_padded_valid":
-                counts["par_diffuse_padded_valid"]}
-    rows.update({name: counts[name] for name in (
-        "pad_replicate_valid", "par_diffuse_valid_resident",
-        "upsample_linear_backward")})
-    rows["layer_norm"] = (counts["layer_norm_fused"]
-                          + counts["add_layer_norm_fused"])
-    by_kernel = wrappers["par_affinity"].launches_by_kernel
-    rows.update(par_affinity=by_kernel["slab"],
-                par_affinity_direct=by_kernel["direct"])
-    for name, n in rows.items():
-        ROW_LAUNCHES[name] = ROW_LAUNCHES.get(name, 0) + n
-    return counts
+def _times(table: dict, n: int) -> dict:
+    return {k: v * n for k, v in table.items()}
 
 
-# launches of each kernel wrapper per batch of each slice's main path:
+# launches of each C entry point per batch of each slice's main path:
 # blocks 0-6 (plain attention), blocks 7-11 (surgery attention), the
-# LayerNorms (ln_pre, block 0's ln_1 and ln_post alone, the other 2L - 1 =
-# 23 with the residual add before them), then PAR: fp32, 20 steps; fast,
-# pad-clamp of the images and of the masks, the affinity, and one resident
-# launch of all 20 steps; no backward
+# LayerNorm kernel 2L + 2 = 26 times (ln_pre, block 0's ln_1 and ln_post
+# alone, the other 2L - 1 = 23 with the residual add before them), then
+# PAR: fp32, 20 steps; fast, pad-clamp of the images (fp32) and of the
+# masks (bf16), the affinity's slab kernel, and one resident launch of all
+# 20 steps; no backward
 LAUNCHES_PER_BATCH = {
-    "fp32": {"plain_attention": 7, "surgery_attention": 5,
-             "layer_norm_fused": 3, "add_layer_norm_fused": 23,
-             "par_diffuse": 20,
-             "pad_replicate_valid": 0, "par_affinity": 0,
-             "par_diffuse_padded_valid": 0, "par_diffuse_valid_resident": 0,
-             "upsample_linear_backward": 0},
-    "fast": {"plain_attention": 7, "surgery_attention": 5,
-             "layer_norm_fused": 3, "add_layer_norm_fused": 23,
-             "par_diffuse": 0,
-             "pad_replicate_valid": 2, "par_affinity": 1,
-             "par_diffuse_padded_valid": 0, "par_diffuse_valid_resident": 1,
-             "upsample_linear_backward": 0},
+    "fp32": {"excel_plain_attention_f32": 7,
+             "excel_surgery_attention_f32": 5, "excel_layer_norm_f32": 26,
+             "excel_par_diffuse_f32": 20},
+    "fast": {"excel_plain_attention_bf16": 7,
+             "excel_surgery_attention_bf16": 5, "excel_layer_norm_bf16": 26,
+             "excel_pad_clamp_f32": 1, "excel_pad_clamp_bf16": 1,
+             "excel_par_affinity_bf16": 1,
+             "excel_par_diffuse_valid_resident_bf16": 1},
 }
+# the entry points that launch once or more an encoder pass
+ENCODER_KERNELS = {
+    preset: tuple(k for k in LAUNCHES_PER_BATCH[preset]
+                  if "attention" in k or "layer_norm" in k)
+    for preset in LAUNCHES_PER_BATCH}
+# the fast preset's PAR
+FAST_PAR = ("excel_pad_clamp_f32", "excel_pad_clamp_bf16",
+            "excel_par_affinity_bf16",
+            "excel_par_diffuse_valid_resident_bf16")
+UPSAMPLE_BWD = "excel_upsample_linear_bwd_f32"
 
 
 def slice_setup(preset: str, n_samples: int):
@@ -1455,14 +1416,13 @@ def phase_slice(preset: str, n_samples: int = 32, batch: int = 16):
     # warm-up (cuBLAS handles, allocator) on a part of the data
     run_lam_eval(params, samples[:batch], text, cfg, batch_size=batch,
                  device="cuda")
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    scores = run_lam_eval(params, samples, text, cfg, batch_size=batch,
-                          device="cuda")
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    counts = read_launches(preset, training=False)
+    with counting() as counts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores = run_lam_eval(params, samples, text, cfg, batch_size=batch,
+                              device="cuda")
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     name = "fast(voc_config())" if preset == "fast" else "voc_config()"
     log(f"slice {preset}: run_lam_eval {name} encoder "
         f"{str(cfg.clip.compute_dtype).split('.')[-1]} PAR "
@@ -1472,11 +1432,10 @@ def phase_slice(preset: str, n_samples: int = 32, batch: int = 16):
         f"(padded slots {n_batches * batch}) miou={scores['miou']:.4f} "
         f"pAcc={scores['pAcc']:.4f}")
     log(f"slice {preset} launches: " + json.dumps(counts))
-    for name, per_batch in LAUNCHES_PER_BATCH[preset].items():
-        if counts[name] != per_batch * n_batches:
-            raise AssertionError(
-                f"{preset} slice, {name}: {counts[name]} launches, expected "
-                f"{per_batch} x {n_batches} batches")
+    if counts != _times(LAUNCHES_PER_BATCH[preset], n_batches):
+        raise AssertionError(f"{preset} slice: launches {counts}, expected "
+                             f"{LAUNCHES_PER_BATCH[preset]} x {n_batches} "
+                             f"batches")
     if not (0.0 <= scores["miou"] <= 1.0 and np.isfinite(scores["pAcc"])):
         raise AssertionError(f"bad scores {scores['miou']} {scores['pAcc']}")
     return counts, params, text, cfg, samples
@@ -1484,22 +1443,20 @@ def phase_slice(preset: str, n_samples: int = 32, batch: int = 16):
 
 # OpenCLIP ViT-H/14's sweep at full width (the voc-vith14-fast.lam_sweep
 # cell's program): 27 plain blocks and 5 surgery blocks a batch, every one
-# at D = 80, and the fast preset's PAR launches
+# at D = 80, 2L + 2 = 66 LayerNorms, and the fast preset's PAR launches
 VITH_SAMPLES, VITH_B = 8, 4
 
 
 def phase_slice_vith() -> None:
     """run_lam_eval of fast(voc_config()) over OpenCLIP ViT-H/14 (seeded
     weights at its published widths, matmul weights cast to bf16 once):
-    every kernel's launches per batch, counted from 0 just before the sweep,
-    the D = 80 launches by the profiling counter attn.hd80 and the
-    LayerNorms by ln.fused (2L + 2 = 66 a batch), finite scores,
-    and the sweep's img/s."""
+    every entry point's launches per batch over the sweep (32 attention
+    launches, all at D = 80, and 66 LayerNorms), finite scores, and the
+    sweep's img/s."""
     from excel_tpu_torch.config import fast, voc_config, with_backbone
     from excel_tpu_torch.engine.evaluate import _bucketed_batches, run_lam_eval
     from excel_tpu_torch.models.params import (cast_matmul_weights,
                                                init_clip_params)
-    from excel_tpu_torch.utils import profiling
 
     cfg = with_backbone(fast(voc_config()), "openclip-vit-h-14")
     clip = cast_matmul_weights(init_clip_params(
@@ -1513,47 +1470,28 @@ def phase_slice_vith() -> None:
         cfg.num_fg))
     run_lam_eval(params, samples[:VITH_B], text, cfg, batch_size=VITH_B,
                  device="cuda")
-    reset_launches()
-    profiling.reset()
-    profiling.enable()
-    try:
+    with counting() as counts:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         scores = run_lam_eval(params, samples, text, cfg,
                               batch_size=VITH_B, device="cuda")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        counters = profiling.snapshot()["counters"]
-        hd80 = counters.get("attn.hd80", 0)
-        ln_fused = counters.get("ln.fused", 0)
-    finally:
-        profiling.enable(False)
-        profiling.reset()
-    counts = {name: fn.launches for name, fn in _kernel_wrappers().items()}
     log(f"slice vith14: run_lam_eval fast(voc_config()) OpenCLIP ViT-H/14 "
         f"N={cfg.clip.tokens} D={cfg.clip.vision_width // cfg.clip.vision_heads}"
         f" act={cfg.clip.activation} samples={VITH_SAMPLES} batch={VITH_B} "
         f"batches={n_batches} seconds={dt:.3f} img_per_s="
         f"{VITH_SAMPLES / dt:.3f} miou={scores['miou']:.4f} "
         f"pAcc={scores['pAcc']:.4f}")
-    log("slice vith14 launches: " + json.dumps(
-        dict(counts, attn_hd80=hd80, ln_fused=ln_fused)))
+    log("slice vith14 launches: " + json.dumps(counts))
     layers, surgery = cfg.clip.vision_layers, cfg.clip.surgery_blocks
     expected = dict(LAUNCHES_PER_BATCH["fast"],
-                    plain_attention=layers - surgery,
-                    surgery_attention=surgery,
-                    add_layer_norm_fused=2 * layers - 1)
-    for name, per_batch in expected.items():
-        if counts[name] != per_batch * n_batches:
-            raise AssertionError(
-                f"vith14 slice, {name}: {counts[name]} launches, expected "
-                f"{per_batch} x {n_batches} batches")
-    if hd80 != layers * n_batches:
-        raise AssertionError(f"vith14 slice: attn.hd80 read {hd80}, "
-                             f"expected {layers} x {n_batches} batches")
-    if ln_fused != (2 * layers + 2) * n_batches:
-        raise AssertionError(f"vith14 slice: ln.fused read {ln_fused}, "
-                             f"expected {2 * layers + 2} x {n_batches}")
+                    excel_plain_attention_bf16=layers - surgery,
+                    excel_surgery_attention_bf16=surgery,
+                    excel_layer_norm_bf16=2 * layers + 2)
+    if counts != _times(expected, n_batches):
+        raise AssertionError(f"vith14 slice: launches {counts}, expected "
+                             f"{expected} x {n_batches} batches")
     if not (0.0 <= scores["miou"] <= 1.0 and np.isfinite(scores["pAcc"])):
         raise AssertionError(f"bad scores {scores['miou']} {scores['pAcc']}")
     del params, clip
@@ -1568,8 +1506,10 @@ def _device_profile(step):
                              ProfilerActivity.CUDA]) as prof:
         step()
         torch.cuda.synchronize()
+    # the program's spans, on in a counted run, are ranges, not kernels
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
+              if e.device_type == DeviceType.CUDA
+              and not e.key.startswith("excel.")]
     return sum(e.self_device_time_total for e in events) / 1e3, events
 
 
@@ -1649,10 +1589,7 @@ def phase_card_vs_cpu(preset, params, text, cfg, samples,
     return agree
 
 
-# the wrappers that launch once or more an encoder pass
-ENCODER_KERNELS = ("plain_attention", "surgery_attention",
-                   "layer_norm_fused", "add_layer_norm_fused")
-# launches of each kernel wrapper per train step (per batch of the
+# launches of each C entry point per train step (per batch of the
 # validation and trained-LAM sweeps): pre-calibration (and validation), one
 # encoder pass; calibrated (and the trained LAM sweep, whose batch is
 # [x, flip x]), the head's pass and the calibrated pass; then PAR as in the
@@ -1660,9 +1597,10 @@ ENCODER_KERNELS = ("plain_attention", "surgery_attention",
 # of the seg loss's upsample (none in a sweep)
 TRAIN_LAUNCHES = {
     (preset, calibrated): {
-        name: (n * (2 if calibrated and name in ENCODER_KERNELS else 1))
+        name: (n * (2 if calibrated and name in ENCODER_KERNELS[preset]
+                    else 1))
         for name, n in LAUNCHES_PER_BATCH[preset].items()}
-        | {"upsample_linear_backward": 1}
+        | {UPSAMPLE_BWD: 1}
     for preset in ("fp32", "fast") for calibrated in (False, True)}
 
 
@@ -1726,7 +1664,7 @@ def phase_train(preset: str):
     state = init_train_state(head, cfg.train)
     steps = TrainStepCache(cfg)
     images_d, cls_d = images.cuda(), cls.cuda()
-    total: dict = {}
+    total: collections.Counter = collections.Counter()
     walls: dict = {}
     torch.cuda.reset_peak_memory_stats()
 
@@ -1739,23 +1677,20 @@ def phase_train(preset: str):
         phase = _phase(cfg, n_iter)
         step_fn = steps(phase, cls_host)
         gen = step_generator(cfg.train, n_iter, "cuda")
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, clip, imgs, cls_b, text, gen)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        counts = read_launches(preset, training=True)
-        for name, n in counts.items():
-            total[name] = total.get(name, 0) + n
+        with counting() as counts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, clip, imgs, cls_b, text, gen)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        total.update(counts)
         walls.setdefault(phase, []).append(wall)
         # the losses are 0-d device tensors: read here, where they are logged
         metrics = {k: float(v) for k, v in metrics.items()}
         log(f"train {preset} step {n_iter} phase={phase} slots="
             f"{steps.slots_for(cls_host)} wall_ms={wall:.2f} "
             + " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
-            + " launches=" + json.dumps(
-                {k: v for k, v in counts.items() if v}))
+            + " launches=" + json.dumps(counts))
         if counts != TRAIN_LAUNCHES[preset, phase[0]]:
             raise AssertionError(f"train {preset} step {n_iter}: launches "
                                  f"{counts}, expected "
@@ -1958,13 +1893,12 @@ def phase_trained_eval(preset, cfg, clip, state, text,
                   params, s, text, cfg, mode="trained", batch_size=batch)))
     for what, calibrated, run in sweeps:
         run(samples[:batch])                       # warm-up
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        scores = run(samples)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        counts = read_launches(preset, training=False)
+        with counting() as counts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = run(samples)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
         for s in scores if isinstance(scores, tuple) else (scores,):
             if not (0.0 <= s["miou"] <= 1.0 and np.isfinite(s["pAcc"])):
                 raise AssertionError(f"{what} {preset}: bad scores {s}")
@@ -1972,14 +1906,13 @@ def phase_trained_eval(preset, cfg, clip, state, text,
                 if isinstance(scores, tuple) else round(scores["miou"], 4))
         log(f"{what} {preset}: samples={n_samples} batch={batch} batches="
             f"{n_batches} seconds={dt:.3f} img_per_s={n_samples / dt:.3f} "
-            f"miou={miou} launches=" + json.dumps(
-                {k: v for k, v in counts.items() if v}))
-        for name, per_batch in dict(TRAIN_LAUNCHES[preset, calibrated],
-                                    upsample_linear_backward=0).items():
-            if counts[name] != per_batch * n_batches:
-                raise AssertionError(
-                    f"{what} {preset}, {name}: {counts[name]} launches, "
-                    f"expected {per_batch} x {n_batches} batches")
+            f"miou={miou} launches=" + json.dumps(counts))
+        want = {k: v * n_batches
+                for k, v in TRAIN_LAUNCHES[preset, calibrated].items()
+                if k != UPSAMPLE_BWD}
+        if counts != want:
+            raise AssertionError(f"{what} {preset}: launches {counts}, "
+                                 f"expected {want}")
 
 
 def check_crf_diffuse() -> dict:
@@ -2082,18 +2015,16 @@ def msc_batch(cfg, samples, batch: int):
 def phase_msc(preset: str):
     """`run_msc_seg_eval` of one preset at full width, without and with the
     on-device CRF (`long_range` on, the default): launch counts per batch
-    by Pallas row, scores, img/s; then one batch's step profiled (wall,
-    device time, busy share), the host's preparation time of a batch, and
-    the CRF's build against its message passes. Returns (cfg, params, text,
-    samples)."""
+    (an encoder pass a scale, the CRF's message passes), scores, img/s;
+    then one batch's step profiled (wall, device time, busy share), the
+    host's preparation time of a batch, and the CRF's build against its
+    message passes. Returns (cfg, params, text, samples)."""
     import dataclasses
 
+    from excel_tpu_torch import build
     from excel_tpu_torch.engine.evaluate import (_bucketed_batches,
                                                  msc_hist_step,
                                                  run_msc_seg_eval)
-    from excel_tpu_torch.models.attention_kernels import (
-        fused_plain_attention, fused_surgery_attention)
-    from excel_tpu_torch.ops import par_kernels as pk
     from excel_tpu_torch.ops.crf_tpu import crf_meanfield_cfg
     from excel_tpu_torch.utils.metrics import init_hist
 
@@ -2106,41 +2037,30 @@ def phase_msc(preset: str):
     for crf in (False, True):
         run_msc_seg_eval(params, samples, text, cfg, scales=MSC_SCALES,
                          batch_size=MSC_B, crf_tpu=crf)        # warm-up
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        scores = run_msc_seg_eval(params, samples, text, cfg,
-                                  scales=MSC_SCALES, batch_size=MSC_B,
-                                  crf_tpu=crf)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        by_row = dict(fused_plain_attention.launches_by_row,
-                      **fused_surgery_attention.launches_by_row)
-        by_type = dict(pk.par_diffuse.launches_by_type)
-        counts = read_launches(preset, training=False)
+        with counting() as counts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            scores = run_msc_seg_eval(params, samples, text, cfg,
+                                      scales=MSC_SCALES, batch_size=MSC_B,
+                                      crf_tpu=crf)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
         log(f"msc {preset} crf_tpu={crf}: run_msc_seg_eval scales="
             f"{MSC_SCALES} x {cfg.clip.image_size} px samples={len(samples)} "
             f"batch={MSC_B} batches={n_batches} seconds={dt:.3f} img_per_s="
             f"{len(samples) / dt:.3f} miou={scores['miou']:.4f} pAcc="
-            f"{scores['pAcc']:.4f} launches by row=" + json.dumps(by_row)
-            + " par_diffuse=" + json.dumps(
-                {f"{str(d).split('.')[-1]} K={k}": v
-                 for (d, k), v in by_type.items()}))
-        want_rows = {r: v * n_batches for r, v in MSC_ROW_LAUNCHES.items()}
-        want_crf = {(msg, CRF_K): CRF_ITERS * n_batches} if crf else {}
-        # one encoder pass a scale (the flips in the same batch)
-        want_ln = {k: LAUNCHES_PER_BATCH[preset][k] * len(MSC_SCALES)
-                   * n_batches for k in ENCODER_KERNELS[2:]}
-        got_ln = {k: counts[k] for k in want_ln}
-        others = {k: v for k, v in counts.items() if v and k not in (
-            ENCODER_KERNELS + ("par_diffuse",))}
-        if (by_row != want_rows or by_type != want_crf or others
-                or got_ln != want_ln):
-            raise AssertionError(
-                f"msc {preset} crf_tpu={crf}: launches by row {by_row} "
-                f"(expected {want_rows}), par_diffuse {by_type} (expected "
-                f"{want_crf}), LayerNorm {got_ln} (expected {want_ln}), "
-                f"other kernels {others}")
+            f"{scores['pAcc']:.4f} launches=" + json.dumps(counts))
+        # one encoder pass a scale (the flips in the same batch): 28 plain,
+        # 20 surgery and 104 LayerNorm launches a batch, and with the CRF
+        # its message passes
+        want = {k: LAUNCHES_PER_BATCH[preset][k] * len(MSC_SCALES)
+                * n_batches for k in ENCODER_KERNELS[preset]}
+        if crf:
+            want[build.typed("excel_par_diffuse", msg)] = (CRF_ITERS
+                                                           * n_batches)
+        if counts != want:
+            raise AssertionError(f"msc {preset} crf_tpu={crf}: launches "
+                                 f"{counts}, expected {want}")
         if not (0.0 <= scores["miou"] <= 1.0 and np.isfinite(scores["pAcc"])):
             raise AssertionError(f"msc {preset}: bad scores {scores}")
 
@@ -2199,8 +2119,8 @@ def phase_lam_crf(preset, params, text, cfg, samples, batch: int = 16):
     pair of scores; per batch the eval slice's launches plus CRF_ITERS of
     row 5's kernel at 72 offsets (fp32 entry point, or bf16 under the fast
     preset)."""
+    from excel_tpu_torch import build
     from excel_tpu_torch.engine.evaluate import _bucketed_batches, run_lam_eval
-    from excel_tpu_torch.ops import par_kernels as pk
 
     n_batches = sum(1 for _ in _bucketed_batches(
         samples, batch, cfg.data.eval_pad, cfg.refine.slot_buckets,
@@ -2208,30 +2128,23 @@ def phase_lam_crf(preset, params, text, cfg, samples, batch: int = 16):
     msg = torch.bfloat16 if cfg.crf.msg_bf16 else torch.float32
     run_lam_eval(params, samples[:batch], text, cfg, batch_size=batch,
                  crf_tpu=True)                                 # warm-up
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    scores, crf_scores = run_lam_eval(params, samples, text, cfg,
-                                      batch_size=batch, crf_tpu=True)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    crf_launches = pk.par_diffuse.launches_by_type[msg, CRF_K]
-    counts = read_launches(preset, training=False)
+    with counting() as counts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        scores, crf_scores = run_lam_eval(params, samples, text, cfg,
+                                          batch_size=batch, crf_tpu=True)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     log(f"lam_crf {preset}: run_lam_eval(crf_tpu=True) samples="
         f"{len(samples)} batch={batch} batches={n_batches} seconds={dt:.3f} "
         f"img_per_s={len(samples) / dt:.3f} miou={scores['miou']:.4f} "
-        f"crf_miou={crf_scores['miou']:.4f} launches=" + json.dumps(counts)
-        + f" of which the CRF's message pass {crf_launches}")
-    want = dict(LAUNCHES_PER_BATCH[preset])
-    want["par_diffuse"] += CRF_ITERS
-    for name, per_batch in want.items():
-        if counts[name] != per_batch * n_batches:
-            raise AssertionError(
-                f"lam_crf {preset}, {name}: {counts[name]} launches, "
-                f"expected {per_batch} x {n_batches} batches")
-    if crf_launches != CRF_ITERS * n_batches:
-        raise AssertionError(f"lam_crf {preset}: {crf_launches} launches of "
-                             f"the {msg} message pass")
+        f"crf_miou={crf_scores['miou']:.4f} launches=" + json.dumps(counts))
+    # fp32: the CRF's message passes on PAR's entry point, 20 + 10 a batch
+    want = collections.Counter(LAUNCHES_PER_BATCH[preset])
+    want[build.typed("excel_par_diffuse", msg)] += CRF_ITERS
+    if counts != _times(want, n_batches):
+        raise AssertionError(f"lam_crf {preset}: launches {counts}, "
+                             f"expected {dict(want)} x {n_batches} batches")
     for s in (scores, crf_scores):
         if not (0.0 <= s["miou"] <= 1.0 and np.isfinite(s["pAcc"])):
             raise AssertionError(f"lam_crf {preset}: bad scores {s}")
@@ -2307,18 +2220,17 @@ TEXT_BANK_TOL_FP32 = 1e-5
 # tests hold the bf16 encoder to)
 TEXT_BANK_ULPS_FAST = 1.0
 CLI_SAMPLES = 8
-# the kernel wrappers each CLI run must launch: the training-free LAM sweep
+# the entry points each CLI run must launch: the training-free LAM sweep
 # with the on-device CRF (row 5 at the CRF's 72 offsets), the trained LAM
 # sweep, the MSC sweep; fp32 PAR is row 5's step, fast PAR pad-clamp,
 # affinity and the resident diffusion
 CLI_KERNELS = {
-    ("infer_lam", "fp32"): ENCODER_KERNELS + ("par_diffuse",),
-    ("infer_lam", "fast"): ENCODER_KERNELS + (
-        "par_diffuse", "pad_replicate_valid", "par_affinity",
-        "par_diffuse_valid_resident"),
-    ("infer_lam_head", "fast"): ENCODER_KERNELS + (
-        "pad_replicate_valid", "par_affinity", "par_diffuse_valid_resident"),
-    ("infer_seg", "fast"): ENCODER_KERNELS,
+    ("infer_lam", "fp32"): ENCODER_KERNELS["fp32"] + (
+        "excel_par_diffuse_f32",),
+    ("infer_lam", "fast"): ENCODER_KERNELS["fast"] + (
+        "excel_par_diffuse_bf16",) + FAST_PAR,
+    ("infer_lam_head", "fast"): ENCODER_KERNELS["fast"] + FAST_PAR,
+    ("infer_seg", "fast"): ENCODER_KERNELS["fast"],
 }
 
 
@@ -2450,26 +2362,25 @@ def phase_text_cli(smi: str) -> None:
         for name, preset, cli, extra in runs:
             sweep = "run_msc_seg_eval" if cli is infer_seg else "run_lam_eval"
             seconds.clear()
-            reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            with _patched(cli, sweep, timing), \
-                    _patched(evaluate, "scores_from_hist", keeping(name)):
-                out = cli.main(extra + flags)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-            counts = read_launches(preset, training=False)
+            with counting() as counts:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with _patched(cli, sweep, timing), \
+                        _patched(evaluate, "scores_from_hist",
+                                 keeping(name)):
+                    out = cli.main(extra + flags)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
             scores = out if isinstance(out, tuple) else (out,)
             log(f"text_cli {name} {preset}: {CLI_SAMPLES} images sweep_s="
                 f"{seconds[0]:.3f} img_per_s={CLI_SAMPLES / seconds[0]:.3f} "
                 f"main_s={wall:.3f} (weights file read, tree, sweep; {card}) "
                 f"miou={[round(float(s['miou']), 4) for s in scores]} "
-                "launches=" + json.dumps({k: v for k, v in counts.items()
-                                          if v}))
+                "launches=" + json.dumps(counts))
             if not all(np.isfinite(s["miou"]) and np.isfinite(s["pAcc"])
                        for s in scores):
                 raise AssertionError(f"text_cli {name}: non-finite scores")
-            missing = [k for k in CLI_KERNELS[name, preset] if counts[k] <= 0]
+            missing = _missing(counts, CLI_KERNELS[name, preset])
             if missing:
                 raise AssertionError(f"text_cli {name} {preset}: no launch "
                                      f"of {missing}")
@@ -2491,13 +2402,10 @@ def phase_text_cli(smi: str) -> None:
 
 # slice 11: the training run from converted weights
 TRAIN_CLI_SAMPLES = 16
-# the Pallas rows of the fast train path (and its validation): rows 1-3 in
-# bf16, the resident diffusion, pad-clamp and the affinity; the seg loss's
-# upsample backward and the encoder's LayerNorm
-TRAIN_CLI_ROWS = ("plain_attention_bf16", "plain_attention_rows_hb_bf16",
-                  "surgery_attention_bf16", "par_diffuse_valid_resident",
-                  "pad_replicate_valid", "par_affinity",
-                  "upsample_linear_backward", "layer_norm")
+# the entry points of the fast train path (and its validation): the
+# encoder's attention and LayerNorm, the fast PAR, the seg loss's upsample
+# backward
+TRAIN_CLI_KERNELS = ENCODER_KERNELS["fast"] + FAST_PAR + (UPSAMPLE_BWD,)
 # COCO's production train phase (calibrated, no seg affinity) at B=32, its
 # classes in the 8-slot bucket (PAR at C=9)
 COCO_B, COCO_SLOTS, COCO_BG = 32, 8, 23
@@ -2736,22 +2644,18 @@ def train_cli_runs(work: str, clip_npz: str, card: str) -> None:
             ("resumed", ["--resume", "--max-iters", "8", "--no-eval"], 2)]
     rate = interval = None
     for name, extra, profile in runs:
-        before = dict(ROW_LAUNCHES)
         calls.clear()
         ends.clear()
         profile_at[0] = profile
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with _patched(train, "resolve", keep), \
-                _patched(engine_train, "train_step", stamp), \
-                _patched(train, "save_checkpoint", loop_end):
-            state = train.main(flags + extra)
-        torch.cuda.synchronize()
-        main_s = time.perf_counter() - t0
-        counts = read_launches("fast", training=True)
-        rows = {k: ROW_LAUNCHES.get(k, 0) - before.get(k, 0)
-                for k in TRAIN_CLI_ROWS}
+        with counting() as counts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _patched(train, "resolve", keep), \
+                    _patched(engine_train, "train_step", stamp), \
+                    _patched(train, "save_checkpoint", loop_end):
+                state = train.main(flags + extra)
+            torch.cuda.synchronize()
+            main_s = time.perf_counter() - t0
         steps = len(calls)
         loop_s = ends[0] - calls[0]
         line = (f"train_cli {name}: {steps} steps to step {state.step} "
@@ -2766,10 +2670,8 @@ def train_cli_runs(work: str, clip_npz: str, card: str) -> None:
                      f"unsynchronised; {card}) iteration interval ms "
                      f"median={interval:.2f} first step wall="
                      f"{(calls[1] - calls[0]) * 1e3:.2f}")
-        log(line + " launches=" + json.dumps(
-            {k: v for k, v in counts.items() if v})
-            + " rows=" + json.dumps(rows))
-        missing = [k for k, v in rows.items() if v <= 0]
+        log(line + " launches=" + json.dumps(counts))
+        missing = _missing(counts, TRAIN_CLI_KERNELS)
         if missing:
             raise AssertionError(f"train_cli {name}: no launch of {missing}")
     top = sorted(profiled["events"], key=lambda e: e.self_device_time_total,
@@ -2880,20 +2782,19 @@ def train_coco_step(card: str) -> None:
         n_iter = state.step
         phase = _phase(cfg, n_iter)
         step_fn = steps(phase, cls)
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, clip, images, cls_d, bank,
-                                 step_generator(cfg.train, n_iter, "cuda"))
-        torch.cuda.synchronize()
-        walls.append((time.perf_counter() - t0) * 1e3)
-        counts = read_launches("fast", training=True)
+        with counting() as counts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, clip, images, cls_d, bank,
+                                     step_generator(cfg.train, n_iter,
+                                                    "cuda"))
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
         metrics = {k: float(v) for k, v in metrics.items()}
         log(f"train_coco step {n_iter} phase={phase} slots="
             f"{steps.slots_for(cls)} wall_ms={walls[-1]:.2f} "
             + " ".join(f"{k}={v:.6g}" for k, v in metrics.items())
-            + " launches=" + json.dumps({k: v for k, v in counts.items()
-                                         if v}))
+            + " launches=" + json.dumps(counts))
         if (phase != (True, False) or steps.slots_for(cls) != COCO_SLOTS
                 or counts != TRAIN_LAUNCHES["fast", True]
                 or not all(np.isfinite(v) for v in metrics.values())):
@@ -2931,29 +2832,27 @@ def par_repair_check() -> dict:
     img = torch.randn((2, 3, 96, 128), generator=gen)
     masks = torch.rand((2, 5, 96, 128), generator=gen)
     valid = torch.tensor([[96, 128], [70, 101]], dtype=torch.int32)
+    want = {"excel_pad_clamp_f32": 1, "excel_pad_clamp_bf16": 1,
+            "excel_par_affinity_direct_bf16": 1,
+            "excel_par_diffuse_valid_resident_bf16": 1}
     for dil in PAR_REPAIR_DILATIONS:
-        reset_launches()
-        got = par_refine(img.cuda(), masks.cuda(), dilations=dil,
-                         num_iter=PAR_ITERS, valid_hw=valid.cuda(),
-                         dtype=torch.bfloat16).cpu()
-        counts = read_launches("fast", training=False)
-        direct = pk.par_affinity.launches_by_kernel["direct"]
+        with counting() as counts:
+            got = par_refine(img.cuda(), masks.cuda(), dilations=dil,
+                             num_iter=PAR_ITERS, valid_hw=valid.cuda(),
+                             dtype=torch.bfloat16).cpu()
         ref = par_refine(img, masks, dilations=dil, num_iter=PAR_ITERS,
                          valid_hw=valid, dtype=torch.bfloat16)
         err = max_err(got, ref)
         kernel = pk.affinity_kernel(max(dil), 8 * len(dil))
         log(f"par_repair dilations={dil} K={8 * len(dil)} pad={max(dil)} "
             f"route={bf16_route(dil)} affinity kernel={kernel} launches="
-            + json.dumps({k: v for k, v in counts.items() if v})
-            + f" direct affinity launches={direct} card against CPU "
+            + json.dumps(counts) + " card against CPU "
             f"max_abs_err={err:.4g} (bound {TOL_PAR_REPAIR})")
-        if not (bf16_route(dil) == "padded" and direct == 1
-                and counts["pad_replicate_valid"] == 2
-                and counts["par_diffuse_valid_resident"] == 1
-                and counts["par_diffuse"] == 0 and err <= TOL_PAR_REPAIR):
+        if not (bf16_route(dil) == "padded" and counts == want
+                and err <= TOL_PAR_REPAIR):
             raise AssertionError(f"par_repair {dil}: route "
                                  f"{bf16_route(dil)}, launches {counts}, "
-                                 f"direct {direct}, error {err}")
+                                 f"error {err}")
 
     # the kernels at the fast train step's shapes, outside the counts
     gcu = torch.Generator(device="cuda").manual_seed(6)
@@ -2969,14 +2868,11 @@ def par_repair_check() -> dict:
             # where both take the shape: the same bits
             out = torch.empty((b, len(offs), h, w), device="cuda",
                               dtype=torch.bfloat16)
-            fn = build.load("par_affinity", "excel_par_affinity_direct_bf16")
-            build.check(fn(ip.data_ptr(),
-                           pk.offsets_tensor(offs, "cpu").data_ptr(),
-                           pk.position_terms(pos_w, 0.01, "cpu").data_ptr(),
-                           out.data_ptr(), b, h, w, ip.shape[2], ip.shape[3],
-                           len(offs), pad, 0.3,
-                           torch.cuda.current_stream().cuda_stream),
-                        "par_affinity (direct)")
+            build.launch("excel_par_affinity_direct_bf16", ip, ip.data_ptr(),
+                         pk.offsets_tensor(offs, "cpu").data_ptr(),
+                         pk.position_terms(pos_w, 0.01, "cpu").data_ptr(),
+                         out.data_ptr(), b, h, w, ip.shape[2], ip.shape[3],
+                         len(offs), pad, 0.3)
             same = torch.equal(out, pk.par_affinity(ip, offs, pos_w, h, w))
             notes.append(f"direct == slab bit for bit at pad {pad}, K="
                          f"{len(offs)}: {same}")
@@ -3066,14 +2962,11 @@ CRF_AGREEMENT_BOUNDS = {
 # bf16 messages against fp32 ones at the argmax (tests/test_crf_tpu.py:
 # 243-254)
 MIN_CRF_BF16_AGREEMENT = 0.995
-# the kernel wrappers each host-CRF CLI run must launch (fast preset): the
-# MSC sweep's attention; the training-free LAM sweep's attention and fast
-# PAR
+# the entry points each host-CRF CLI run must launch (fast preset): the
+# MSC sweep's encoder; the training-free LAM sweep's encoder and fast PAR
 HOST_CRF_KERNELS = {
-    "infer_seg": ("plain_attention", "surgery_attention"),
-    "infer_lam": ("plain_attention", "surgery_attention",
-                  "pad_replicate_valid", "par_affinity",
-                  "par_diffuse_valid_resident"),
+    "infer_seg": ENCODER_KERNELS["fast"],
+    "infer_lam": ENCODER_KERNELS["fast"] + FAST_PAR,
 }
 # (d): the lattice timed on VOC-sized images, 21 classes, 10 iterations
 CRF_TIMED_HW = (375, 500)
@@ -3224,20 +3117,20 @@ def phase_host_crf(smi: str) -> None:
                 argv = (extra + ["--crf", "--fast"] + flags
                         + (["--crf-stream"] if stream else ["--save-preds"]))
                 timed.clear()
-                reset_launches()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                with _patched(cli, spiller, timed_spiller), \
-                        _patched(cli, sweep, timing("sweep")), \
-                        _patched(common, "run_crf_post", timing("post")), \
-                        _patched(crf_post.StreamingCrfPost, "finish",
-                                 timing("drain")), \
-                        _patched(common, "scores_from_hist",
-                                 keeping((name, mode))):
-                    _, crf_scores = cli.main(argv)
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                counts = read_launches("fast", training=False)
+                with counting() as counts:
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    with _patched(cli, spiller, timed_spiller), \
+                            _patched(cli, sweep, timing("sweep")), \
+                            _patched(common, "run_crf_post",
+                                     timing("post")), \
+                            _patched(crf_post.StreamingCrfPost, "finish",
+                                     timing("drain")), \
+                            _patched(common, "scores_from_hist",
+                                     keeping((name, mode))):
+                        _, crf_scores = cli.main(argv)
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
                 tail = timed["drain" if stream else "post"][0]
                 log(f"host_crf {name} --crf {mode}: {CLI_SAMPLES} images, "
                     f"{os.cpu_count()} host cores, {crf_post.default_workers()}"
@@ -3248,12 +3141,11 @@ def phase_host_crf(smi: str) -> None:
                     f"{1e3 * statistics.mean(timed['spill']):.3f} "
                     f"(host clock; {card}) crf miou="
                     f"{float(crf_scores['miou']):.6f} launches="
-                    + json.dumps({k: v for k, v in counts.items() if v}))
+                    + json.dumps(counts))
                 if not np.isfinite(crf_scores["pAcc"]):
                     raise AssertionError(f"host_crf {name}: non-finite "
                                          "scores")
-                missing = [k for k in HOST_CRF_KERNELS[name]
-                           if counts[k] <= 0]
+                missing = _missing(counts, HOST_CRF_KERNELS[name])
                 if missing:
                     raise AssertionError(f"host_crf {name} {mode}: no launch"
                                          f" of {missing}")
@@ -3319,14 +3211,12 @@ RANK_TRAIN_STEPS = 4
 # the ranks' whole run (start-up, the step, four CLI runs); a run beyond
 # it has hung
 RANK_TIMEOUT_S = 480
-# the kernels each counted run of the phase must launch (the CLIs' device
-# CRF is row 5 at 72 offsets: par_diffuse)
+# the entry points each counted run of the phase must launch (the CLIs'
+# device CRF is row 5 at 72 offsets, bf16 messages)
 RANK_KERNELS = {
-    "train_cli": ENCODER_KERNELS + (
-        "pad_replicate_valid", "par_affinity", "par_diffuse_valid_resident",
-        "upsample_linear_backward"),
+    "train_cli": TRAIN_CLI_KERNELS,
     "infer_lam": CLI_KERNELS["infer_lam", "fast"],
-    "infer_seg": ENCODER_KERNELS + ("par_diffuse",),
+    "infer_seg": ENCODER_KERNELS["fast"] + ("excel_par_diffuse_bf16",),
 }
 
 
@@ -3357,7 +3247,7 @@ def _flat_scores(scores: dict) -> list:
 
 
 def _check_launched(what: str, counts: dict, names) -> None:
-    missing = [k for k in names if counts[k] <= 0]
+    missing = _missing(counts, names)
     if missing:
         raise AssertionError(f"ranks {what}: no launch of {missing}")
 
@@ -3405,14 +3295,13 @@ def rank_step(preset: str, cfg, clip, text, images, cls) -> dict:
                                 torch.Generator().manual_seed(1), device=dev)
         state = init_train_state(head, cfg.train)
         gen = step_generator(cfg.train, 0, dev)
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, m = train_step(state, clip, imgs, cl, text, gen, cfg,
-                              calibrated=True, seg_affinity=True)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-        counts = read_launches(preset, training=True)
+        with counting() as counts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = train_step(state, clip, imgs, cl, text, gen, cfg,
+                                  calibrated=True, seg_affinity=True)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
     params = list(state.head.parameters())
     return {"losses": [float(m[k]) for k in ("loss", "seg_loss",
                                              "diver_loss")],
@@ -3479,16 +3368,16 @@ def rank_cli_runs(work: str, head_npz: str, batch: int,
     for name, cli, extra in runs:
         hists.clear()
         losses.clear()
-        reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with _patched(evaluate, "scores_from_hist", keeping), \
-                _patched(common, "scores_from_hist", keeping), \
-                _patched(train, "setup_logger", loss_lines):
-            got = cli.main(flags + extra)
-        torch.cuda.synchronize()
-        rec = {"wall_s": time.perf_counter() - t0,
-               "counts": read_launches("fast", training=cli is train)}
+        with counting() as counts:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _patched(evaluate, "scores_from_hist", keeping), \
+                    _patched(common, "scores_from_hist", keeping), \
+                    _patched(train, "setup_logger", loss_lines):
+                got = cli.main(flags + extra)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rec = {"wall_s": wall, "counts": counts}
         if cli is train:
             rec["head"] = torch.cat([p.detach().reshape(-1).cpu()
                                      for p in got.head.parameters()])
@@ -3532,7 +3421,7 @@ def rank_worker(work: str) -> int:
                 "cli_head": clis["train_cli"].pop("head")},
                os.path.join(work, f"rank{r}_step.pt"))
     with open(os.path.join(work, f"rank{r}.json"), "w") as f:
-        json.dump({"step": step, "cli": clis, "rows": ROW_LAUNCHES}, f)
+        json.dump({"step": step, "cli": clis, "launches": LAUNCHES}, f)
     return 0
 
 
@@ -3552,10 +3441,10 @@ def nccl_group_of_one(smi: str) -> None:
                                 extents=[VOC_EXTENTS[0]], max_classes=1)
 
     def lam():
-        reset_launches()
-        scores = run_lam_eval({"clip": clip}, samples, text, cfg,
-                              batch_size=4, device="cuda")
-        return _flat_scores(scores), read_launches("fast", training=False)
+        with counting() as counts:
+            scores = run_lam_eval({"clip": clip}, samples, text, cfg,
+                                  batch_size=4, device="cuda")
+        return _flat_scores(scores), counts
 
     alone = rank_step("fast", cfg, clip, text, images, cls)
     alone_lam, _ = lam()
@@ -3576,7 +3465,7 @@ def nccl_group_of_one(smi: str) -> None:
         f"(without a group {alone['losses']}), LAM batch scores equal: "
         f"{group_lam == alone_lam}; step wall_ms {group['wall_ms']:.2f} "
         f"(without a group {alone['wall_ms']:.2f}; {smi}) launches "
-        + json.dumps({k: v for k, v in group["counts"].items() if v}))
+        + json.dumps(group["counts"]))
     if not same:
         raise AssertionError("ranks: the NCCL group of one differs from no "
                              "group")
@@ -3648,8 +3537,7 @@ def phase_ranks(smi: str) -> None:
                 os.path.join(work, f"rank{r}_step.pt")))
         check_rank_runs(one, one_cli, recs, outs, card)
         for rec in recs:
-            for name, n in rec["rows"].items():
-                ROW_LAUNCHES[name] = ROW_LAUNCHES.get(name, 0) + n
+            LAUNCHES.update(rec["launches"])
         log(f"ranks walls (1 rank at B={RANKS * RANK_B} / {RANKS} gloo "
             f"ranks sharing the card at B={RANK_B}; {card}): step_ms "
             f"{one['wall_ms']:.2f} / "
@@ -3764,9 +3652,8 @@ JPEG_BATCH = 16               # the crop pipeline's batches of JPEG_TIMED
 JPEG_TREE = 32
 JPEG_BATCHES = 32
 # infer_lam --training-free --fast without a CRF: the encoder's attention
-# and the fast PAR (pad-clamp, affinity, resident diffusion)
-JPEG_CLI_KERNELS = ENCODER_KERNELS + ("pad_replicate_valid", "par_affinity",
-                                      "par_diffuse_valid_resident")
+# and LayerNorm, and the fast PAR (pad-clamp, affinity, resident diffusion)
+JPEG_CLI_KERNELS = ENCODER_KERNELS["fast"] + FAST_PAR
 
 
 def openai_resnet_state_dict(gen: torch.Generator, layers, width: int,
@@ -4110,13 +3997,12 @@ def remainder_jpeg_sweep_routes(card: str, pillow: str, flags: list) -> None:
     for turn, route in enumerate(("pillow", "decoder", "decoder", "pillow")):
         with (_patched(datasets, "_read", _pillow_jpeg) if route == "pillow"
               else contextlib.nullcontext()):
-            reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = infer_lam.main(["--training-free", "--fast"] + flags)
-            torch.cuda.synchronize()
-            walls[f"{route}{turn}"] = time.perf_counter() - t0
-            read_launches("fast", training=False)
+            with counting():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = infer_lam.main(["--training-free", "--fast"] + flags)
+                torch.cuda.synchronize()
+                walls[f"{route}{turn}"] = time.perf_counter() - t0
         scores.append(json.dumps(_flat_scores(out)))
     log(f"remainder jpeg infer_lam --training-free --fast by route "
         f"(Pillow {pillow}; {CLI_SAMPLES} images, {JPEG_SYNTH} JPEG; one "
@@ -4177,20 +4063,19 @@ def _remainder_jpeg(card: str, flags: list, work: str, expected: dict,
             return real(hist)
         return scores
 
-    reset_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with _patched(evaluate, "scores_from_hist", keeping):
-        out = infer_lam.main(["--training-free", "--fast"] + flags)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_launches("fast", training=False)
+    with counting() as counts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _patched(evaluate, "scores_from_hist", keeping):
+            out = infer_lam.main(["--training-free", "--fast"] + flags)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     counted = int(hists[0].sum())
     log(f"remainder jpeg infer_lam --training-free --fast: {CLI_SAMPLES} "
         f"images ({JPEG_SYNTH} JPEG) main_s={wall:.3f} ({card}) miou="
         f"{float(out['miou']):.4f} hist {counted} pixels of {valid} valid; "
-        "launches=" + json.dumps({k: v for k, v in counts.items() if v}))
-    missing = [k for k in JPEG_CLI_KERNELS if counts[k] <= 0]
+        "launches=" + json.dumps(counts))
+    missing = _missing(counts, JPEG_CLI_KERNELS)
     if counted != valid or missing or not np.isfinite(out["miou"]):
         raise AssertionError(f"remainder jpeg infer_lam: {counted} of "
                              f"{valid} pixels, no launch of {missing}")
@@ -4224,15 +4109,12 @@ def phase_remainder(smi: str) -> None:
 
 WRAPPER_TIMEOUT_S = 600
 COCO_SAMPLES = 4
-# wrapper -> the kernel wrappers its run must launch (the fast preset)
+# wrapper -> the entry points its run must launch (the fast preset)
 WRAPPER_KERNELS = {
-    "run_train": ENCODER_KERNELS + (
-        "pad_replicate_valid", "par_affinity", "par_diffuse_valid_resident",
-        "upsample_linear_backward"),
-    "infer_lam": ENCODER_KERNELS + (
-        "pad_replicate_valid", "par_affinity", "par_diffuse_valid_resident"),
-    "infer_seg_voc": ENCODER_KERNELS,
-    "infer_seg_coco": ENCODER_KERNELS,
+    "run_train": TRAIN_CLI_KERNELS,
+    "infer_lam": ENCODER_KERNELS["fast"] + FAST_PAR,
+    "infer_seg_voc": ENCODER_KERNELS["fast"],
+    "infer_seg_coco": ENCODER_KERNELS["fast"],
 }
 DEMO_CALLS = 2          # run_demo's first and steady-state calls
 # the convergence protocols of tests/test_convergence.py (tiny_config):
@@ -4259,15 +4141,11 @@ def entry_worker(out_json: str, argv: list) -> int:
                          f"{argv[:2]}")
     sys.path.insert(0, ROOT)
     module = argv[1]
-    with _without():
-        reset_launches()
+    with _without(), counting() as counts:
         sys.argv = [module] + argv[2:]
         runpy.run_module(module, run_name="__main__", alter_sys=True)
-        counts = read_launches("fast" if "--fast" in argv else "fp32",
-                               training=module.endswith(".train"))
     with open(out_json, "w") as f:
-        json.dump({"module": module, "counts": counts, "rows": ROW_LAUNCHES},
-                  f)
+        json.dump({"module": module, "counts": counts}, f)
     return 0
 
 
@@ -4346,7 +4224,7 @@ def start_wrappers(work: str, clip_npz: str, voc_root: str,
 
 def check_wrappers(started: dict, card: str, t_start: float) -> None:
     """Wait for each wrapper's process, check what its CLI writes and its
-    kernels' launches, and add them to ROW_LAUNCHES; on any failure (a
+    kernels' launches, and add them to LAUNCHES; on any failure (a
     wrapper past WRAPPER_TIMEOUT_S too) the processes still running are
     killed."""
     try:
@@ -4370,8 +4248,7 @@ def _check_wrapper(name: str, proc, out: str, launches: str, log_path: str,
                              + text[-3000:])
     with open(launches) as f:
         rec = json.load(f)
-    for row, n in rec["rows"].items():
-        ROW_LAUNCHES[row] = ROW_LAUNCHES.get(row, 0) + n
+    LAUNCHES.update(rec["counts"])
     if name == "run_train":
         wrote = [f for f in ("head_2.npz", "checkpoints/step_2.pt",
                              "train.log")
@@ -4383,13 +4260,12 @@ def _check_wrapper(name: str, proc, out: str, launches: str, log_path: str,
         wrote = sorted(os.listdir(d)) if os.path.isdir(d) else []
         want = COCO_SAMPLES if name == "infer_seg_coco" else CLI_SAMPLES
     miou = re.findall(r"mIoU\s+([0-9.]+)", text)
-    missing = [k for k in WRAPPER_KERNELS[name] if rec["counts"][k] <= 0]
+    missing = _missing(rec["counts"], WRAPPER_KERNELS[name])
     log(f"entry wrapper scripts/torch/{name}.sh -> {rec['module']} "
         f"(jax, excel_tpu and PIL blocked): exit 0, wrote {len(wrote)} "
         f"of {want} ({', '.join(wrote[:2])}, ...), "
         f"mIoU lines {miou}; launches="
-        + json.dumps({k: v for k, v in rec["counts"].items() if v})
-        + f" ({card})")
+        + json.dumps(rec["counts"]) + f" ({card})")
     if len(wrote) != want or missing or not miou:
         raise AssertionError(f"wrapper {name}: wrote {wrote}, no launch "
                              f"of {missing}, mIoU lines {miou}")
@@ -4450,14 +4326,12 @@ def entry_demo(card: str, cpu_labels: np.ndarray) -> None:
     from excel_tpu_torch.cli import demo
 
     buf = io.StringIO()
-    reset_launches()
-    with _without(), contextlib.redirect_stdout(buf):
+    with _without(), contextlib.redirect_stdout(buf), counting() as counts:
         labels = demo.main([])
-    counts = read_launches("fp32", training=False)
     out = buf.getvalue().strip().splitlines()
     steady = re.search(r"steady-state: ([0-9.]+)ms", buf.getvalue())
     agree = float((labels == cpu_labels).mean())
-    want = {k: DEMO_CALLS * v for k, v in LAUNCHES_PER_BATCH["fp32"].items()}
+    want = _times(LAUNCHES_PER_BATCH["fp32"], DEMO_CALLS)
     log(f"entry demo (the card, defaults; {card}): " + " | ".join(out))
     log(f"entry demo steady_state_ms={steady and steady.group(1)} (B=4, "
         f"320 px, fp32, host clock to a synchronise; {card}); labels "
@@ -4567,16 +4441,15 @@ def entry_convergence(card: str, work: str) -> None:
     cfg = schedule(tiny_config(), **sched)
     params, ds, _, text = conv_setup(cfg, os.path.join(work, "conv_loss"),
                                      size_range, 4, cast=False)
-    reset_launches()
-    losses, wall = conv_train(cfg, params, ds, text, steps)
-    counts = read_launches("fp32", training=True)
+    with counting() as counts:
+        losses, wall = conv_train(cfg, params, ds, text, steps)
     first, last, corr = _loss_trend(losses)
     ok = (np.isfinite(losses).all() and last < 0.8 * first and corr < -0.3)
     log(f"entry convergence tiny fp32 loss protocol ({steps} steps, B="
         f"{cfg.train.batch_size}): seg loss first-5 mean {first:.4f} last-5 "
         f"mean {last:.4f} (ratio {last / first:.4f}, bound < 0.8) corr "
         f"{corr:.4f} (bound < -0.3) wall_s={wall:.2f} ({card}); launches="
-        + json.dumps({k: v for k, v in counts.items() if v}))
+        + json.dumps(counts))
     if not ok:
         raise AssertionError(f"entry convergence tiny loss: {first} -> "
                              f"{last}, corr {corr}")
@@ -4588,15 +4461,10 @@ def entry_convergence(card: str, work: str) -> None:
         cfg.data, eval_pad=CONV_MIOU_PAD))
     params, ds, eval_ds, text = conv_setup(
         cfg, os.path.join(work, "conv_miou"), size_range, 4, cast=False)
-    reset_launches()
-    base = conv_miou(cfg, params, eval_ds, text)
-    read_launches("fp32", training=False)
-    reset_launches()
-    losses, wall = conv_train(cfg, params, ds, text, steps)
-    read_launches("fp32", training=True)
-    reset_launches()
-    trained = conv_miou(cfg, params, eval_ds, text)
-    read_launches("fp32", training=False)
+    with counting():
+        base = conv_miou(cfg, params, eval_ds, text)
+        losses, wall = conv_train(cfg, params, ds, text, steps)
+        trained = conv_miou(cfg, params, eval_ds, text)
     log(f"entry convergence tiny fp32 mIoU protocol ({steps} steps): mIoU "
         f"random head {base:.4f}, trained {trained:.4f} (bound: trained > "
         f"random + 0.05) wall_s={wall:.2f} ({card})")
@@ -4609,16 +4477,13 @@ def entry_convergence(card: str, work: str) -> None:
     params, ds, eval_ds, text = conv_setup(
         cfg, os.path.join(work, "conv_full"), (200, 400), CONV_FULL_IMAGES,
         cast=True)
-    reset_launches()
-    base = conv_miou(cfg, params, eval_ds, text)
-    read_launches("fast", training=False)
-    reset_launches()
-    losses, wall = conv_train(cfg, params, ds, text, CONV_FULL_STEPS,
-                              workers=CONV_WORKERS)
-    counts = read_launches("fast", training=True)
-    reset_launches()
-    trained = conv_miou(cfg, params, eval_ds, text)
-    read_launches("fast", training=False)
+    with counting():
+        base = conv_miou(cfg, params, eval_ds, text)
+    with counting() as counts:
+        losses, wall = conv_train(cfg, params, ds, text, CONV_FULL_STEPS,
+                                  workers=CONV_WORKERS)
+    with counting():
+        trained = conv_miou(cfg, params, eval_ds, text)
     first, last, corr = _loss_trend(losses)
     log(f"entry convergence full width fast ({CONV_FULL_STEPS} steps, B="
         f"{cfg.train.batch_size}, crop {cfg.data.crop_size}, "
@@ -4631,7 +4496,7 @@ def entry_convergence(card: str, work: str) -> None:
         f"{trained > base + 0.05}); steps wall_s={wall:.2f} "
         f"({wall / CONV_FULL_STEPS * 1e3:.2f} ms a step, host clock, the "
         f"loader's threads beside; {card}); launches="
-        + json.dumps({k: v for k, v in counts.items() if v}))
+        + json.dumps(counts))
     log("entry convergence full width seg losses: "
         + " ".join(f"{x:.4f}" for x in losses))
     if not (np.isfinite(losses).all() and last < first):
@@ -4675,31 +4540,56 @@ def phase_entry_points(smi: str) -> None:
 _ATT = "excel_tpu/models/attention_pallas.py"
 _PAR = "excel_tpu/ops/par_pallas.py"
 _CSRC = "excel_tpu_torch/csrc/"
-# JSON name -> (source, the Pallas function it replaces): one line per
-# Pallas row (rows 1-4 once per dtype; row 5 for PAR's step and for the
-# CRF's message pass, fp32 and bf16); rows 4, 6 and 8 are computed by the
-# kernels of rows 3, 7 and 5; launches from ROW_LAUNCHES
+# JSON name -> (source, the Pallas function it replaces, the C entry points
+# whose launches its line reports): one line per Pallas row (rows 1-4 once
+# per dtype; row 5 for PAR's step and for the CRF's message pass, fp32 and
+# bf16); rows 4, 6 and 8 are computed by the kernels of rows 3, 7 and 5.
+# Lines that share an entry point report the same launches: rows 1 and 2
+# (excel_plain_attention_*), rows 3 and 4 (excel_surgery_attention_*), the
+# fp32 lines of row 5 and row 8 (excel_par_diffuse_f32), rows 6 and 7
+# (excel_par_diffuse_valid_step_bf16)
 SOURCES = {
-    "plain_attention": ("attention_plain.cu", f"{_ATT}:52"),
-    "plain_attention_rows_hb": ("attention_plain.cu", f"{_ATT}:157"),
-    "surgery_attention": ("attention_surgery.cu", f"{_ATT}:244"),
-    "surgery_attention_rows": ("attention_surgery.cu", f"{_ATT}:295"),
-    "par_diffuse": ("par_diffuse.cu", f"{_PAR}:31"),
-    "par_diffuse_crf": ("par_diffuse.cu", f"{_PAR}:31"),
-    "par_diffuse_crf_bf16": ("par_diffuse.cu", f"{_PAR}:31"),
-    "par_diffuse_padded_hcw": ("par_diffuse.cu", f"{_PAR}:508"),
-    "plain_attention_bf16": ("attention_plain.cu", f"{_ATT}:52"),
-    "plain_attention_rows_hb_bf16": ("attention_plain.cu", f"{_ATT}:157"),
-    "surgery_attention_bf16": ("attention_surgery.cu", f"{_ATT}:244"),
-    "surgery_attention_rows_bf16": ("attention_surgery.cu", f"{_ATT}:295"),
-    "par_diffuse_padded": ("par_diffuse_valid.cu", f"{_PAR}:209"),
-    "par_diffuse_padded_valid": ("par_diffuse_valid.cu", f"{_PAR}:342"),
-    "par_diffuse_valid_resident": ("par_diffuse_valid.cu", f"{_PAR}:654"),
-    "pad_replicate_valid": ("par_pad_clamp.cu", f"{_PAR}:845"),
-    "par_affinity": ("par_affinity.cu", f"{_PAR}:931"),
-    "par_affinity_direct": ("par_affinity.cu", f"{_PAR}:931"),
-    "upsample_linear_backward": ("upsample_linear.cu", "none"),
-    "layer_norm": ("layer_norm.cu", "none"),
+    "plain_attention": ("attention_plain.cu", f"{_ATT}:52",
+                        ("excel_plain_attention_f32",)),
+    "plain_attention_rows_hb": ("attention_plain.cu", f"{_ATT}:157",
+                                ("excel_plain_attention_f32",)),
+    "surgery_attention": ("attention_surgery.cu", f"{_ATT}:244",
+                          ("excel_surgery_attention_f32",)),
+    "surgery_attention_rows": ("attention_surgery.cu", f"{_ATT}:295",
+                               ("excel_surgery_attention_f32",)),
+    "par_diffuse": ("par_diffuse.cu", f"{_PAR}:31",
+                    ("excel_par_diffuse_f32",)),
+    "par_diffuse_crf": ("par_diffuse.cu", f"{_PAR}:31",
+                        ("excel_par_diffuse_f32",)),
+    "par_diffuse_crf_bf16": ("par_diffuse.cu", f"{_PAR}:31",
+                             ("excel_par_diffuse_bf16",)),
+    "par_diffuse_padded_hcw": ("par_diffuse.cu", f"{_PAR}:508",
+                               ("excel_par_diffuse_f32",)),
+    "plain_attention_bf16": ("attention_plain.cu", f"{_ATT}:52",
+                             ("excel_plain_attention_bf16",)),
+    "plain_attention_rows_hb_bf16": ("attention_plain.cu", f"{_ATT}:157",
+                                     ("excel_plain_attention_bf16",)),
+    "surgery_attention_bf16": ("attention_surgery.cu", f"{_ATT}:244",
+                               ("excel_surgery_attention_bf16",)),
+    "surgery_attention_rows_bf16": ("attention_surgery.cu", f"{_ATT}:295",
+                                    ("excel_surgery_attention_bf16",)),
+    "par_diffuse_padded": ("par_diffuse_valid.cu", f"{_PAR}:209",
+                           ("excel_par_diffuse_valid_step_bf16",)),
+    "par_diffuse_padded_valid": ("par_diffuse_valid.cu", f"{_PAR}:342",
+                                 ("excel_par_diffuse_valid_step_bf16",)),
+    "par_diffuse_valid_resident": ("par_diffuse_valid.cu", f"{_PAR}:654",
+                                   ("excel_par_diffuse_valid_resident_bf16",
+                                    )),
+    "pad_replicate_valid": ("par_pad_clamp.cu", f"{_PAR}:845",
+                            ("excel_pad_clamp_f32", "excel_pad_clamp_bf16")),
+    "par_affinity": ("par_affinity.cu", f"{_PAR}:931",
+                     ("excel_par_affinity_bf16",)),
+    "par_affinity_direct": ("par_affinity.cu", f"{_PAR}:931",
+                            ("excel_par_affinity_direct_bf16",)),
+    "upsample_linear_backward": ("upsample_linear.cu", "none",
+                                 (UPSAMPLE_BWD,)),
+    "layer_norm": ("layer_norm.cu", "none",
+                   ("excel_layer_norm_f32", "excel_layer_norm_bf16")),
 }
 
 
@@ -4743,11 +4633,11 @@ def main() -> int:
     phase_entry_points(smi)
     phase_ranks(smi)
     table = []
-    for name, (source, replaces) in SOURCES.items():
+    for name, (source, replaces, entry_points) in SOURCES.items():
         r = records[name]
         table.append({"name": name, "route": "cuda", "source": _CSRC + source,
-                      "replaces": replaces,
-                      "launches": ROW_LAUNCHES.get(name, 0),
+                      "replaces": replaces, "entry_points": entry_points,
+                      "launches": sum(LAUNCHES[e] for e in entry_points),
                       "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                       "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                       "bound_by": r["bound_by"],

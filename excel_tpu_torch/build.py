@@ -13,6 +13,12 @@ CRF) and `native/jpeg.cpp` (the JPEG decoder), are compiled by
 `build_host(name)` into `_build/<library>-<hash>.so` (`HOST_SOURCES`), the
 hash covering the source, the flags and the host's CPU (the library is
 built for it with -march=native).
+
+Every kernel wrapper launches through `launch(symbol, tensor, *args)`: the
+C entry point, its arguments, and the current CUDA stream of the tensor's
+device appended last. A launch that returns a CUDA error raises naming the
+entry point; one that does not adds 1 to the profiling counter
+`launch.<symbol>` (`utils.profiling`: counted only while it is on).
 """
 from __future__ import annotations
 
@@ -24,6 +30,10 @@ import shutil
 import subprocess
 import threading
 import time
+
+import torch
+
+from .utils import profiling
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_build")
@@ -72,6 +82,12 @@ ENTRY_POINTS = {
     "layer_norm": {"excel_layer_norm_f32": _LAYER_NORM,
                    "excel_layer_norm_bf16": _LAYER_NORM},
 }
+# C entry point -> its source name
+_SOURCE = {symbol: name for name, entries in ENTRY_POINTS.items()
+           for symbol in entries}
+# the tensor types of the kernels that take two, and the suffix of each
+# one's entry point
+SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 _loaded: dict = {}
 _lock = threading.Lock()
@@ -205,3 +221,17 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError_t {rc}")
+
+
+def typed(stem: str, dtype: torch.dtype) -> str:
+    """The entry point `<stem>_f32` or `<stem>_bf16` for `dtype`."""
+    return f"{stem}_{SUFFIX[dtype]}"
+
+
+def launch(symbol: str, tensor: torch.Tensor, *args) -> None:
+    """Call the C entry point `symbol` with `args` and the current CUDA
+    stream of `tensor`'s device; raise on a CUDA error, else count the
+    launch as `launch.<symbol>`."""
+    stream = torch.cuda.current_stream(tensor.device).cuda_stream
+    check(load(_SOURCE[symbol], symbol)(*args, stream), symbol)
+    profiling.count("launch." + symbol)

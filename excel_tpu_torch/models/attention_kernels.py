@@ -27,36 +27,23 @@ The kernels take head dims 32, 64 (OpenAI's ViTs) and 80 (OpenCLIP
 ViT-H/14: 16 heads of 80, five k-steps of the tensor cores' 16).
 
 On a CPU tensor a wrapper computes its plain PyTorch version; on a CUDA
-tensor it launches its kernel or raises. Each wrapper counts the calls of
-its C entry point (one launch of the rows kernel and of the sums kernels
-back to back) in its `launches` attribute, those at D = 80 also in the
-profiling counter "attn.hd80", and in `launches_by_row` under the
-Pallas function the JAX package would route the same call to: plain
-attention without weights at N <= 512 to `_plain_kernel_rows_hb`, every
-other plain call to `_plain_kernel`; surgery attention at N <= 640 to
-`_kernel`, above to `_kernel_rows`.
+tensor it launches its kernel through `build.launch` or raises.
 """
 from __future__ import annotations
 
 import torch
 
 from .. import build
-from ..utils import profiling
 
 _MODES = {"none": 0, "out": 1, "acc": 2}
 _KERNEL_HEAD_DIMS = (32, 64, 80)
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
-# the JAX package's routing thresholds (attention_pallas.py), which
-# `launches_by_row` follows; the CUDA kernels take any N
-_ROWS_HB_MAX_N = 512
-_WHOLE_N_MAX_N = 640
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"q, k, v must share one [B, H, N, D] shape, got "
                          f"{tuple(q.shape)} {tuple(k.shape)} {tuple(v.shape)}")
-    if q.dtype not in _SUFFIX:
+    if q.dtype not in build.SUFFIX:
         raise NotImplementedError(f"{q.dtype} attention: the kernels take "
                                   "float32 and bfloat16")
     for t in (q, k, v):
@@ -88,10 +75,6 @@ def _check_nn(t: torch.Tensor, q: torch.Tensor, name: str) -> None:
 
 def _ptr(t: torch.Tensor | None):
     return None if t is None else t.data_ptr()
-
-
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def stats_shape(kind: str, mode: str, b: int, heads: int, n: int):
@@ -190,25 +173,11 @@ def fused_plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     weights = acc if mode == "acc" else (
         q.new_empty((b, n, n), dtype=torch.float32) if mode == "out"
         else None)
-    fn = build.load("attention_plain",
-                    f"excel_plain_attention_{_SUFFIX[q.dtype]}")
     stats = _stats("plain", mode, q)
-    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
-                   _ptr(weights), _ptr(stats), b, heads, n, d, _MODES[mode],
-                   _stream(q)),
-                "attention_plain")
-    fused_plain_attention.launches += 1
-    if d == 80:
-        profiling.count("attn.hd80")
-    row = ("_plain_kernel_rows_hb" if mode == "none" and n <= _ROWS_HB_MAX_N
-           else "_plain_kernel")
-    fused_plain_attention.launches_by_row[row] += 1
+    build.launch(build.typed("excel_plain_attention", q.dtype), q,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
+                 _ptr(weights), _ptr(stats), b, heads, n, d, _MODES[mode])
     return ctx, weights
-
-
-fused_plain_attention.launches = 0
-fused_plain_attention.launches_by_row = {"_plain_kernel": 0,
-                                         "_plain_kernel_rows_hb": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -263,20 +232,9 @@ def fused_surgery_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attn_sum = acc if mode == "acc" else (
         q.new_empty((b, n, n), dtype=torch.float32) if mode == "out"
         else None)
-    fn = build.load("attention_surgery",
-                    f"excel_surgery_attention_{_SUFFIX[q.dtype]}")
     stats = _stats("surgery", mode, q)
-    build.check(fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ex_attn),
-                   shared.data_ptr(), _ptr(attn_sum), ctx_ori.data_ptr(),
-                   _ptr(stats), b, heads, n, d, _MODES[mode], _stream(q)),
-                "attention_surgery")
-    fused_surgery_attention.launches += 1
-    if d == 80:
-        profiling.count("attn.hd80")
-    fused_surgery_attention.launches_by_row[
-        "_kernel" if n <= _WHOLE_N_MAX_N else "_kernel_rows"] += 1
+    build.launch(build.typed("excel_surgery_attention", q.dtype), q,
+                 q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ex_attn),
+                 shared.data_ptr(), _ptr(attn_sum), ctx_ori.data_ptr(),
+                 _ptr(stats), b, heads, n, d, _MODES[mode])
     return shared, attn_sum, ctx_ori
-
-
-fused_surgery_attention.launches = 0
-fused_surgery_attention.launches_by_row = {"_kernel": 0, "_kernel_rows": 0}

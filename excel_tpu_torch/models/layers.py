@@ -45,8 +45,6 @@ def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
     return out.to(orig)
 
 
-_LN_ENTRY = {torch.float32: "excel_layer_norm_f32",
-             torch.bfloat16: "excel_layer_norm_bf16"}
 _LN_MAX_VECS = 16     # csrc/layer_norm.cu's kMaxVecs: 16-byte vectors a lane
 
 
@@ -59,7 +57,7 @@ def _layer_norm_kernel(x: torch.Tensor, y: torch.Tensor | None, p: dict,
     are not contiguous or not 16-byte aligned."""
     if x.device.type != "cuda":
         raise ValueError(f"layer_norm kernel: unsupported device {x.device}")
-    if x.dtype not in _LN_ENTRY:
+    if x.dtype not in build.SUFFIX:
         raise NotImplementedError(f"{x.dtype} LayerNorm: the kernel takes "
                                   "float32 and bfloat16")
     c = x.shape[-1]
@@ -87,12 +85,10 @@ def _layer_norm_kernel(x: torch.Tensor, y: torch.Tensor | None, p: dict,
                              f"contiguous [{c}] tensors on {x.device}")
     out = torch.empty_like(x)
     s = None if y is None else torch.empty_like(x)
-    fn = build.load("layer_norm", _LN_ENTRY[x.dtype])
-    build.check(fn(x.data_ptr(), None if y is None else y.data_ptr(),
-                   None if s is None else s.data_ptr(), out.data_ptr(),
-                   scale.data_ptr(), bias.data_ptr(), x.numel() // c, c, eps,
-                   torch.cuda.current_stream(x.device).cuda_stream),
-                "layer_norm")
+    build.launch(build.typed("excel_layer_norm", x.dtype), x, x.data_ptr(),
+                 None if y is None else y.data_ptr(),
+                 None if s is None else s.data_ptr(), out.data_ptr(),
+                 scale.data_ptr(), bias.data_ptr(), x.numel() // c, c, eps)
     return s, out
 
 
@@ -100,14 +96,10 @@ def layer_norm_fused(x: torch.Tensor, p: dict,
                      eps: float = 1e-5) -> torch.Tensor:
     """`layer_norm` as the encoder runs it: on a CPU tensor `layer_norm`
     itself, on a CUDA tensor one launch of csrc/layer_norm.cu (its plain
-    form) or a raise. Each call adds to the profiling counter "ln.fused";
-    `launches` counts the kernel's launches."""
-    profiling.count("ln.fused")
+    form) or a raise."""
     if x.device.type == "cpu":
         return layer_norm(x, p, eps)
-    out = _layer_norm_kernel(x, None, p, eps)[1]
-    layer_norm_fused.launches += 1
-    return out
+    return _layer_norm_kernel(x, None, p, eps)[1]
 
 
 def add_layer_norm_fused(x: torch.Tensor, y: torch.Tensor, p: dict,
@@ -115,19 +107,12 @@ def add_layer_norm_fused(x: torch.Tensor, y: torch.Tensor, p: dict,
     """The encoder's residual add and the LayerNorm after it: (s, out) with
     s = x + y in x's type and out = layer_norm(s, p). On CPU tensors
     exactly those two steps; on CUDA tensors one launch of
-    csrc/layer_norm.cu (its residual form), which writes both, or a raise.
-    Counted as in `layer_norm_fused` (its own `launches`)."""
-    profiling.count("ln.fused")
+    csrc/layer_norm.cu (its residual form), which writes both, or a
+    raise."""
     if x.device.type == "cpu":
         s = x + y
         return s, layer_norm(s, p, eps)
-    s, out = _layer_norm_kernel(x, y, p, eps)
-    add_layer_norm_fused.launches += 1
-    return s, out
-
-
-layer_norm_fused.launches = 0
-add_layer_norm_fused.launches = 0
+    return _layer_norm_kernel(x, y, p, eps)
 
 
 # 1.702 rounded to each activation type on the host: a Python float that

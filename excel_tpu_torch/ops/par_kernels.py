@@ -42,17 +42,15 @@ fp32 and bf16, the affinity with a bf16 output, the fused-valid diffusion
 in bf16.
 
 On CPU tensors a wrapper computes its plain version; on CUDA tensors it
-launches its kernel or raises. Each wrapper counts its kernel launches in
-its `launches` attribute. The slice-2 wrappers take the offsets as (dy, dx)
-pairs on the host, as the JAX functions do, so that they read their pad
-without waiting for the device; the kernels' [K, 2] device copy is made
-once per configuration (`offsets_tensor`). The affinity kernel takes a host
-copy instead, and its position terms too: its entry point passes them as
-kernel parameters.
+launches its kernel through `build.launch` or raises. The slice-2 wrappers
+take the offsets as (dy, dx) pairs on the host, as the JAX functions do, so
+that they read their pad without waiting for the device; the kernels'
+[K, 2] device copy is made once per configuration (`offsets_tensor`). The
+affinity kernel takes a host copy instead, and its position terms too: its
+entry point passes them as kernel parameters.
 """
 from __future__ import annotations
 
-import collections
 import functools
 
 import torch
@@ -60,7 +58,6 @@ import torch.nn.functional as F
 
 from .. import build
 
-_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _CHUNK = 8      # offsets per fp32 partial sum, as in the Pallas kernels
 # the most offsets and the largest pad that the fused-valid step and the
 # resident diffusion take on the card (csrc/par_diffuse_valid.cu)
@@ -194,7 +191,7 @@ def par_diffuse(masks: torch.Tensor, aff: torch.Tensor,
             or min(b, c, h, w, k) < 1):
         raise ValueError(f"shape mismatch: masks {tuple(masks.shape)}, aff "
                          f"{tuple(aff.shape)}, offsets {tuple(offsets.shape)}")
-    if masks.dtype not in _SUFFIX:
+    if masks.dtype not in build.SUFFIX:
         raise NotImplementedError(f"par_diffuse: masks are {masks.dtype}; "
                                   "the kernel takes float32 and bfloat16")
     if aff.dtype != masks.dtype:
@@ -212,21 +209,12 @@ def par_diffuse(masks: torch.Tensor, aff: torch.Tensor,
     if masks.device.type != "cuda":
         raise ValueError(f"unsupported device {masks.device}")
     out = torch.empty_like(masks)
-    fn = build.load("par_diffuse",
-                    f"excel_par_diffuse_{_SUFFIX[masks.dtype]}")
     pairs = _host_offsets(offsets)
-    build.check(fn(masks.data_ptr(), aff.data_ptr(), offsets.data_ptr(),
-                   out.data_ptr(), b, c, h, w, k,
-                   staged_pad(pairs, c, masks.element_size()),
-                   _pad_of(pairs), _stream(masks)), "par_diffuse")
-    par_diffuse.launches += 1
-    par_diffuse.launches_by_type[masks.dtype, k] += 1
+    build.launch(build.typed("excel_par_diffuse", masks.dtype), masks,
+                 masks.data_ptr(), aff.data_ptr(), offsets.data_ptr(),
+                 out.data_ptr(), b, c, h, w, k,
+                 staged_pad(pairs, c, masks.element_size()), _pad_of(pairs))
     return out
-
-
-par_diffuse.launches = 0
-# the same launches by (dtype, K): PAR's 48 offsets apart from the CRF's 72
-par_diffuse.launches_by_type = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -242,7 +230,8 @@ def _pad_of(offsets) -> int:
     return max(max(abs(dy), abs(dx)) for dy, dx in offsets)
 
 
-def _check(name: str, tensors: dict, device, dtypes=tuple(_SUFFIX)) -> None:
+def _check(name: str, tensors: dict, device,
+           dtypes=tuple(build.SUFFIX)) -> None:
     for key, x in tensors.items():
         if x.device != device:
             raise ValueError(f"{name}: {key} is on {x.device}, not {device}")
@@ -274,10 +263,6 @@ def _clamped_gather(x: torch.Tensor, valid_hw: torch.Tensor, pad: int,
     return torch.gather(x, 3, cols[:, None, None, :].expand(b, c, hp, wp))
 
 
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 # ---------------------------------------------------------------------------
 # fused valid-extent clamp + edge pad
 # ---------------------------------------------------------------------------
@@ -305,14 +290,9 @@ def pad_replicate_valid(x: torch.Tensor, valid_hw: torch.Tensor,
         return pad_replicate_valid_reference(x, valid_hw, pad)
     b, c, h, w = x.shape
     out = x.new_empty((b, c, *padded_shape(h, w, pad)))
-    fn = build.load("par_pad_clamp", f"excel_pad_clamp_{_SUFFIX[x.dtype]}")
-    build.check(fn(x.data_ptr(), valid_hw.data_ptr(), out.data_ptr(), b, c, h,
-                   w, pad, _stream(x)), "par_pad_clamp")
-    pad_replicate_valid.launches += 1
+    build.launch(build.typed("excel_pad_clamp", x.dtype), x, x.data_ptr(),
+                 valid_hw.data_ptr(), out.data_ptr(), b, c, h, w, pad)
     return out
-
-
-pad_replicate_valid.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -427,9 +407,8 @@ def par_affinity(img_padded: torch.Tensor, offsets, pos_w, h: int, w: int,
     128; pos_w: the K position weights. Returns aff [B, K, h, w] in
     out_dtype: bfloat16 (or float32 on the CPU). On the card the slab
     kernel runs where it takes the pad and K, the direct kernel elsewhere
-    (`affinity_kernel`; `launches_by_kernel` counts each); both take the
-    offsets and the position terms from host memory, as kernel
-    parameters."""
+    (`affinity_kernel`); both take the offsets and the position terms
+    from host memory, as kernel parameters."""
     if img_padded.dim() != 4 or img_padded.shape[1] != 3:
         raise ValueError(f"par_affinity: img_padded must be [B, 3, Hp, Wp], "
                          f"got {tuple(img_padded.shape)}")
@@ -442,7 +421,7 @@ def par_affinity(img_padded: torch.Tensor, offsets, pos_w, h: int, w: int,
         raise ValueError(f"par_affinity: img_padded {tuple(img_padded.shape)}"
                          f", {k} offsets, {len(pos_w)} "
                          f"position weights, h={h} w={w}")
-    if out_dtype not in _SUFFIX:
+    if out_dtype not in build.SUFFIX:
         raise NotImplementedError(f"par_affinity: out_dtype {out_dtype}")
     _check("par_affinity", {"img_padded": img_padded}, img_padded.device,
            dtypes=(torch.float32,))
@@ -452,22 +431,15 @@ def par_affinity(img_padded: torch.Tensor, offsets, pos_w, h: int, w: int,
     if out_dtype != torch.bfloat16:
         raise NotImplementedError("par_affinity: the kernel writes bf16 "
                                   "affinities (the fast preset's)")
-    kernel = affinity_kernel(pad, k)
+    symbol = ("excel_par_affinity_bf16" if affinity_kernel(pad, k) == "slab"
+              else "excel_par_affinity_direct_bf16")
     out = img_padded.new_empty((b, k, h, w), dtype=out_dtype)
     wpos = position_terms(pos_w, w2, "cpu")
     offsets_t = offsets_tensor(offsets, "cpu")
-    fn = build.load("par_affinity", "excel_par_affinity_bf16"
-                    if kernel == "slab" else "excel_par_affinity_direct_bf16")
-    build.check(fn(img_padded.data_ptr(), offsets_t.data_ptr(),
-                   wpos.data_ptr(), out.data_ptr(), b, h, w, hp, wp, k, pad,
-                   w1, _stream(img_padded)), f"par_affinity ({kernel})")
-    par_affinity.launches += 1
-    par_affinity.launches_by_kernel[kernel] += 1
+    build.launch(symbol, img_padded, img_padded.data_ptr(),
+                 offsets_t.data_ptr(), wpos.data_ptr(), out.data_ptr(), b, h,
+                 w, hp, wp, k, pad, w1)
     return out
-
-
-par_affinity.launches = 0
-par_affinity.launches_by_kernel = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -625,16 +597,11 @@ def par_diffuse_padded_valid(masks_padded: torch.Tensor, aff: torch.Tensor,
                                                   offsets, h, w)
     out = torch.empty_like(masks_padded)
     offsets_t = offsets_tensor(offsets, masks_padded.device)
-    fn = build.load("par_diffuse_valid", "excel_par_diffuse_valid_step_bf16")
-    build.check(fn(masks_padded.data_ptr(), aff.data_ptr(),
-                   valid_hw.data_ptr(), offsets_t.data_ptr(), out.data_ptr(),
-                   b, c, h, w, hp, wp, k, pad, _stream(masks_padded)),
-                "par_diffuse_padded_valid")
-    par_diffuse_padded_valid.launches += 1
+    build.launch("excel_par_diffuse_valid_step_bf16", masks_padded,
+                 masks_padded.data_ptr(), aff.data_ptr(), valid_hw.data_ptr(),
+                 offsets_t.data_ptr(), out.data_ptr(), b, c, h, w, hp, wp, k,
+                 pad)
     return out
-
-
-par_diffuse_padded_valid.launches = 0
 
 
 def par_diffuse_valid_resident(masks_padded: torch.Tensor, aff: torch.Tensor,
@@ -654,14 +621,8 @@ def par_diffuse_valid_resident(masks_padded: torch.Tensor, aff: torch.Tensor,
     out = torch.empty_like(masks_padded)
     scratch = torch.empty_like(masks_padded) if num_iter > 1 else out
     offsets_t = offsets_tensor(offsets, masks_padded.device)
-    fn = build.load("par_diffuse_valid",
-                    "excel_par_diffuse_valid_resident_bf16")
-    build.check(fn(masks_padded.data_ptr(), aff.data_ptr(),
-                   valid_hw.data_ptr(), offsets_t.data_ptr(), out.data_ptr(),
-                   scratch.data_ptr(), b, c, h, w, hp, wp, k, pad, num_iter,
-                   _stream(masks_padded)), "par_diffuse_valid_resident")
-    par_diffuse_valid_resident.launches += 1
+    build.launch("excel_par_diffuse_valid_resident_bf16", masks_padded,
+                 masks_padded.data_ptr(), aff.data_ptr(), valid_hw.data_ptr(),
+                 offsets_t.data_ptr(), out.data_ptr(), scratch.data_ptr(), b,
+                 c, h, w, hp, wp, k, pad, num_iter)
     return out
-
-
-par_diffuse_valid_resident.launches = 0

@@ -14,9 +14,8 @@ in fp32 as the forward computes them; so
 grad_in = Wy^T . grad_out . Wx with two nonzeros in each row of Wy and Wx.
 
 On CPU tensors the backward computes its plain version (two einsums with
-those matrices); on CUDA tensors it launches the kernel or raises. The
-wrapper counts its kernel launches in its `launches` attribute, and every
-backward adds to the profiling counter "upsample.bwd".
+those matrices); on CUDA tensors it launches the kernel through
+`build.launch` or raises.
 """
 from __future__ import annotations
 
@@ -25,7 +24,6 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from .. import build
-from ..utils import profiling
 
 
 def linear_taps(n_in: int, n_out: int, device=None) -> torch.Tensor:
@@ -67,7 +65,6 @@ def upsample_linear_backward(grad_out: torch.Tensor,
         raise ValueError(f"upsample_linear_backward: grad_out "
                          f"{tuple(grad_out.shape)} {grad_out.dtype} is not "
                          f"an integer upsample of {in_hw} in float32")
-    profiling.count("upsample.bwd")
     if grad_out.device.type == "cpu":
         return upsample_linear_backward_reference(grad_out, in_hw)
     if grad_out.device.type != "cuda":
@@ -76,15 +73,9 @@ def upsample_linear_backward(grad_out: torch.Tensor,
     g = grad_out.contiguous()
     b, c, big_h, big_w = g.shape
     out = g.new_empty((b, c, h, w))
-    fn = build.load("upsample_linear", "excel_upsample_linear_bwd_f32")
-    build.check(fn(g.data_ptr(), out.data_ptr(), b * c, h, w, big_h, big_w,
-                   torch.cuda.current_stream(g.device).cuda_stream),
-                "upsample_linear")
-    upsample_linear_backward.launches += 1
+    build.launch("excel_upsample_linear_bwd_f32", g, g.data_ptr(),
+                 out.data_ptr(), b * c, h, w, big_h, big_w)
     return out
-
-
-upsample_linear_backward.launches = 0
 
 
 class UpsampleLinear(torch.autograd.Function):

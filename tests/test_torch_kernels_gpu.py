@@ -10,6 +10,7 @@ from excel_tpu_torch import build
 from excel_tpu_torch.models import attention_kernels as ak
 from excel_tpu_torch.ops.par import _offsets, _pos_weight, _replicate_valid
 from excel_tpu_torch.ops import par_kernels as pk
+from torch_launches import launches, spy
 
 pytestmark = pytest.mark.cuda
 
@@ -247,23 +248,18 @@ def test_attention_kernels_deterministic_and_acc_is_out_plus_acc(gen, kind,
 def test_attention_kernels_hd80_every_mode_with_ex(gen, mode, dtype):
     """OpenCLIP ViT-H/14's heads (16 of 80) at its 577 tokens: both kernels
     against their plain versions in every mode, surgery with and without
-    ex, each launch counted in the profiling counter "attn.hd80"."""
-    from excel_tpu_torch.utils import profiling
-
+    ex, each launch counted under its entry point."""
     n = 577
     q, k, v = _qkv(gen, 2, 16, n, 80, dtype)
     acc = torch.rand((2, n, n), device="cuda", generator=gen)
     ex = (torch.rand((2, n, n), device="cuda", generator=gen)
           / n).to(dtype).float()
-    profiling.reset()
-    profiling.enable(True)
-    try:
+    with launches() as counts:
         _check_attention("plain", q, k, v, mode, acc)
         _check_attention("surgery", q, k, v, mode, acc)
         _check_attention("surgery", q, k, v, mode, acc, ex)
-    finally:
-        profiling.enable(False)
-    assert profiling.snapshot()["counters"]["attn.hd80"] == 3
+    assert counts == {build.typed("excel_plain_attention", dtype): 1,
+                      build.typed("excel_surgery_attention", dtype): 2}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -598,14 +594,13 @@ def test_par_diffuse_bf16_kernel_bitwise(gen, c):
     bf16, fp32 sums in chunks of 8, a bf16 running output), bit for bit,
     at the CRF's 72 offsets with a pad (55) beyond the canvas height."""
     q, aff, offsets = _crf_inputs(gen, c, torch.bfloat16)
-    before = pk.par_diffuse.launches_by_type.copy()
-    got = pk.par_diffuse(q, aff, offsets)
-    ref = pk.par_diffuse_reference(q, aff, offsets)
+    with launches() as counts:
+        got = pk.par_diffuse(q, aff, offsets)
+        ref = pk.par_diffuse_reference(q, aff, offsets)
     torch.cuda.synchronize()
     assert got.dtype == torch.bfloat16
     assert torch.equal(got, ref)
-    assert pk.par_diffuse.launches_by_type - before == {
-        (torch.bfloat16, 72): 1}
+    assert counts == {"excel_par_diffuse_bf16": 1}
 
 
 def test_par_diffuse_fp32_kernel_at_crf_offsets_bitwise(gen):
@@ -632,37 +627,31 @@ def test_crf_meanfield_card_matches_cpu(gen, msg_dtype):
     valid = torch.tensor([[48, 160], [37, 101]], device="cuda",
                          dtype=torch.int32)
     kw = dict(iters=3, msg_dtype=msg_dtype, coarse_stride=8)
-    before = pk.par_diffuse.launches
-    card = crf_meanfield(img, probs, valid_hw=valid, **kw).cpu()
-    assert pk.par_diffuse.launches == before + 3
+    with launches() as counts:
+        card = crf_meanfield(img, probs, valid_hw=valid, **kw).cpu()
+    assert counts == {build.typed("excel_par_diffuse",
+                                  msg_dtype or torch.float32): 3}
     cpu = crf_meanfield(img.cpu(), probs.cpu(), valid_hw=valid.cpu(), **kw)
     assert (card.argmax(1) == cpu.argmax(1)).float().mean() >= 0.999
     torch.testing.assert_close(card, cpu, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("tokens,plain_row,surgery_row", [
-    (197, "_plain_kernel_rows_hb", "_kernel"),
-    (577, "_plain_kernel", "_kernel"),
-    (901, "_plain_kernel", "_kernel_rows")])
-def test_attention_none_mode_at_msc_tokens(gen, tokens, plain_row,
-                                           surgery_row):
+@pytest.mark.parametrize("tokens", [197, 577, 901])
+def test_attention_none_mode_at_msc_tokens(gen, tokens):
     """Mode "none" (MSC's: no weights, surgery without ex) at the token
-    counts of MSC scales 0.7, 1.2 and 1.5, bf16 and fp32, and the Pallas
-    row each launch is attributed to."""
+    counts of MSC scales 0.7, 1.2 and 1.5, bf16 and fp32, one launch of
+    each entry point a call."""
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v = (torch.randn((1, 12, tokens, 64), device="cuda",
                                generator=gen).to(dtype) for _ in range(3))
-        rows_p = dict(ak.fused_plain_attention.launches_by_row)
-        rows_s = dict(ak.fused_surgery_attention.launches_by_row)
-        ctx, w = ak.fused_plain_attention(q, k, v, need_weights=False)
-        shared, attn, ctx_ori = ak.fused_surgery_attention(q, k, v,
-                                                           need_attn=False)
+        with launches() as counts:
+            ctx, w = ak.fused_plain_attention(q, k, v, need_weights=False)
+            shared, attn, ctx_ori = ak.fused_surgery_attention(
+                q, k, v, need_attn=False)
         torch.cuda.synchronize()
         assert w is None and attn is None
-        rows_p[plain_row] += 1
-        rows_s[surgery_row] += 1
-        assert ak.fused_plain_attention.launches_by_row == rows_p
-        assert ak.fused_surgery_attention.launches_by_row == rows_s
+        assert counts == {build.typed("excel_plain_attention", dtype): 1,
+                          build.typed("excel_surgery_attention", dtype): 1}
         ref_ctx, _ = ak.plain_attention_reference(q, k, v,
                                                   need_weights=False)
         ref_shared, _, ref_ori = ak.surgery_attention_reference(
@@ -763,23 +752,20 @@ def test_affinity_kernel_smaller_tiles(gen, pad, tiling):
     assert pk.affinity_tiling(pad) == tiling
     _affinity_close(*_affinity_inputs(gen, 8, pad, 40, 70), 40, 70)
     ip, offs, pos_w = _affinity_inputs(gen, 8, 53, 20, 30)
-    direct = pk.par_affinity.launches_by_kernel["direct"]
-    _affinity_close(ip, offs, pos_w, 20, 30)
-    assert pk.par_affinity.launches_by_kernel["direct"] == direct + 1
+    with launches() as counts:
+        _affinity_close(ip, offs, pos_w, 20, 30)
+    assert counts == {"excel_par_affinity_direct_bf16": 1}
 
 
 def _direct_affinity(ip, offs, pos_w, h, w):
     """The direct kernel through its entry point, at any shape."""
     out = torch.empty((ip.shape[0], len(offs), h, w), device="cuda",
                       dtype=torch.bfloat16)
-    fn = build.load("par_affinity", "excel_par_affinity_direct_bf16")
-    build.check(fn(ip.data_ptr(), pk.offsets_tensor(offs, "cpu").data_ptr(),
-                   pk.position_terms(pos_w, 0.01, "cpu").data_ptr(),
-                   out.data_ptr(), ip.shape[0], h, w, ip.shape[2],
-                   ip.shape[3], len(offs), max(max(abs(d) for d in o)
-                                               for o in offs), 0.3,
-                   torch.cuda.current_stream().cuda_stream),
-                "par_affinity (direct)")
+    build.launch("excel_par_affinity_direct_bf16", ip, ip.data_ptr(),
+                 pk.offsets_tensor(offs, "cpu").data_ptr(),
+                 pk.position_terms(pos_w, 0.01, "cpu").data_ptr(),
+                 out.data_ptr(), ip.shape[0], h, w, ip.shape[2], ip.shape[3],
+                 len(offs), max(max(abs(d) for d in o) for o in offs), 0.3)
     return out
 
 
@@ -839,12 +825,11 @@ def test_affinity_kernel_unaligned_side_stream_and_device_tables(gen):
         on_side = pk.par_affinity(ip, offs, pos_w, h, w)
     torch.cuda.current_stream().wait_stream(side)
     out = torch.empty_like(got)
-    fn = build.load("par_affinity", "excel_par_affinity_bf16")
-    build.check(fn(ip.data_ptr(), pk.offsets_tensor(offs, "cuda").data_ptr(),
-                   pk.position_terms(pos_w, 0.01, "cuda").data_ptr(),
-                   out.data_ptr(), ip.shape[0], h, w, ip.shape[2],
-                   ip.shape[3], len(offs), pad, 0.3,
-                   torch.cuda.current_stream().cuda_stream), "par_affinity")
+    build.launch("excel_par_affinity_bf16", ip, ip.data_ptr(),
+                 pk.offsets_tensor(offs, "cuda").data_ptr(),
+                 pk.position_terms(pos_w, 0.01, "cuda").data_ptr(),
+                 out.data_ptr(), ip.shape[0], h, w, ip.shape[2], ip.shape[3],
+                 len(offs), pad, 0.3)
     torch.cuda.synchronize()
     assert torch.equal(got, again) and torch.equal(got, on_side)
     assert torch.equal(got, out)
@@ -914,13 +899,13 @@ def test_par_refine_bf16_large_pads_card_matches_cpu(gen, dil):
     masks = torch.rand((2, 5, 96, 128), device="cuda", generator=gen)
     valid = torch.tensor([[96, 128], [70, 101]], dtype=torch.int32,
                          device="cuda")
-    direct = pk.par_affinity.launches_by_kernel["direct"]
-    resident = pk.par_diffuse_valid_resident.launches
-    got = par_refine(img, masks, dilations=dil, num_iter=20, valid_hw=valid,
-                     dtype=torch.bfloat16)
+    with launches() as counts:
+        got = par_refine(img, masks, dilations=dil, num_iter=20,
+                         valid_hw=valid, dtype=torch.bfloat16)
     torch.cuda.synchronize()
-    assert pk.par_affinity.launches_by_kernel["direct"] == direct + 1
-    assert pk.par_diffuse_valid_resident.launches == resident + 1
+    assert counts == {"excel_pad_clamp_f32": 1, "excel_pad_clamp_bf16": 1,
+                      "excel_par_affinity_direct_bf16": 1,
+                      "excel_par_diffuse_valid_resident_bf16": 1}
     ref = par_refine(img.cpu(), masks.cpu(), dilations=dil, num_iter=20,
                      valid_hw=valid.cpu(), dtype=torch.bfloat16)
     torch.testing.assert_close(got.cpu(), ref, atol=2.0 ** -7, rtol=0)
@@ -977,14 +962,14 @@ def test_upsample_linear_backward_kernel(gen, b, c, h, w, big_h, big_w):
     from excel_tpu_torch.ops import upsample_kernels as uk
 
     g = torch.randn((b, c, big_h, big_w), device="cuda", generator=gen)
-    before = uk.upsample_linear_backward.launches
-    got = uk.upsample_linear_backward(g, (h, w))
-    again = uk.upsample_linear_backward(g, (h, w))
+    with launches() as counts:
+        got = uk.upsample_linear_backward(g, (h, w))
+        again = uk.upsample_linear_backward(g, (h, w))
     x = torch.zeros((b, c, h, w), device="cuda", requires_grad=True)
     F.interpolate(x, size=(big_h, big_w), mode="bilinear",
                   align_corners=False).backward(g)
     torch.cuda.synchronize()
-    assert uk.upsample_linear_backward.launches == before + 2
+    assert counts == {"excel_upsample_linear_bwd_f32": 2}
     assert got.shape == (b, c, h, w) and torch.equal(got, again)
     _upsample_close(got, g, (h, w),
                     uk.upsample_linear_backward_reference(g.cpu(), (h, w)))
@@ -1014,10 +999,10 @@ def test_upsample_linear_backward_unaligned_side_stream_and_autograd(gen):
 
     x = torch.randn((4, 21, 20, 20), device="cuda", generator=gen,
                     requires_grad=True)
-    before = uk.upsample_linear_backward.launches
-    plab.upsample_linear(x, (320, 320)).backward(g)
+    with launches() as counts:
+        plab.upsample_linear(x, (320, 320)).backward(g)
     torch.cuda.synchronize()
-    assert uk.upsample_linear_backward.launches == before + 1
+    assert counts == {"excel_upsample_linear_bwd_f32": 1}
     assert torch.equal(x.grad, ref)
 
 
@@ -1076,17 +1061,15 @@ def test_layer_norm_kernel(gen, b, n, c, residual, dtype):
     on the card: the residual sums bit for bit, the normalised rows within
     the stated bound; two launches give the same bits."""
     L, x, y, p = _ln_inputs(gen, (b, n, c), dtype)
-    if residual:
-        before = L.add_layer_norm_fused.launches
-        s, out = L.add_layer_norm_fused(x, y, p)
-        s2, out2 = L.add_layer_norm_fused(x, y, p)
-        ref_s = x + y
-        assert L.add_layer_norm_fused.launches == before + 2
-    else:
-        before = L.layer_norm_fused.launches
-        out, out2 = L.layer_norm_fused(x, p), L.layer_norm_fused(x, p)
-        s = s2 = ref_s = x
-        assert L.layer_norm_fused.launches == before + 2
+    with launches() as counts:
+        if residual:
+            s, out = L.add_layer_norm_fused(x, y, p)
+            s2, out2 = L.add_layer_norm_fused(x, y, p)
+            ref_s = x + y
+        else:
+            out, out2 = L.layer_norm_fused(x, p), L.layer_norm_fused(x, p)
+            s = s2 = ref_s = x
+    assert counts == {build.typed("excel_layer_norm", dtype): 2}
     ref = L.layer_norm(ref_s, p)
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == (b, n, c)
@@ -1167,11 +1150,14 @@ def test_vision_forward_launches_the_layer_norm_kernel(gen, tower):
                                         generator=gen)
     images = torch.randn((2, cfg.image_size, cfg.image_size, 3),
                          device="cuda", generator=gen)
-    plain0, res0 = L.layer_norm_fused.launches, L.add_layer_norm_fused.launches
-    got = clip_mod.vision_forward(params, images, cfg, attn_mode="mean")
-    assert L.layer_norm_fused.launches - plain0 == 3
-    assert (L.add_layer_norm_fused.launches - res0
-            == 2 * cfg.vision_layers - 1)
+    with pytest.MonkeyPatch.context() as mp:
+        plain = spy(mp, clip_mod, "layer_norm_fused")
+        residual = spy(mp, clip_mod, "add_layer_norm_fused")
+        with launches() as counts:
+            got = clip_mod.vision_forward(params, images, cfg,
+                                          attn_mode="mean")
+    assert (len(plain), len(residual)) == (3, 2 * cfg.vision_layers - 1)
+    assert counts["excel_layer_norm_f32"] == 2 * cfg.vision_layers + 2
 
     def add_ln(x, y, p):
         return x + y, L.layer_norm(x + y, p)

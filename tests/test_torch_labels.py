@@ -126,18 +126,19 @@ def _upsample_magnitude(g, in_hw):
 
 
 @pytest.mark.parametrize("in_hw,out_hw", UPSAMPLE_CASES)
-def test_upsample_backward_plain_equals_jax_vjp_and_torch_autograd(in_hw,
-                                                                   out_hw):
+def test_upsample_backward_plain_equals_jax_vjp_and_torch_autograd(
+        in_hw, out_hw, monkeypatch):
     """The plain separable backward equals jax.vjp of jax.image.resize
     (linear) and torch's autograd of F.interpolate (bilinear,
     align_corners=False) within 1e-6 of each cell's summed term magnitudes
     (fp32 sums of up to ~4 s_y s_x terms in another order; a wrong tap
     weight moves a cell by ~1e-2 of it). It is what `upsample_linear`'s
-    backward runs on the CPU: one "upsample.bwd" count a call, no kernel
-    launch."""
+    backward runs on the CPU: one call of the wrapper a backward, no
+    kernel launch counted."""
     import jax
 
     from excel_tpu_torch.utils import profiling
+    from torch_launches import launch_counters, spy
 
     rng = np.random.default_rng(sum(in_hw) * 100 + sum(out_hw))
     x = rng.standard_normal((2, 3, *in_hw)).astype(np.float32)
@@ -155,18 +156,18 @@ def test_upsample_backward_plain_equals_jax_vjp_and_torch_autograd(in_hw,
     assert (np.abs(n(got) - ref_jax) <= lim).all()
     assert (np.abs(n(got) - n(xt.grad)) <= lim).all()
 
-    launches = uk.upsample_linear_backward.launches
+    calls = spy(monkeypatch, uk, "upsample_linear_backward")
     xp = t(x).requires_grad_()
     profiling.reset()
     profiling.enable(True)
     try:
         plab.upsample_linear(xp, out_hw).backward(t(g))
-        counted = profiling.snapshot()["counters"].get("upsample.bwd")
+        launched = launch_counters()
     finally:
         profiling.enable(False)
         profiling.reset()
-    assert counted == 1
-    assert uk.upsample_linear_backward.launches == launches
+    assert len(calls) == 1
+    assert launched == {}
     assert torch.equal(xp.grad, got)
 
 

@@ -13,11 +13,13 @@ import torch
 
 from excel_tpu_torch.config import tiny_config
 from excel_tpu_torch.engine import evaluate, train
+from excel_tpu_torch.models import clip as clip_mod
 from excel_tpu_torch.models.head import init_head_params
 from excel_tpu_torch.models.params import init_clip_params
 from excel_tpu_torch.ops import affinity
 from excel_tpu_torch.ops.par import fill_counts
 from excel_tpu_torch.utils import profiling
+from torch_launches import launch_counters, spy
 
 torch.set_num_threads(1)
 
@@ -181,19 +183,25 @@ def test_train_spans_nest_as_the_layers(model):
         assert 0.0 <= s["self_s"] <= s["total_s"]
 
 
-def test_ln_fused_counts_each_encoder_pass(model):
+def test_ln_fused_counts_each_encoder_pass(model, monkeypatch):
     """The encoder's 2L + 2 LayerNorms (models/layers.layer_norm_fused and
     add_layer_norm_fused) a pass: one pass a sweep batch, two a calibrated
     train step (the forward's and the calibration's); the head's decoder
-    adds none."""
+    adds none. On the CPU the profiling state counts no launch."""
     cfg = model[0]
     per_pass = 2 * cfg.clip.vision_layers + 2
+    calls = (spy(monkeypatch, clip_mod, "layer_norm_fused"),
+             spy(monkeypatch, clip_mod, "add_layer_norm_fused"))
     profiling.enable(True)
     _sweep(model)
-    assert profiling.snapshot()["counters"]["ln.fused"] == 2 * per_pass
+    assert sum(map(len, calls)) == 2 * per_pass
+    assert launch_counters() == {}
+    for c in calls:
+        c.clear()
     profiling.reset()
     _train_step(model, _train_state(cfg))
-    assert profiling.snapshot()["counters"]["ln.fused"] == 2 * per_pass
+    assert sum(map(len, calls)) == 2 * per_pass
+    assert launch_counters() == {}
 
 
 def test_records_enclose_their_profiler_ranges(model):
