@@ -43,30 +43,34 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    its library call), two launches bit for bit; the encoder's residual add
    + LayerNorm (csrc/layer_norm.cu) at ViT-B/16's [4, 401, 768] and
    ViT-H/14's [4, 577, 1280], both forms, bf16 and fp32, against its plain
-   version, device times beside `x + y` + `F.layer_norm` (timed only);
+   version, device times beside `x + y` + `F.layer_norm` (timed only); the
+   encoder's qkv bias add and head split (csrc/qkv_heads.cu) at ViT-B/16's
+   [4, 401, 2304] and ViT-H/14's [4, 577, 3840], bf16 and fp32, bit for bit
+   against `qkv_projection`, device times beside the plain chain and `x +
+   b` with one permuted copy (timed only);
 4. the eval slices: `run_lam_eval` (training-free LAM eval at full
    ViT-B/16 width, seeded random weights) over synthetic VOC-sized samples
    in `voc_config()` (fp32) and `fast(voc_config())` (bf16 encoder with its
    matmul weights cast once, bf16 PAR), every C entry point's launch count
    over each run (the profiling counters `launch.<entry point>`, on for the
    counted runs only) checked against the number of batches (the LayerNorm
-   kernel: 2L + 2 launches an encoder pass); a device-time
-   profile of one batch of each; one batch of 2 of each through
+   kernel: 2L + 2 launches an encoder pass, the qkv kernel L); a
+   device-time profile of one batch of each; one batch of 2 of each through
    `lam_eval_step` on the card and on the CPU (plain versions), labels
    compared over the valid pixels; then the same sweep with its on-device
    CRF branch, `run_lam_eval(crf_tpu=True)`: the batch's launches plus 10
    of row 5's kernel at 72 offsets (fp32 entry point; bf16 under the fast
    preset);
    then `run_lam_eval` of the fast preset over OpenCLIP ViT-H/14 at full
-   width (8 samples, batch 4), its launches per batch checked (27 plain
-   and 5 surgery attention launches at D = 80, 66 LayerNorm, the fast
-   preset's PAR);
+   width (8 samples, batch 4), its launches per batch checked (32 qkv head
+   splits, 27 plain and 5 surgery attention launches at D = 80, 66
+   LayerNorm, the fast preset's PAR);
 5. the MSC slice, for each preset: `run_msc_seg_eval` (MSC+flip
    segmentation eval, seeded random CLIP and head) on 8 synthetic samples,
    batch 4, scales (1.0, 0.7, 1.2, 1.5) x 320 px, without and with the
-   on-device CRF, launches per batch checked (an encoder pass a scale: 28
-   plain, 20 surgery and 104 LayerNorm launches, and 10 of row 5 with the
-   CRF); one batch's step profiled, the host's
+   on-device CRF, launches per batch checked (an encoder pass a scale: 48
+   qkv head splits, 28 plain, 20 surgery and 104 LayerNorm launches, and
+   10 of row 5 with the CRF); one batch's step profiled, the host's
    preparation of a batch timed, the CRF's build against its message
    passes; one batch of 2 with the CRF on the card and on the CPU: fused
    logits, predictions, and the CPU's CRF + argmax on the card's logits;
@@ -1274,6 +1278,79 @@ def check_layer_norm() -> dict:
     return {"layer_norm": dict(rec, max_abs_err=worst)}
 
 
+# the encoder's qkv bias add and head split (csrc/qkv_heads.cu), (B, N, H,
+# D): ViT-B/16's lam batch and ViT-H/14's
+QKV_SHAPES = ((4, 401, 12, 64), (4, 577, 16, 80))
+
+
+def check_qkv_heads() -> dict:
+    """The encoder's qkv bias add and head split (csrc/qkv_heads.cu) at
+    ViT-B/16's and ViT-H/14's lam batch, bf16 and fp32: `qkv_heads_fused`
+    against its plain version `qkv_projection` on the card bit for bit, two
+    launches bit for bit; device times of the kernel alone (the wrapper's
+    product left out), the plain chain it replaced on the product (x + b,
+    chunk, three head-split copies) and PyTorch's shortest route to the
+    same buffer (x + b and one permuted copy; timed only: the port does not
+    call it) beside the bytes bound. Returns the record of ViT-H in
+    bf16."""
+    from excel_tpu_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    rec = None
+    for (b, n, heads, d), dtype in ((shape, dtype) for dtype in (
+            torch.bfloat16, torch.float32) for shape in QKV_SHAPES):
+        c = heads * d
+        y = torch.randn((b, n, c), device="cuda", generator=gen).to(dtype)
+        p = {"qkv": {"w": (c ** -0.5 * torch.randn(
+            (3 * c, c), device="cuda", generator=gen)).to(dtype),
+            "b": 0.1 * torch.randn(3 * c, device="cuda", generator=gen)}}
+        got, again = L.qkv_heads_fused(y, p, heads), L.qkv_heads_fused(
+            y, p, heads)
+        want = L.qkv_projection(y, p, heads)
+        if not all(torch.equal(g, w) and torch.equal(a, w)
+                   for g, a, w in zip(got, again, want)):
+            raise AssertionError(f"qkv_heads {(b, n, heads, d)} {dtype}: "
+                                 "outputs differ from qkv_projection's")
+        x = torch.matmul(y, p["qkv"]["w"].t())
+        bias = p["qkv"]["b"].to(dtype)
+
+        def plain():
+            return [L.split_heads(t, heads)
+                    for t in (x + bias).chunk(3, dim=-1)]
+
+        def library():
+            return (x + bias).view(b, n, 3, heads, d).permute(
+                2, 0, 3, 1, 4).contiguous()
+
+        # device time over many calls (profiler), after a warm-up; the
+        # kernel's own entries of the wrapper's calls, whose product is
+        # another kernel
+        L.qkv_heads_fused(y, p, heads)
+        events = _device_profile(lambda: [L.qkv_heads_fused(y, p, heads)
+                                          for _ in range(200)])[1]
+        kernel_ms = sum(e.self_device_time_total for e in events
+                        if "qkv_heads_kernel" in e.key) / 1e3 / 200
+        times = []
+        for f, reps in ((plain, 50), (library, 50)):
+            f()
+            times.append(_device_profile(
+                lambda: [f() for _ in range(reps)])[0] / reps)
+        plain_ms, lib_ms = times
+        bnd, by = bound_ms(0, 2 * x.numel() * x.element_size()
+                           + bias.numel() * bias.element_size())
+        log(f"kernel qkv_heads (none: the JAX package leaves the bias add "
+            f"and head split to XLA) [{b}, {n}, {3 * c}] H={heads} D={d} "
+            f"{str(dtype).split('.')[-1]}: bit for bit with qkv_projection, "
+            f"two launches bit for bit; device kernel_ms={kernel_ms:.4f} "
+            f"plain_ms (x + b, chunk, 3 x split_heads)={plain_ms:.4f} "
+            f"library_ms (x + b, one permuted copy)={lib_ms:.4f} "
+            f"bound_ms={bnd:.4f} ({by})")
+        if rec is None and d == 80:
+            rec = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bnd, bound_by=by, max_abs_err=0.0)
+    return {"qkv_heads": rec}
+
+
 # VOC-typical label extents (h, w): landscape and portrait images
 VOC_EXTENTS = [(375, 500), (333, 500), (500, 375), (375, 500), (366, 500),
                (500, 333), (375, 500), (353, 500)]
@@ -1357,18 +1434,19 @@ def _times(table: dict, n: int) -> dict:
     return {k: v * n for k, v in table.items()}
 
 
-# launches of each C entry point per batch of each slice's main path:
-# blocks 0-6 (plain attention), blocks 7-11 (surgery attention), the
-# LayerNorm kernel 2L + 2 = 26 times (ln_pre, block 0's ln_1 and ln_post
+# launches of each C entry point per batch of each slice's main path: the
+# qkv bias add and head split in every block, blocks 0-6 (plain
+# attention), blocks 7-11 (surgery attention), the LayerNorm kernel
+# 2L + 2 = 26 times (ln_pre, block 0's ln_1 and ln_post
 # alone, the other 2L - 1 = 23 with the residual add before them), then
 # PAR: fp32, 20 steps; fast, pad-clamp of the images (fp32) and of the
 # masks (bf16), the affinity's slab kernel, and one resident launch of all
 # 20 steps; no backward
 LAUNCHES_PER_BATCH = {
-    "fp32": {"excel_plain_attention_f32": 7,
+    "fp32": {"excel_qkv_heads_f32": 12, "excel_plain_attention_f32": 7,
              "excel_surgery_attention_f32": 5, "excel_layer_norm_f32": 26,
              "excel_par_diffuse_f32": 20},
-    "fast": {"excel_plain_attention_bf16": 7,
+    "fast": {"excel_qkv_heads_bf16": 12, "excel_plain_attention_bf16": 7,
              "excel_surgery_attention_bf16": 5, "excel_layer_norm_bf16": 26,
              "excel_pad_clamp_f32": 1, "excel_pad_clamp_bf16": 1,
              "excel_par_affinity_bf16": 1,
@@ -1377,7 +1455,8 @@ LAUNCHES_PER_BATCH = {
 # the entry points that launch once or more an encoder pass
 ENCODER_KERNELS = {
     preset: tuple(k for k in LAUNCHES_PER_BATCH[preset]
-                  if "attention" in k or "layer_norm" in k)
+                  if "attention" in k or "layer_norm" in k
+                  or "qkv_heads" in k)
     for preset in LAUNCHES_PER_BATCH}
 # the fast preset's PAR
 FAST_PAR = ("excel_pad_clamp_f32", "excel_pad_clamp_bf16",
@@ -1442,17 +1521,18 @@ def phase_slice(preset: str, n_samples: int = 32, batch: int = 16):
 
 
 # OpenCLIP ViT-H/14's sweep at full width (the voc-vith14-fast.lam_sweep
-# cell's program): 27 plain blocks and 5 surgery blocks a batch, every one
-# at D = 80, 2L + 2 = 66 LayerNorms, and the fast preset's PAR launches
+# cell's program): 32 qkv head splits, 27 plain blocks and 5 surgery blocks
+# a batch, every one at D = 80, 2L + 2 = 66 LayerNorms, and the fast
+# preset's PAR launches
 VITH_SAMPLES, VITH_B = 8, 4
 
 
 def phase_slice_vith() -> None:
     """run_lam_eval of fast(voc_config()) over OpenCLIP ViT-H/14 (seeded
     weights at its published widths, matmul weights cast to bf16 once):
-    every entry point's launches per batch over the sweep (32 attention
-    launches, all at D = 80, and 66 LayerNorms), finite scores, and the
-    sweep's img/s."""
+    every entry point's launches per batch over the sweep (32 qkv head
+    splits and 32 attention launches, all at D = 80, and 66 LayerNorms),
+    finite scores, and the sweep's img/s."""
     from excel_tpu_torch.config import fast, voc_config, with_backbone
     from excel_tpu_torch.engine.evaluate import _bucketed_batches, run_lam_eval
     from excel_tpu_torch.models.params import (cast_matmul_weights,
@@ -1486,6 +1566,7 @@ def phase_slice_vith() -> None:
     log("slice vith14 launches: " + json.dumps(counts))
     layers, surgery = cfg.clip.vision_layers, cfg.clip.surgery_blocks
     expected = dict(LAUNCHES_PER_BATCH["fast"],
+                    excel_qkv_heads_bf16=layers,
                     excel_plain_attention_bf16=layers - surgery,
                     excel_surgery_attention_bf16=surgery,
                     excel_layer_norm_bf16=2 * layers + 2)
@@ -2050,9 +2131,9 @@ def phase_msc(preset: str):
             f"batch={MSC_B} batches={n_batches} seconds={dt:.3f} img_per_s="
             f"{len(samples) / dt:.3f} miou={scores['miou']:.4f} pAcc="
             f"{scores['pAcc']:.4f} launches=" + json.dumps(counts))
-        # one encoder pass a scale (the flips in the same batch): 28 plain,
-        # 20 surgery and 104 LayerNorm launches a batch, and with the CRF
-        # its message passes
+        # one encoder pass a scale (the flips in the same batch): 48 qkv
+        # head splits, 28 plain, 20 surgery and 104 LayerNorm launches a
+        # batch, and with the CRF its message passes
         want = {k: LAUNCHES_PER_BATCH[preset][k] * len(MSC_SCALES)
                 * n_batches for k in ENCODER_KERNELS[preset]}
         if crf:
@@ -4590,6 +4671,8 @@ SOURCES = {
                                  (UPSAMPLE_BWD,)),
     "layer_norm": ("layer_norm.cu", "none",
                    ("excel_layer_norm_f32", "excel_layer_norm_bf16")),
+    "qkv_heads": ("qkv_heads.cu", "none",
+                  ("excel_qkv_heads_f32", "excel_qkv_heads_bf16")),
 }
 
 
@@ -4608,6 +4691,7 @@ def main() -> int:
     records.update(check_crf_diffuse())
     records.update(check_upsample_backward())
     records.update(check_layer_norm())
+    records.update(check_qkv_heads())
     for preset, bound in (("fp32", MIN_LABEL_AGREEMENT),
                           ("fast", MIN_FAST_LABEL_AGREEMENT)):
         _, params, text, cfg, samples = phase_slice(preset)

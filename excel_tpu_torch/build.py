@@ -62,6 +62,7 @@ _VALID_RESIDENT = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                    _I, _P]
 _UPSAMPLE_BWD = [_P, _P, _I, _I, _I, _I, _I, _P]
 _LAYER_NORM = [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]
+_QKV_HEADS = [_P, _P, _P, _I, _I, _I, _I, _P]
 # source name -> {C entry point: argument types}; every entry point returns
 # the cudaError_t of its launch as an int
 ENTRY_POINTS = {
@@ -81,6 +82,8 @@ ENTRY_POINTS = {
     "upsample_linear": {"excel_upsample_linear_bwd_f32": _UPSAMPLE_BWD},
     "layer_norm": {"excel_layer_norm_f32": _LAYER_NORM,
                    "excel_layer_norm_bf16": _LAYER_NORM},
+    "qkv_heads": {"excel_qkv_heads_f32": _QKV_HEADS,
+                  "excel_qkv_heads_bf16": _QKV_HEADS},
 }
 # C entry point -> its source name
 _SOURCE = {symbol: name for name, entries in ENTRY_POINTS.items()

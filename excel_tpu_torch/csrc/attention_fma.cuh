@@ -300,15 +300,15 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < RT; ++i) {
     const int row = r0 + ty * RT + i;
     if (row >= N) continue;
+    // ctx token-major: [B, N, H, D]
+    float* out = ctx + (((size_t)b * N + row) * H + h) * D;
 #pragma unroll
     for (int g = 0; g < NG; ++g)
-      *reinterpret_cast<float4*>(ctx + base + (size_t)row * D + g * 32 +
-                                 tx * 4) =
+      *reinterpret_cast<float4*>(out + g * 32 + tx * 4) =
           make_float4(O[i][g * 4], O[i][g * 4 + 1], O[i][g * 4 + 2],
                       O[i][g * 4 + 3]);
     if constexpr (NT == 2)
-      *reinterpret_cast<float2*>(ctx + base + (size_t)row * D + NG * 32 +
-                                 tx * 2) =
+      *reinterpret_cast<float2*>(out + NG * 32 + tx * 2) =
           make_float2(O[i][NG * 4], O[i][NG * 4 + 1]);
   }
 }

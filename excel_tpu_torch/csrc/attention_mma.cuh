@@ -352,7 +352,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int i = 0; i < 2; ++i) {
     const int row = r0 + warp * 16 + g + 8 * i;
     if (row >= N) continue;
-    bf16* out = ctx + base + (size_t)row * D + 2 * t;
+    // ctx token-major: [B, N, H, D]
+    bf16* out = ctx + (((size_t)b * N + row) * H + h) * D + 2 * t;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(out + 8 * j) =

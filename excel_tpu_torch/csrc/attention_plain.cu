@@ -5,7 +5,8 @@
 // `_plain_kernel` (:52, called by fused_plain_attention) and
 // `_plain_kernel_rows_hb` (:157, the no-weights route for N <= 512).
 //
-//   ctx[b, h]   = softmax(q[b, h] k[b, h]^T * D^-1/2) v[b, h]
+//   ctx[b, :, h] = softmax(q[b, h] k[b, h]^T * D^-1/2) v[b, h]
+//                  (ctx token-major, [B, N, H, D])
 //   weights[b]  = sum_h softmax(...)[b, h] / H            (mode out)
 //   weights[b] += sum_h softmax(...)[b, h] / H, in place  (mode acc)
 //
@@ -67,11 +68,12 @@ static int plain_entry(const T* q, const T* k, const T* v, T* ctx,
 }  // namespace excel
 
 // D (the head dim): 32, 64 or 80; any other returns cudaErrorInvalidValue.
-// q, k, v, ctx: [B, H, N, D] of the entry point's type; weights [B, N, N]
-// fp32. mode: 0 none (weights unused), 1 out (weights written), 2 acc
-// (weights read and updated in place). stats: fp32 scratch [B, H, N, 2]
-// (row statistics from the rows kernel to the sums kernel) when mode != 0,
-// else unused. Returns a cudaError_t (0 on success).
+// q, k, v: [B, H, N, D] and ctx: [B, N, H, D] (token-major) of the entry
+// point's type; weights [B, N, N] fp32. mode: 0 none (weights unused), 1
+// out (weights written), 2 acc (weights read and updated in place).
+// stats: fp32 scratch [B, H, N, 2] (row statistics from the rows kernel to
+// the sums kernel) when mode != 0, else unused. Returns a cudaError_t (0 on
+// success).
 extern "C" int excel_plain_attention_f32(const float* q, const float* k,
                                          const float* v, float* ctx,
                                          float* weights, float* stats, int B,

@@ -12,7 +12,7 @@
 //              (+ ex[b] when given)
 //   shared[b]    = sum_h mix
 //   attn_sum[b]  = sum_h attn_ori   (mode out; mode acc adds onto it in place)
-//   ctx_ori[b,h] = attn_ori v
+//   ctx_ori[b,:,h] = attn_ori v    (ctx_ori token-major, [B, N, H, D])
 // The dense context shared @ v stays a separate product outside the kernel.
 //
 // The function needs 5 products of 2 N^2 D a head (19.8 GFLOP a launch at
@@ -81,9 +81,10 @@ static int surgery_entry(const T* q, const T* k, const T* v, const float* ex,
 }  // namespace excel
 
 // D (the head dim): 32, 64 or 80; any other returns cudaErrorInvalidValue.
-// q, k, v, ctx_ori: [B, H, N, D] of the entry point's type; ex, shared,
-// attn_sum: [B, N, N] fp32. mode: 0 none (attn_sum unused), 1 out (attn_sum
-// written), 2 acc (attn_sum read and updated in place). ex may be null.
+// q, k, v: [B, H, N, D] and ctx_ori: [B, N, H, D] (token-major) of the
+// entry point's type; ex, shared, attn_sum: [B, N, N] fp32. mode: 0 none
+// (attn_sum unused), 1 out (attn_sum written), 2 acc (attn_sum read and
+// updated in place). ex may be null.
 // stats: fp32 scratch [B, H, N, 8] (row statistics from the rows kernel to
 // the sums kernel). Returns a cudaError_t (0 on success).
 extern "C" int excel_surgery_attention_f32(const float* q, const float* k,

@@ -17,7 +17,10 @@ cores (`mma.sync`, csrc/attention_mma.cuh) and are bound by the softmaxes'
 exponentials and L2 reads; the fp32 ones stay exact fp32 FMA
 (csrc/attention_fma.cuh) and are bound by FMA throughput. With bf16 inputs the
 arithmetic is the TPU kernels': fp32 logits, softmax and weight sums, the
-normalised P rounded to bf16 before P V, a bf16 context. The weights
+normalised P rounded to bf16 before P V, a bf16 context, which the rows
+kernel writes token-major ([B, N, H, D]: the out-projection's input
+layout); the wrappers return it as the [B, H, N, D] view of that buffer,
+so `models/layers.merge_heads` of it copies nothing. The weights
 output has the TPU kernels' three modes: "out" (own output), "acc" (added
 in place onto an accumulator, the cross-block mean of the training-free
 path; bit for bit "out" + the accumulator) and "none" (never written); it
@@ -158,7 +161,8 @@ def fused_plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """softmax(q k^T D^-1/2) v per (image, head) with the head-MEAN weights.
 
     q/k/v: contiguous [B, H, N, D], all float32 or all bfloat16. Returns
-    (ctx [B, H, N, D] in q's type, weights): the fp32 head-mean [B, N, N]
+    (ctx [B, H, N, D] in q's type, on the card the permuted view of a
+    contiguous [B, N, H, D], weights): the fp32 head-mean [B, N, N]
     ("out"), `acc` with the head-mean
     added in place when an accumulator is given ("acc"; the caller must not
     reuse `acc`), or None with need_weights=False ("none")."""
@@ -169,7 +173,7 @@ def fused_plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return plain_attention_reference(q, k, v, acc, need_weights)
     b, heads, n, d = q.shape
-    ctx = torch.empty_like(q)
+    ctx = q.new_empty((b, n, heads, d))
     weights = acc if mode == "acc" else (
         q.new_empty((b, n, n), dtype=torch.float32) if mode == "out"
         else None)
@@ -177,7 +181,7 @@ def fused_plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     build.launch(build.typed("excel_plain_attention", q.dtype), q,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), ctx.data_ptr(),
                  _ptr(weights), _ptr(stats), b, heads, n, d, _MODES[mode])
-    return ctx, weights
+    return ctx.permute(0, 2, 1, 3), weights
 
 
 # ---------------------------------------------------------------------------
@@ -217,7 +221,8 @@ def fused_surgery_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (shared [B, N, N] fp32 — head-sum of the dense mix,
      attn_sum — fp32 head-sum of softmax(q k^T) [B, N, N] ("out"), `acc`
                 with it added in place ("acc"), or None with need_attn=False,
-     ctx_ori [B, H, N, D] in q's type — softmax(q k^T) v per head)."""
+     ctx_ori [B, H, N, D] in q's type — softmax(q k^T) v per head; on the
+             card the permuted view of a contiguous [B, N, H, D])."""
     _check_qkv(q, k, v)
     mode = "acc" if acc is not None else ("out" if need_attn else "none")
     if acc is not None:
@@ -228,7 +233,7 @@ def fused_surgery_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return surgery_attention_reference(q, k, v, ex_attn, acc, need_attn)
     b, heads, n, d = q.shape
     shared = q.new_empty((b, n, n), dtype=torch.float32)
-    ctx_ori = torch.empty_like(q)
+    ctx_ori = q.new_empty((b, n, heads, d))
     attn_sum = acc if mode == "acc" else (
         q.new_empty((b, n, n), dtype=torch.float32) if mode == "out"
         else None)
@@ -237,4 +242,4 @@ def fused_surgery_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(ex_attn),
                  shared.data_ptr(), _ptr(attn_sum), ctx_ori.data_ptr(),
                  _ptr(stats), b, heads, n, d, _MODES[mode])
-    return shared, attn_sum, ctx_ori
+    return shared, attn_sum, ctx_ori.permute(0, 2, 1, 3)

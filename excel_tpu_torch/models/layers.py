@@ -9,6 +9,10 @@ Numerics as in the JAX package, for float32 and bfloat16 activations:
   LayerNorms, and the residual add before each, run through
   `layer_norm_fused` / `add_layer_norm_fused` (csrc/layer_norm.cu on the
   card, the same arithmetic);
+- the encoder's qkv bias add and split into per-head q, k, v run through
+  `qkv_heads_fused` (csrc/qkv_heads.cu on the card, the same adds), and
+  the attention kernels write their contexts token-major, so `merge_heads`
+  of a kernel's context is a view;
 - QuickGELU is x * sigmoid(1.702 x) in the activation type, written as
   JAX lowers it: 1.702 rounded to that type first (a weak-typed Python
   scalar), and the sigmoid as 1 / (1 + exp(-z)) with each op rounded
@@ -33,7 +37,8 @@ import torch
 from .. import build
 from ..parallel.distributed import group_mean
 from ..utils import profiling
-from .attention_kernels import fused_plain_attention, fused_surgery_attention
+from .attention_kernels import (_KERNEL_HEAD_DIMS, fused_plain_attention,
+                                fused_surgery_attention)
 
 
 def layer_norm(x: torch.Tensor, p: dict, eps: float = 1e-5) -> torch.Tensor:
@@ -132,8 +137,13 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu}
 
 
+def _product(x: torch.Tensor, p: dict) -> torch.Tensor:
+    """x @ w^T with w cast to x's type: `linear` before its bias."""
+    return torch.matmul(x, p["w"].to(x.dtype).t())
+
+
 def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
-    out = torch.matmul(x, p["w"].to(x.dtype).t())
+    out = _product(x, p)
     if "b" in p:
         out = out + p["b"].to(x.dtype)
     return out
@@ -151,7 +161,9 @@ def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
 
 
 def merge_heads(x: torch.Tensor) -> torch.Tensor:
-    """[B, heads, N, D] -> [B, N, heads*D]."""
+    """[B, heads, N, D] -> [B, N, heads*D]: a view where x is a permuted
+    view of a contiguous [B, N, heads, D] (the attention kernels'
+    contexts), else a copy."""
     b, h, n, d = x.shape
     return x.permute(0, 2, 1, 3).reshape(b, n, h * d)
 
@@ -160,6 +172,37 @@ def qkv_projection(y: torch.Tensor, p: dict, heads: int):
     """Fused qkv projection -> per-head q, k, v ([B, H, N, D] each)."""
     q, k, v = linear(y, p["qkv"]).chunk(3, dim=-1)
     return split_heads(q, heads), split_heads(k, heads), split_heads(v, heads)
+
+
+def qkv_heads_fused(y: torch.Tensor, p: dict, heads: int):
+    """`qkv_projection` as the encoder runs it. On a CPU tensor
+    `qkv_projection` itself; on a CUDA tensor the same qkv product, then
+    one launch of csrc/qkv_heads.cu, which adds the bias in y's type and
+    writes q, k, v as the three contiguous [B, H, N, D] slices of one
+    [3, B, H, N, D] buffer (the same bits), or a raise: another device or
+    dtype, a head dim the kernel does not take."""
+    if y.device.type == "cpu":
+        return qkv_projection(y, p, heads)
+    if y.device.type != "cuda":
+        raise ValueError(f"qkv_heads kernel: unsupported device {y.device}")
+    if y.dtype not in build.SUFFIX:
+        raise NotImplementedError(f"{y.dtype} qkv heads: the kernel takes "
+                                  "float32 and bfloat16")
+    x = _product(y, p["qkv"])
+    b, n, c3 = x.shape
+    d = c3 // (3 * heads)
+    if d not in _KERNEL_HEAD_DIMS or c3 != 3 * heads * d:
+        raise ValueError(f"qkv_heads kernel: {c3 // 3} channels in {heads} "
+                         f"heads; it takes the attention kernels' head dims "
+                         f"{_KERNEL_HEAD_DIMS}")
+    bias = p["qkv"]["b"].to(y.dtype)
+    if bias.shape != (c3,) or not bias.is_contiguous():
+        raise ValueError(f"qkv_heads kernel: the bias must be a contiguous "
+                         f"[{c3}] tensor")
+    out = x.new_empty((3, b, heads, n, d))
+    build.launch(build.typed("excel_qkv_heads", y.dtype), x, x.data_ptr(),
+                 bias.data_ptr(), out.data_ptr(), b, n, heads, d)
+    return out[0], out[1], out[2]
 
 
 def _cpu_only(y: torch.Tensor, name: str) -> None:
@@ -236,7 +279,7 @@ def attention_fused(y: torch.Tensor, p: dict, heads: int,
     optional [B, N, N] fp32 accumulator the kernel adds its head-mean onto
     in place; need_weights=False skips the weights output."""
     with profiling.span("attn"):
-        q, k, v = qkv_projection(y, p, heads)
+        q, k, v = qkv_heads_fused(y, p, heads)
         ctx, w = fused_plain_attention(q, k, v, acc=attn_acc,
                                        need_weights=need_weights)
         return linear(merge_heads(ctx), p["out"]), w
@@ -253,7 +296,7 @@ def surgery_attention_fused(y: torch.Tensor, p: dict, heads: int,
     it to the patch-patch block only. The dense context shared @ v is one
     product outside the kernel."""
     with profiling.span("attn"):
-        q, k, v = qkv_projection(y, p, heads)
+        q, k, v = qkv_heads_fused(y, p, heads)
         ex = None
         if ex_attn is not None:
             ex = torch.nn.functional.pad(ex_attn.float(), (1, 0, 1, 0))

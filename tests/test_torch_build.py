@@ -95,7 +95,8 @@ def test_typed_names_both_entry_points_and_refuses_other_types():
         build.typed("excel_par_diffuse", torch.float16)
     symbols = {s for entries in build.ENTRY_POINTS.values() for s in entries}
     for stem in ("excel_plain_attention", "excel_surgery_attention",
-                 "excel_par_diffuse", "excel_pad_clamp", "excel_layer_norm"):
+                 "excel_par_diffuse", "excel_pad_clamp", "excel_layer_norm",
+                 "excel_qkv_heads"):
         for dtype in build.SUFFIX:
             assert build.typed(stem, dtype) in symbols
 

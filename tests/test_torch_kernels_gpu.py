@@ -190,6 +190,9 @@ def _check_attention(kind, q, k, v, mode, acc, ex=None):
     got, ref = _attention(kind, q, k, v, mode, acc, ex)
     torch.cuda.synchronize()
     assert (got[0] is None) == (mode == "none")
+    # the context: [B, H, N, D], stored token-major ([B, N, H, D])
+    assert got[1].shape == q.shape
+    assert got[1].permute(0, 2, 1, 3).is_contiguous()
     _ctx_close(got[1], ref[1], q, k, v)
     for g, r in zip(got[::2], ref[::2]):       # fp32 [B, N, N] outputs
         assert (g is None) == (r is None)
@@ -286,8 +289,10 @@ def test_attention_kernels_hd80_deterministic_and_acc_is_out_plus_acc(
 
 def test_attention_kernels_keep_their_recorded_bits(gen):
     """The D = 32 and 64 kernels give the bits they gave before D = 80
-    came: tools/attention_ab.py's DIGEST_CASES (every mode, surgery with
-    and without ex, fp32 and bf16, inputs drawn on the CPU from a seed)
+    came, and the D = 80 ones the bits of their [B, H, N, D] context store
+    (the contexts, now stored token-major, hashed in [B, H, N, D] order):
+    tools/attention_ab.py's DIGEST_CASES (every mode, surgery with and
+    without ex, fp32 and bf16, inputs drawn on the CPU from a seed)
     against the digests recorded from them
     (tests/torch_fixtures/attention_digests.json)."""
     import importlib.util
@@ -1170,3 +1175,131 @@ def test_vision_forward_launches_the_layer_norm_kernel(gen, tower):
     for key in ("projected", "attn", "feats"):
         err = (got[key] - want[key]).abs().max() / want[key].abs().max()
         assert float(err) <= 1e-5, key
+
+
+# -- the encoder's qkv bias add and head split (csrc/qkv_heads.cu) -----------
+
+# (B, N, 3C, H): ViT-B/16's lam batch (D = 64), ViT-H/14's (D = 80), the
+# MSC scale 1.5 at B=8 (2 x 4 images), and tiny ragged ones: one token,
+# and tails of the 64-token tiles at D = 80 and 64 (17, 65 tokens), D = 32
+QKV_SHAPES = [(4, 401, 2304, 12), (4, 577, 3840, 16), (8, 901, 2304, 12),
+              (1, 1, 192, 2), (2, 17, 480, 2), (3, 65, 576, 3),
+              (2, 63, 288, 3)]
+
+
+def _qkv_inputs(gen, b, n, c3, dtype):
+    from excel_tpu_torch.models import layers as L
+
+    c = c3 // 3
+    y = torch.randn((b, n, c), device="cuda", generator=gen).to(dtype)
+    p = {"qkv": {"w": (c ** -0.5 * torch.randn(
+        (c3, c), device="cuda", generator=gen)).to(dtype),
+        "b": 0.1 * torch.randn(c3, device="cuda", generator=gen)}}
+    return L, y, p
+
+
+def _qkv_bitwise(got, want, dtype) -> None:
+    b, h, n, d = want[0].shape
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == (b, h, n, d)
+        assert g.is_contiguous()
+        assert torch.equal(g, w)
+    # q, k, v: the three slices of one [3, B, H, N, D] buffer
+    step = b * h * n * d * g.element_size()
+    assert [t.data_ptr() - got[0].data_ptr() for t in got] == [0, step,
+                                                               2 * step]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,n,c3,heads", QKV_SHAPES)
+def test_qkv_heads_kernel_bitwise(gen, b, n, c3, heads, dtype):
+    """The kernel against its plain version on the card (`qkv_projection`:
+    the same product, PyTorch's bias add and three head-split copies) bit
+    for bit, one launch a call."""
+    L, y, p = _qkv_inputs(gen, b, n, c3, dtype)
+    with launches() as counts:
+        got = L.qkv_heads_fused(y, p, heads)
+    want = L.qkv_projection(y, p, heads)
+    torch.cuda.synchronize()
+    assert counts == {build.typed("excel_qkv_heads", dtype): 1}
+    _qkv_bitwise(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_qkv_heads_kernel_on_a_side_stream(gen, dtype):
+    L, y, p = _qkv_inputs(gen, 4, 577, 3840, dtype)
+    want = L.qkv_projection(y, p, 16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = L.qkv_heads_fused(y, p, 16)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    _qkv_bitwise(got, want, dtype)
+
+
+def test_qkv_heads_kernel_refuses_what_it_does_not_take(gen):
+    L, y, p = _qkv_inputs(gen, 2, 9, 576, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        L.qkv_heads_fused(y, p, 4)              # D = 48
+    with pytest.raises(NotImplementedError):
+        L.qkv_heads_fused(y.half(), p, 3)
+    with pytest.raises(ValueError, match="bias"):
+        L.qkv_heads_fused(y, {"qkv": dict(p["qkv"], b=p["qkv"]["b"][:575])},
+                          3)
+    big = torch.empty(577, device="cuda", dtype=torch.bfloat16)
+    unaligned = big[1:].copy_(p["qkv"]["b"])
+    with pytest.raises(RuntimeError, match="excel_qkv_heads_bf16"):
+        L.qkv_heads_fused(y, {"qkv": dict(p["qkv"], b=unaligned)}, 3)
+
+
+def _head_major(fn, i):
+    """An attention wrapper whose context (output i) is laid out [B, H, N,
+    D] as the kernels wrote it before their token-major store, so that
+    `merge_heads` copies it."""
+    def wrapper(*args, **kwargs):
+        out = list(fn(*args, **kwargs))
+        out[i] = out[i].contiguous()
+        return tuple(out)
+    return wrapper
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("tower", ["openai-vit-b-16", "openclip-vit-h-14"])
+def test_vision_forward_keeps_the_head_split_chains_bits(gen, tower, dtype):
+    """A pass at full width and depth on a small image (ViT-B/16 at 64 px,
+    ViT-H/14 at 56 px: 17 tokens; seeded weights) through the qkv kernel and the
+    token-major contexts gives the bits of the chain it replaced on the
+    card: `qkv_projection` (PyTorch's bias add and head-split copies) and
+    contexts laid out [B, H, N, D], merged by a copy. The qkv kernel
+    launches L times a pass (32 a ViT-H pass)."""
+    import dataclasses
+
+    from excel_tpu_torch.config import voc_config, with_backbone
+    from excel_tpu_torch.models import clip as clip_mod
+    from excel_tpu_torch.models import layers as L
+    from portbench.harness import weights as W
+
+    cfg = with_backbone(voc_config(), tower).clip
+    cfg = dataclasses.replace(cfg, image_size=4 * cfg.patch_size,
+                              compute_dtype=dtype)
+    params = W.clip_visual(cfg, 31, "cuda")
+    images = torch.randn((2, cfg.image_size, cfg.image_size, 3),
+                         device="cuda", generator=gen)
+    with launches() as counts:
+        got = clip_mod.vision_forward(params, images, cfg, attn_mode="mean")
+    assert counts[build.typed("excel_qkv_heads", dtype)] == cfg.vision_layers
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(L, "qkv_heads_fused", L.qkv_projection)
+        mp.setattr(L, "fused_plain_attention",
+                   _head_major(L.fused_plain_attention, 0))
+        mp.setattr(L, "fused_surgery_attention",
+                   _head_major(L.fused_surgery_attention, 2))
+        want = clip_mod.vision_forward(params, images, cfg, attn_mode="mean")
+    torch.cuda.synchronize()
+    for key in ("projected", "attn", "feats"):
+        assert got[key].dtype == want[key].dtype, key
+        assert torch.equal(got[key], want[key]), key

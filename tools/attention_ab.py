@@ -23,10 +23,12 @@ and bf16. For plain attention without weights
 
     python3 tools/attention_ab.py --digests      # JSON: DIGEST_CASES' bits
 
-`--digests` prints the digests of DIGEST_CASES (D = 32 and 64, every mode,
-inputs drawn on the CPU from a seed): tests/torch_fixtures/
-attention_digests.json holds them as the kernels gave them before D = 80
-came, and the card's tests hold today's kernels to them.
+`--digests` prints the digests of DIGEST_CASES (D = 32, 64 and 80, every
+mode, inputs drawn on the CPU from a seed; a context hashed in its [B, H,
+N, D] order): tests/torch_fixtures/attention_digests.json holds them as the
+kernels gave them, D = 32 and 64 before D = 80 came, D = 80 before the
+contexts were stored token-major, and the card's tests hold today's
+kernels to them.
 """
 from __future__ import annotations
 
@@ -55,9 +57,9 @@ CASES += [("plain", m, 577, 4, 16, 80, False) for m in ("none", "out", "acc")]
 CASES += [("surgery", m, 577, 4, 16, 80, False)
           for m in ("acc", "out", "none")]
 CASES += [("surgery", "none", 577, 4, 16, 80, True)]
-# the bits D = 32 and 64 must keep: every mode, ragged N, ex
+# the bits D = 32, 64 and 80 must keep: every mode, ragged N, ex
 DIGEST_CASES = [(kind, mode, 197, 2, heads, d, ex)
-                for d, heads in ((32, 3), (64, 12))
+                for d, heads in ((32, 3), (64, 12), (80, 4))
                 for kind in ("plain", "surgery")
                 for mode in ("none", "out", "acc")
                 for ex in ((False, True) if kind == "surgery" else (False,))]
