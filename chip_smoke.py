@@ -47,7 +47,16 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    encoder's qkv bias add and head split (csrc/qkv_heads.cu) at ViT-B/16's
    [4, 401, 2304] and ViT-H/14's [4, 577, 3840], bf16 and fp32, bit for bit
    against `qkv_projection`, device times beside the plain chain and `x +
-   b` with one permuted copy (timed only);
+   b` with one permuted copy (timed only); EVA02-CLIP-L/14-336's two
+   kernels at its lam batch, bf16 and fp32: the rotating head split
+   (csrc/qkv_heads.cu's rope entry points) at [4, 577, 3072], H = 16, bit
+   for bit against `qkv_projection` with the rotary table, timed beside
+   the same kernel unturned, the plain chain and its bytes bound; the
+   SwiGLU gate and sub-LayerNorm (csrc/swiglu_gate.cu) at [2308, 2 x
+   2736], h = 2730, within the LayerNorm bounds of `swiglu_gate`, timed
+   beside the plain version, `F.silu` + `F.layer_norm` and its bytes
+   bound; cuBLAS's SwiGLU products at hidden 2,730 and 2,736 (the final
+   JSON line's `eva02_swiglu`);
 4. the eval slices: `run_lam_eval` (training-free LAM eval at full
    ViT-B/16 width, seeded random weights) over synthetic VOC-sized samples
    in `voc_config()` (fp32) and `fast(voc_config())` (bf16 encoder with its
@@ -61,10 +70,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    CRF branch, `run_lam_eval(crf_tpu=True)`: the batch's launches plus 10
    of row 5's kernel at 72 offsets (fp32 entry point; bf16 under the fast
    preset);
-   then `run_lam_eval` of the fast preset over OpenCLIP ViT-H/14 at full
-   width (8 samples, batch 4), its launches per batch checked (32 qkv head
-   splits, 27 plain and 5 surgery attention launches at D = 80, 66
-   LayerNorm, the fast preset's PAR);
+   then `run_lam_eval` of the fast preset over OpenCLIP ViT-H/14 and over
+   EVA02-CLIP-L/14-336 at full width (8 samples, batch 4), their launches
+   per batch checked (ViT-H: 32 qkv head splits, 27 plain and 5 surgery
+   attention launches at D = 80, 66 LayerNorm; EVA-02: 24 rotating head
+   splits, 19 plain and 5 surgery attention launches, 24 SwiGLU gates, 78
+   LayerNorm; both with the fast preset's PAR);
 5. the MSC slice, for each preset: `run_msc_seg_eval` (MSC+flip
    segmentation eval, seeded random CLIP and head) on 8 synthetic samples,
    batch 4, scales (1.0, 0.7, 1.2, 1.5) x 320 px, without and with the
@@ -1174,10 +1185,11 @@ def check_upsample_backward() -> dict:
     return {"upsample_linear_backward": rec}
 
 
-def ln_error(got, ref) -> tuple[float, float, int]:
+def ln_error(got, ref, what: str = "layer_norm") -> tuple[float, float, int]:
     """(max |got - ref| / max |ref|, share of equal elements, elements
-    more than one bf16 ulp apart); raises past the bounds (fp32 TOL_LN;
-    bf16 one ulp + LN_BF16_CANCEL max |ref|, LN_BF16_MIN_EQUAL equal)."""
+    more than one bf16 ulp apart) of a LayerNorm's output (the kernel
+    `what`); raises past the bounds (fp32 TOL_LN; bf16 one ulp +
+    LN_BF16_CANCEL max |ref|, LN_BF16_MIN_EQUAL equal)."""
     g, r = got.float(), ref.float()
     scale = r.abs().max()
     err = float((g - r).abs().max() / scale)
@@ -1191,14 +1203,14 @@ def ln_error(got, ref) -> tuple[float, float, int]:
         mask = (g - r).abs() > ulp
         beyond = int(mask.sum())
         if beyond:
-            log(f"layer_norm {tuple(got.shape)}: {beyond} elements beyond "
+            log(f"{what} {tuple(got.shape)}: {beyond} elements beyond "
                 f"one ulp, |ref| there up to {float(r.abs()[mask].max()):.3g}"
                 f", |got - ref| up to {float((g - r).abs()[mask].max()):.3g}"
                 f" (max |ref| {float(scale):.3g})")
         ok = (bool(((g - r).abs() <= ulp + LN_BF16_CANCEL * scale).all())
               and equal >= LN_BF16_MIN_EQUAL)
     if not ok:
-        raise AssertionError(f"layer_norm {got.dtype} {tuple(got.shape)}: "
+        raise AssertionError(f"{what} {got.dtype} {tuple(got.shape)}: "
                              f"err {err}, equal share {equal}, {beyond} "
                              "beyond one ulp")
     return err, equal, beyond
@@ -1349,6 +1361,183 @@ def check_qkv_heads() -> dict:
             rec = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bnd, bound_by=by, max_abs_err=0.0)
     return {"qkv_heads": rec}
+
+
+# EVA02-CLIP-L/14-336's lam batch (the voc-eva02l14-fast.lam_sweep
+# cell): B images of N tokens, width C in 16 heads of 64 on the 24 x 24
+# grid (rotary table from grid 16), the SwiGLU's hidden 2,730 held padded
+# to 2,736 (models/params.pad_swiglu)
+EVA_B, EVA_N, EVA_C, EVA_HEADS, EVA_GRID = 4, 577, 1024, 16, 24
+EVA_HIDDEN, EVA_HIDDEN_PADDED = 2730, 2736
+# cuBLAS's SwiGLU products at both hidden widths (`eva02_swiglu` JSON line)
+EVA_GEMM_RECORDS: dict = {}
+
+
+def _kernel_ms(fn, name: str, reps: int = 200) -> float:
+    """Device time a call of the kernels whose names hold `name`, over
+    `reps` profiled calls of fn after a warm-up."""
+    fn()
+    events = _device_profile(lambda: [fn() for _ in range(reps)])[1]
+    return sum(e.self_device_time_total for e in events
+               if name in e.key) / 1e3 / reps
+
+
+def _call_ms(fn, reps: int = 50) -> float:
+    """Device time of all of a call's kernels, over `reps` calls."""
+    fn()
+    return _device_profile(lambda: [fn() for _ in range(reps)])[0] / reps
+
+
+def check_qkv_heads_rope() -> dict:
+    """The rotating qkv head split (csrc/qkv_heads.cu's rope entry points)
+    at EVA-02-L/14's lam batch, bf16 and fp32: `qkv_heads_fused` with the
+    rotary table against its plain version on the card (`qkv_projection`
+    with the table: the bias add, the head-split copies and `apply_rope`)
+    bit for bit, two launches bit for bit; device times of the kernel alone
+    (the wrapper's product left out), the same kernel without the table,
+    and the plain chain on the product, beside the bytes bound (the
+    product and the table read, q, k, v written). Returns the record of
+    the bf16 case."""
+    from excel_tpu_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    b, n, c, heads = EVA_B, EVA_N, EVA_C, EVA_HEADS
+    rope = L.rope_table(16, EVA_GRID, EVA_GRID, c // heads,
+                        torch.device("cuda"))
+    rec = None
+    for dtype in (torch.bfloat16, torch.float32):
+        y = torch.randn((b, n, c), device="cuda", generator=gen).to(dtype)
+        p = {"qkv": {"w": (c ** -0.5 * torch.randn(
+            (3 * c, c), device="cuda", generator=gen)).to(dtype),
+            "b": 0.1 * torch.randn(3 * c, device="cuda", generator=gen)}}
+        got = L.qkv_heads_fused(y, p, heads, rope)
+        again = L.qkv_heads_fused(y, p, heads, rope)
+        want = L.qkv_projection(y, p, heads, rope)
+        if not all(torch.equal(g, w) and torch.equal(a, w)
+                   for g, a, w in zip(got, again, want)):
+            raise AssertionError(f"qkv_heads_rope {(b, n, heads)} {dtype}: "
+                                 "outputs differ from qkv_projection's")
+        x = torch.matmul(y, p["qkv"]["w"].t())
+        bias = p["qkv"]["b"].to(dtype)
+
+        def plain():
+            q, k, v = (L.split_heads(t, heads)
+                       for t in (x + bias).chunk(3, dim=-1))
+            return L.apply_rope(q, rope), L.apply_rope(k, rope), v
+
+        kernel_ms = _kernel_ms(lambda: L.qkv_heads_kernel(x, bias, heads,
+                                                          rope),
+                               "qkv_heads_kernel")
+        unturned_ms = _kernel_ms(lambda: L.qkv_heads_kernel(x, bias, heads),
+                                 "qkv_heads_kernel")
+        plain_ms = _call_ms(plain)
+        bnd, by = bound_ms(0, 2 * x.numel() * x.element_size()
+                           + bias.numel() * bias.element_size()
+                           + rope.numel() * 4)
+        log(f"kernel qkv_heads_rope (none: the JAX package runs no EVA-02 "
+            f"tower) [{b}, {n}, {3 * c}] H={heads} D={c // heads} "
+            f"{str(dtype).split('.')[-1]}: bit for bit with qkv_projection "
+            f"+ apply_rope, two launches bit for bit; device kernel_ms="
+            f"{kernel_ms:.4f} unturned_ms (the same kernel without the "
+            f"table)={unturned_ms:.4f} plain_ms (x + b, chunk, 3 x "
+            f"split_heads, 2 x apply_rope)={plain_ms:.4f} bound_ms="
+            f"{bnd:.4f} ({by})")
+        if rec is None:
+            rec = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=None,
+                       bound_ms=bnd, bound_by=by, max_abs_err=0.0)
+    return {"qkv_heads_rope": rec}
+
+
+def check_swiglu_gate() -> dict:
+    """EVA-02's SwiGLU gate and sub-LayerNorm (csrc/swiglu_gate.cu) at
+    EVA-02-L/14's lam batch ([B x N, 2 x 2,736], the hidden as the loaders
+    hold it), bf16 and fp32, against its plain version on the card
+    (`swiglu_gate`): the columns beyond 2,730 exactly 0, the rest within
+    the LayerNorm kernel's bounds (`ln_error`), two launches bit for bit;
+    device times of the kernel, the plain version and PyTorch's shortest
+    route (`F.silu(a) * b`, `F.layer_norm`; timed only) beside the bytes
+    bound. Then cuBLAS's two products of the layer (W1|W2 and W3, TF32 off)
+    at hidden 2,730 and 2,736 and the whole layer (`swiglu`) at 2,736, for
+    the `eva02_swiglu` JSON line: a bf16 row of 2,730 is 5,460 bytes, no
+    whole number of 16-byte vectors. Returns the record of the bf16
+    gate."""
+    from excel_tpu_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows, c = EVA_B * EVA_N, EVA_C
+    h, hp = EVA_HIDDEN, EVA_HIDDEN_PADDED
+    rec, worst = None, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        e = torch.empty((), dtype=dtype).element_size()
+        name = str(dtype).split(".")[-1]
+        u = torch.randn((rows, 2 * hp), device="cuda", generator=gen)
+        bias = 0.1 * torch.randn(2 * hp, device="cuda", generator=gen)
+        for t in (u, bias[None]):
+            t[:, h:hp] = 0.0
+            t[:, hp + h:] = 0.0
+        u, bias = u.to(dtype), bias.to(dtype)
+        ln = {"scale": 1.0 + 0.1 * torch.randn(h, device="cuda",
+                                               generator=gen),
+              "bias": 0.1 * torch.randn(h, device="cuda", generator=gen)}
+        got = L.swiglu_gate_fused(u, bias, ln)
+        again = L.swiglu_gate_fused(u, bias, ln)
+        want = L.swiglu_gate(u, bias, ln)
+        if got[:, h:].any() or not torch.equal(got, again):
+            raise AssertionError(f"swiglu_gate {dtype}: padding not 0 or "
+                                 "repeated launches differ")
+        err, equal, beyond = ln_error(got[:, :h], want[:, :h], "swiglu_gate")
+        lib_w, lib_b = ln["scale"].to(dtype), ln["bias"].to(dtype)
+
+        def library():
+            z = u + bias
+            return F.layer_norm(F.silu(z[:, :h]) * z[:, hp:hp + h], (h,),
+                                lib_w, lib_b, 1e-6)
+
+        kernel_ms = _kernel_ms(lambda: L.swiglu_gate_fused(u, bias, ln),
+                               "swiglu_gate_kernel")
+        plain_ms = _call_ms(lambda: L.swiglu_gate(u, bias, ln))
+        lib_ms = _call_ms(library)
+        bnd, by = bound_ms(0, (3.0 * rows * hp + 2 * hp) * e + 2 * h * 4)
+        log(f"kernel swiglu_gate (none: the JAX package runs no EVA-02 "
+            f"tower) [{rows}, 2 x {hp}] h={h} {name}: err / max|ref|="
+            f"{err:.3g} equal={equal:.6f} beyond one ulp={beyond}, padding "
+            f"0, two launches bit for bit; device kernel_ms={kernel_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms (x + b, F.silu(a) * b, "
+            f"F.layer_norm)={lib_ms:.4f} bound_ms={bnd:.4f} ({by})")
+        worst = max(worst, float((got[:, :h].float()
+                                  - want[:, :h].float()).abs().max()))
+        if rec is None:
+            rec = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bnd, bound_by=by)
+        # the layer's products at the published and the padded hidden
+        x = torch.randn((EVA_B, EVA_N, c), device="cuda",
+                        generator=gen).to(dtype)
+        gemm = {}
+        for width in (h, hp):
+            w12 = (c ** -0.5 * torch.randn((2 * width, c), device="cuda",
+                                           generator=gen)).to(dtype)
+            w3 = (width ** -0.5 * torch.randn((c, width), device="cuda",
+                                              generator=gen)).to(dtype)
+            m = torch.randn((EVA_B, EVA_N, width), device="cuda",
+                            generator=gen).to(dtype)
+            gemm[f"fc_ms_{width}"] = _call_ms(
+                lambda: torch.matmul(x, w12.t()))
+            gemm[f"proj_ms_{width}"] = _call_ms(
+                lambda: torch.matmul(m, w3.t()))
+        p = {"fc": {"w": w12, "b": bias}, "ln_ffn": ln,
+             "proj": {"w": w3, "b": torch.zeros(c, device="cuda",
+                                                dtype=dtype)}}
+        gemm[f"swiglu_ms_{hp}"] = _call_ms(lambda: L.swiglu(x, p))
+        flops = 6.0 * rows * c * h
+        lbytes = (2.0 * rows * c + 3.0 * c * h + 2 * h + c) * e + 2 * h * 4
+        gemm["swiglu_bound_ms"], gemm["swiglu_bound_by"] = bound_ms(
+            flops, lbytes, PEAK_BF16_FLOPS if dtype == torch.bfloat16
+            else PEAK_FP32_FLOPS)
+        log(f"eva02 swiglu {name} [{EVA_B}, {EVA_N}, {c}]: cuBLAS "
+            + " ".join(f"{k}={v:.4f}" if isinstance(v, float) else
+                       f"{k}={v}" for k, v in gemm.items()))
+        EVA_GEMM_RECORDS[name] = gemm
+    return {"swiglu_gate": dict(rec, max_abs_err=worst)}
 
 
 # VOC-typical label extents (h, w): landscape and portrait images
@@ -1520,58 +1709,70 @@ def phase_slice(preset: str, n_samples: int = 32, batch: int = 16):
     return counts, params, text, cfg, samples
 
 
-# OpenCLIP ViT-H/14's sweep at full width (the voc-vith14-fast.lam_sweep
-# cell's program): 32 qkv head splits, 27 plain blocks and 5 surgery blocks
-# a batch, every one at D = 80, 2L + 2 = 66 LayerNorms, and the fast
-# preset's PAR launches
-VITH_SAMPLES, VITH_B = 8, 4
+# the other towers' sweeps at full width (the voc-vith14-fast and
+# voc-eva02l14-fast lam_sweep cells' programs) and their encoder launches
+# a batch, beside the fast preset's PAR launches: OpenCLIP ViT-H/14, 32
+# qkv head splits, 27 plain and 5 surgery blocks at D = 80, 2L + 2 = 66
+# LayerNorms; EVA02-CLIP-L/14-336, 24 rotating head splits, 19 plain and
+# 5 surgery blocks at D = 64, 24 SwiGLU gates, and 78 LayerNorms (no
+# ln_pre: block 0's ln_1, 2L - 1 with the residual add, ln_post, and a
+# sub-LayerNorm a context: 19 + 2 x 5)
+TOWER_SAMPLES, TOWER_B = 8, 4
+TOWER_LAUNCHES = {
+    "openclip-vit-h-14": {"excel_qkv_heads_bf16": 32,
+                          "excel_plain_attention_bf16": 27,
+                          "excel_surgery_attention_bf16": 5,
+                          "excel_layer_norm_bf16": 66},
+    "eva02-clip-l-14-336": {"excel_qkv_heads_rope_bf16": 24,
+                            "excel_plain_attention_bf16": 19,
+                            "excel_surgery_attention_bf16": 5,
+                            "excel_swiglu_gate_bf16": 24,
+                            "excel_layer_norm_bf16": 78},
+}
 
 
-def phase_slice_vith() -> None:
-    """run_lam_eval of fast(voc_config()) over OpenCLIP ViT-H/14 (seeded
-    weights at its published widths, matmul weights cast to bf16 once):
-    every entry point's launches per batch over the sweep (32 qkv head
-    splits and 32 attention launches, all at D = 80, and 66 LayerNorms),
+def phase_slice_tower(backbone: str) -> None:
+    """run_lam_eval of fast(voc_config()) over another tower (seeded
+    weights at its published widths as `init_clip_params` holds them,
+    matmul weights cast to bf16 once): every entry point's launches per
+    batch over the sweep (TOWER_LAUNCHES and the fast preset's PAR),
     finite scores, and the sweep's img/s."""
     from excel_tpu_torch.config import fast, voc_config, with_backbone
     from excel_tpu_torch.engine.evaluate import _bucketed_batches, run_lam_eval
     from excel_tpu_torch.models.params import (cast_matmul_weights,
                                                init_clip_params)
 
-    cfg = with_backbone(fast(voc_config()), "openclip-vit-h-14")
+    cfg = with_backbone(fast(voc_config()), backbone)
     clip = cast_matmul_weights(init_clip_params(
         cfg.clip, torch.Generator().manual_seed(0), device="cuda"),
         torch.bfloat16)
     params = {"clip": clip}
     text = text_bank(cfg, seed=0).cuda()
-    samples = synthetic_samples(VITH_SAMPLES, cfg.num_fg, seed=0)
+    samples = synthetic_samples(TOWER_SAMPLES, cfg.num_fg, seed=0)
     n_batches = sum(1 for _ in _bucketed_batches(
-        samples, VITH_B, cfg.data.eval_pad, cfg.refine.slot_buckets,
+        samples, TOWER_B, cfg.data.eval_pad, cfg.refine.slot_buckets,
         cfg.num_fg))
-    run_lam_eval(params, samples[:VITH_B], text, cfg, batch_size=VITH_B,
+    run_lam_eval(params, samples[:TOWER_B], text, cfg, batch_size=TOWER_B,
                  device="cuda")
     with counting() as counts:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         scores = run_lam_eval(params, samples, text, cfg,
-                              batch_size=VITH_B, device="cuda")
+                              batch_size=TOWER_B, device="cuda")
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    log(f"slice vith14: run_lam_eval fast(voc_config()) OpenCLIP ViT-H/14 "
+    log(f"slice {backbone}: run_lam_eval fast(voc_config()) "
         f"N={cfg.clip.tokens} D={cfg.clip.vision_width // cfg.clip.vision_heads}"
-        f" act={cfg.clip.activation} samples={VITH_SAMPLES} batch={VITH_B} "
+        f" block={cfg.clip.block} hidden={cfg.clip.hidden} "
+        f"act={cfg.clip.activation} samples={TOWER_SAMPLES} batch={TOWER_B} "
         f"batches={n_batches} seconds={dt:.3f} img_per_s="
-        f"{VITH_SAMPLES / dt:.3f} miou={scores['miou']:.4f} "
+        f"{TOWER_SAMPLES / dt:.3f} miou={scores['miou']:.4f} "
         f"pAcc={scores['pAcc']:.4f}")
-    log("slice vith14 launches: " + json.dumps(counts))
-    layers, surgery = cfg.clip.vision_layers, cfg.clip.surgery_blocks
-    expected = dict(LAUNCHES_PER_BATCH["fast"],
-                    excel_qkv_heads_bf16=layers,
-                    excel_plain_attention_bf16=layers - surgery,
-                    excel_surgery_attention_bf16=surgery,
-                    excel_layer_norm_bf16=2 * layers + 2)
+    log(f"slice {backbone} launches: " + json.dumps(counts))
+    expected = dict({k: v for k, v in LAUNCHES_PER_BATCH["fast"].items()
+                     if k in FAST_PAR}, **TOWER_LAUNCHES[backbone])
     if counts != _times(expected, n_batches):
-        raise AssertionError(f"vith14 slice: launches {counts}, expected "
+        raise AssertionError(f"{backbone} slice: launches {counts}, expected "
                              f"{expected} x {n_batches} batches")
     if not (0.0 <= scores["miou"] <= 1.0 and np.isfinite(scores["pAcc"])):
         raise AssertionError(f"bad scores {scores['miou']} {scores['pAcc']}")
@@ -4673,6 +4874,11 @@ SOURCES = {
                    ("excel_layer_norm_f32", "excel_layer_norm_bf16")),
     "qkv_heads": ("qkv_heads.cu", "none",
                   ("excel_qkv_heads_f32", "excel_qkv_heads_bf16")),
+    "qkv_heads_rope": ("qkv_heads.cu", "none",
+                       ("excel_qkv_heads_rope_f32",
+                        "excel_qkv_heads_rope_bf16")),
+    "swiglu_gate": ("swiglu_gate.cu", "none",
+                    ("excel_swiglu_gate_f32", "excel_swiglu_gate_bf16")),
 }
 
 
@@ -4692,6 +4898,8 @@ def main() -> int:
     records.update(check_upsample_backward())
     records.update(check_layer_norm())
     records.update(check_qkv_heads())
+    records.update(check_qkv_heads_rope())
+    records.update(check_swiglu_gate())
     for preset, bound in (("fp32", MIN_LABEL_AGREEMENT),
                           ("fast", MIN_FAST_LABEL_AGREEMENT)):
         _, params, text, cfg, samples = phase_slice(preset)
@@ -4699,7 +4907,8 @@ def main() -> int:
         phase_card_vs_cpu(preset, params, text, cfg, samples, bound)
         phase_lam_crf(preset, params, text, cfg, samples)
         del params
-    phase_slice_vith()
+    for backbone in TOWER_LAUNCHES:
+        phase_slice_tower(backbone)
     for preset in ("fp32", "fast"):
         cfg, params, text, samples = phase_msc(preset)
         phase_msc_card_vs_cpu(preset, cfg, params, text, samples)
@@ -4729,6 +4938,7 @@ def main() -> int:
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": table}))
     log(json.dumps({"attention_hd80": HD80_RECORDS}))
+    log(json.dumps({"eva02_swiglu": EVA_GEMM_RECORDS}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

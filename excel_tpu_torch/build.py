@@ -63,6 +63,8 @@ _VALID_RESIDENT = [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
 _UPSAMPLE_BWD = [_P, _P, _I, _I, _I, _I, _I, _P]
 _LAYER_NORM = [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]
 _QKV_HEADS = [_P, _P, _P, _I, _I, _I, _I, _P]
+_QKV_HEADS_ROPE = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
+_SWIGLU_GATE = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
 # source name -> {C entry point: argument types}; every entry point returns
 # the cudaError_t of its launch as an int
 ENTRY_POINTS = {
@@ -83,7 +85,11 @@ ENTRY_POINTS = {
     "layer_norm": {"excel_layer_norm_f32": _LAYER_NORM,
                    "excel_layer_norm_bf16": _LAYER_NORM},
     "qkv_heads": {"excel_qkv_heads_f32": _QKV_HEADS,
-                  "excel_qkv_heads_bf16": _QKV_HEADS},
+                  "excel_qkv_heads_bf16": _QKV_HEADS,
+                  "excel_qkv_heads_rope_f32": _QKV_HEADS_ROPE,
+                  "excel_qkv_heads_rope_bf16": _QKV_HEADS_ROPE},
+    "swiglu_gate": {"excel_swiglu_gate_f32": _SWIGLU_GATE,
+                    "excel_swiglu_gate_bf16": _SWIGLU_GATE},
 }
 # C entry point -> its source name
 _SOURCE = {symbol: name for name, entries in ENTRY_POINTS.items()

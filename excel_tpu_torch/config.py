@@ -53,8 +53,22 @@ class ClipConfig:
     # Presets set 6; None keeps the full stack (parity tests).
     attn_out_layers: int | None = None
     # the MLP activation of both towers' blocks: "quick_gelu" (OpenAI's
-    # x * sigmoid(1.702 x)) or "gelu" (exact, erf; OpenCLIP's nn.GELU)
+    # x * sigmoid(1.702 x)) or "gelu" (exact, erf; OpenCLIP's nn.GELU);
+    # an EVA-02 tower's text blocks alone
     activation: str = "quick_gelu"
+    # the vision tower's parameter layout that init_clip_params draws:
+    # "vit" (OpenAI's and OpenCLIP's) or "eva02" (no ln_pre, a patch and a
+    # head bias, each block's sub-LayerNorm `attn.ln_inner` and SwiGLU
+    # `mlp.fc` = W1|W2, `mlp.ln_ffn`, `mlp.proj` = W3; models/params). The
+    # forward takes each of these parts where the tree holds it.
+    block: str = "vit"
+    # the vision MLP's hidden width; 0: 4 x vision_width
+    mlp_hidden: int = 0
+    # 2D rotary q/k at the patch tokens (EVA-02): the grid that positions
+    # are scaled to (its pt_hw_seq_len, 16); 0: no rotation
+    rope_grid: int = 0
+    # the vision tower's LayerNorm eps (EVA-02: 1e-6)
+    ln_eps: float = 1e-5
 
     @property
     def grid(self) -> int:
@@ -63,6 +77,11 @@ class ClipConfig:
     @property
     def tokens(self) -> int:
         return self.grid * self.grid + 1
+
+    @property
+    def hidden(self) -> int:
+        """The vision MLP's hidden width."""
+        return self.mlp_hidden or 4 * self.vision_width
 
 
 @dataclasses.dataclass(frozen=True)
@@ -231,6 +250,29 @@ BACKBONES = {
                      text_layers=24, activation="gelu"),
         "tiny": dict(image_size=56, patch_size=14, vision_width=160,
                      vision_heads=2, activation="gelu"),
+    },
+    # EVA02-CLIP-L/14-336 (github.com/baaivision/EVA, EVA-CLIP/rei/
+    # eva_clip/model_configs/EVA02-CLIP-L-14-336.json,
+    # EVA02_CLIP_L_336_psz14_s6B): 24 blocks of width 1024, head_width 64
+    # (16 heads), SwiGLU at int(1024 x 2.6667) = 2730 with its sub-LN
+    # (naiveswiglu, subln), the sub-LN on the attention context, 2D rotary
+    # q/k from pt_hw_seq_len 16 (intp_freq), LayerNorm eps 1e-6, no
+    # ln_pre; patch 14 at 336 px, a positional table of the 24 x 24 grid;
+    # embed 768; text 12 x 768, 12 heads, nn.GELU (quick_gelu unset). The
+    # patch embedding's and the head's biases are parameters
+    # (models/params).
+    "eva02-clip-l-14-336": {
+        "full": dict(image_size=336, patch_size=14, vision_width=1024,
+                     vision_layers=24, vision_heads=16, embed_dim=768,
+                     pretrain_grid=24, text_width=768, text_heads=12,
+                     text_layers=12, activation="gelu", block="eva02",
+                     mlp_hidden=2730, rope_grid=16, ln_eps=1e-6),
+        # width 128 in 2 heads of 64: int(128 x 2.6667) = 341, no multiple
+        # of 8, as 2730 is none
+        "tiny": dict(image_size=56, patch_size=14, vision_width=128,
+                     vision_heads=2, pretrain_grid=4, activation="gelu",
+                     block="eva02", mlp_hidden=341, rope_grid=16,
+                     ln_eps=1e-6),
     },
 }
 DEFAULT_BACKBONE = "openai-vit-b-16"

@@ -1,7 +1,9 @@
 """Frozen CLIP ViT with ExCEL architecture surgery, and the CLIP text
 transformer (counterpart of excel_tpu/models/clip.py): OpenAI's ViT-B/16 by
 default, any tower of `config.BACKBONES` (OpenCLIP ViT-H/14: head dim 80,
-exact GELU) by its ClipConfig. With `ex_feats` (the
+exact GELU; EVA02-CLIP-L/14: rotary q/k and eps 1e-6 by its ClipConfig,
+and the parts its parameter tree holds: sub-LayerNorms, SwiGLU, a patch
+bias, a head with bias, no ln_pre) by its ClipConfig. With `ex_feats` (the
 LVC head's fused features) the surgery blocks' dense path is calibrated by
 their feature affinity, as in the trained forward's second pass.
 
@@ -29,7 +31,7 @@ from ..utils import profiling
 from .layers import (ACTIVATIONS, add_layer_norm_fused, attention_fused,
                      external_feature_attention, layer_norm,
                      layer_norm_fused, mlp, multi_head_attention,
-                     surgery_attention_fused)
+                     rope_table, surgery_attention_fused, swiglu)
 
 
 def interpolate_pos_embedding(pos: torch.Tensor,
@@ -72,19 +74,26 @@ def _patch_embed(images: torch.Tensor, w: torch.Tensor,
     return torch.matmul(x, w.reshape(w.shape[0], -1).t())
 
 
-def _block_mlp(h: torch.Tensor, blk: dict, act: str) -> torch.Tensor:
+def _block_mlp(h: torch.Tensor, blk: dict, act: str,
+               eps: float = 1e-5) -> torch.Tensor:
     """A block's MLP branch on h = ln_2 of its residual stream, inside the
-    span "mlp" (attr act)."""
+    span "mlp": `mlp` with the activation act (attr act), or where the
+    block's MLP holds a sub-LayerNorm `ln_ffn` EVA-02's `swiglu` (that
+    LayerNorm at eps; attr act "swiglu")."""
+    if "ln_ffn" in blk["mlp"]:
+        with profiling.span("mlp", act="swiglu"):
+            return swiglu(h, blk["mlp"], eps)
     with profiling.span("mlp", act=act):
         return mlp(h, blk["mlp"], act)
 
 
-def _residual(x: torch.Tensor, y: torch.Tensor, ln: dict | None):
+def _residual(x: torch.Tensor, y: torch.Tensor, ln: dict | None,
+              eps: float = 1e-5):
     """The residual add x + y and, where a LayerNorm follows it (ln),
     that LayerNorm in the same kernel: (sum, normalised sum or None)."""
     if ln is None:
         return x + y, None
-    return add_layer_norm_fused(x, y, ln)
+    return add_layer_norm_fused(x, y, ln, eps)
 
 
 def _activation(cfg: ClipConfig) -> str:
@@ -121,6 +130,7 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
                          "window")
     dtype = cfg.compute_dtype
     act = _activation(cfg)
+    eps = cfg.ln_eps
     if dtype not in (torch.float32, torch.bfloat16):
         raise NotImplementedError(f"compute_dtype {dtype}: the encoder runs "
                                   "in float32 or bfloat16")
@@ -131,13 +141,19 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
 
         x = _patch_embed(images.to(dtype), p["patch_embed"].to(dtype),
                          cfg.patch_size)
+        if "patch_bias" in p:
+            x = x + p["patch_bias"].to(x.dtype)
         b, gh, gw, c = x.shape
         x = x.reshape(b, gh * gw, c)
         cls = p["class_embedding"].to(x.dtype).expand(b, 1, c)
         x = torch.cat([cls, x], dim=1)
         pos = interpolate_pos_embedding(p["positional_embedding"], gh)
         x = x + pos.to(x.dtype)
-        x = layer_norm_fused(x, p["ln_pre"])
+        if "ln_pre" in p:
+            x = layer_norm_fused(x, p["ln_pre"], eps)
+        rope = None
+        if cfg.rope_grid:
+            rope = rope_table(cfg.rope_grid, gh, gw, c // heads, x.device)
 
         ex_attn = None
         if ex_feats is not None:
@@ -154,7 +170,7 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
         blocks = p["blocks"]
         # h: ln_1 of the stream the block attends over, formed by the
         # previous block's last residual add (block 0: from x itself)
-        h = layer_norm_fused(x, blocks[0]["ln_1"])
+        h = layer_norm_fused(x, blocks[0]["ln_1"], eps)
         for i, blk in enumerate(blocks):
             in_win = i >= win_start and attn_mode != "none"
             fused_acc = attn_acc if attn_mode == "mean" and in_win else None
@@ -162,9 +178,11 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
             if i < n_single:
                 y, attn_w = attention_fused(h, blk["attn"], heads,
                                             attn_acc=fused_acc,
-                                            need_weights=in_win)
-                x, h = add_layer_norm_fused(x, y, blk["ln_2"])
-                x, h = _residual(x, _block_mlp(h, blk, act), ln_next)
+                                            need_weights=in_win, rope=rope,
+                                            eps=eps)
+                x, h = add_layer_norm_fused(x, y, blk["ln_2"], eps)
+                x, h = _residual(x, _block_mlp(h, blk, act, eps), ln_next,
+                                 eps)
                 single_feats.append(x)
             else:
                 # dual path: both streams attend over ln_1 of the ORIGINAL
@@ -172,9 +190,12 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
                 src = x if x_ori is None else x_ori
                 dense_res, ori_res, attn_w = surgery_attention_fused(
                     h, blk["attn"], heads, ex_attn=ex_attn,
-                    attn_acc=fused_acc, need_attn=in_win)
-                x_ori, h = add_layer_norm_fused(src, ori_res, blk["ln_2"])
-                x_ori, h = _residual(x_ori, _block_mlp(h, blk, act), ln_next)
+                    attn_acc=fused_acc, need_attn=in_win, rope=rope,
+                    eps=eps)
+                x_ori, h = add_layer_norm_fused(src, ori_res, blk["ln_2"],
+                                                eps)
+                x_ori, h = _residual(x_ori, _block_mlp(h, blk, act, eps),
+                                     ln_next, eps)
                 x = x + dense_res          # dense stream skips the FFN
                 ori_feats.append(x_ori)
                 ori_residuals.append(ori_res)
@@ -203,8 +224,10 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
         else:
             feat_list = single_feats
 
-        x = layer_norm_fused(x, p["ln_post"])
+        x = layer_norm_fused(x, p["ln_post"], eps)
         projected = torch.matmul(x, p["proj"].to(x.dtype))
+        if "proj_bias" in p:
+            projected = projected + p["proj_bias"].to(x.dtype)
 
         if attn_mode == "none":
             attn_out = None

@@ -22,6 +22,13 @@ Numerics as in the JAX package, for float32 and bfloat16 activations:
   none) is 0.5 x (1 + erf(x / sqrt 2)) formed in fp32 from the activation
   and rounded once to its type (`F.gelu`'s own rounding point for bf16
   input on the CPU and the card);
+- EVA-02's towers (none in the JAX package) add three parts, each formed
+  in fp32 from the activation type and rounded once to it, as PyTorch's
+  own ops round them: the 2D rotation of q and k at the patch tokens
+  (`rope_table`, `apply_rope`; in the card's qkv head split), the
+  sub-LayerNorm `ln_inner` on each attention context, and the SwiGLU MLP
+  (`swiglu`: silu(a) rounded, times b, rounded, then a LayerNorm over the
+  hidden width; csrc/swiglu_gate.cu on the card);
 - standard attention returns the head-MEAN of its softmax weights (torch
   nn.MultiheadAttention need_weights semantics), while the surgery attention
   returns the head-SUM of its original-path weights; SVC consumes a mix of
@@ -31,6 +38,8 @@ Parameters are the torch-layout tree of models/params.py: linear weights
 [out, in], applied as x @ w^T + b.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -154,6 +163,75 @@ def mlp(x: torch.Tensor, p: dict, act: str = "quick_gelu") -> torch.Tensor:
     return linear(ACTIVATIONS[act](linear(x, p["fc"])), p["proj"])
 
 
+def swiglu_gate(u: torch.Tensor, bias: torch.Tensor, ln: dict,
+                eps: float = 1e-6) -> torch.Tensor:
+    """EVA-02's gate and sub-LayerNorm between the SwiGLU's products, in
+    plain PyTorch: u [..., 2 hp] is the W1|W2 product before its bias
+    [2 hp] (a in columns [0, h), b in [hp, hp + h), h = len(ln's scale);
+    hp > h where the hidden is padded with zero weights). Returns
+    LayerNorm(silu(a + b1) * (b + b2)) [..., hp], zero beyond column h;
+    the bias add, silu and the product each rounded to u's type."""
+    hp = u.shape[-1] // 2
+    h = ln["scale"].shape[0]
+    z = u + bias.to(u.dtype)
+    out = layer_norm(torch.nn.functional.silu(z[..., :h]) * z[..., hp:hp + h],
+                     ln, eps)
+    return torch.nn.functional.pad(out, (0, hp - h)) if hp > h else out
+
+
+# csrc/swiglu_gate.cu's largest padded hidden width (a block a row, 32
+# bf16 or 16 fp32 elements a thread)
+_GATE_MAX_HIDDEN = 4096
+
+
+def swiglu_gate_fused(u: torch.Tensor, bias: torch.Tensor, ln: dict,
+                      eps: float = 1e-6) -> torch.Tensor:
+    """`swiglu_gate` as the encoder runs it: on a CPU tensor itself, on a
+    CUDA tensor one launch of csrc/swiglu_gate.cu, or a raise: another
+    device or dtype, a padded hidden hp that is no whole number of 16-byte
+    vectors (models/params.pad_swiglu pads it) or above 4,096, a tensor
+    that is not contiguous or not 16-byte aligned."""
+    if u.device.type == "cpu":
+        return swiglu_gate(u, bias, ln, eps)
+    if u.device.type != "cuda":
+        raise ValueError(f"swiglu_gate kernel: unsupported device {u.device}")
+    if u.dtype not in build.SUFFIX:
+        raise NotImplementedError(f"{u.dtype} SwiGLU gate: the kernel takes "
+                                  "float32 and bfloat16")
+    hp = u.shape[-1] // 2
+    h = ln["scale"].shape[0]
+    bias = bias.to(u.dtype)
+    scale, shift = ln["scale"].float(), ln["bias"].float()
+    if (u.shape[-1] != 2 * hp or not 1 <= h <= hp
+            or hp > _GATE_MAX_HIDDEN or not u.is_contiguous()):
+        raise ValueError(f"swiglu_gate kernel: a contiguous [..., 2 hp] "
+                         f"product with h <= hp <= {_GATE_MAX_HIDDEN}, got "
+                         f"{tuple(u.shape)} and h = {h}")
+    for t, n in ((bias, 2 * hp), (scale, h), (shift, h)):
+        if t.shape != (n,) or t.device != u.device or not t.is_contiguous():
+            raise ValueError(f"swiglu_gate kernel: the bias and the "
+                             f"LayerNorm's must be contiguous [{n}] tensors "
+                             f"on {u.device}")
+    out = u.new_empty(u.shape[:-1] + (hp,))
+    if (hp * u.element_size() % 16
+            or any(t.data_ptr() % 16 for t in (u, bias, out))):
+        raise ValueError(f"swiglu_gate kernel: 16-byte rows and pointers "
+                         f"only, got a hidden of {hp} {u.dtype} elements "
+                         f"(models/params.pad_swiglu pads it)")
+    build.launch(build.typed("excel_swiglu_gate", u.dtype), u, u.data_ptr(),
+                 bias.data_ptr(), out.data_ptr(), scale.data_ptr(),
+                 shift.data_ptr(), u.numel() // (2 * hp), h, hp, eps)
+    return out
+
+
+def swiglu(x: torch.Tensor, p: dict, eps: float = 1e-6) -> torch.Tensor:
+    """EVA-02's SwiGLU MLP with its sub-LayerNorm: the W1|W2 product
+    (p["fc"]: one [2 hp, C] weight), the gate and LayerNorm ln_ffn
+    (`swiglu_gate_fused`), W3 (p["proj"], [C, hp])."""
+    return linear(swiglu_gate_fused(_product(x, p["fc"]), p["fc"]["b"],
+                                    p["ln_ffn"], eps), p["proj"])
+
+
 def split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     """[B, N, C] -> contiguous [B, heads, N, C//heads]."""
     b, n, c = x.shape
@@ -168,40 +246,108 @@ def merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 1, 3).reshape(b, n, h * d)
 
 
-def qkv_projection(y: torch.Tensor, p: dict, heads: int):
-    """Fused qkv projection -> per-head q, k, v ([B, H, N, D] each)."""
+@functools.lru_cache(maxsize=16)
+def rope_table(rope_grid: int, gh: int, gw: int, head_dim: int,
+               device: torch.device | str = "cpu") -> torch.Tensor:
+    """EVA-02's 2D rotary table (EVA-CLIP's VisionRotaryEmbeddingFast with
+    intp_freq) for a gh x gw patch grid: fp32 [2, gh gw, head_dim], cos
+    then sin of each patch token's angles, built once a grid and device.
+    Dims [0, D/2) turn with the token's row r, [D/2, D) with its column c;
+    pair i of a half (dims 2i, 2i + 1) at the angle
+    (r / gh) rope_grid 10000^(-2i / (D/2)) (c and gw for the second half),
+    formed in fp32 as EVA-CLIP forms it."""
+    half = head_dim // 2
+    if head_dim % 4:
+        raise ValueError(f"rotary head dim {head_dim}: no multiple of 4")
+    freqs = 1.0 / (10000 ** (torch.arange(0, half, 2).float() / half))
+
+    def angles(g):
+        t = torch.arange(g) / g * rope_grid
+        return (t[:, None] * freqs[None]).repeat_interleave(2, dim=-1)
+
+    rows, cols = angles(gh), angles(gw)                 # [g, D/2]
+    ang = torch.cat([rows[:, None].expand(gh, gw, half),
+                     cols[None].expand(gh, gw, half)], dim=-1)
+    ang = ang.reshape(gh * gw, head_dim)
+    return torch.stack([ang.cos(), ang.sin()]).to(device)
+
+
+def _rotate_pairs(x: torch.Tensor) -> torch.Tensor:
+    """(x0, x1) -> (-x1, x0) over adjacent dims (EVA-CLIP's rotate_half)."""
+    x = x.unflatten(-1, (-1, 2))
+    return torch.stack((-x[..., 1], x[..., 0]), dim=-1).flatten(-2)
+
+
+def apply_rope(t: torch.Tensor, rope: torch.Tensor) -> torch.Tensor:
+    """t [B, H, N, D] with tokens 1..N-1 turned by the table rope [2, N-1,
+    D] (`rope_table`) and the CLS token as it is: t cos + rot(t) sin
+    formed in fp32, each op rounded as PyTorch rounds it, then once to
+    t's type."""
+    body = t[:, :, 1:].float()
+    body = body * rope[0] + _rotate_pairs(body) * rope[1]
+    return torch.cat([t[:, :, :1], body.to(t.dtype)], dim=2)
+
+
+def qkv_projection(y: torch.Tensor, p: dict, heads: int,
+                   rope: torch.Tensor | None = None):
+    """Fused qkv projection -> per-head q, k, v ([B, H, N, D] each); with
+    a rotary table, q and k turned at the patch tokens (`apply_rope`)."""
     q, k, v = linear(y, p["qkv"]).chunk(3, dim=-1)
-    return split_heads(q, heads), split_heads(k, heads), split_heads(v, heads)
+    q, k, v = (split_heads(q, heads), split_heads(k, heads),
+               split_heads(v, heads))
+    if rope is not None:
+        q, k = apply_rope(q, rope), apply_rope(k, rope)
+    return q, k, v
 
 
-def qkv_heads_fused(y: torch.Tensor, p: dict, heads: int):
+def qkv_heads_fused(y: torch.Tensor, p: dict, heads: int,
+                    rope: torch.Tensor | None = None):
     """`qkv_projection` as the encoder runs it. On a CPU tensor
     `qkv_projection` itself; on a CUDA tensor the same qkv product, then
-    one launch of csrc/qkv_heads.cu, which adds the bias in y's type and
-    writes q, k, v as the three contiguous [B, H, N, D] slices of one
-    [3, B, H, N, D] buffer (the same bits), or a raise: another device or
-    dtype, a head dim the kernel does not take."""
+    `qkv_heads_kernel`."""
     if y.device.type == "cpu":
-        return qkv_projection(y, p, heads)
+        return qkv_projection(y, p, heads, rope)
     if y.device.type != "cuda":
         raise ValueError(f"qkv_heads kernel: unsupported device {y.device}")
     if y.dtype not in build.SUFFIX:
         raise NotImplementedError(f"{y.dtype} qkv heads: the kernel takes "
                                   "float32 and bfloat16")
-    x = _product(y, p["qkv"])
+    return qkv_heads_kernel(_product(y, p["qkv"]), p["qkv"]["b"].to(y.dtype),
+                            heads, rope)
+
+
+def qkv_heads_kernel(x: torch.Tensor, bias: torch.Tensor, heads: int,
+                     rope: torch.Tensor | None = None):
+    """One launch of csrc/qkv_heads.cu on the qkv product x [B, N, 3C] of
+    a CUDA tensor: the bias added in x's type and q, k, v written as the
+    three contiguous [B, H, N, D] slices of one [3, B, H, N, D] buffer
+    (`qkv_projection`'s bits); with a rotary table [2, N-1, D] q and k
+    turned at the patch tokens in the same pass (`apply_rope`'s bits).
+    Raises on a head dim the kernel does not take or a table of another
+    shape."""
     b, n, c3 = x.shape
     d = c3 // (3 * heads)
     if d not in _KERNEL_HEAD_DIMS or c3 != 3 * heads * d:
         raise ValueError(f"qkv_heads kernel: {c3 // 3} channels in {heads} "
                          f"heads; it takes the attention kernels' head dims "
                          f"{_KERNEL_HEAD_DIMS}")
-    bias = p["qkv"]["b"].to(y.dtype)
     if bias.shape != (c3,) or not bias.is_contiguous():
         raise ValueError(f"qkv_heads kernel: the bias must be a contiguous "
                          f"[{c3}] tensor")
     out = x.new_empty((3, b, heads, n, d))
-    build.launch(build.typed("excel_qkv_heads", y.dtype), x, x.data_ptr(),
-                 bias.data_ptr(), out.data_ptr(), b, n, heads, d)
+    if rope is None:
+        build.launch(build.typed("excel_qkv_heads", x.dtype), x,
+                     x.data_ptr(), bias.data_ptr(), out.data_ptr(), b, n,
+                     heads, d)
+        return out[0], out[1], out[2]
+    if (rope.shape != (2, n - 1, d) or rope.dtype != torch.float32
+            or rope.device != x.device or not rope.is_contiguous()):
+        raise ValueError(f"qkv_heads kernel: the rotary table must be a "
+                         f"contiguous float32 [2, {n - 1}, {d}] tensor on "
+                         f"{x.device}, got {tuple(rope.shape)} {rope.dtype}")
+    build.launch(build.typed("excel_qkv_heads_rope", x.dtype), x,
+                 x.data_ptr(), bias.data_ptr(), rope.data_ptr(),
+                 out.data_ptr(), b, n, heads, d)
     return out[0], out[1], out[2]
 
 
@@ -239,19 +385,34 @@ def attention(y: torch.Tensor, p: dict, heads: int):
     return multi_head_attention(y, p, heads)
 
 
+def context_out(ctx: torch.Tensor, p: dict,
+                eps: float = 1e-5) -> torch.Tensor:
+    """An attention context [B, H, N, D] merged to [B, N, C] and
+    projected by p["out"]; where p holds EVA-02's sub-LayerNorm
+    "ln_inner", that LayerNorm (at eps) between the two."""
+    x = merge_heads(ctx)
+    if "ln_inner" in p:
+        x = layer_norm_fused(x.contiguous(), p["ln_inner"], eps)
+    return linear(x, p["out"])
+
+
 def surgery_attention(y: torch.Tensor, p: dict, heads: int,
-                      ex_attn: torch.Tensor | None = None):
+                      ex_attn: torch.Tensor | None = None,
+                      rope: torch.Tensor | None = None,
+                      eps: float = 1e-5):
     """ExCEL dual-path attention per head in plain PyTorch: the original
     q k^T path and the dense value-value path (mean of softmax(q q^T),
     softmax(k k^T), softmax(v v^T)), optionally calibrated by the LVC
     feature affinity ex_attn [B, M, M] added to every head's patch-patch
     block, then summed over heads so every head aggregates v with one
     shared matrix. For CPU tensors only (the encoder calls
-    `surgery_attention_fused`).
+    `surgery_attention_fused`). rope: EVA-02's rotated q, k
+    (`qkv_projection`); eps: its sub-LayerNorm's on both contexts
+    (`context_out`).
 
     Returns (dense_out, ori_out, head-summed original weights [B, N, N])."""
     _cpu_only(y, "surgery_attention")
-    q, k, v = qkv_projection(y, p, heads)
+    q, k, v = qkv_projection(y, p, heads, rope)
     scale = q.shape[-1] ** -0.5
 
     def self_sim(t):
@@ -267,44 +428,51 @@ def surgery_attention(y: torch.Tensor, p: dict, heads: int,
     shared = attn.sum(dim=1, keepdim=True)                 # [B,1,N,N]
     ctx_dense = torch.matmul(shared, v)
     ctx_ori = torch.matmul(attn_ori, v)
-    dense_out = linear(merge_heads(ctx_dense), p["out"])
-    ori_out = linear(merge_heads(ctx_ori), p["out"])
+    dense_out = context_out(ctx_dense, p, eps)
+    ori_out = context_out(ctx_ori, p, eps)
     return dense_out, ori_out, attn_ori.sum(dim=1)
 
 
 def attention_fused(y: torch.Tensor, p: dict, heads: int,
                     attn_acc: torch.Tensor | None = None,
-                    need_weights: bool = True):
+                    need_weights: bool = True,
+                    rope: torch.Tensor | None = None,
+                    eps: float = 1e-5):
     """`attention` (no mask) through the plain attention kernel. attn_acc:
     optional [B, N, N] fp32 accumulator the kernel adds its head-mean onto
-    in place; need_weights=False skips the weights output."""
+    in place; need_weights=False skips the weights output. rope: EVA-02's
+    rotary table [2, N-1, D] (`rope_table`), q and k turned in the head
+    split; eps: that of its sub-LayerNorm on the context, where p holds
+    one (`context_out`)."""
     with profiling.span("attn"):
-        q, k, v = qkv_heads_fused(y, p, heads)
+        q, k, v = qkv_heads_fused(y, p, heads, rope)
         ctx, w = fused_plain_attention(q, k, v, acc=attn_acc,
                                        need_weights=need_weights)
-        return linear(merge_heads(ctx), p["out"]), w
+        return context_out(ctx, p, eps), w
 
 
 def surgery_attention_fused(y: torch.Tensor, p: dict, heads: int,
                             ex_attn: torch.Tensor | None = None,
                             attn_acc: torch.Tensor | None = None,
-                            need_attn: bool = True):
+                            need_attn: bool = True,
+                            rope: torch.Tensor | None = None,
+                            eps: float = 1e-5):
     """`surgery_attention` through the surgery attention kernel; attn_acc /
-    need_attn control the head-summed original weights as in
-    `attention_fused`. ex_attn [B, M, M] (in the activation type) reaches
-    the kernel as fp32 [B, N, N] with a zero CLS row and column, which adds
-    it to the patch-patch block only. The dense context shared @ v is one
-    product outside the kernel."""
+    need_attn control the head-summed original weights, and rope / eps
+    EVA-02's parts, as in `attention_fused`. ex_attn [B, M, M]
+    (in the activation type) reaches the kernel as fp32 [B, N, N] with a
+    zero CLS row and column, which adds it to the patch-patch block only.
+    The dense context shared @ v is one product outside the kernel."""
     with profiling.span("attn"):
-        q, k, v = qkv_heads_fused(y, p, heads)
+        q, k, v = qkv_heads_fused(y, p, heads, rope)
         ex = None
         if ex_attn is not None:
             ex = torch.nn.functional.pad(ex_attn.float(), (1, 0, 1, 0))
         shared, attn_sum, ctx_ori = fused_surgery_attention(
             q, k, v, ex_attn=ex, acc=attn_acc, need_attn=need_attn)
         ctx_dense = torch.matmul(shared[:, None].to(v.dtype), v)
-        dense_out = linear(merge_heads(ctx_dense), p["out"])
-        ori_out = linear(merge_heads(ctx_ori), p["out"])
+        dense_out = context_out(ctx_dense, p, eps)
+        ori_out = context_out(ctx_ori, p, eps)
         return dense_out, ori_out, attn_sum
 
 

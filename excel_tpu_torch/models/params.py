@@ -11,6 +11,16 @@ The tree keeps the JAX package's keys ({"visual": ..., "text": ...,
 - the patch embedding goes from HWIO to OIHW [width, 3, P, P];
 - embeddings, LayerNorms, `visual.proj` and `text.text_projection`
   ([width, embed], applied as x @ proj) keep their layout.
+
+An EVA-02 tower (`ClipConfig.block` "eva02", `convert_eva_state_dict`)
+has no `ln_pre` and more leaves: `visual.patch_bias` [width] and
+`visual.proj_bias` [embed] (its head's biases), `attn.ln_inner` (the
+sub-LayerNorm on the context), its q, k and v weights stored fused as
+`attn.qkv` with k's bias zero, and the SwiGLU as `mlp.fc` (W1 and W2
+stacked, [2 h, width]), `mlp.ln_ffn` [h] and `mlp.proj` (W3, [width, h]).
+The port's trees (`init_clip_params`, `from_jax_params`) hold the SwiGLU's
+hidden padded with zero weights to whole 16-byte rows (`pad_swiglu`); the
+converter's files keep the published h.
 """
 from __future__ import annotations
 
@@ -34,52 +44,71 @@ def _normal(g: torch.Generator, shape, std: float) -> torch.Tensor:
     return torch.randn(shape, generator=g, dtype=torch.float32) * std
 
 
-def _init_block(g: torch.Generator, width: int, scale_attn: float,
-                scale_proj: float, scale_fc: float) -> dict:
-    def ln():
-        return {"scale": torch.ones(width), "bias": torch.zeros(width)}
+def _ln_init(width: int) -> dict:
+    return {"scale": torch.ones(width), "bias": torch.zeros(width)}
 
-    return {
-        "ln_1": ln(),
+
+def _init_block(g: torch.Generator, width: int, scale_attn: float,
+                scale_proj: float, scale_fc: float,
+                swiglu: int = 0) -> dict:
+    """A block's parameters; with swiglu = h, EVA-02's: the sub-LayerNorm
+    on the context and a SwiGLU of hidden width h (W1|W2 stacked)."""
+    hidden = swiglu or 4 * width
+    fc_out = 2 * hidden if swiglu else hidden   # W1 and W2 stacked
+    blk = {
+        "ln_1": _ln_init(width),
         "attn": {
             "qkv": {"w": _normal(g, (3 * width, width), scale_attn),
                     "b": torch.zeros(3 * width)},
             "out": {"w": _normal(g, (width, width), scale_proj),
                     "b": torch.zeros(width)},
         },
-        "ln_2": ln(),
+        "ln_2": _ln_init(width),
         "mlp": {
-            "fc": {"w": _normal(g, (4 * width, width), scale_fc),
-                   "b": torch.zeros(4 * width)},
-            "proj": {"w": _normal(g, (width, 4 * width), scale_proj),
+            "fc": {"w": _normal(g, (fc_out, width), scale_fc),
+                   "b": torch.zeros(fc_out)},
+            "proj": {"w": _normal(g, (width, hidden), scale_proj),
                      "b": torch.zeros(width)},
         },
     }
+    if swiglu:
+        blk["attn"]["ln_inner"] = _ln_init(width)
+        blk["mlp"]["ln_ffn"] = _ln_init(swiglu)
+    return blk
 
 
 def init_clip_params(cfg: ClipConfig, generator: torch.Generator | None = None,
                      device="cuda") -> dict:
     """Random CLIP parameters with the JAX package's init scales, drawn on
-    the CPU from `generator` (seed 0 when None) and moved to `device`."""
+    the CPU from `generator` (seed 0 when None) and moved to `device`, in
+    the layout `cfg.block` names (an EVA-02 SwiGLU padded: `pad_swiglu`)."""
     device = resolve_device(device)
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     vw, tw = cfg.vision_width, cfg.text_width
     v_scale = vw ** -0.5
     attn_std = tw ** -0.5
+    if cfg.block not in ("vit", "eva02"):
+        raise ValueError(f"block {cfg.block!r}: the port draws 'vit' or "
+                         "'eva02' towers")
+    swiglu = cfg.hidden if cfg.block == "eva02" else 0
     visual = {
         "patch_embed": _normal(g, (vw, 3, cfg.patch_size, cfg.patch_size),
                                v_scale),
         "class_embedding": _normal(g, (vw,), v_scale),
         "positional_embedding": _normal(g, (cfg.pretrain_grid ** 2 + 1, vw),
                                         v_scale),
-        "ln_pre": {"scale": torch.ones(vw), "bias": torch.zeros(vw)},
+        "ln_pre": _ln_init(vw),
         "blocks": [_init_block(g, vw, v_scale,
                                v_scale * (2 * cfg.vision_layers) ** -0.5,
-                               (2 * vw) ** -0.5)
+                               (2 * vw) ** -0.5, swiglu)
                    for _ in range(cfg.vision_layers)],
-        "ln_post": {"scale": torch.ones(vw), "bias": torch.zeros(vw)},
+        "ln_post": _ln_init(vw),
         "proj": _normal(g, (vw, cfg.embed_dim), v_scale),
     }
+    if swiglu:
+        del visual["ln_pre"]
+        visual["patch_bias"] = torch.zeros(vw)
+        visual["proj_bias"] = torch.zeros(cfg.embed_dim)
     text = {
         "token_embedding": _normal(g, (cfg.vocab_size, tw), 0.02),
         "positional_embedding": _normal(g, (cfg.context_length, tw), 0.01),
@@ -93,7 +122,7 @@ def init_clip_params(cfg: ClipConfig, generator: torch.Generator | None = None,
     params = {"visual": visual, "text": text,
               "logit_scale": torch.tensor(math.log(1 / 0.07),
                                           dtype=torch.float32)}
-    return _to_device(params, device)
+    return pad_swiglu(_to_device(params, device))
 
 
 def _to_device(tree, device: torch.device):
@@ -123,13 +152,14 @@ def _convert(tree, path: tuple, device: torch.device):
 
 def from_jax_params(tree: dict, cfg: ClipConfig, device="cuda") -> dict:
     """The JAX package's CLIP parameter tree (numpy or array leaves, as
-    `jax.device_get` returns it) -> the port's torch tree on `device`."""
+    `jax.device_get` returns it) -> the port's torch tree on `device`
+    (an EVA-02 SwiGLU padded: `pad_swiglu`)."""
     device = resolve_device(device)
     n = len(tree["visual"]["blocks"])
     if n != cfg.vision_layers:
         raise ValueError(f"tree has {n} vision blocks, config "
                          f"{cfg.vision_layers}")
-    return _convert(tree, (), device)
+    return pad_swiglu(_convert(tree, (), device))
 
 
 _KEY = re.compile(r"\['([^']*)'\]|\[(\d+)\]")
@@ -248,16 +278,20 @@ def _block_from_torch(sd: dict, prefix: str) -> dict:
 
 def infer_clip_config(sd: dict, backbone: str | None = None) -> ClipConfig:
     """The architecture of a CLIP state dict in OpenAI's key layout (which
-    OpenCLIP's checkpoints share) from its tensor shapes.
+    OpenCLIP's checkpoints share) or EVA-CLIP's from its tensor shapes.
 
     Neither the head width nor the activation is in the shapes. Without
     `backbone`, OpenAI's own rule (its `build_model`): heads = width / 64,
     QuickGELU. With a name of `config.BACKBONES`, that tower's config
     (heads, activation, image size), whose published widths the shapes
     must match (OpenCLIP ViT-H/14: width 1280 in 16 heads of 80, where
-    width / 64 gives 20)."""
+    width / 64 gives 20). An EVA-CLIP state dict needs the name: its
+    rotary grid, sub-LayerNorms and eps are not in the shapes either."""
     cfg = _shape_config(sd)
     if backbone is None:
+        if _is_eva(sd):
+            raise ValueError("an EVA-CLIP state dict: name its backbone "
+                             "(--backbone), e.g. eva02-clip-l-14-336")
         return cfg
     if backbone not in BACKBONES:
         raise ValueError(f"unknown backbone {backbone!r}; known: "
@@ -272,41 +306,136 @@ def infer_clip_config(sd: dict, backbone: str | None = None) -> ClipConfig:
     return named
 
 
-# the ClipConfig fields that a state dict's shapes determine
+# the ClipConfig fields (and properties) that a state dict's shapes and
+# names determine
 _SHAPE_FIELDS = ("patch_size", "vision_width", "vision_layers", "embed_dim",
                  "pretrain_grid", "context_length", "vocab_size",
-                 "text_width", "text_layers")
+                 "text_width", "text_layers", "hidden", "block")
+
+
+def _is_eva(sd: dict) -> bool:
+    """EVA-CLIP's key layout (its EVAVisionTransformer's names)."""
+    return "visual.patch_embed.proj.weight" in sd
+
+
+def _text_keys(sd: dict) -> dict:
+    """The text tower's keys in OpenAI's layout: EVA-CLIP's custom text
+    tower prefixes them with "text."."""
+    return {(k[5:] if k.startswith("text.") else k): v
+            for k, v in sd.items()}
+
+
+def _count(sd: dict, pattern: str) -> int:
+    return len({int(m.group(1)) for k in sd if (m := re.match(pattern, k))})
 
 
 def _shape_config(sd: dict) -> ClipConfig:
-    vision_width = sd["visual.conv1.weight"].shape[0]
-    grid = int(round((sd["visual.positional_embedding"].shape[0] - 1)
-                     ** 0.5))
-
-    def layers(pattern: str) -> int:
-        return len({int(m.group(1)) for k in sd
-                    if (m := re.match(pattern, k))})
-
+    if _is_eva(sd):
+        w = sd["visual.patch_embed.proj.weight"]
+        pos = sd["visual.pos_embed"]
+        vision = dict(
+            patch_size=w.shape[-1], vision_width=w.shape[0],
+            vision_layers=_count(sd, r"visual\.blocks\.(\d+)\."),
+            pretrain_grid=int(round((pos.shape[-2] - 1) ** 0.5)),
+            mlp_hidden=sd["visual.blocks.0.mlp.w1.weight"].shape[0],
+            block="eva02")
+        sd = _text_keys(sd)
+    else:
+        w = sd["visual.conv1.weight"]
+        vision = dict(
+            patch_size=w.shape[-1], vision_width=w.shape[0],
+            vision_layers=_count(
+                sd, r"visual\.transformer\.resblocks\.(\d+)\."),
+            pretrain_grid=int(round(
+                (sd["visual.positional_embedding"].shape[0] - 1) ** 0.5)))
     text_width = sd["positional_embedding"].shape[1]
     return ClipConfig(
-        patch_size=sd["visual.conv1.weight"].shape[-1],
-        vision_width=vision_width,
-        vision_layers=layers(r"visual\.transformer\.resblocks\.(\d+)\."),
-        vision_heads=vision_width // 64,
+        **vision,
+        vision_heads=vision["vision_width"] // 64,
         embed_dim=sd["text_projection"].shape[1],
-        pretrain_grid=grid,
         context_length=sd["positional_embedding"].shape[0],
         vocab_size=sd["token_embedding.weight"].shape[0],
         text_width=text_width,
         text_heads=text_width // 64,
-        text_layers=layers(r"transformer\.resblocks\.(\d+)\."),
+        text_layers=_count(sd, r"transformer\.resblocks\.(\d+)\."),
     )
+
+
+def _eva_block(sd: dict, prefix: str) -> dict:
+    """One EVA-CLIP vision block (EVA-02's Block: norm1, attn with q_proj /
+    k_proj / v_proj, q_bias / v_bias, inner_attn_ln and proj, norm2, mlp
+    w1 / w2 / ffn_ln / w3) in the port's tree, JAX layout."""
+    a, m = prefix + ".attn.", prefix + ".mlp."
+
+    def lin(name):
+        return {"w": np.ascontiguousarray(sd[name + ".weight"].T),
+                "b": sd[name + ".bias"]}
+
+    q_b = sd[a + "q_bias"]
+    qkv_w = np.concatenate([sd[a + n + "_proj.weight"] for n in "qkv"])
+    fc_w = np.concatenate([sd[m + "w1.weight"], sd[m + "w2.weight"]])
+    return {
+        "ln_1": _ln(sd, prefix + ".norm1"),
+        "attn": {"qkv": {"w": np.ascontiguousarray(qkv_w.T),
+                         "b": np.concatenate([q_b, np.zeros_like(q_b),
+                                              sd[a + "v_bias"]])},
+                 "ln_inner": _ln(sd, a + "inner_attn_ln"),
+                 "out": lin(a + "proj")},
+        "ln_2": _ln(sd, prefix + ".norm2"),
+        "mlp": {"fc": {"w": np.ascontiguousarray(fc_w.T),
+                       "b": np.concatenate([sd[m + "w1.bias"],
+                                            sd[m + "w2.bias"]])},
+                "ln_ffn": _ln(sd, m + "ffn_ln"),
+                "proj": lin(m + "w3")},
+    }
+
+
+def convert_eva_state_dict(sd: dict, cfg: ClipConfig) -> dict:
+    """A numpy-valued EVA-CLIP state dict (EVAVisionTransformer under
+    "visual.", OpenAI's text names, with or without EVA's "text." prefix)
+    -> the port's tree in the JAX package's layout (numpy leaves, linear
+    weights [in, out], the patch embedding HWIO). The rotary tables in
+    the checkpoint ("visual.rope.*") are not read: the port forms them
+    for each grid (models/layers.rope_table)."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    width = cfg.vision_width
+    visual = {
+        "patch_embed": np.ascontiguousarray(
+            sd["visual.patch_embed.proj.weight"].transpose(2, 3, 1, 0)),
+        "patch_bias": sd["visual.patch_embed.proj.bias"],
+        "class_embedding": sd["visual.cls_token"].reshape(width),
+        "positional_embedding": sd["visual.pos_embed"].reshape(-1, width),
+        "blocks": [_eva_block(sd, f"visual.blocks.{i}")
+                   for i in range(cfg.vision_layers)],
+        "ln_post": _ln(sd, "visual.norm"),
+        "proj": np.ascontiguousarray(sd["visual.head.weight"].T),
+        "proj_bias": sd["visual.head.bias"],
+    }
+    tree = _convert_text(_text_keys(sd), cfg)
+    tree["visual"] = visual
+    return tree
+
+
+def _convert_text(sd: dict, cfg: ClipConfig) -> dict:
+    """{"text": ..., "logit_scale": ...} of OpenAI's text names."""
+    text = {
+        "token_embedding": sd["token_embedding.weight"],
+        "positional_embedding": sd["positional_embedding"],
+        "blocks": [_block_from_torch(sd, f"transformer.resblocks.{i}")
+                   for i in range(cfg.text_layers)],
+        "ln_final": _ln(sd, "ln_final"),
+        "text_projection": sd["text_projection"],
+    }
+    return {"text": text, "logit_scale": sd["logit_scale"]}
 
 
 def convert_torch_state_dict(sd: dict, cfg: ClipConfig) -> dict:
     """A numpy-valued OpenAI CLIP state dict -> the JAX package's parameter
     tree with numpy leaves (linear weights [in, out], the patch embedding
-    HWIO), as `save_npz_tree` writes it and `from_jax_params` reads it."""
+    HWIO), as `save_npz_tree` writes it and `from_jax_params` reads it;
+    an EVA-CLIP one through `convert_eva_state_dict`."""
+    if _is_eva(sd):
+        return convert_eva_state_dict(sd, cfg)
     sd = {k: np.asarray(v) for k, v in sd.items()}
     visual = {
         "patch_embed": np.ascontiguousarray(
@@ -319,16 +448,7 @@ def convert_torch_state_dict(sd: dict, cfg: ClipConfig) -> dict:
         "ln_post": _ln(sd, "visual.ln_post"),
         "proj": sd["visual.proj"],
     }
-    text = {
-        "token_embedding": sd["token_embedding.weight"],
-        "positional_embedding": sd["positional_embedding"],
-        "blocks": [_block_from_torch(sd, f"transformer.resblocks.{i}")
-                   for i in range(cfg.text_layers)],
-        "ln_final": _ln(sd, "ln_final"),
-        "text_projection": sd["text_projection"],
-    }
-    return {"visual": visual, "text": text,
-            "logit_scale": sd["logit_scale"]}
+    return {"visual": visual, **_convert_text(sd, cfg)}
 
 
 def cast_matmul_weights(params: dict, dtype: torch.dtype) -> dict:
@@ -344,6 +464,50 @@ def cast_matmul_weights(params: dict, dtype: torch.dtype) -> dict:
             return {k: (v.to(dtype) if k in ("w", "b")
                         and isinstance(v, torch.Tensor) else walk(v))
                     for k, v in d.items()}
+        if isinstance(d, (list, tuple)):
+            return type(d)(walk(x) for x in d)
+        return d
+    return walk(params)
+
+
+# the SwiGLU's padded hidden: a multiple of 8 elements, whole 16-byte rows
+# in bf16 and in fp32
+SWIGLU_MULTIPLE = 8
+
+
+def pad_swiglu(params: dict) -> dict:
+    """The tree with each SwiGLU MLP (an "mlp" holding "ln_ffn") of hidden
+    width h padded with zero weights to hp, the next multiple of
+    SWIGLU_MULTIPLE (2,730 -> 2,736): W1 and W2 each gain hp - h zero rows
+    (fc [2 hp, C], its bias zero there) and W3 as many zero columns
+    ([C, hp]); ln_ffn keeps its h. The layer computes the same numbers
+    (layers.swiglu_gate writes 0 beyond h, and W3's zero columns take
+    them). The gate kernel takes 16-byte rows only, and in bf16 a row of
+    2,730 elements is 5,460 bytes: cuBLAS then takes 4-byte-aligned
+    kernels, 3.0x slower at EVA-02's [2308, 1024] x [1024, 5460] and
+    [2308, 2730] x [2730, 1024] than at hp = 2,736 (0.135 + 0.091 against
+    0.045 + 0.031 ms, NVIDIA H100). A padded tree is returned as it is."""
+    def pad(m):
+        h = m["ln_ffn"]["scale"].shape[0]
+        w, b, w3 = m["fc"]["w"], m["fc"]["b"], m["proj"]["w"]
+        hp = -(-h // SWIGLU_MULTIPLE) * SWIGLU_MULTIPLE
+        if w.shape[0] == 2 * hp:
+            return m
+        halves = w.reshape(2, h, -1)
+        wp = halves.new_zeros((2, hp, w.shape[1]))
+        wp[:, :h] = halves
+        bp = b.new_zeros((2, hp))
+        bp[:, :h] = b.reshape(2, h)
+        w3p = w3.new_zeros((w3.shape[0], hp))
+        w3p[:, :h] = w3
+        return dict(m, fc={"w": wp.reshape(2 * hp, -1), "b": bp.reshape(-1)},
+                    proj=dict(m["proj"], w=w3p))
+
+    def walk(d):
+        if isinstance(d, dict):
+            if "ln_ffn" in d:
+                return pad(d)
+            return {k: walk(v) for k, v in d.items()}
         if isinstance(d, (list, tuple)):
             return type(d)(walk(x) for x in d)
         return d

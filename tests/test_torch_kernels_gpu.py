@@ -1164,8 +1164,8 @@ def test_vision_forward_launches_the_layer_norm_kernel(gen, tower):
     assert (len(plain), len(residual)) == (3, 2 * cfg.vision_layers - 1)
     assert counts["excel_layer_norm_f32"] == 2 * cfg.vision_layers + 2
 
-    def add_ln(x, y, p):
-        return x + y, L.layer_norm(x + y, p)
+    def add_ln(x, y, p, eps=1e-5):
+        return x + y, L.layer_norm(x + y, p, eps)
 
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(clip_mod, "layer_norm_fused", L.layer_norm)
@@ -1303,3 +1303,222 @@ def test_vision_forward_keeps_the_head_split_chains_bits(gen, tower, dtype):
     for key in ("projected", "attn", "feats"):
         assert got[key].dtype == want[key].dtype, key
         assert torch.equal(got[key], want[key]), key
+
+
+# -- EVA-02: the rotating head split (csrc/qkv_heads.cu's rope entry points)
+# and the SwiGLU gate with its sub-LayerNorm (csrc/swiglu_gate.cu) ----------
+
+# (B, N, 3C, H, grid): EVA-02-L/14's lam batch (D = 64, 24 x 24 patches),
+# an MSC-like grid (10 x 10), and ragged ones: one patch, tails of the
+# 64-token tiles at D = 32 and 80, a grid that is not square
+ROPE_SHAPES = [(4, 577, 3072, 16, (24, 24)), (8, 101, 3072, 16, (10, 10)),
+               (1, 2, 192, 1, (1, 1)), (3, 65, 192, 2, (8, 8)),
+               (2, 17, 480, 2, (4, 4)), (2, 63, 384, 2, (2, 31))]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,n,c3,heads,grid", ROPE_SHAPES)
+def test_qkv_heads_rope_kernel_bitwise(gen, b, n, c3, heads, grid, dtype):
+    """The rotating entry point against its plain version on the card
+    (`qkv_projection` with the table: PyTorch's bias add, head-split
+    copies and `apply_rope`'s fp32 products and sum) bit for bit, the CLS
+    token and v unturned, one launch a call; the same bits twice."""
+    L, y, p = _qkv_inputs(gen, b, n, c3, dtype)
+    rope = L.rope_table(16, grid[0], grid[1], c3 // (3 * heads), y.device)
+    with launches() as counts:
+        got = L.qkv_heads_fused(y, p, heads, rope)
+        again = L.qkv_heads_fused(y, p, heads, rope)
+    want = L.qkv_projection(y, p, heads, rope)
+    plain = L.qkv_projection(y, p, heads)
+    torch.cuda.synchronize()
+    assert counts == {build.typed("excel_qkv_heads_rope", dtype): 2}
+    _qkv_bitwise(got, want, dtype)
+    _qkv_bitwise(again, want, dtype)
+    assert torch.equal(got[2], plain[2])
+    for t, u in zip(got[:2], plain[:2]):
+        assert torch.equal(t[:, :, 0], u[:, :, 0])
+        # the patch at row 0, column 0 turns by 0: one patch stays as it is
+        assert torch.equal(t[:, :, 1], u[:, :, 1])
+        if n > 2:
+            assert not torch.equal(t[:, :, 2:], u[:, :, 2:])
+
+
+def test_qkv_heads_rope_kernel_on_a_side_stream_and_refusals(gen):
+    L, y, p = _qkv_inputs(gen, 4, 577, 3072, torch.bfloat16)
+    rope = L.rope_table(16, 24, 24, 64, y.device)
+    want = L.qkv_projection(y, p, 16, rope)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = L.qkv_heads_fused(y, p, 16, rope)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    _qkv_bitwise(got, want, torch.bfloat16)
+    for bad in (rope[:, :575], rope.double(), rope[..., :32],
+                rope.transpose(1, 2).contiguous().transpose(1, 2)):
+        with pytest.raises(ValueError, match="rotary table"):
+            L.qkv_heads_fused(y, p, 16, bad)
+
+
+# (rows, h, hp): EVA-02-L/14's lam batch padded as served, MSC-sized rows,
+# a hidden with no padding, the tiny tower's odd 341 padded to 344, one
+# row, the widest (4,096) and a width of one; hp a whole number of 16-byte
+# vectors in both dtypes (models/params.pad_swiglu)
+GATE_SHAPES = [(2308, 2730, 2736), (808, 2730, 2736), (5, 2736, 2736),
+               (7, 341, 344), (1, 5, 8), (3, 4096, 4096), (2, 1, 8)]
+
+
+def _gate_inputs(gen, rows, h, hp, dtype):
+    from excel_tpu_torch.models import layers as L
+
+    u = torch.randn((rows, 2 * hp), device="cuda", generator=gen)
+    bias = 0.1 * torch.randn(2 * hp, device="cuda", generator=gen)
+    u[:, h:hp] = 0.0
+    u[:, hp + h:] = 0.0
+    bias[h:hp] = 0.0
+    bias[hp + h:] = 0.0
+    ln = {"scale": 1.0 + 0.1 * torch.randn(h, device="cuda", generator=gen),
+          "bias": 0.1 * torch.randn(h, device="cuda", generator=gen)}
+    return L, u.to(dtype), bias.to(dtype), ln
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("rows,h,hp", GATE_SHAPES)
+def test_swiglu_gate_kernel(gen, rows, h, hp, dtype):
+    """The gate and sub-LayerNorm against its plain version on the card
+    (`swiglu_gate`: PyTorch's bias add, silu, product and `layer_norm`)
+    within the LayerNorm kernel's bound (`_ln_close`: the two means and
+    rsqrts are sums in another order), the padding columns exactly 0, one
+    launch a call, the same bits twice."""
+    L, u, bias, ln = _gate_inputs(gen, rows, h, hp, dtype)
+    with launches() as counts:
+        got = L.swiglu_gate_fused(u, bias, ln)
+        again = L.swiglu_gate_fused(u, bias, ln)
+    want = L.swiglu_gate(u, bias, ln)
+    torch.cuda.synchronize()
+    assert counts == {build.typed("excel_swiglu_gate", dtype): 2}
+    assert got.dtype == dtype and got.shape == (rows, hp)
+    assert torch.equal(got, again)
+    assert not got[:, h:].any()
+    if h > 1:
+        _ln_close(got[:, :h], want[:, :h])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_swiglu_gate_kernel_batched_and_side_stream(gen, dtype):
+    """A [B, N, 2 hp] product on a side stream: the bits of the flat
+    launch on the default stream."""
+    L, u, bias, ln = _gate_inputs(gen, 2 * 577, 2730, 2736, dtype)
+    want = L.swiglu_gate_fused(u, bias, ln)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got_b = L.swiglu_gate_fused(u.view(2, 577, -1), bias, ln)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert got_b.shape == (2, 577, 2736)
+    assert torch.equal(got_b.view(want.shape), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_swiglu_gate_kernel_takes_16_byte_rows_only(gen, dtype):
+    """The unpadded hidden (2,730: 5,460 bytes a bf16 row) and a product
+    one element past a 16-byte boundary are refused before a launch."""
+    L, u, bias, ln = _gate_inputs(gen, 4, 2730, 2730, dtype)
+    with launches() as counts:
+        with pytest.raises(ValueError, match="16-byte"):
+            L.swiglu_gate_fused(u, bias, ln)
+        _, u, bias, ln = _gate_inputs(gen, 4, 2730, 2736, dtype)
+        flat = torch.empty(u.numel() + 1, device="cuda", dtype=dtype)
+        shifted = flat[1:].view(u.shape).copy_(u)
+        assert shifted.data_ptr() % 16
+        with pytest.raises(ValueError, match="16-byte"):
+            L.swiglu_gate_fused(shifted, bias, ln)
+    assert counts == {}
+
+
+def test_swiglu_gate_kernel_refuses_what_it_does_not_take(gen):
+    L, u, bias, ln = _gate_inputs(gen, 4, 341, 344, torch.bfloat16)
+    with pytest.raises(ValueError, match="h <= hp"):
+        L.swiglu_gate_fused(u[:, :680].contiguous(), bias[:680], ln)
+    with pytest.raises(ValueError, match="contiguous"):
+        L.swiglu_gate_fused(u.t().contiguous().t(), bias, ln)
+    with pytest.raises(ValueError, match="bias"):
+        L.swiglu_gate_fused(u, bias[:687], ln)
+    with pytest.raises(NotImplementedError):
+        L.swiglu_gate_fused(u.half(), bias, ln)
+    wide = torch.zeros((2, 2 * 4104), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="4096"):
+        L.swiglu_gate_fused(wide, wide[0], {
+            "scale": torch.ones(4104, device="cuda"),
+            "bias": torch.zeros(4104, device="cuda")})
+
+
+# launches of one vision pass by C entry point, at 17 tokens, by tower:
+# ViT-B/16 and ViT-H/14 as before EVA-02 came (12 / 32 qkv head splits,
+# 7 + 5 / 27 + 5 attention kernels, 2L + 2 LayerNorms); EVA-02-L/14: 24
+# rotating head splits, 19 + 5 attention kernels, 24 gates, and 78
+# LayerNorms (no ln_pre: 2L - 1 residual, block 0's ln_1, ln_post, and an
+# ln_inner a context: 19 + 2 x 5)
+PASS_LAUNCHES = {
+    "openai-vit-b-16": {"qkv_heads": 12, "plain_attention": 7,
+                        "surgery_attention": 5, "layer_norm": 26},
+    "openclip-vit-h-14": {"qkv_heads": 32, "plain_attention": 27,
+                          "surgery_attention": 5, "layer_norm": 66},
+    "eva02-clip-l-14-336": {"qkv_heads_rope": 24, "plain_attention": 19,
+                            "surgery_attention": 5, "layer_norm": 78,
+                            "swiglu_gate": 24},
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("tower", sorted(PASS_LAUNCHES))
+def test_vision_forward_launches_by_entry_point(gen, tower, dtype):
+    """One pass at full width and depth on a small image (17 tokens,
+    seeded weights served as the CLIs serve them) launches exactly
+    PASS_LAUNCHES[tower] a pass; EVA-02's outputs within 1e-5 (fp32) or
+    0.05 (bf16: the LayerNorms' sums in another order move a bf16 ulp,
+    2^-8, here and there through 24 blocks) of their largest magnitude
+    of the same pass through the plain versions of its two new kernels
+    (bf16 reads 0.021 in `feats`)."""
+    import dataclasses
+
+    from excel_tpu_torch.config import voc_config, with_backbone
+    from excel_tpu_torch.models import clip as clip_mod
+    from excel_tpu_torch.models import layers as L
+    from excel_tpu_torch.models.params import (cast_matmul_weights,
+                                               pad_swiglu)
+    from portbench.harness import weights as W
+    from portbench.harness import weights_eva02
+
+    cfg = with_backbone(voc_config(), tower).clip
+    cfg = dataclasses.replace(cfg, image_size=4 * cfg.patch_size,
+                              compute_dtype=dtype)
+    draw = weights_eva02 if cfg.block == "eva02" else W
+    params = pad_swiglu(draw.clip_visual(cfg, 31, "cuda"))
+    if dtype == torch.bfloat16:
+        params = cast_matmul_weights(params, dtype)
+    images = torch.randn((2, cfg.image_size, cfg.image_size, 3),
+                         device="cuda", generator=gen)
+    with launches() as counts:
+        got = clip_mod.vision_forward(params, images, cfg, attn_mode="mean")
+    want_counts = {build.typed("excel_" + k, dtype): v
+                   for k, v in PASS_LAUNCHES[tower].items()}
+    assert counts == want_counts
+    if cfg.block != "eva02":
+        return
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(L, "qkv_heads_fused", L.qkv_projection)
+        mp.setattr(L, "swiglu_gate_fused", L.swiglu_gate)
+        want = clip_mod.vision_forward(params, images, cfg, attn_mode="mean")
+    torch.cuda.synchronize()
+    tol = 1e-5 if dtype == torch.float32 else 0.05
+    for key in ("projected", "attn", "feats"):
+        err = (got[key].float() - want[key].float()).abs().max() \
+            / want[key].float().abs().max()
+        assert float(err) <= tol, (key, float(err))
