@@ -1540,6 +1540,55 @@ def check_swiglu_gate() -> dict:
     return {"swiglu_gate": dict(rec, max_abs_err=worst)}
 
 
+# the encoder MLP's fc bias add and activation (csrc/fc_act.cu), (B, N,
+# hidden, activation): ViT-B/16's lam batch (QuickGELU) and ViT-H/14's
+# (exact GELU)
+FC_ACT_SHAPES = ((4, 401, 3072, "quick_gelu"), (4, 577, 5120, "gelu"))
+
+
+def check_fc_act() -> dict:
+    """The encoder MLP's fc bias add and activation (csrc/fc_act.cu) at
+    ViT-B/16's (QuickGELU) and ViT-H/14's (exact GELU) lam batch, bf16 and
+    fp32: `fc_act_fused` against the plain chain on the card (`u + b`,
+    then `ACTIVATIONS[act]`) bit for bit, two launches bit for bit; device
+    times over 200 launches of the kernel, of the plain chain, and of
+    PyTorch's shortest route (`u + b`, `F.gelu`; timed only: the port does
+    not call it) beside the bytes bound. Returns the record of ViT-H in
+    bf16."""
+    from excel_tpu_torch.models import layers as L
+
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    rec = None
+    for (b, n, hidden, act), dtype in ((shape, dtype) for dtype in (
+            torch.bfloat16, torch.float32) for shape in FC_ACT_SHAPES):
+        u = (2.0 * torch.randn((b, n, hidden), device="cuda",
+                               generator=gen)).to(dtype)
+        bias = (0.1 * torch.randn(hidden, device="cuda",
+                                  generator=gen)).to(dtype)
+        got = L.fc_act_fused(u, bias, act)
+        again = L.fc_act_fused(u, bias, act)
+        want = L.ACTIVATIONS[act](u + bias)
+        if not (torch.equal(got, want) and torch.equal(again, want)):
+            raise AssertionError(f"fc_act {(b, n, hidden)} {act} {dtype}: "
+                                 "outputs differ from the plain chain's")
+        kernel_ms = _kernel_ms(lambda: L.fc_act_fused(u, bias, act),
+                               "fc_act_kernel")
+        plain_ms = _call_ms(lambda: L.ACTIVATIONS[act](u + bias), 200)
+        lib_ms = _call_ms(lambda: F.gelu(u + bias), 200)
+        bnd, by = bound_ms(0, 2 * u.numel() * u.element_size()
+                           + bias.numel() * bias.element_size())
+        log(f"kernel fc_act (none: the JAX package leaves the bias add and "
+            f"the activation to XLA) [{b * n}, {hidden}] {act} "
+            f"{str(dtype).split('.')[-1]}: bit for bit with u + b then "
+            f"{act}, two launches bit for bit; device kernel_ms="
+            f"{kernel_ms:.4f} plain_ms={plain_ms:.4f} library_ms (u + b, "
+            f"F.gelu)={lib_ms:.4f} bound_ms={bnd:.4f} ({by})")
+        if rec is None and act == "gelu":
+            rec = dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=bnd, bound_by=by, max_abs_err=0.0)
+    return {"fc_act": rec}
+
+
 # VOC-typical label extents (h, w): landscape and portrait images
 VOC_EXTENTS = [(375, 500), (333, 500), (500, 375), (375, 500), (366, 500),
                (500, 333), (375, 500), (353, 500)]
@@ -1627,17 +1676,19 @@ def _times(table: dict, n: int) -> dict:
 # qkv bias add and head split in every block, blocks 0-6 (plain
 # attention), blocks 7-11 (surgery attention), the LayerNorm kernel
 # 2L + 2 = 26 times (ln_pre, block 0's ln_1 and ln_post
-# alone, the other 2L - 1 = 23 with the residual add before them), then
-# PAR: fp32, 20 steps; fast, pad-clamp of the images (fp32) and of the
-# masks (bf16), the affinity's slab kernel, and one resident launch of all
-# 20 steps; no backward
+# alone, the other 2L - 1 = 23 with the residual add before them), the
+# MLP's fc bias add and activation in every block, then PAR: fp32, 20
+# steps; fast, pad-clamp of the images (fp32) and of the masks (bf16), the
+# affinity's slab kernel, and one resident launch of all 20 steps; no
+# backward
 LAUNCHES_PER_BATCH = {
     "fp32": {"excel_qkv_heads_f32": 12, "excel_plain_attention_f32": 7,
              "excel_surgery_attention_f32": 5, "excel_layer_norm_f32": 26,
-             "excel_par_diffuse_f32": 20},
+             "excel_fc_act_f32": 12, "excel_par_diffuse_f32": 20},
     "fast": {"excel_qkv_heads_bf16": 12, "excel_plain_attention_bf16": 7,
              "excel_surgery_attention_bf16": 5, "excel_layer_norm_bf16": 26,
-             "excel_pad_clamp_f32": 1, "excel_pad_clamp_bf16": 1,
+             "excel_fc_act_bf16": 12, "excel_pad_clamp_f32": 1,
+             "excel_pad_clamp_bf16": 1,
              "excel_par_affinity_bf16": 1,
              "excel_par_diffuse_valid_resident_bf16": 1},
 }
@@ -1645,7 +1696,7 @@ LAUNCHES_PER_BATCH = {
 ENCODER_KERNELS = {
     preset: tuple(k for k in LAUNCHES_PER_BATCH[preset]
                   if "attention" in k or "layer_norm" in k
-                  or "qkv_heads" in k)
+                  or "qkv_heads" in k or "fc_act" in k)
     for preset in LAUNCHES_PER_BATCH}
 # the fast preset's PAR
 FAST_PAR = ("excel_pad_clamp_f32", "excel_pad_clamp_bf16",
@@ -1713,16 +1764,17 @@ def phase_slice(preset: str, n_samples: int = 32, batch: int = 16):
 # voc-eva02l14-fast lam_sweep cells' programs) and their encoder launches
 # a batch, beside the fast preset's PAR launches: OpenCLIP ViT-H/14, 32
 # qkv head splits, 27 plain and 5 surgery blocks at D = 80, 2L + 2 = 66
-# LayerNorms; EVA02-CLIP-L/14-336, 24 rotating head splits, 19 plain and
-# 5 surgery blocks at D = 64, 24 SwiGLU gates, and 78 LayerNorms (no
-# ln_pre: block 0's ln_1, 2L - 1 with the residual add, ln_post, and a
-# sub-LayerNorm a context: 19 + 2 x 5)
+# LayerNorms, 32 fc_act passes; EVA02-CLIP-L/14-336, 24 rotating head
+# splits, 19 plain and 5 surgery blocks at D = 64, 24 SwiGLU gates, and 78
+# LayerNorms (no ln_pre: block 0's ln_1, 2L - 1 with the residual add,
+# ln_post, and a sub-LayerNorm a context: 19 + 2 x 5), no fc_act
 TOWER_SAMPLES, TOWER_B = 8, 4
 TOWER_LAUNCHES = {
     "openclip-vit-h-14": {"excel_qkv_heads_bf16": 32,
                           "excel_plain_attention_bf16": 27,
                           "excel_surgery_attention_bf16": 5,
-                          "excel_layer_norm_bf16": 66},
+                          "excel_layer_norm_bf16": 66,
+                          "excel_fc_act_bf16": 32},
     "eva02-clip-l-14-336": {"excel_qkv_heads_rope_bf16": 24,
                             "excel_plain_attention_bf16": 19,
                             "excel_surgery_attention_bf16": 5,
@@ -2333,8 +2385,8 @@ def phase_msc(preset: str):
             f"{len(samples) / dt:.3f} miou={scores['miou']:.4f} pAcc="
             f"{scores['pAcc']:.4f} launches=" + json.dumps(counts))
         # one encoder pass a scale (the flips in the same batch): 48 qkv
-        # head splits, 28 plain, 20 surgery and 104 LayerNorm launches a
-        # batch, and with the CRF its message passes
+        # head splits, 28 plain, 20 surgery, 104 LayerNorm and 48 fc_act
+        # launches a batch, and with the CRF its message passes
         want = {k: LAUNCHES_PER_BATCH[preset][k] * len(MSC_SCALES)
                 * n_batches for k in ENCODER_KERNELS[preset]}
         if crf:
@@ -4879,6 +4931,8 @@ SOURCES = {
                         "excel_qkv_heads_rope_bf16")),
     "swiglu_gate": ("swiglu_gate.cu", "none",
                     ("excel_swiglu_gate_f32", "excel_swiglu_gate_bf16")),
+    "fc_act": ("fc_act.cu", "none",
+               ("excel_fc_act_f32", "excel_fc_act_bf16")),
 }
 
 
@@ -4900,6 +4954,7 @@ def main() -> int:
     records.update(check_qkv_heads())
     records.update(check_qkv_heads_rope())
     records.update(check_swiglu_gate())
+    records.update(check_fc_act())
     for preset, bound in (("fp32", MIN_LABEL_AGREEMENT),
                           ("fast", MIN_FAST_LABEL_AGREEMENT)):
         _, params, text, cfg, samples = phase_slice(preset)

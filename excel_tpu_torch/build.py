@@ -65,6 +65,7 @@ _LAYER_NORM = [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P]
 _QKV_HEADS = [_P, _P, _P, _I, _I, _I, _I, _P]
 _QKV_HEADS_ROPE = [_P, _P, _P, _P, _I, _I, _I, _I, _P]
 _SWIGLU_GATE = [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P]
+_FC_ACT = [_P, _P, _P, _I, _I, _I, _P]
 # source name -> {C entry point: argument types}; every entry point returns
 # the cudaError_t of its launch as an int
 ENTRY_POINTS = {
@@ -90,6 +91,7 @@ ENTRY_POINTS = {
                   "excel_qkv_heads_rope_bf16": _QKV_HEADS_ROPE},
     "swiglu_gate": {"excel_swiglu_gate_f32": _SWIGLU_GATE,
                     "excel_swiglu_gate_bf16": _SWIGLU_GATE},
+    "fc_act": {"excel_fc_act_f32": _FC_ACT, "excel_fc_act_bf16": _FC_ACT},
 }
 # C entry point -> its source name
 _SOURCE = {symbol: name for name, entries in ENTRY_POINTS.items()

@@ -19,7 +19,8 @@ projections (fp32 accumulation, rounded to bf16) and `projected` are bf16;
 LayerNorm runs in fp32 and casts back (in the vision tower in one kernel
 with the residual add before it: `layers.add_layer_norm_fused`); the
 attention kernels keep their softmax and the fp32 head-mean accumulator of
-the "mean" mode.
+the "mean" mode; each MLP's fc bias add and activation are one pass
+(`mlp`: `layers.fc_act_fused`), in both towers.
 """
 from __future__ import annotations
 
@@ -28,10 +29,11 @@ import torch
 from ..config import ClipConfig
 from ..ops.labels import scale_and_translate
 from ..utils import profiling
-from .layers import (ACTIVATIONS, add_layer_norm_fused, attention_fused,
-                     external_feature_attention, layer_norm,
-                     layer_norm_fused, mlp, multi_head_attention,
-                     rope_table, surgery_attention_fused, swiglu)
+from .layers import (ACTIVATIONS, _product, add_layer_norm_fused,
+                     attention_fused, external_feature_attention,
+                     fc_act_fused, layer_norm, layer_norm_fused, linear,
+                     multi_head_attention, rope_table,
+                     surgery_attention_fused, swiglu)
 
 
 def interpolate_pos_embedding(pos: torch.Tensor,
@@ -72,6 +74,14 @@ def _patch_embed(images: torch.Tensor, w: torch.Tensor,
     x = x.reshape(b, gh, patch, gw, patch, c).permute(0, 1, 3, 5, 2, 4)
     x = x.reshape(b, gh, gw, c * patch * patch)
     return torch.matmul(x, w.reshape(w.shape[0], -1).t())
+
+
+def mlp(x: torch.Tensor, p: dict, act: str) -> torch.Tensor:
+    """`layers.mlp` as the towers run it: the fc product, its bias and
+    the activation act in one pass (`fc_act_fused`: one kernel on the
+    card), proj."""
+    return linear(fc_act_fused(_product(x, p["fc"]), p["fc"]["b"], act),
+                  p["proj"])
 
 
 def _block_mlp(h: torch.Tensor, blk: dict, act: str,

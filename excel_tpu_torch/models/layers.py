@@ -22,6 +22,9 @@ Numerics as in the JAX package, for float32 and bfloat16 activations:
   none) is 0.5 x (1 + erf(x / sqrt 2)) formed in fp32 from the activation
   and rounded once to its type (`F.gelu`'s own rounding point for bf16
   input on the CPU and the card);
+- the encoder MLP's fc bias add and activation run through `fc_act_fused`
+  (csrc/fc_act.cu on the card, the same ops and roundings); the LVC head's
+  decoder keeps `mlp`, which autograd records;
 - EVA-02's towers (none in the JAX package) add three parts, each formed
   in fp32 from the activation type and rounded once to it, as PyTorch's
   own ops round them: the 2D rotation of q and k at the patch tokens
@@ -161,6 +164,52 @@ def linear(x: torch.Tensor, p: dict) -> torch.Tensor:
 def mlp(x: torch.Tensor, p: dict, act: str = "quick_gelu") -> torch.Tensor:
     """fc, the activation named by `act` (`ACTIVATIONS`), proj."""
     return linear(ACTIVATIONS[act](linear(x, p["fc"])), p["proj"])
+
+
+# csrc/fc_act.cu's code of each activation
+_FC_ACT_CODE = {"quick_gelu": 0, "gelu": 1}
+
+
+def fc_act_fused(u: torch.Tensor, bias: torch.Tensor,
+                 act: str) -> torch.Tensor:
+    """The fc bias add and the activation `act` on the fc product u
+    [..., hidden] (`_product`), as the encoder's MLP runs them: on a CPU
+    tensor `ACTIVATIONS[act](u + bias)` with the bias in u's type (`mlp`'s
+    own steps), on a CUDA tensor one launch of csrc/fc_act.cu (the same
+    bits), or a raise: another device or dtype, an unknown act, a tensor
+    that is not contiguous or not 16-byte aligned, a hidden that is no
+    whole number of 16-byte vectors, a bias of another shape, or an input
+    that autograd records (the kernel has no backward)."""
+    if act not in _FC_ACT_CODE:
+        raise ValueError(f"fc_act: activation {act!r}; it takes "
+                         f"{', '.join(_FC_ACT_CODE)}")
+    if u.device.type == "cpu":
+        return ACTIVATIONS[act](u + bias.to(u.dtype))
+    if u.device.type != "cuda":
+        raise ValueError(f"fc_act kernel: unsupported device {u.device}")
+    if u.dtype not in build.SUFFIX:
+        raise NotImplementedError(f"{u.dtype} fc_act: the kernel takes "
+                                  "float32 and bfloat16")
+    bias = bias.to(u.dtype)
+    if torch.is_grad_enabled() and (u.requires_grad or bias.requires_grad):
+        raise ValueError("fc_act kernel: no backward; run it under "
+                         "torch.no_grad()")
+    hidden = u.shape[-1]
+    if (not u.is_contiguous() or bias.shape != (hidden,)
+            or bias.device != u.device or not bias.is_contiguous()):
+        raise ValueError(f"fc_act kernel: a contiguous [..., {hidden}] "
+                         f"product and a contiguous [{hidden}] bias on "
+                         f"{u.device}, got {tuple(u.shape)} and "
+                         f"{tuple(bias.shape)}")
+    out = torch.empty_like(u)
+    if (hidden * u.element_size() % 16
+            or any(t.data_ptr() % 16 for t in (u, bias, out))):
+        raise ValueError(f"fc_act kernel: 16-byte rows and pointers only, "
+                         f"got a hidden of {hidden} {u.dtype} elements")
+    build.launch(build.typed("excel_fc_act", u.dtype), u, u.data_ptr(),
+                 bias.data_ptr(), out.data_ptr(), u.numel() // hidden,
+                 hidden, _FC_ACT_CODE[act])
+    return out
 
 
 def swiglu_gate(u: torch.Tensor, bias: torch.Tensor, ln: dict,

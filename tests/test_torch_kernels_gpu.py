@@ -1458,17 +1458,155 @@ def test_swiglu_gate_kernel_refuses_what_it_does_not_take(gen):
             "bias": torch.zeros(4104, device="cuda")})
 
 
+# -- the encoder MLP's fc bias add and activation (csrc/fc_act.cu) ----------
+
+# (B, N, hidden): ViT-B/16's lam batch, ViT-H/14's, and ragged ones: 7
+# rows at ViT-H's hidden, and a hidden of 33 bf16 / 66 fp32 vectors (no
+# whole number of a block's 128)
+FC_ACT_SHAPES = [(4, 401, 3072), (4, 577, 5120), (1, 7, 5120), (3, 5, 264)]
+
+
+def _fc_act_inputs(gen, b, n, hidden, dtype):
+    """The fc product at 4x the unit scale, its first 65,536 elements every
+    bf16 bit pattern (NaN and the infinities as 0, clamped to +-128, so
+    that exp(-1.702 z) overflows and underflows and the subnormals occur),
+    and a bias at 0.1x the unit scale."""
+    from excel_tpu_torch.models import layers as L
+
+    u = 4.0 * torch.randn((b, n, hidden), device="cuda", generator=gen)
+    edge = torch.arange(-32768, 32768, device="cuda", dtype=torch.int32)
+    edge = (edge.to(torch.int16).view(torch.bfloat16).float()
+            .nan_to_num(0.0, 0.0, 0.0).clamp(-128.0, 128.0))
+    flat = u.view(-1)
+    k = min(flat.numel(), edge.numel())
+    flat[:k] = edge[:k]
+    bias = 0.1 * torch.randn(hidden, device="cuda", generator=gen)
+    return L, u.to(dtype), bias.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+@pytest.mark.parametrize("b,n,hidden", FC_ACT_SHAPES)
+def test_fc_act_kernel_bitwise(gen, b, n, hidden, act, dtype):
+    """The kernel against its plain version on the card (PyTorch's bias
+    add, then `ACTIVATIONS[act]`: QuickGELU's seven eager passes or
+    F.gelu) bit for bit, one launch a call, the same bits twice."""
+    L, u, bias = _fc_act_inputs(gen, b, n, hidden, dtype)
+    with launches() as counts:
+        got = L.fc_act_fused(u, bias, act)
+        again = L.fc_act_fused(u, bias, act)
+    want = L.ACTIVATIONS[act](u + bias)
+    torch.cuda.synchronize()
+    assert counts == {build.typed("excel_fc_act", dtype): 2}
+    assert got.dtype == dtype and got.shape == (b, n, hidden)
+    assert torch.equal(got, again)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+def test_fc_act_kernel_bitwise_at_every_bf16_value(gen, act):
+    """In bf16 the output is a function of z = T(u + b) alone: with a zero
+    bias, every finite bf16 value of u (as a [256, 256] product) gives the
+    plain chain's bits, compared as 16-bit words (the zeros' signs too)."""
+    from excel_tpu_torch.models import layers as L
+
+    u = torch.arange(-32768, 32768, device="cuda", dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16).reshape(256, 256)
+    u = torch.where(u.isfinite(), u, torch.zeros_like(u))
+    bias = torch.zeros(256, device="cuda", dtype=torch.bfloat16)
+    got = L.fc_act_fused(u, bias, act)
+    want = L.ACTIVATIONS[act](u + bias)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_fc_act_kernel_flat_and_on_a_side_stream(gen, dtype):
+    """A [rows, hidden] product on a side stream, and an fp32 bias that
+    the wrapper rounds to the product's type: the bits of the batched
+    launch on the default stream."""
+    L, u, bias = _fc_act_inputs(gen, 2, 577, 5120, dtype)
+    want = L.fc_act_fused(u, bias, "gelu")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = L.fc_act_fused(u.view(-1, 5120), bias.float(), "gelu")
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(want.shape), want)
+
+
+def test_fc_act_kernel_refuses_what_it_does_not_take(gen):
+    L, u, bias = _fc_act_inputs(gen, 2, 9, 256, torch.bfloat16)
+    with launches() as counts:
+        with pytest.raises(ValueError, match="activation"):
+            L.fc_act_fused(u, bias, "relu")
+        with pytest.raises(NotImplementedError):
+            L.fc_act_fused(u.half(), bias, "gelu")
+        with pytest.raises(ValueError, match="contiguous"):
+            L.fc_act_fused(u.transpose(0, 1), bias, "gelu")
+        with pytest.raises(ValueError, match="bias"):
+            L.fc_act_fused(u, bias[:255], "gelu")
+        with pytest.raises(ValueError, match="16-byte"):
+            L.fc_act_fused(u[..., :250].contiguous(), bias[:250], "gelu")
+        flat = torch.empty(u.numel() + 1, device="cuda", dtype=u.dtype)
+        shifted = flat[1:].view(u.shape).copy_(u)
+        with pytest.raises(ValueError, match="16-byte"):
+            L.fc_act_fused(shifted, bias, "gelu")
+        with pytest.raises(ValueError, match="backward"):
+            L.fc_act_fused(u.float().requires_grad_(), bias, "gelu")
+        with torch.no_grad():
+            L.fc_act_fused(u.float().requires_grad_(), bias, "gelu")
+    assert counts == {"excel_fc_act_f32": 1}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("tower", ["openai-vit-b-16", "openclip-vit-h-14"])
+def test_vision_forward_keeps_the_mlp_chains_bits(gen, tower, dtype):
+    """A pass at full width and depth on a small image (ViT-B/16 at 64 px,
+    ViT-H/14 at 56 px: 17 tokens; seeded weights) through the fc_act
+    kernel gives the bits of the chain it replaced on the card
+    (`layers.mlp`: PyTorch's bias add and activation passes)."""
+    import dataclasses
+
+    from excel_tpu_torch.config import voc_config, with_backbone
+    from excel_tpu_torch.models import clip as clip_mod
+    from excel_tpu_torch.models import layers as L
+    from portbench.harness import weights as W
+
+    cfg = with_backbone(voc_config(), tower).clip
+    cfg = dataclasses.replace(cfg, image_size=4 * cfg.patch_size,
+                              compute_dtype=dtype)
+    params = W.clip_visual(cfg, 31, "cuda")
+    images = torch.randn((2, cfg.image_size, cfg.image_size, 3),
+                         device="cuda", generator=gen)
+    got = clip_mod.vision_forward(params, images, cfg, attn_mode="mean")
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(clip_mod, "mlp", L.mlp)
+        want = clip_mod.vision_forward(params, images, cfg, attn_mode="mean")
+    torch.cuda.synchronize()
+    for key in ("projected", "attn", "feats"):
+        assert got[key].dtype == want[key].dtype, key
+        assert torch.equal(got[key], want[key]), key
+
+
 # launches of one vision pass by C entry point, at 17 tokens, by tower:
 # ViT-B/16 and ViT-H/14 as before EVA-02 came (12 / 32 qkv head splits,
-# 7 + 5 / 27 + 5 attention kernels, 2L + 2 LayerNorms); EVA-02-L/14: 24
-# rotating head splits, 19 + 5 attention kernels, 24 gates, and 78
-# LayerNorms (no ln_pre: 2L - 1 residual, block 0's ln_1, ln_post, and an
-# ln_inner a context: 19 + 2 x 5)
+# 7 + 5 / 27 + 5 attention kernels, 2L + 2 LayerNorms) and an fc_act pass
+# a block (12 / 32); EVA-02-L/14: 24 rotating head splits, 19 + 5
+# attention kernels, 24 gates, and 78 LayerNorms (no ln_pre: 2L - 1
+# residual, block 0's ln_1, ln_post, and an ln_inner a context: 19 + 2 x
+# 5), and no fc_act (its SwiGLU's gate takes fc's bias)
 PASS_LAUNCHES = {
     "openai-vit-b-16": {"qkv_heads": 12, "plain_attention": 7,
-                        "surgery_attention": 5, "layer_norm": 26},
+                        "surgery_attention": 5, "layer_norm": 26,
+                        "fc_act": 12},
     "openclip-vit-h-14": {"qkv_heads": 32, "plain_attention": 27,
-                          "surgery_attention": 5, "layer_norm": 66},
+                          "surgery_attention": 5, "layer_norm": 66,
+                          "fc_act": 32},
     "eva02-clip-l-14-336": {"qkv_heads_rope": 24, "plain_attention": 19,
                             "surgery_attention": 5, "layer_norm": 78,
                             "swiglu_gate": 24},
