@@ -30,11 +30,12 @@ Phases, each printing its own lines; any failure raises and exits non-zero:
    case again for two launches bit for bit and mode acc == mode out + the
    accumulator bit for bit; every mode of both
    attention kernels, surgery with and without ex, at ragged and tiny token
-   counts (1, 15, 17, 63, 65) with D = 64 and 32; both attention kernels
-   at OpenCLIP ViT-H/14's sweep shape (D = 80, 16 heads, 577 tokens, B=4:
-   plain none and out, surgery acc with and without ex), timed against
-   bound_ms and plain none against SDPA (the final JSON line's
-   `attention_hd80`); row 5's kernel at
+   counts (1, 15, 17, 63, 65) with D = 64, 32 and 72; both attention
+   kernels at OpenCLIP ViT-H/14's sweep shape (D = 80, 16 heads, 577
+   tokens, B=4) and SigLIP So400m/14's (D = 72, 16 heads, 729 tokens,
+   B=4): plain none, out and acc, surgery acc with and without ex, timed
+   against bound_ms and plain none against SDPA (the final JSON lines
+   `attention_hd80` and `attention_hd72`); row 5's kernel at
    the mean-field CRF's shapes (72 offsets up to 55 px; [4, 21, 384, 512],
    [2, 81, 480, 640], [16, 4, 384, 512]) through its fp32 and its bf16
    entry point, both bit for bit; the seg loss's upsample backward at the
@@ -329,8 +330,9 @@ TOL_UPSAMPLE = 2e-6
 # within TOL_LN of the output's largest magnitude, bf16 within one bf16 ulp
 # of the element + LN_BF16_CANCEL of the output's largest magnitude (where
 # the terms cancel), with at least LN_BF16_MIN_EQUAL of the elements equal
-# (tests/test_torch_kernels_gpu.py's bounds and their reasons)
-LN_SHAPES = ((4, 401, 768), (4, 577, 1280))
+# (tests/test_torch_kernels_gpu.py's bounds and their reasons); and
+# SigLIP So400m/14's (width 1152, 4.5 vectors a lane in bf16)
+LN_SHAPES = ((4, 401, 768), (4, 577, 1280), (4, 729, 1152))
 TOL_LN = 2e-6
 LN_BF16_CANCEL = 2.0 ** -20
 LN_BF16_MIN_EQUAL = 0.99
@@ -615,15 +617,20 @@ TIMED_CASE = {"plain_attention": ("out", 401, 16, False),
 # token counts of the MSC scales 0.7, 1.2 and 1.5 of 320 px (1.0: N_TOK)
 MSC_TOKENS = (197, 577, 901)
 EDGE_TOKENS = (1, 15, 17, 63, 65)
-# OpenCLIP ViT-H/14's sweep at 336 px (voc-vith14-fast.lam_sweep): a batch
-# of 4 images of 577 tokens, 16 heads of 80; (kernel, mode, with ex): plain
-# none (blocks 0-25) and out (block 26), surgery acc (blocks 27-31), and
-# surgery acc with ex. Each case's record (dtype, times, bound) is kept in
-# HD80_RECORDS and printed in the final JSON line
-HD80_B, HD80_HEADS, HD80_TOKENS = 4, 16, 577
-HD80_CASES = (("plain", "none", False), ("plain", "out", False),
-              ("surgery", "acc", False), ("surgery", "acc", True))
-HD80_RECORDS: list = []
+# the large towers' lam sweeps, a batch of 4 images in 16 heads: {head dim:
+# tokens}, OpenCLIP ViT-H/14 at 336 px (voc-vith14-fast.lam_sweep, 577
+# tokens of 80) and SigLIP So400m/14 at 378 px (voc-siglip-so400m14-fast.
+# lam_sweep, 729 tokens of 72: D = 80's tensor-core tiles with the tenth
+# 16-byte chunk zero-filled, the FMA kernels' one-column tail). (kernel,
+# mode, with ex): plain none (the single blocks), out (the window's first
+# block) and acc, surgery acc (the surgery blocks), and surgery acc with
+# ex. Each case's record (dtype, times, bound) is kept in SWEEP_RECORDS
+# and printed in the final JSON lines `attention_hd80` and `attention_hd72`
+SWEEP_B, SWEEP_HEADS, SWEEP_TOKENS = 4, 16, {80: 577, 72: 729}
+SWEEP_CASES = (("plain", "none", False), ("plain", "out", False),
+               ("plain", "acc", False), ("surgery", "acc", False),
+               ("surgery", "acc", True))
+SWEEP_RECORDS: dict = {d: [] for d in SWEEP_TOKENS}
 
 
 def attention_case(gen, dtype, name, kind, mode, n, b, with_ex,
@@ -683,9 +690,10 @@ def check_attention(gen, dtype) -> dict:
     kernel at N=901 with ex; both run the train step's modes at its B=4,
     the surgery kernel with ex among them, and the MSC batch's: no weights,
     no ex, N = 197, 577 and 901 at 2 x 4 images), OpenCLIP ViT-H/14's
-    sweep at D = 80 (HD80_CASES), then every mode at the EDGE_TOKENS with
-    D = 64 and 32. Returns {kernel name: record} for the JSON table, one
-    per Pallas row, timed at TIMED_CASE."""
+    sweep at D = 80 and SigLIP So400m/14's at D = 72 (SWEEP_CASES), then
+    every mode at the EDGE_TOKENS with D = 64, 32 and 72. Returns {kernel
+    name: record} for the JSON table, one per Pallas row, timed at
+    TIMED_CASE."""
     from excel_tpu_torch.models.attention_kernels import (
         fused_plain_attention, fused_surgery_attention,
         plain_attention_reference, surgery_attention_reference)
@@ -727,21 +735,23 @@ def check_attention(gen, dtype) -> dict:
         if (mode, n, b, with_ex) == TIMED_CASE[name.removesuffix(suffix)]:
             rec.update({k: got[k] for k in ("ms", "plain_ms", "library_ms",
                                             "bound_ms", "bound_by")})
-    # OpenCLIP ViT-H/14's sweep (16 heads of 80, 577 tokens, B=4): timed
-    # against bound_ms (plain none against SDPA too), kept apart from the
-    # table's rows in HD80_RECORDS
-    for kind, mode, with_ex in HD80_CASES:
-        got = attention_case(gen, dtype, f"{kind}_attention{suffix}", kind,
-                             mode, HD80_TOKENS, HD80_B, with_ex,
-                             heads=HD80_HEADS, d=80)
-        HD80_RECORDS.append(dict(got, kind=kind, mode=mode, ex=with_ex,
-                                 dtype=str(dtype).split(".")[-1]))
+    # the large towers' sweeps (16 heads of 80 at 577 tokens, of 72 at 729,
+    # B=4): timed against bound_ms (plain none against SDPA too), kept apart
+    # from the table's rows in SWEEP_RECORDS
+    for d, n in SWEEP_TOKENS.items():
+        for kind, mode, with_ex in SWEEP_CASES:
+            got = attention_case(gen, dtype, f"{kind}_attention{suffix}",
+                                 kind, mode, n, SWEEP_B, with_ex,
+                                 heads=SWEEP_HEADS, d=d)
+            SWEEP_RECORDS[d].append(dict(got, kind=kind, mode=mode,
+                                         ex=with_ex, tokens=n,
+                                         dtype=str(dtype).split(".")[-1]))
     # ragged and tiny token counts (one key, tails of 1 and 15 rows on
-    # either side of the 16-row fragments and 64-row tiles) and D=32, every
-    # mode, surgery with and without ex; not timed
+    # either side of the 16-row fragments and 64-row tiles) and D=32 and 72,
+    # every mode, surgery with and without ex; not timed
     worst = 0.0
     for n in EDGE_TOKENS:
-        for d in (64, 32):
+        for d in (64, 32, 72):
             q, k, v = _qkv(gen, 2, n, dtype, heads=3, d=d)
             acc0 = torch.rand((2, n, n), device="cuda", generator=gen)
             ex = (torch.rand((2, n, n), device="cuda", generator=gen)
@@ -758,9 +768,10 @@ def check_attention(gen, dtype) -> dict:
                         q, k, v, acc0, mode,
                         dict(ex_attn=e, need_attn=mode != "none"),
                         "surgery " + what))
-    log(f"kernel attention{suffix} edge cases N={EDGE_TOKENS} D=64,32 B=2 H=3 "
-        f"every mode, surgery with and without ex: max_abs_err={worst:.3g} "
-        f"({tol}); two launches bit for bit; acc == out + accumulator")
+    log(f"kernel attention{suffix} edge cases N={EDGE_TOKENS} D=64,32,72 "
+        f"B=2 H=3 every mode, surgery with and without ex: "
+        f"max_abs_err={worst:.3g} ({tol}); two launches bit for bit; "
+        f"acc == out + accumulator")
     return records
 
 
@@ -1218,13 +1229,13 @@ def ln_error(got, ref, what: str = "layer_norm") -> tuple[float, float, int]:
 
 def check_layer_norm() -> dict:
     """The encoder's residual add + LayerNorm (csrc/layer_norm.cu) at
-    ViT-B/16's and ViT-H/14's lam batch, bf16 and fp32, residual and plain
-    form, against the plain version on the card (x + y, then
+    ViT-B/16's, ViT-H/14's and SigLIP's lam batch, bf16 and fp32, residual and
+    plain form, against the plain version on the card (x + y, then
     `layer_norm`): the sums bit for bit, the rows within the bounds, two
-    launches bit for bit; device times of the kernel, the plain version and
-    the library's `x + y` + `F.layer_norm` (timed only: the port does not
-    call it) beside the bytes bound. Returns the record of ViT-H's residual
-    form in bf16, with the largest error over every case."""
+    launches bit for bit; device times of the kernel, the plain version and the
+    library's `x + y` + `F.layer_norm` (timed only: the port does not call it)
+    beside the bytes bound. Returns the record of ViT-H's residual form in
+    bf16, with the largest error over every case."""
     from excel_tpu_torch.models import layers as L
 
     gen = torch.Generator(device="cuda").manual_seed(6)
@@ -1291,19 +1302,19 @@ def check_layer_norm() -> dict:
 
 
 # the encoder's qkv bias add and head split (csrc/qkv_heads.cu), (B, N, H,
-# D): ViT-B/16's lam batch and ViT-H/14's
-QKV_SHAPES = ((4, 401, 12, 64), (4, 577, 16, 80))
+# D): ViT-B/16's lam batch, ViT-H/14's and SigLIP So400m/14's
+QKV_SHAPES = ((4, 401, 12, 64), (4, 577, 16, 80), (4, 729, 16, 72))
 
 
 def check_qkv_heads() -> dict:
     """The encoder's qkv bias add and head split (csrc/qkv_heads.cu) at
-    ViT-B/16's and ViT-H/14's lam batch, bf16 and fp32: `qkv_heads_fused`
-    against its plain version `qkv_projection` on the card bit for bit, two
-    launches bit for bit; device times of the kernel alone (the wrapper's
-    product left out), the plain chain it replaced on the product (x + b,
-    chunk, three head-split copies) and PyTorch's shortest route to the
-    same buffer (x + b and one permuted copy; timed only: the port does not
-    call it) beside the bytes bound. Returns the record of ViT-H in
+    ViT-B/16's, ViT-H/14's and SigLIP's lam batch, bf16 and fp32:
+    `qkv_heads_fused` against its plain version `qkv_projection` on the card
+    bit for bit, two launches bit for bit; device times of the kernel alone
+    (the wrapper's product left out), the plain chain it replaced on the
+    product (x + b, chunk, three head-split copies) and PyTorch's shortest
+    route to the same buffer (x + b and one permuted copy; timed only: the port
+    does not call it) beside the bytes bound. Returns the record of ViT-H in
     bf16."""
     from excel_tpu_torch.models import layers as L
 
@@ -1541,20 +1552,21 @@ def check_swiglu_gate() -> dict:
 
 
 # the encoder MLP's fc bias add and activation (csrc/fc_act.cu), (B, N,
-# hidden, activation): ViT-B/16's lam batch (QuickGELU) and ViT-H/14's
-# (exact GELU)
-FC_ACT_SHAPES = ((4, 401, 3072, "quick_gelu"), (4, 577, 5120, "gelu"))
+# hidden, activation): ViT-B/16's lam batch (QuickGELU), ViT-H/14's
+# (exact GELU) and SigLIP So400m/14's (tanh GELU)
+FC_ACT_SHAPES = ((4, 401, 3072, "quick_gelu"), (4, 577, 5120, "gelu"),
+                 (4, 729, 4304, "gelu_tanh"))
 
 
 def check_fc_act() -> dict:
     """The encoder MLP's fc bias add and activation (csrc/fc_act.cu) at
-    ViT-B/16's (QuickGELU) and ViT-H/14's (exact GELU) lam batch, bf16 and
-    fp32: `fc_act_fused` against the plain chain on the card (`u + b`,
-    then `ACTIVATIONS[act]`) bit for bit, two launches bit for bit; device
-    times over 200 launches of the kernel, of the plain chain, and of
-    PyTorch's shortest route (`u + b`, `F.gelu`; timed only: the port does
-    not call it) beside the bytes bound. Returns the record of ViT-H in
-    bf16."""
+    ViT-B/16's (QuickGELU), ViT-H/14's (exact GELU) and SigLIP's (tanh GELU)
+    lam batch, bf16 and fp32: `fc_act_fused` against the plain chain on the
+    card (`u + b`, then `ACTIVATIONS[act]`) bit for bit, two launches bit for
+    bit; device times over 200 launches of the kernel, of the plain chain, and
+    of PyTorch's shortest route (`u + b`, `F.gelu`, exact or tanh; timed only:
+    the port does not call it) beside the bytes bound. Returns the record of
+    ViT-H in bf16."""
     from excel_tpu_torch.models import layers as L
 
     gen = torch.Generator(device="cuda").manual_seed(10)
@@ -1574,7 +1586,9 @@ def check_fc_act() -> dict:
         kernel_ms = _kernel_ms(lambda: L.fc_act_fused(u, bias, act),
                                "fc_act_kernel")
         plain_ms = _call_ms(lambda: L.ACTIVATIONS[act](u + bias), 200)
-        lib_ms = _call_ms(lambda: F.gelu(u + bias), 200)
+        lib_ms = _call_ms(lambda: F.gelu(
+            u + bias, approximate="tanh" if act == "gelu_tanh" else "none"),
+            200)
         bnd, by = bound_ms(0, 2 * u.numel() * u.element_size()
                            + bias.numel() * bias.element_size())
         log(f"kernel fc_act (none: the JAX package leaves the bias add and "
@@ -4992,7 +5006,8 @@ def main() -> int:
                       "library_ms": r["library_ms"]})
     log(f"total: {time.perf_counter() - t0:.1f} s")
     log(json.dumps({"kernels": table}))
-    log(json.dumps({"attention_hd80": HD80_RECORDS}))
+    for d, recs in SWEEP_RECORDS.items():
+        log(json.dumps({f"attention_hd{d}": recs}))
     log(json.dumps({"eva02_swiglu": EVA_GEMM_RECORDS}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

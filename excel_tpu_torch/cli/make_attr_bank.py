@@ -25,7 +25,7 @@ import torch
 from ..config import asset_path
 from ..device import resolve_device
 from ..models.clip import text_forward
-from ..text.tokenizer import tokenize
+from ..text.tokenizer import require_clip_tokenizer, tokenize
 from ..utils.kmeans import kmeans
 from .common import add_common_args, build_config, exact_matmuls, load_clip
 
@@ -68,6 +68,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     exact_matmuls()
     cfg = build_config(args)
+    require_clip_tokenizer(cfg.clip.tokenizer)
     clip_params = load_clip(args, cfg, device)
     ds_name = "pascal_voc" if args.dataset == "voc" else "ms_coco"
     desc_file = args.descriptors or asset_path(

@@ -25,6 +25,12 @@ def asset_path(*parts: str) -> str:
     return os.path.join(_repo_root(), "assets", *parts)
 
 
+# an image's per-channel (mean, std) in 0-255 space: ImageNet's (CLIP's,
+# OpenCLIP's and EVA-CLIP's towers), SigLIP's 0.5 / 0.5 of the 0-1 range
+IMAGENET_STATS = ((123.675, 116.28, 103.53), (58.395, 57.12, 57.375))
+SIGLIP_STATS = ((127.5, 127.5, 127.5), (127.5, 127.5, 127.5))
+
+
 @dataclasses.dataclass(frozen=True)
 class ClipConfig:
     """A CLIP ViT with ExCEL architecture surgery; the defaults are OpenAI's
@@ -53,14 +59,17 @@ class ClipConfig:
     # Presets set 6; None keeps the full stack (parity tests).
     attn_out_layers: int | None = None
     # the MLP activation of both towers' blocks: "quick_gelu" (OpenAI's
-    # x * sigmoid(1.702 x)) or "gelu" (exact, erf; OpenCLIP's nn.GELU);
-    # an EVA-02 tower's text blocks alone
+    # x * sigmoid(1.702 x)), "gelu" (exact, erf; OpenCLIP's nn.GELU; an
+    # EVA-02 tower's text blocks alone) or "gelu_tanh" (SigLIP's
+    # gelu_pytorch_tanh)
     activation: str = "quick_gelu"
     # the vision tower's parameter layout that init_clip_params draws:
     # "vit" (OpenAI's and OpenCLIP's) or "eva02" (no ln_pre, a patch and a
     # head bias, each block's sub-LayerNorm `attn.ln_inner` and SwiGLU
-    # `mlp.fc` = W1|W2, `mlp.ln_ffn`, `mlp.proj` = W3; models/params). The
-    # forward takes each of these parts where the tree holds it.
+    # `mlp.fc` = W1|W2, `mlp.ln_ffn`, `mlp.proj` = W3; models/params) or
+    # "siglip" (no ln_pre, no class embedding, a patch bias, the
+    # attention-pooling head `map_head`, no proj). The forward takes each
+    # of these parts where the tree holds it.
     block: str = "vit"
     # the vision MLP's hidden width; 0: 4 x vision_width
     mlp_hidden: int = 0
@@ -69,14 +78,43 @@ class ClipConfig:
     rope_grid: int = 0
     # the vision tower's LayerNorm eps (EVA-02: 1e-6)
     ln_eps: float = 1e-5
+    # the input's per-channel mean and std in 0-255 space (`image_stats`)
+    image_mean: tuple = IMAGENET_STATS[0]
+    image_std: tuple = IMAGENET_STATS[1]
+    # the text tower: a causal mask (CLIP's) or none (SigLIP's); the
+    # pooled token "eot" (the argmax id, CLIP's) or "last" (SigLIP's);
+    # its LayerNorm eps and MLP hidden width (0: 4 x text_width)
+    text_causal: bool = True
+    text_pool: str = "eot"
+    text_ln_eps: float = 1e-5
+    text_mlp_hidden: int = 0
 
     @property
     def grid(self) -> int:
         return self.image_size // self.patch_size
 
     @property
+    def image_stats(self) -> tuple:
+        """(mean, std) of the input's channels in 0-255 space."""
+        return (tuple(self.image_mean), tuple(self.image_std))
+
+    @property
+    def patch_start(self) -> int:
+        """The first patch row of the token layout: 1 after the class
+        token, 0 in a SigLIP tower, which has none (its tree holds no
+        `class_embedding`)."""
+        return 0 if self.block == "siglip" else 1
+
+    @property
+    def tokenizer(self) -> str:
+        """The text tower's tokenizer: "clip" (the bundled BPE) or, for a
+        SigLIP tower, "siglip" (SentencePiece, whose model file the
+        repository does not hold)."""
+        return "siglip" if self.block == "siglip" else "clip"
+
+    @property
     def tokens(self) -> int:
-        return self.grid * self.grid + 1
+        return self.grid * self.grid + self.patch_start
 
     @property
     def hidden(self) -> int:
@@ -273,6 +311,36 @@ BACKBONES = {
                      vision_heads=2, pretrain_grid=4, activation="gelu",
                      block="eva02", mlp_hidden=341, rope_grid=16,
                      ln_eps=1e-6),
+    },
+    # SigLIP So400m/14-384 (arXiv 2303.15343, 2305.13035; huggingface.co/
+    # google/siglip-so400m-patch14-384 config.json with transformers'
+    # Siglip*Config defaults): 27 blocks of width 1152, 16 heads of 72,
+    # MLP 4304 with gelu_pytorch_tanh, LayerNorm eps 1e-6, patch 14 with
+    # bias, no class token and a 27 x 27 positional table, post_layernorm
+    # and the attention-pooling head (probe, 16-head MHA, LayerNorm, MLP
+    # 4304), no projection: the embedding is 1152 wide; mean and std 0.5;
+    # text 27 x 1152, 16 heads, MLP 4304, vocab 32,000, 64 positions, no
+    # mask, pooled at the last position through a head with bias. 378 px:
+    # 27 x 14, the 729 tokens the published 384 px conv reads.
+    "siglip-so400m-14-384": {
+        "full": dict(image_size=378, patch_size=14, vision_width=1152,
+                     vision_layers=27, vision_heads=16, embed_dim=1152,
+                     pretrain_grid=27, context_length=64, vocab_size=32000,
+                     text_width=1152, text_heads=16, text_layers=27,
+                     activation="gelu_tanh", block="siglip",
+                     mlp_hidden=4304, ln_eps=1e-6, image_mean=SIGLIP_STATS[0],
+                     image_std=SIGLIP_STATS[1],
+                     text_causal=False, text_pool="last", text_ln_eps=1e-6,
+                     text_mlp_hidden=4304),
+        # width 144 in 2 heads of 72; a hidden of 536, a multiple of 8
+        # that is not 4 x 144 (4304 is not 4 x 1152)
+        "tiny": dict(image_size=56, patch_size=14, vision_width=144,
+                     vision_heads=2, embed_dim=144, pretrain_grid=4,
+                     activation="gelu_tanh", block="siglip",
+                     mlp_hidden=536, ln_eps=1e-6, image_mean=SIGLIP_STATS[0],
+                     image_std=SIGLIP_STATS[1],
+                     text_causal=False, text_pool="last", text_ln_eps=1e-6,
+                     text_mlp_hidden=88),
     },
 }
 DEFAULT_BACKBONE = "openai-vit-b-16"

@@ -15,7 +15,8 @@
 //
 // Thread (tx = tid % 8, ty = tid / 8) of a block holds rows RT ty + i and
 // keys tx + 8 j of a tile (and in P V context columns 4 tx + 32 g, with
-// D = 80's last 16 as 2 tx + 64); the 8 lanes that share a row are
+// D = 80's last 16 as 2 tx + 64 and D = 72's last 8 as tx + 64); the 8
+// lanes that share a row are
 // neighbours in a warp, so row statistics combine by shuffles, and P goes
 // from the logits' layout to the P V product's through a shared-memory
 // tile (written in one step, read in the next). Tiles are [rows][D + 4] floats: the padding puts
@@ -153,8 +154,9 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int ROWS = 16 * RT;
   constexpr int P = kSurgery ? 4 : 1;
   constexpr int NG = D / 32;  // groups of 4 context columns a thread
-  constexpr int NT = (D % 32) / 8;  // then NT columns (D = 80: 2)
-  static_assert(D % 32 == 0 || D % 32 == 16, "head dims 32 k or 32 k + 16");
+  constexpr int NT = (D % 32) / 8;  // then NT columns (D = 80: 2, 72: 1)
+  static_assert(D % 32 == 0 || D % 32 == 16 || D % 32 == 8,
+                "head dims 32 k, 32 k + 16 or 32 k + 8");
   float* At = smem_f32;       // [ROWS][TS]
   float* ring = At + ROWS * TS;  // [2][64][TS]
   float* Ps = ring + 2 * T;      // [ROWS][kPS]
@@ -253,7 +255,7 @@ __global__ void __launch_bounds__(kThreads)
                 exp2f(fmaf(S[i][j], c, -st.m[i])) * st.s[i];
       } else {
         // the same chunk of V: O += P V, columns 32 g + 4 tx + (0..3),
-        // then 32 NG + 2 tx + (0, 1) where NT = 2
+        // then 32 NG + 2 tx + (0, 1) where NT = 2, 32 NG + tx where 1
 #pragma unroll 2
         for (int key = 0; key < kTile; key += 4) {
           float pa[RT][4];
@@ -289,6 +291,15 @@ __global__ void __launch_bounds__(kThreads)
               }
             }
           }
+          if constexpr (NT == 1) {
+#pragma unroll
+            for (int u4 = 0; u4 < 4; ++u4) {
+              const float x = Bt[(key + u4) * TS + NG * 32 + tx];
+#pragma unroll
+              for (int i = 0; i < RT; ++i)
+                O[i][NG * 4] = fmaf(pa[i][u4], x, O[i][NG * 4]);
+            }
+          }
         }
       }
     }
@@ -310,6 +321,7 @@ __global__ void __launch_bounds__(kThreads)
     if constexpr (NT == 2)
       *reinterpret_cast<float2*>(out + NG * 32 + tx * 2) =
           make_float2(O[i][NG * 4], O[i][NG * 4 + 1]);
+    if constexpr (NT == 1) out[NG * 32 + tx] = O[i][NG * 4];
   }
 }
 

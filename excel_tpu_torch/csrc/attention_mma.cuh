@@ -1,8 +1,12 @@
 // Tensor-core attention for bf16 q/k/v: the two kernels behind the bf16
 // entry points of attention_plain.cu and attention_surgery.cu.
 // attention_common.cuh says what the two kernels do; this file is their
-// bf16 arithmetic, at head dims 32, 64 and 80 (80 = 5 k-steps of 16: the
-// k-steps, the P V column pairs and the tile layout follow D).
+// bf16 arithmetic, at head dims 32, 64, 72 and 80 (80 = 5 k-steps of 16: the
+// k-steps, the P V column pairs and the tile layout follow D). D = 72 (9
+// chunks of 16 bytes a row, 4.5 k-steps) runs in D = 80's tiles with the
+// tenth chunk of every row zero-filled by the copies (`tile_dim`): the
+// fifth k-step of every product adds eight zero products, and P V forms
+// ten column pairs of which the ninth is the last written.
 //
 // What bounds them: not the products any more. Every product (q k^T, q q^T,
 // k k^T, v v^T, P V) is `mma.sync.m16n8k16` on bf16 tiles with fp32 sums
@@ -75,6 +79,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // tiles
 // ---------------------------------------------------------------------------
 
+// The tiles' width for head dim D: D itself, or 80 for D = 72 (its tenth
+// 16-byte chunk a row zero).
+template <int D>
+__host__ __device__ constexpr int tile_dim() {
+  return D == 72 ? 80 : D;
+}
+
 // Element offset of the 16-byte chunk c of row r in a swizzled [64][D] tile:
 // 8 consecutive rows at one c land on 8 different bank groups. D = 80 has
 // ten chunks a row (160 bytes: row-major, rows r and r + 4 would share a
@@ -94,21 +105,25 @@ __device__ __forceinline__ int swz(int r, int c) {
   }
 }
 
-// Rows [r0, r0 + 64) of the row-major [n, D] matrix src into the tile dst;
-// rows >= n are zero. Starts cp.async copies only: commit and wait are the
-// caller's.
+// Rows [r0, r0 + 64) of the row-major [n, D] matrix src into the tile dst
+// ([64][tile_dim<D>]); rows >= n, and the chunks beyond D, are zero. Starts
+// cp.async copies only: commit and wait are the caller's.
 template <int D>
 __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int r0,
                                           int n) {
-  constexpr int C = D / 8;
+  constexpr int DP = tile_dim<D>();
+  constexpr bool kPad = DP != D;
+  constexpr int C = DP / 8;
 #pragma unroll
   for (int it = 0; it < kTile * C / kThreads; ++it) {
     const int i = it * kThreads + threadIdx.x;
     const int r = i / C;
     const int c = i % C;
-    const bool ok = r0 + r < n;
-    cp_async16(dst + swz<D>(r, c),
-               src + (size_t)(ok ? r0 + r : 0) * D + c * 8, ok);
+    const bool ok = r0 + r < n && (!kPad || c < D / 8);
+    cp_async16(dst + swz<DP>(r, c),
+               src + (size_t)(ok ? r0 + r : 0) * D +
+                   (kPad ? (ok ? c * 8 : 0) : c * 8),
+               ok);
   }
 }
 
@@ -237,7 +252,8 @@ __global__ void __launch_bounds__(kThreads)
                 const bf16* __restrict__ v, bf16* __restrict__ ctx,
                 float* __restrict__ stats, int H, int N, float c) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int T = kTile * D;
+  constexpr int DP = tile_dim<D>();
+  constexpr int T = kTile * DP;
   constexpr int NA = kSurgery ? 3 : 1;  // row tiles: q (, k, v)
   constexpr int NB = kSurgery ? 3 : 2;  // a stage: K, V (, Q)
   constexpr int P = kSurgery ? 4 : 1;
@@ -277,13 +293,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   prefetch(0);
 
-  uint32_t aq[D / 16][4];
+  uint32_t aq[DP / 16][4];
   RowStat st[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) stat_init(st[p]);
-  float O[D / 8][4];
+  float O[DP / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DP / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) O[j][e] = 0.f;
 
@@ -291,27 +307,27 @@ __global__ void __launch_bounds__(kThreads)
     if (step + 1 < steps) prefetch(step + 1);
     cp_async_wait_step(step + 1 < steps);
     __syncthreads();
-    if (step == 0) load_a<D>(aq, At, warp * 16);
+    if (step == 0) load_a<DP>(aq, At, warp * 16);
     const bf16* stg = ring + (step & 1) * NB * T;
     const bool pass1 = step < nc;
     const int c0 = (pass1 ? step : step - nc) * kTile;
     const bool ragged = c0 + kTile > N;
     float S[8][4];
-    warp_logits<D>(S, aq, stg);
+    warp_logits<DP>(S, aq, stg);
     if (ragged) mask_keys(S, c0, N);
     if (pass1) {
       stat_update(st[0], S, c);
       if constexpr (kSurgery) {
-        warp_logits<D>(S, aq, stg + 2 * T);
+        warp_logits<DP>(S, aq, stg + 2 * T);
         if (ragged) mask_keys(S, c0, N);
         stat_update(st[1], S, c);
-        uint32_t a2[D / 16][4];
-        load_a<D>(a2, At + T, warp * 16);
-        warp_logits<D>(S, a2, stg);
+        uint32_t a2[DP / 16][4];
+        load_a<DP>(a2, At + T, warp * 16);
+        warp_logits<DP>(S, a2, stg);
         if (ragged) mask_keys(S, c0, N);
         stat_update(st[2], S, c);
-        load_a<D>(a2, At + 2 * T, warp * 16);
-        warp_logits<D>(S, a2, stg + T);
+        load_a<DP>(a2, At + 2 * T, warp * 16);
+        warp_logits<DP>(S, a2, stg + T);
         if (ragged) mask_keys(S, c0, N);
         stat_update(st[3], S, c);
       }
@@ -337,9 +353,9 @@ __global__ void __launch_bounds__(kThreads)
         }
         const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
 #pragma unroll
-        for (int dp = 0; dp < D / 16; ++dp) {
+        for (int dp = 0; dp < DP / 16; ++dp) {
           uint32_t bv[4];
-          ldsm4_trans(bv, Vt + swz<D>(key, 2 * dp + (lane >> 4)));
+          ldsm4_trans(bv, Vt + swz<DP>(key, 2 * dp + (lane >> 4)));
           mma16816(O[2 * dp], pa, bv[0], bv[1]);
           mma16816(O[2 * dp + 1], pa, bv[2], bv[3]);
         }
@@ -384,7 +400,7 @@ __global__ void __launch_bounds__(kThreads)
                 float* attn, int H, int N, int mode, float c,
                 float out_scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int T = kTile * D;
+  constexpr int T = kTile * tile_dim<D>();
   constexpr int NT = kMix ? 6 : 2;
   constexpr int P = kMix ? 4 : 1;
   bf16* ring = reinterpret_cast<bf16*>(smem_raw);
@@ -450,16 +466,17 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     const bf16* st = ring + (h & 1) * NT * T;
     float S[8][4];
+    constexpr int DP = tile_dim<D>();
     if constexpr (kAttn) {
-      warp_logits_streamed<D>(S, st, warp * 16, st + T);
+      warp_logits_streamed<DP>(S, st, warp * 16, st + T);
       add_softmax(acc_attn, S, mc[0], w[0]);
     }
     if constexpr (kMix) {
-      warp_logits_streamed<D>(S, st, warp * 16, st + 4 * T);
+      warp_logits_streamed<DP>(S, st, warp * 16, st + 4 * T);
       add_softmax(acc_mix, S, mc[1], w[1]);
-      warp_logits_streamed<D>(S, st + 2 * T, warp * 16, st + T);
+      warp_logits_streamed<DP>(S, st + 2 * T, warp * 16, st + T);
       add_softmax(acc_mix, S, mc[2], w[2]);
-      warp_logits_streamed<D>(S, st + 3 * T, warp * 16, st + 5 * T);
+      warp_logits_streamed<DP>(S, st + 3 * T, warp * 16, st + 5 * T);
       add_softmax(acc_mix, S, mc[3], w[3]);
     }
     __syncthreads();
@@ -494,8 +511,8 @@ cudaError_t launch_rows(const bf16* q, const bf16* k, const bf16* v, bf16* ctx,
                         float* stats, int B, int H, int N,
                         cudaStream_t stream) {
   auto kern = rows_kernel<D, kSurgery>;
-  const size_t smem =
-      sizeof(bf16) * kTile * D * (kSurgery ? 3 + 2 * 3 : 1 + 2 * 2);
+  const size_t smem = sizeof(bf16) * kTile * tile_dim<D>() *
+                      (kSurgery ? 3 + 2 * 3 : 1 + 2 * 2);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -511,7 +528,8 @@ cudaError_t launch_sums(const bf16* q, const bf16* k, const bf16* v,
                         float* attn, int B, int H, int N, int mode,
                         float out_scale, cudaStream_t stream) {
   auto kern = sums_kernel<D, kAttn, kMix>;
-  const size_t smem = sizeof(bf16) * kTile * D * 2 * (kMix ? 6 : 2);
+  const size_t smem =
+      sizeof(bf16) * kTile * tile_dim<D>() * 2 * (kMix ? 6 : 2);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;

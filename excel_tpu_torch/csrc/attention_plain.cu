@@ -62,12 +62,15 @@ static int plain_entry(const T* q, const T* k, const T* v, T* ctx,
     return plain_dispatch<32>(q, k, v, ctx, weights, stats, B, H, N, mode, s);
   if (D == 80)
     return plain_dispatch<80>(q, k, v, ctx, weights, stats, B, H, N, mode, s);
+  if (D == 72)
+    return plain_dispatch<72>(q, k, v, ctx, weights, stats, B, H, N, mode, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace excel
 
-// D (the head dim): 32, 64 or 80; any other returns cudaErrorInvalidValue.
+// D (the head dim): 32, 64, 72 or 80; any other returns
+// cudaErrorInvalidValue.
 // q, k, v: [B, H, N, D] and ctx: [B, N, H, D] (token-major) of the entry
 // point's type; weights [B, N, N] fp32. mode: 0 none (weights unused), 1
 // out (weights written), 2 acc (weights read and updated in place).

@@ -75,12 +75,16 @@ static int surgery_entry(const T* q, const T* k, const T* v, const float* ex,
   if (D == 80)
     return surgery_dispatch<80>(q, k, v, ex, shared, attn_sum, ctx_ori, stats,
                                 B, H, N, mode, s);
+  if (D == 72)
+    return surgery_dispatch<72>(q, k, v, ex, shared, attn_sum, ctx_ori, stats,
+                                B, H, N, mode, s);
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace excel
 
-// D (the head dim): 32, 64 or 80; any other returns cudaErrorInvalidValue.
+// D (the head dim): 32, 64, 72 or 80; any other returns
+// cudaErrorInvalidValue.
 // q, k, v: [B, H, N, D] and ctx_ori: [B, N, H, D] (token-major) of the
 // entry point's type; ex, shared, attn_sum: [B, N, N] fp32. mode: 0 none
 // (attn_sum unused), 1 out (attn_sum written), 2 acc (attn_sum read and

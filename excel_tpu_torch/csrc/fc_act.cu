@@ -1,6 +1,6 @@
 // The encoder MLP's fc bias add and activation in one pass, fp32 and bf16:
-// QuickGELU (OpenAI's ViT-B/16) or exact GELU (OpenCLIP's ViT-H/14)
-// (models/layers.fc_act_fused).
+// QuickGELU (OpenAI's ViT-B/16), exact GELU (OpenCLIP's ViT-H/14) or tanh
+// GELU (SigLIP So400m/14's gelu_pytorch_tanh) (models/layers.fc_act_fused).
 //
 // Replaces no Pallas kernel: the JAX package leaves the bias add and the
 // activation to XLA, which fuses them into its own kernels. In the port
@@ -15,13 +15,17 @@
 //   z = T(u + b);
 //   QuickGELU: t = T(a z) with a = T(1.702), e = T(exp(-t)),
 //              d = T(1 + e), r = T(1 / d), out = T(z r);
-//   exact GELU: out = T(z 0.5 (1 + erf(z sqrt(1/2)))) in fp32.
+//   exact GELU: out = T(z 0.5 (1 + erf(z sqrt(1/2)))) in fp32;
+//   tanh GELU: out = T(0.5 z (1 + tanh(b (z + k z^3)))) in fp32, b =
+//              sqrt(2) (2 / sqrt(pi)) / 2, k = 0.044715.
 // QuickGELU is layers.quick_gelu, op for op; the trailing x 1.0 of its
 // `1.0 / d` (reciprocal, then times 1.0) is exact and left out. Sums and
 // products are __f*_rn (no FMA contraction), the exponential is CUDA's
 // expf and the division IEEE's, the functions PyTorch's exp and reciprocal
 // call on the card. Exact GELU is PyTorch's own expression
-// (GeluCUDAKernelImpl) written as it writes it, so nvcc treats it alike.
+// (GeluCUDAKernelImpl) written as it writes it, so nvcc treats it alike,
+// and so is tanh GELU (its approximate="tanh" branch: the constants formed
+// in double and rounded to fp32, the cube as two products, tanhf).
 // So the output is the plain chain's bit for bit (tests/
 // test_torch_kernels_gpu.py holds it so).
 //
@@ -49,7 +53,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kQuickGelu = 0, kGelu = 1;
+constexpr int kQuickGelu = 0, kGelu = 1, kGeluTanh = 2;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -111,6 +115,18 @@ __device__ __forceinline__ float gelu(float z) {
   return z * 0.5f * (1.f + erff(z * kAlpha));
 }
 
+// F.gelu(z, approximate="tanh") in fp32, as PyTorch's CUDA kernel writes
+// it, before the last rounding
+__device__ __forceinline__ float gelu_tanh(float z) {
+  // M_SQRT2 * M_2_SQRTPI * 0.5 and 0.044715, formed in double
+  constexpr float kBeta =
+      1.41421356237309504880 * 1.12837916709551257390 * 0.5;
+  constexpr float kKappa = 0.044715;
+  const float x_cube = z * z * z;
+  const float inner = kBeta * (z + kKappa * x_cube);
+  return 0.5f * z * (1.f + tanhf(inner));
+}
+
 template <typename T, int kAct>
 __global__ void __launch_bounds__(kThreads)
     fc_act_kernel(const T* __restrict__ u, const T* __restrict__ bias,
@@ -126,7 +142,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int e = 0; e < W; ++e) {
     const float z = round_to<T>(__fadd_rn(v[e], b[e]));
-    v[e] = kAct == kQuickGelu ? quick_gelu<T>(z) : gelu(z);
+    v[e] = kAct == kQuickGelu ? quick_gelu<T>(z)
+                              : (kAct == kGelu ? gelu(z) : gelu_tanh(z));
   }
   reinterpret_cast<uint4*>(out)[at] = V::pack(v);
 }
@@ -136,7 +153,8 @@ int launch(const void* u, const void* bias, void* out, int rows, int hidden,
            int act, void* stream) {
   constexpr int W = 16 / sizeof(T);
   if (rows < 1 || hidden < W || hidden % W != 0 ||
-      (act != kQuickGelu && act != kGelu) || u == nullptr ||
+      (act != kQuickGelu && act != kGelu && act != kGeluTanh) ||
+      u == nullptr ||
       bias == nullptr || out == nullptr ||
       ((uintptr_t)u | (uintptr_t)bias | (uintptr_t)out) % 16 != 0)
     return (int)cudaErrorInvalidValue;
@@ -147,8 +165,11 @@ int launch(const void* u, const void* bias, void* out, int rows, int hidden,
   if (act == kQuickGelu)
     fc_act_kernel<T, kQuickGelu><<<grid, kThreads, 0, s>>>(
         (const T*)u, (const T*)bias, (T*)out, row_vecs);
-  else
+  else if (act == kGelu)
     fc_act_kernel<T, kGelu><<<grid, kThreads, 0, s>>>(
+        (const T*)u, (const T*)bias, (T*)out, row_vecs);
+  else
+    fc_act_kernel<T, kGeluTanh><<<grid, kThreads, 0, s>>>(
         (const T*)u, (const T*)bias, (T*)out, row_vecs);
   return (int)cudaGetLastError();
 }
@@ -157,7 +178,8 @@ int launch(const void* u, const void* bias, void* out, int rows, int hidden,
 
 // u: [rows, hidden] (the fc product), bias: [hidden], out: [rows, hidden],
 // contiguous, of the entry point's type, on the device, 16-byte aligned;
-// hidden a whole number of 16-byte vectors; act 0 QuickGELU, 1 exact GELU.
+// hidden a whole number of 16-byte vectors; act 0 QuickGELU, 1 exact GELU,
+// 2 tanh GELU.
 // Returns a cudaError_t (0 on success).
 extern "C" int excel_fc_act_bf16(const void* u, const void* bias, void* out,
                                  int rows, int hidden, int act,

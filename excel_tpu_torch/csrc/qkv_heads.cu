@@ -34,8 +34,10 @@
 // TB/s; at ViT-B/16's [4, 401, 2304] 14.8 MB, 4.4 us. Design: a block
 // moves a tile of kTokens tokens of one (image, q|k|v, head); a token's
 // head row is D elements, VR = D x sizeof(T) / 16 vectors of 16 bytes (64,
-// 128 or 160 bytes, 16-byte aligned at any head: bf16 VR = 4, 8, 10; fp32
-// 8, 16, 20). Thread t takes vectors t, t + kThreads, ... of the tile in
+// 128, 144 or 160 bytes, 16-byte aligned at any head: bf16 VR = 4, 8, 9, 10;
+// fp32 8, 16, 18, 20; a bf16 tile of D = 72 is 576 vectors, 4.5 a thread:
+// the last round's upper half of the threads has none). Thread t takes
+// vectors t, t + kThreads, ... of the tile in
 // the output's order, so each warp store is 512 contiguous bytes and each
 // warp load covers 1.6 to 8 head rows, each contiguous; a thread issues all
 // its kPer loads before its first store. The tile's kTokens x D output is one contiguous run.
@@ -147,8 +149,9 @@ __global__ void __launch_bounds__(kThreads)
                      const uint4* __restrict__ bias,
                      const float4* __restrict__ rope, uint4* __restrict__ out,
                      int B, int N, int H) {
-  constexpr int kPer = kTokens * VR / kThreads;  // vectors a thread
-  static_assert(kTokens * VR % kThreads == 0, "whole vectors a thread");
+  // vectors a thread; where kThreads does not divide the tile's, the last
+  // round's vectors past the tile lie at tokens n >= kTokens: none
+  constexpr int kPer = (kTokens * VR + kThreads - 1) / kThreads;
   constexpr int kQ = E / 4;  // float4s of cos (and of sin) a vector
   const int n0 = blockIdx.x * kTokens;
   const int sh = blockIdx.y;
@@ -228,6 +231,7 @@ int launch(const void* x, const void* bias, const void* rope, void* out,
   if (D == 32) return launch_vr<E, 32 / E>(x, bias, rope, out, B, N, H, s);
   if (D == 64) return launch_vr<E, 64 / E>(x, bias, rope, out, B, N, H, s);
   if (D == 80) return launch_vr<E, 80 / E>(x, bias, rope, out, B, N, H, s);
+  if (D == 72) return launch_vr<E, 72 / E>(x, bias, rope, out, B, N, H, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -235,8 +239,8 @@ int launch(const void* x, const void* bias, const void* rope, void* out,
 
 // x: the qkv product [B, N, 3 H D] before its bias; bias: [3 H D]; out:
 // [3, B, H, N, D]; all contiguous, of the entry point's type, 16-byte
-// aligned, on the device. D (the head dim): 32, 64 or 80; any other returns
-// cudaErrorInvalidValue. Returns a cudaError_t (0 on success).
+// aligned, on the device. D (the head dim): 32, 64, 72 or 80; any other
+// returns cudaErrorInvalidValue. Returns a cudaError_t (0 on success).
 extern "C" int excel_qkv_heads_bf16(const void* x, const void* bias,
                                     void* out, int B, int N, int H, int D,
                                     void* stream) {

@@ -103,7 +103,8 @@ def _pseudo_on_canvas(lams, attn_weights, guide_images, cls_label, valid_hw,
             cls_sel = cls_label
         refined = refine_lams_batch(
             lams, attn_weights, caa, (grid, grid),
-            attn_layers=cfg.refine.attn_layers, seg_attn=seg_attn)
+            attn_layers=cfg.refine.attn_layers, seg_attn=seg_attn,
+            patch_start=cfg.clip.patch_start)
         normed = cams_with_background_canvas(
             refined.reshape(b, -1, grid, grid), cls_sel, valid_hw, canvas)
         # the reference PAR resizes its guidance with align_corners=True
@@ -138,7 +139,7 @@ def lam_eval_step(params: dict, images_u8, cls_label, valid_hw, text_attr,
         raise ValueError(mode)
     with torch.inference_mode(), profiling.span(
             "step", images=images_u8.shape[0]):
-        images = normalize_images(images_u8)
+        images = normalize_images(images_u8, cfg.clip.image_stats)
         if mode == "training_free":
             out = encode_image(params["clip"], images, cfg.clip,
                                attn_mode=attn_mode_for(cfg))
@@ -206,7 +207,7 @@ def val_step(params: dict, images_u8, cls_label, valid_hw, text_attr,
     validation caa threshold with attn_pred as seg_attn, the head's
     segmentation argmax), both [B, *canvas] int32."""
     with torch.inference_mode():
-        images = normalize_images(images_u8)
+        images = normalize_images(images_u8, cfg.clip.image_stats)
         out = excel_forward(params, images, text_attr, cfg)
         pseudos, _ = _pseudo_on_canvas(
             out.lams, out.attn_weights, images.permute(0, 3, 1, 2),
@@ -234,8 +235,9 @@ def seg_grid_logits(params: dict, images_u8, text_attr, cfg: ExcelConfig):
     input size (one per MSC scale). The encoder's attention outputs are
     skipped (attn_mode="none"): the seg branch never reads them."""
     with torch.inference_mode():
-        out = excel_forward(params, normalize_images(images_u8), text_attr,
-                            cfg, attn_mode="none")
+        out = excel_forward(params,
+                            normalize_images(images_u8, cfg.clip.image_stats),
+                            text_attr, cfg, attn_mode="none")
         b, hw, c = out.segs.shape
         grid = int(round(hw ** 0.5))
         return out.segs.transpose(1, 2).reshape(b, c, grid, grid)

@@ -7,7 +7,7 @@ import functools
 
 import torch
 
-from ..config import ExcelConfig
+from ..config import IMAGENET_STATS, ExcelConfig
 from ..models.clip import encode_image
 from ..models.excel import compute_lams, excel_forward
 from ..ops.affinity import refine_lams_batch
@@ -17,30 +17,33 @@ from ..ops.par import par_refine
 from ..utils import profiling
 
 # ImageNet stats in 0-255 space
-IMAGENET_MEAN = (123.675, 116.28, 103.53)
-IMAGENET_STD = (58.395, 57.12, 57.375)
+IMAGENET_MEAN, IMAGENET_STD = IMAGENET_STATS
 
 
 @functools.lru_cache(maxsize=None)
-def _stats_on(device: torch.device):
+def _stats_on(device: torch.device, stats: tuple = IMAGENET_STATS):
     """(mean, 1 / std) in float32 and (mean, std) in float64 on `device`,
-    made once."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32)
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32)
+    made once a device and statistics."""
+    mean = torch.tensor(stats[0], dtype=torch.float32)
+    std = torch.tensor(stats[1], dtype=torch.float32)
     return tuple(v.to(device) for v in (mean, 1.0 / std, mean.double(),
                                         std.double()))
 
 
-def normalize_images(images_u8: torch.Tensor) -> torch.Tensor:
+def normalize_images(images_u8: torch.Tensor,
+                     stats: tuple = IMAGENET_STATS) -> torch.Tensor:
     """[..., H, W, 3] uint8/float 0-255 -> normalised float32 NHWC, as the
     JAX package's compiled programs compute it: XLA turns the division by
-    the constant std into a product with its float32 reciprocal."""
+    the constant std into a product with its float32 reciprocal. stats:
+    the tower's (mean, std) in 0-255 space (`ClipConfig.image_stats`),
+    ImageNet's by default."""
     x = images_u8.float()
-    mean, inv_std, _, _ = _stats_on(x.device)
+    mean, inv_std, _, _ = _stats_on(x.device, stats)
     return (x - mean) * inv_std
 
 
-def denormalize_images(images: torch.Tensor) -> torch.Tensor:
+def denormalize_images(images: torch.Tensor,
+                       stats: tuple = IMAGENET_STATS) -> torch.Tensor:
     """Normalised NHWC -> [0, 1] float32 with the reference's uint8
     truncation, floor(x * std + mean) / 255: the PAR guidance of training.
 
@@ -52,8 +55,9 @@ def denormalize_images(images: torch.Tensor) -> torch.Tensor:
     product of two float32 values is exact, in two separate kernels, so
     that no compiler contracts them on either device; over the 256 x 3
     normalised byte values, the only inputs of training, this rounds as
-    the fused operation does (tests/test_torch_pipeline.py)."""
-    _, _, mean64, std64 = _stats_on(images.device)
+    the fused operation does (tests/test_torch_pipeline.py). stats: those
+    that `normalize_images` took."""
+    _, _, mean64, std64 = _stats_on(images.device, stats)
     x = images.double() * std64
     x = (x + mean64).float()
     return torch.clamp(torch.floor(x), 0, 255) * (1.0 / 255.0)
@@ -101,7 +105,8 @@ def pseudo_labels(lams: torch.Tensor, attn_weights: torch.Tensor,
             idx, cls_sel = None, cls_label
         refined = refine_lams_batch(
             lams, attn_weights, caa_threshold, (grid, grid),
-            attn_layers=cfg.refine.attn_layers, seg_attn=seg_attn)
+            attn_layers=cfg.refine.attn_layers, seg_attn=seg_attn,
+            patch_start=cfg.clip.patch_start)
         cams = cams_with_background(refined.reshape(b, -1, grid, grid),
                                     cls_sel, out_hw)
         cams = par_refine(
@@ -121,7 +126,7 @@ def training_free_step(clip_params: dict, images_u8: torch.Tensor,
     """Batched training-free pseudo-labels at crop resolution: images_u8
     [B, H, W, 3] -> labels [B, H, W] (no seg_attn, normalised images guide
     PAR)."""
-    images = normalize_images(images_u8)
+    images = normalize_images(images_u8, cfg.clip.image_stats)
     lams, attn = lam_forward(clip_params, images, text_attr, cfg)
     return pseudo_labels(lams, attn, images.permute(0, 3, 1, 2), cls_label,
                          cfg, tuple(images.shape[1:3]),
@@ -136,7 +141,7 @@ def trained_lam_step(params: dict, images_u8: torch.Tensor,
     """Trained-mode LAM inference: the full model, the LVC-calibrated second
     encoder pass, attn_pred as seg_attn. Returns (labels [B, H, W], seg
     logits [B, hw, C])."""
-    images = normalize_images(images_u8)
+    images = normalize_images(images_u8, cfg.clip.image_stats)
     out = excel_forward(params, images, text_attr, cfg)
     lams = out.lams
     if calibrated:

@@ -136,10 +136,11 @@ def train_losses(head: LvcHead, clip_params: dict, images_u8: torch.Tensor,
     the losses are this rank's shares of the global batch's (module
     docstring)."""
     with profiling.span("forward"):
-        images = normalize_images(images_u8)
+        images = normalize_images(images_u8, cfg.clip.image_stats)
         crop_hw = tuple(images.shape[1:3])
         grid = crop_hw[0] // cfg.clip.patch_size
-        par_imgs = denormalize_images(images).permute(0, 3, 1, 2)
+        par_imgs = denormalize_images(
+            images, cfg.clip.image_stats).permute(0, 3, 1, 2)
         mask = _radius_mask_on(grid, cfg.refine.radius, images.device)
         params = {"clip": clip_params, "head": head}
 

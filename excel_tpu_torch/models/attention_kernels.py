@@ -26,8 +26,10 @@ in place onto an accumulator, the cross-block mean of the training-free
 path; bit for bit "out" + the accumulator) and "none" (never written); it
 is fp32 for either input type. A launch gives the same bits every time.
 
-The kernels take head dims 32, 64 (OpenAI's ViTs) and 80 (OpenCLIP
-ViT-H/14: 16 heads of 80, five k-steps of the tensor cores' 16).
+The kernels take head dims 32, 64 (OpenAI's ViTs), 72 (SigLIP So400m/14:
+16 heads of 72, held in the tiles as 80 with a zero chunk) and 80
+(OpenCLIP ViT-H/14: 16 heads of 80, five k-steps of the tensor cores'
+16).
 
 On a CPU tensor a wrapper computes its plain PyTorch version; on a CUDA
 tensor it launches its kernel through `build.launch` or raises.
@@ -39,7 +41,7 @@ import torch
 from .. import build
 
 _MODES = {"none": 0, "out": 1, "acc": 2}
-_KERNEL_HEAD_DIMS = (32, 64, 80)
+_KERNEL_HEAD_DIMS = (32, 64, 72, 80)
 
 
 def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -3,9 +3,12 @@ transformer (counterpart of excel_tpu/models/clip.py): OpenAI's ViT-B/16 by
 default, any tower of `config.BACKBONES` (OpenCLIP ViT-H/14: head dim 80,
 exact GELU; EVA02-CLIP-L/14: rotary q/k and eps 1e-6 by its ClipConfig,
 and the parts its parameter tree holds: sub-LayerNorms, SwiGLU, a patch
-bias, a head with bias, no ln_pre) by its ClipConfig. With `ex_feats` (the
-LVC head's fused features) the surgery blocks' dense path is calibrated by
-their feature affinity, as in the trained forward's second pass.
+bias, a head with bias, no ln_pre; SigLIP So400m/14: head dim 72, tanh
+GELU, no CLS token, the attention-pooling head `map_head` in place of the
+projection, and its text tower: no mask, the last position, a head with
+bias) by its ClipConfig. With `ex_feats` (the LVC head's fused features)
+the surgery blocks' dense path is calibrated by their feature affinity, as
+in the trained forward's second pass.
 
 "Surgery" is a static property of the forward: the last
 `cfg.surgery_blocks` blocks run the dual-path value-value attention. The
@@ -29,27 +32,29 @@ import torch
 from ..config import ClipConfig
 from ..ops.labels import scale_and_translate
 from ..utils import profiling
-from .layers import (ACTIVATIONS, _product, add_layer_norm_fused,
+from .layers import (ACTIVATIONS, _product, add_layer_norm_fused, attend,
                      attention_fused, external_feature_attention,
                      fc_act_fused, layer_norm, layer_norm_fused, linear,
-                     multi_head_attention, rope_table,
-                     surgery_attention_fused, swiglu)
+                     merge_heads, multi_head_attention, rope_table,
+                     split_heads, surgery_attention_fused, swiglu)
 
 
-def interpolate_pos_embedding(pos: torch.Tensor,
-                              new_side: int) -> torch.Tensor:
-    """Resize the grid part of a [1+S*S, C] positional table as the JAX
-    package does, with `jax.image.resize(..., "linear")`: half-pixel
-    sampling, and antialiased when downsampling (a grid below the
-    pretrained one, e.g. MSC scale 0.5): the triangle kernel is widened by
-    1 / scale and its weights renormalised where the table's edge cuts it.
+def interpolate_pos_embedding(pos: torch.Tensor, new_side: int,
+                              cls_token: bool = True) -> torch.Tensor:
+    """Resize the grid part of a [1+S*S, C] positional table (an [S*S, C]
+    one without cls_token) as the JAX package does, with
+    `jax.image.resize(..., "linear")`: half-pixel sampling, and
+    antialiased when downsampling (a grid below the pretrained one, e.g.
+    MSC scale 0.5): the triangle kernel is widened by 1 / scale and its
+    weights renormalised where the table's edge cuts it.
 
     Upsampling equals torch's `F.interpolate(bilinear,
     align_corners=False)`, which the original torch implementation uses;
     downsampling does not, because `F.interpolate` does not antialias (at
     14 -> 10 the two differ by up to 1.11 on a standard-normal table). The
     port is held to the JAX package, so it antialiases."""
-    cls_tok, grid = pos[:1], pos[1:]
+    start = 1 if cls_token else 0
+    cls_tok, grid = pos[:start], pos[start:]
     side = int(round(float(grid.shape[0]) ** 0.5))
     c = grid.shape[-1]
     if side == new_side:
@@ -131,7 +136,10 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
                 accumulated in place across blocks by the kernels;
       "none"  — attn = None.
     Returns {"projected": [B, N, embed_dim], "attn": see attn_mode,
-             "feats": [L_all, B, N, width]}.
+             "feats": [L_all, B, N, width]}. N counts a CLS token where
+    the tree holds one (`class_embedding`); without one (SigLIP) N is the
+    patch grid's and `projected` has 1 + N rows, row 0 the attention-
+    pooled embedding (`map_head`).
     """
     if attn_mode not in ("stack", "mean", "none"):
         raise ValueError(attn_mode)
@@ -155,9 +163,12 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
             x = x + p["patch_bias"].to(x.dtype)
         b, gh, gw, c = x.shape
         x = x.reshape(b, gh * gw, c)
-        cls = p["class_embedding"].to(x.dtype).expand(b, 1, c)
-        x = torch.cat([cls, x], dim=1)
-        pos = interpolate_pos_embedding(p["positional_embedding"], gh)
+        has_cls = "class_embedding" in p
+        if has_cls:
+            cls = p["class_embedding"].to(x.dtype).expand(b, 1, c)
+            x = torch.cat([cls, x], dim=1)
+        pos = interpolate_pos_embedding(p["positional_embedding"], gh,
+                                        has_cls)
         x = x + pos.to(x.dtype)
         if "ln_pre" in p:
             x = layer_norm_fused(x, p["ln_pre"], eps)
@@ -216,7 +227,7 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
                     attn_list.append(attn_w)
 
         # CLS token from the original path
-        if x_ori is not None:
+        if x_ori is not None and has_cls:
             x = torch.cat([x_ori[:, :1], x[:, 1:]], dim=1)
 
         # per-block feature stack with the reference's effective values (its
@@ -234,10 +245,14 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
         else:
             feat_list = single_feats
 
-        x = layer_norm_fused(x, p["ln_post"], eps)
-        projected = torch.matmul(x, p["proj"].to(x.dtype))
-        if "proj_bias" in p:
-            projected = projected + p["proj_bias"].to(x.dtype)
+        if "map_head" in p:
+            projected = map_head(p, x if x_ori is None else x_ori, x, heads,
+                                 act, eps)
+        else:
+            x = layer_norm_fused(x, p["ln_post"], eps)
+            projected = torch.matmul(x, p["proj"].to(x.dtype))
+            if "proj_bias" in p:
+                projected = projected + p["proj_bias"].to(x.dtype)
 
         if attn_mode == "none":
             attn_out = None
@@ -248,6 +263,39 @@ def vision_forward(params: dict, images: torch.Tensor, cfg: ClipConfig,
 
         return {"projected": projected, "attn": attn_out,
                 "feats": torch.stack(feat_list, dim=0)}
+
+
+def map_head(p: dict, x_ori: torch.Tensor, x_dense: torch.Tensor,
+             heads: int, act: str, eps: float) -> torch.Tensor:
+    """SigLIP's attention-pooling ("MAP") head over ExCEL's two streams
+    [B, N, C], inside the span "map_head" -> [B, 1 + N, C]. The head (p's
+    `map_head`: a probe [1, C], an attention whose `qkv` is
+    nn.MultiheadAttention's in_proj split q|k|v and `out` its out_proj, a
+    LayerNorm `ln`, an MLP) gives z = e + mlp(ln(e)) of each row e of:
+    - row 0: the probe's attention over LN_post(x_ori) (`attend`, the
+      probe's q [1, H, 1, D] shared by the batch; the published image
+      embedding of the original stream, in the CLS row's place);
+    - rows 1..N: each token t of LN_post(x_dense) through the value path,
+      (LN_post(x_dense)_t Wv + bv) Wo + bo: the head with t as its only
+      key, whose softmax over one key is 1 (MaskCLIP's dense use of an
+      attention pool).
+    The out-projection, LayerNorm and MLP run once over all 1 + N rows."""
+    h = p["map_head"]
+    n = x_dense.shape[1]
+    with profiling.span("map_head", tokens=n, pooled=1):
+        c = x_dense.shape[-1]
+        w, bias = h["attn"]["qkv"]["w"], h["attn"]["qkv"]["b"]
+        post_ori = layer_norm_fused(x_ori, p["ln_post"], eps)
+        post_dense = layer_norm_fused(x_dense, p["ln_post"], eps)
+        probe = h["probe"].to(x_dense.dtype)[None]            # [1, 1, C]
+        q = linear(probe, {"w": w[:c], "b": bias[:c]})
+        k, v = linear(post_ori, {"w": w[c:], "b": bias[c:]}).chunk(2, -1)
+        pooled, _ = attend(split_heads(q, heads), split_heads(k, heads),
+                           split_heads(v, heads))
+        v_dense = linear(post_dense, {"w": w[2 * c:], "b": bias[2 * c:]})
+        e = linear(torch.cat([merge_heads(pooled), v_dense], dim=1),
+                   h["attn"]["out"])
+        return e + mlp(layer_norm_fused(e, h["ln"], eps), h["mlp"], act)
 
 
 def encode_image(params: dict, images: torch.Tensor, cfg: ClipConfig,
@@ -281,26 +329,37 @@ def text_forward(params: dict, tokens: torch.Tensor,
     the compute type, LayerNorm in fp32, the causal mask triu(-inf, 1) on
     fp32 logits (`multi_head_attention`), and the projection of the pooled
     tokens by the fp32 `text_projection` formed in fp32 (its `jnp.dot`
-    promotes a bf16 operand) and rounded to the compute type."""
+    promotes a bf16 operand) and rounded to the compute type. SigLIP's
+    tower by its config: no mask (`text_causal`), the last position
+    (`text_pool`), LayerNorm eps `text_ln_eps`, and its head's bias
+    (`text_projection_bias`, where the tree holds one) added in fp32."""
     p = params["text"]
     act = _activation(cfg)
+    eps = cfg.text_ln_eps
     tokens = tokens.long()
     x = p["token_embedding"][tokens].to(cfg.compute_dtype)
     x = x + p["positional_embedding"].to(x.dtype)
 
     n = tokens.shape[-1]
-    causal = torch.triu(torch.full((n, n), -torch.inf, dtype=torch.float32,
-                                   device=x.device), diagonal=1)
+    mask = None
+    if cfg.text_causal:
+        mask = torch.triu(torch.full((n, n), -torch.inf, dtype=torch.float32,
+                                     device=x.device), diagonal=1)
     for blk in p["blocks"]:
-        y, _ = multi_head_attention(layer_norm(x, blk["ln_1"]), blk["attn"],
-                                    cfg.text_heads, mask=causal)
+        y, _ = multi_head_attention(layer_norm(x, blk["ln_1"], eps),
+                                    blk["attn"], cfg.text_heads, mask=mask)
         x = x + y
-        x = x + _block_mlp(layer_norm(x, blk["ln_2"]), blk, act)
+        x = x + _block_mlp(layer_norm(x, blk["ln_2"], eps), blk, act)
 
-    x = layer_norm(x, p["ln_final"])
-    eot = tokens.argmax(dim=-1)
-    pooled = x[torch.arange(x.shape[0], device=x.device), eot]
+    x = layer_norm(x, p["ln_final"], eps)
+    if cfg.text_pool not in ("eot", "last"):
+        raise ValueError(f"text_pool {cfg.text_pool!r}: 'eot' or 'last'")
+    at = tokens.argmax(dim=-1) if cfg.text_pool == "eot" else \
+        torch.full_like(tokens[:, 0], n - 1)
+    pooled = x[torch.arange(x.shape[0], device=x.device), at]
     out = torch.matmul(pooled.float(), p["text_projection"].float())
+    if "text_projection_bias" in p:
+        out = out + p["text_projection_bias"].float()
     return out.to(x.dtype)
 
 

@@ -33,8 +33,9 @@ class ExcelOutputs:
 
 def compute_lams(image_out: dict, text_attr: torch.Tensor,
                  num_fg: int) -> torch.Tensor:
-    """Feature surgery -> fg LAMs [B, hw, num_fg] (drop the CLS row and the
-    background-class columns)."""
+    """Feature surgery -> fg LAMs [B, hw, num_fg] (drop row 0, the CLS
+    token's or the attention-pooled embedding's, and the background-class
+    columns)."""
     with profiling.span("lams"):
         maps = clip_feature_surgery(image_out["projected"], text_attr)
         return maps[:, 1:, :num_fg]
@@ -76,7 +77,8 @@ def excel_forward(params: dict, images: torch.Tensor,
         lams = compute_lams(out, text_attr, cfg.num_fg)
     head: LvcHead = params["head"]
     with profiling.span("head"):
-        fused = segformer_fuse(head, out["feats"][:, :, 1:, :],
+        fused = segformer_fuse(head,
+                               out["feats"][:, :, cfg.clip.patch_start:, :],
                                dropout_generator, cfg.head.dropout)
         segs, seg_attn = decoder_forward(head, fused)
         attn_pred = feature_affinity(fused, global_batch)
@@ -102,8 +104,9 @@ def build_text_bank(clip_params: dict, cfg: ExcelConfig,
     at the context length 77, one template per class through
     `encode_text_ensemble`, then TSE (`attr_aggregate`) over
     `cluster_bank` [embed, K]."""
-    from ..text.tokenizer import tokenize
+    from ..text.tokenizer import require_clip_tokenizer, tokenize
 
+    require_clip_tokenizer(cfg.clip.tokenizer)
     prompts = [cfg.prompt_template.format(n) for n in vocabulary]
     device = clip_params["text"]["token_embedding"].device
     tokens = torch.from_numpy(tokenize(prompts)).to(device)[:, None, :]

@@ -21,7 +21,8 @@ Numerics as in the JAX package, for float32 and bfloat16 activations:
 - exact GELU (OpenCLIP's towers, `activation="gelu"`; the JAX package has
   none) is 0.5 x (1 + erf(x / sqrt 2)) formed in fp32 from the activation
   and rounded once to its type (`F.gelu`'s own rounding point for bf16
-  input on the CPU and the card);
+  input on the CPU and the card); SigLIP's tanh GELU (`"gelu_tanh"`)
+  is `F.gelu(x, approximate="tanh")`, formed and rounded alike;
 - the encoder MLP's fc bias add and activation run through `fc_act_fused`
   (csrc/fc_act.cu on the card, the same ops and roundings); the LVC head's
   decoder keeps `mlp`, which autograd records;
@@ -146,7 +147,11 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.gelu(x)
 
 
-ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu}
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": gelu, "gelu_tanh": gelu_tanh}
 
 
 def _product(x: torch.Tensor, p: dict) -> torch.Tensor:
@@ -167,7 +172,7 @@ def mlp(x: torch.Tensor, p: dict, act: str = "quick_gelu") -> torch.Tensor:
 
 
 # csrc/fc_act.cu's code of each activation
-_FC_ACT_CODE = {"quick_gelu": 0, "gelu": 1}
+_FC_ACT_CODE = {"quick_gelu": 0, "gelu": 1, "gelu_tanh": 2}
 
 
 def fc_act_fused(u: torch.Tensor, bias: torch.Tensor,
@@ -406,24 +411,35 @@ def _cpu_only(y: torch.Tensor, name: str) -> None:
                          f"tensors; on {y.device} use {name}_fused")
 
 
-def multi_head_attention(y: torch.Tensor, p: dict, heads: int,
-                         mask: torch.Tensor | None = None):
-    """Standard multi-head self-attention over pre-normed input in plain
-    PyTorch ops, on any device and differentiable: the JAX package's plain
-    `attention`, which it runs outside any Pallas kernel for the LVC head's
-    decoder and, with a causal `mask` [N, N] (fp32, added to the logits),
-    for the text tower. Its type points are kept for bf16 input: q * scale
-    in the activation type, the logits formed in fp32 (bf16 products are
-    exact there) plus the mask, the softmax in fp32, the weights rounded to
-    v's type for the context, which is accumulated in fp32 and rounded.
-    Returns (output [B, N, C], head-mean fp32 weights [B, N, N])."""
-    q, k, v = qkv_projection(y, p, heads)
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           mask: torch.Tensor | None = None):
+    """softmax(q k^T D^-1/2 + mask) v per head in plain PyTorch, on any
+    device and differentiable, q [..., Q, D] against k, v [..., N, D]
+    (broadcast over the leading dims). The JAX package's type points for
+    bf16 input: q * scale in the activation type, the logits formed in
+    fp32 (bf16 products are exact there) plus the mask, the softmax in
+    fp32, the weights rounded to v's type for the context, which is
+    accumulated in fp32 and rounded. Returns (context [..., Q, D] in v's
+    type, fp32 weights [..., Q, N])."""
     scale = float(torch.tensor(q.shape[-1] ** -0.5, dtype=q.dtype))
     logits = torch.matmul((q * scale).float(), k.float().transpose(-1, -2))
     if mask is not None:
         logits = logits + mask
     weights = torch.softmax(logits, dim=-1)
     ctx = torch.matmul(weights.to(v.dtype).float(), v.float()).to(v.dtype)
+    return ctx, weights
+
+
+def multi_head_attention(y: torch.Tensor, p: dict, heads: int,
+                         mask: torch.Tensor | None = None):
+    """Standard multi-head self-attention over pre-normed input in plain
+    PyTorch ops (`attend`), on any device and differentiable: the JAX
+    package's plain `attention`, which it runs outside any Pallas kernel
+    for the LVC head's decoder and, with a causal `mask` [N, N] (fp32,
+    added to the logits), for the text tower. Returns (output [B, N, C],
+    head-mean fp32 weights [B, N, N])."""
+    q, k, v = qkv_projection(y, p, heads)
+    ctx, weights = attend(q, k, v, mask)
     return linear(merge_heads(ctx), p["out"]), weights.mean(dim=1)
 
 
@@ -453,8 +469,9 @@ def surgery_attention(y: torch.Tensor, p: dict, heads: int,
     q k^T path and the dense value-value path (mean of softmax(q q^T),
     softmax(k k^T), softmax(v v^T)), optionally calibrated by the LVC
     feature affinity ex_attn [B, M, M] added to every head's patch-patch
-    block, then summed over heads so every head aggregates v with one
-    shared matrix. For CPU tensors only (the encoder calls
+    block (the last M rows and columns: after the CLS token where the
+    layout has one), then summed over heads so every head aggregates v
+    with one shared matrix. For CPU tensors only (the encoder calls
     `surgery_attention_fused`). rope: EVA-02's rotated q, k
     (`qkv_projection`); eps: its sub-LayerNorm's on both contexts
     (`context_out`).
@@ -472,8 +489,9 @@ def surgery_attention(y: torch.Tensor, p: dict, heads: int,
                              dim=-1)
     attn = (self_sim(q) + self_sim(k) + self_sim(v)) / 3.0
     if ex_attn is not None:
+        s = attn.shape[-1] - ex_attn.shape[-1]
         attn = attn.clone()
-        attn[:, :, 1:, 1:] += ex_attn[:, None].to(attn.dtype)
+        attn[:, :, s:, s:] += ex_attn[:, None].to(attn.dtype)
     shared = attn.sum(dim=1, keepdim=True)                 # [B,1,N,N]
     ctx_dense = torch.matmul(shared, v)
     ctx_ori = torch.matmul(attn_ori, v)
@@ -509,14 +527,16 @@ def surgery_attention_fused(y: torch.Tensor, p: dict, heads: int,
     """`surgery_attention` through the surgery attention kernel; attn_acc /
     need_attn control the head-summed original weights, and rope / eps
     EVA-02's parts, as in `attention_fused`. ex_attn [B, M, M]
-    (in the activation type) reaches the kernel as fp32 [B, N, N] with a
-    zero CLS row and column, which adds it to the patch-patch block only.
+    (in the activation type) reaches the kernel as fp32 [B, N, N], with a
+    zero CLS row and column where the layout has a CLS token (N = M + 1),
+    which adds it to the patch-patch block only.
     The dense context shared @ v is one product outside the kernel."""
     with profiling.span("attn"):
         q, k, v = qkv_heads_fused(y, p, heads, rope)
         ex = None
         if ex_attn is not None:
-            ex = torch.nn.functional.pad(ex_attn.float(), (1, 0, 1, 0))
+            s = y.shape[1] - ex_attn.shape[-1]
+            ex = torch.nn.functional.pad(ex_attn.float(), (s, 0, s, 0))
         shared, attn_sum, ctx_ori = fused_surgery_attention(
             q, k, v, ex_attn=ex, acc=attn_acc, need_attn=need_attn)
         ctx_dense = torch.matmul(shared[:, None].to(v.dtype), v)

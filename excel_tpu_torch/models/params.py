@@ -21,6 +21,15 @@ stacked, [2 h, width]), `mlp.ln_ffn` [h] and `mlp.proj` (W3, [width, h]).
 The port's trees (`init_clip_params`, `from_jax_params`) hold the SwiGLU's
 hidden padded with zero weights to whole 16-byte rows (`pad_swiglu`); the
 converter's files keep the published h.
+
+A SigLIP tower (`ClipConfig.block` "siglip", `convert_siglip_state_dict`)
+has no `ln_pre`, no `class_embedding` and no `proj`: a `visual.patch_bias`
+[width], a positional table of the grid alone [S*S, width], its q, k and v
+stored fused as `attn.qkv`, and the attention-pooling head
+`visual.map_head`: `probe` [1, width], `attn.qkv` (the head's in_proj,
+q|k|v), `attn.out`, a LayerNorm `ln` and an MLP `mlp.fc` / `mlp.proj`. Its
+text tower's head is `text.text_projection` [width, embed] (the Linear's
+weight transposed) with `text.text_projection_bias` [embed].
 """
 from __future__ import annotations
 
@@ -50,10 +59,11 @@ def _ln_init(width: int) -> dict:
 
 def _init_block(g: torch.Generator, width: int, scale_attn: float,
                 scale_proj: float, scale_fc: float,
-                swiglu: int = 0) -> dict:
-    """A block's parameters; with swiglu = h, EVA-02's: the sub-LayerNorm
-    on the context and a SwiGLU of hidden width h (W1|W2 stacked)."""
-    hidden = swiglu or 4 * width
+                swiglu: int = 0, hidden: int = 0) -> dict:
+    """A block's parameters with an MLP of hidden width `hidden` (0: 4 x
+    width); with swiglu = h, EVA-02's: the sub-LayerNorm on the context
+    and a SwiGLU of hidden width h (W1|W2 stacked)."""
+    hidden = swiglu or hidden or 4 * width
     fc_out = 2 * hidden if swiglu else hidden   # W1 and W2 stacked
     blk = {
         "ln_1": _ln_init(width),
@@ -87,24 +97,27 @@ def init_clip_params(cfg: ClipConfig, generator: torch.Generator | None = None,
     vw, tw = cfg.vision_width, cfg.text_width
     v_scale = vw ** -0.5
     attn_std = tw ** -0.5
-    if cfg.block not in ("vit", "eva02"):
-        raise ValueError(f"block {cfg.block!r}: the port draws 'vit' or "
-                         "'eva02' towers")
+    if cfg.block not in ("vit", "eva02", "siglip"):
+        raise ValueError(f"block {cfg.block!r}: the port draws 'vit', "
+                         "'eva02' or 'siglip' towers")
     swiglu = cfg.hidden if cfg.block == "eva02" else 0
-    visual = {
-        "patch_embed": _normal(g, (vw, 3, cfg.patch_size, cfg.patch_size),
-                               v_scale),
-        "class_embedding": _normal(g, (vw,), v_scale),
-        "positional_embedding": _normal(g, (cfg.pretrain_grid ** 2 + 1, vw),
-                                        v_scale),
-        "ln_pre": _ln_init(vw),
-        "blocks": [_init_block(g, vw, v_scale,
-                               v_scale * (2 * cfg.vision_layers) ** -0.5,
-                               (2 * vw) ** -0.5, swiglu)
-                   for _ in range(cfg.vision_layers)],
-        "ln_post": _ln_init(vw),
-        "proj": _normal(g, (vw, cfg.embed_dim), v_scale),
-    }
+    if cfg.block == "siglip":
+        visual = _init_siglip_visual(g, cfg)
+    else:
+        visual = {
+            "patch_embed": _normal(g, (vw, 3, cfg.patch_size,
+                                       cfg.patch_size), v_scale),
+            "class_embedding": _normal(g, (vw,), v_scale),
+            "positional_embedding": _normal(
+                g, (cfg.pretrain_grid ** 2 + 1, vw), v_scale),
+            "ln_pre": _ln_init(vw),
+            "blocks": [_init_block(g, vw, v_scale,
+                                   v_scale * (2 * cfg.vision_layers) ** -0.5,
+                                   (2 * vw) ** -0.5, swiglu)
+                       for _ in range(cfg.vision_layers)],
+            "ln_post": _ln_init(vw),
+            "proj": _normal(g, (vw, cfg.embed_dim), v_scale),
+        }
     if swiglu:
         del visual["ln_pre"]
         visual["patch_bias"] = torch.zeros(vw)
@@ -114,15 +127,42 @@ def init_clip_params(cfg: ClipConfig, generator: torch.Generator | None = None,
         "positional_embedding": _normal(g, (cfg.context_length, tw), 0.01),
         "blocks": [_init_block(g, tw, attn_std,
                                attn_std * (2 * cfg.text_layers) ** -0.5,
-                               (2 * tw) ** -0.5)
+                               (2 * tw) ** -0.5, hidden=cfg.text_mlp_hidden)
                    for _ in range(cfg.text_layers)],
         "ln_final": {"scale": torch.ones(tw), "bias": torch.zeros(tw)},
         "text_projection": _normal(g, (tw, cfg.embed_dim), attn_std),
     }
+    if cfg.block == "siglip":
+        text["text_projection_bias"] = torch.zeros(cfg.embed_dim)
     params = {"visual": visual, "text": text,
               "logit_scale": torch.tensor(math.log(1 / 0.07),
                                           dtype=torch.float32)}
     return pad_swiglu(_to_device(params, device))
+
+
+def _init_siglip_visual(g: torch.Generator, cfg: ClipConfig) -> dict:
+    """A SigLIP vision tree (module docstring) at the JAX package's init
+    scales, the blocks' MLP and the pooling head's at hidden
+    `cfg.hidden`."""
+    vw = cfg.vision_width
+    v_scale = vw ** -0.5
+    proj = v_scale * (2 * cfg.vision_layers) ** -0.5
+    head = _init_block(g, vw, v_scale, proj, (2 * vw) ** -0.5,
+                       hidden=cfg.hidden)
+    return {
+        "patch_embed": _normal(g, (vw, 3, cfg.patch_size, cfg.patch_size),
+                               v_scale),
+        "patch_bias": torch.zeros(vw),
+        "positional_embedding": _normal(g, (cfg.pretrain_grid ** 2, vw),
+                                        v_scale),
+        "blocks": [_init_block(g, vw, v_scale, proj, (2 * vw) ** -0.5,
+                               hidden=cfg.hidden)
+                   for _ in range(cfg.vision_layers)],
+        "ln_post": _ln_init(vw),
+        "map_head": {"probe": _normal(g, (1, vw), v_scale),
+                     "attn": head["attn"], "ln": head["ln_2"],
+                     "mlp": head["mlp"]},
+    }
 
 
 def _to_device(tree, device: torch.device):
@@ -292,6 +332,9 @@ def infer_clip_config(sd: dict, backbone: str | None = None) -> ClipConfig:
         if _is_eva(sd):
             raise ValueError("an EVA-CLIP state dict: name its backbone "
                              "(--backbone), e.g. eva02-clip-l-14-336")
+        if _is_siglip(sd):
+            raise ValueError("a SigLIP state dict: name its backbone "
+                             "(--backbone), e.g. siglip-so400m-14-384")
         return cfg
     if backbone not in BACKBONES:
         raise ValueError(f"unknown backbone {backbone!r}; known: "
@@ -318,6 +361,11 @@ def _is_eva(sd: dict) -> bool:
     return "visual.patch_embed.proj.weight" in sd
 
 
+def _is_siglip(sd: dict) -> bool:
+    """transformers' SiglipModel key layout."""
+    return "vision_model.embeddings.patch_embedding.weight" in sd
+
+
 def _text_keys(sd: dict) -> dict:
     """The text tower's keys in OpenAI's layout: EVA-CLIP's custom text
     tower prefixes them with "text."."""
@@ -330,6 +378,23 @@ def _count(sd: dict, pattern: str) -> int:
 
 
 def _shape_config(sd: dict) -> ClipConfig:
+    if _is_siglip(sd):
+        v, t = "vision_model.", "text_model."
+        w = sd[v + "embeddings.patch_embedding.weight"]
+        tpos = sd[t + "embeddings.position_embedding.weight"]
+        return ClipConfig(
+            patch_size=w.shape[-1], vision_width=w.shape[0],
+            vision_layers=_count(sd,
+                                 r"vision_model\.encoder\.layers\.(\d+)\."),
+            vision_heads=w.shape[0] // 64,
+            pretrain_grid=int(round(sd[v + "embeddings.position_embedding."
+                                       "weight"].shape[0] ** 0.5)),
+            mlp_hidden=sd[v + "encoder.layers.0.mlp.fc1.weight"].shape[0],
+            block="siglip", embed_dim=sd[t + "head.weight"].shape[0],
+            context_length=tpos.shape[0],
+            vocab_size=sd[t + "embeddings.token_embedding.weight"].shape[0],
+            text_width=tpos.shape[1], text_heads=tpos.shape[1] // 64,
+            text_layers=_count(sd, r"text_model\.encoder\.layers\.(\d+)\."))
     if _is_eva(sd):
         w = sd["visual.patch_embed.proj.weight"]
         pos = sd["visual.pos_embed"]
@@ -429,13 +494,85 @@ def _convert_text(sd: dict, cfg: ClipConfig) -> dict:
     return {"text": text, "logit_scale": sd["logit_scale"]}
 
 
+def _siglip_block(sd: dict, prefix: str) -> dict:
+    """One SiglipEncoderLayer (layer_norm1, self_attn.{q,k,v,out}_proj,
+    layer_norm2, mlp.fc1 / fc2) in the port's tree, JAX layout."""
+    a, m = prefix + ".self_attn.", prefix + ".mlp."
+
+    def lin(name):
+        return {"w": np.ascontiguousarray(sd[name + ".weight"].T),
+                "b": sd[name + ".bias"]}
+
+    qkv_w = np.concatenate([sd[a + n + "_proj.weight"] for n in "qkv"])
+    return {
+        "ln_1": _ln(sd, prefix + ".layer_norm1"),
+        "attn": {"qkv": {"w": np.ascontiguousarray(qkv_w.T),
+                         "b": np.concatenate([sd[a + n + "_proj.bias"]
+                                              for n in "qkv"])},
+                 "out": lin(a + "out_proj")},
+        "ln_2": _ln(sd, prefix + ".layer_norm2"),
+        "mlp": {"fc": lin(m + "fc1"), "proj": lin(m + "fc2")},
+    }
+
+
+def convert_siglip_state_dict(sd: dict, cfg: ClipConfig) -> dict:
+    """A numpy-valued transformers SiglipModel state dict (vision_model.*,
+    text_model.*, logit_scale) -> the port's tree in the JAX package's
+    layout (numpy leaves, linear weights [in, out], the patch embedding
+    HWIO; module docstring for the SigLIP leaves). The head's in_proj
+    stays fused as `map_head.attn.qkv`."""
+    sd = {k: np.asarray(v) for k, v in sd.items()}
+    v, t = "vision_model.", "text_model."
+    hd = v + "head."
+
+    def lin(name):
+        return {"w": np.ascontiguousarray(sd[name + ".weight"].T),
+                "b": sd[name + ".bias"]}
+
+    visual = {
+        "patch_embed": np.ascontiguousarray(
+            sd[v + "embeddings.patch_embedding.weight"].transpose(2, 3, 1,
+                                                                  0)),
+        "patch_bias": sd[v + "embeddings.patch_embedding.bias"],
+        "positional_embedding": sd[v + "embeddings.position_embedding."
+                                       "weight"],
+        "blocks": [_siglip_block(sd, f"{v}encoder.layers.{i}")
+                   for i in range(cfg.vision_layers)],
+        "ln_post": _ln(sd, v + "post_layernorm"),
+        "map_head": {
+            "probe": sd[hd + "probe"].reshape(1, -1),
+            "attn": {"qkv": {"w": np.ascontiguousarray(
+                                 sd[hd + "attention.in_proj_weight"].T),
+                             "b": sd[hd + "attention.in_proj_bias"]},
+                     "out": lin(hd + "attention.out_proj")},
+            "ln": _ln(sd, hd + "layernorm"),
+            "mlp": {"fc": lin(hd + "mlp.fc1"), "proj": lin(hd + "mlp.fc2")},
+        },
+    }
+    text = {
+        "token_embedding": sd[t + "embeddings.token_embedding.weight"],
+        "positional_embedding": sd[t + "embeddings.position_embedding."
+                                       "weight"],
+        "blocks": [_siglip_block(sd, f"{t}encoder.layers.{i}")
+                   for i in range(cfg.text_layers)],
+        "ln_final": _ln(sd, t + "final_layer_norm"),
+        "text_projection": np.ascontiguousarray(sd[t + "head.weight"].T),
+        "text_projection_bias": sd[t + "head.bias"],
+    }
+    return {"visual": visual, "text": text,
+            "logit_scale": sd["logit_scale"].reshape(())}
+
+
 def convert_torch_state_dict(sd: dict, cfg: ClipConfig) -> dict:
     """A numpy-valued OpenAI CLIP state dict -> the JAX package's parameter
     tree with numpy leaves (linear weights [in, out], the patch embedding
     HWIO), as `save_npz_tree` writes it and `from_jax_params` reads it;
-    an EVA-CLIP one through `convert_eva_state_dict`."""
+    an EVA-CLIP one through `convert_eva_state_dict`, a SigLIP one
+    through `convert_siglip_state_dict`."""
     if _is_eva(sd):
         return convert_eva_state_dict(sd, cfg)
+    if _is_siglip(sd):
+        return convert_siglip_state_dict(sd, cfg)
     sd = {k: np.asarray(v) for k, v in sd.items()}
     visual = {
         "patch_embed": np.ascontiguousarray(

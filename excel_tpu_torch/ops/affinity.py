@@ -100,14 +100,17 @@ def scoremap_box_mask(score: torch.Tensor, threshold: float) -> torch.Tensor:
 
 
 def aggregate_attn(attn_weights: torch.Tensor, attn_layers: int,
-                   seg_attn: torch.Tensor | None = None) -> torch.Tensor:
+                   seg_attn: torch.Tensor | None = None,
+                   patch_start: int = 1) -> torch.Tensor:
     """Mean of the last `attn_layers` blocks' patch-patch attention; with a
     decoder attention, keep only blocks whose deviation from it is below the
     mean and multiply by it.
 
-    attn_weights: [B, L, hw+1, hw+1]; seg_attn: optional [B, hw, hw].
+    attn_weights: [B, L, hw+1, hw+1] (the patch rows from patch_start: [B,
+    L, hw, hw] with 0); seg_attn: optional [B, hw, hw].
     Returns [B, hw, hw]."""
-    aw = attn_weights[:, -attn_layers:, 1:, 1:].float()
+    s = patch_start
+    aw = attn_weights[:, -attn_layers:, s:, s:].float()
     if seg_attn is None:
         return aw.mean(dim=1)
     b = aw.shape[0]
@@ -135,18 +138,22 @@ def refine_lams(lams: torch.Tensor, attn: torch.Tensor, caa_threshold: float,
 def refine_lams_batch(lams: torch.Tensor, attn_weights: torch.Tensor,
                       caa_threshold: float, grid_hw: tuple[int, int],
                       attn_layers: int = 6,
-                      seg_attn: torch.Tensor | None = None) -> torch.Tensor:
+                      seg_attn: torch.Tensor | None = None,
+                      patch_start: int = 1) -> torch.Tensor:
     """Batched SVC. lams [B, C, hw] raw LAM scores; attn_weights either the
     per-block stack [L, B, N, N] or the pre-aggregated block mean [B, N, N]
-    (the encoder's attn_mode="mean" output, only valid without seg_attn).
+    (the encoder's attn_mode="mean" output, only valid without seg_attn),
+    whose patch rows and columns start at patch_start (1 after a CLS
+    token, 0 without one: `ClipConfig.patch_start`).
     Returns refined [B, C, hw]: `refine_lams` of each image."""
     if attn_weights.dim() == 3 and seg_attn is not None:
         raise ValueError("pre-aggregated attention cannot drive the "
                          "seg_attn keep-mask (needs the per-block stack)")
     with profiling.span("svc"):
+        s = patch_start
         if attn_weights.dim() == 3:
-            agg = attn_weights[:, 1:, 1:].float()
+            agg = attn_weights[:, s:, s:].float()
         else:
             agg = aggregate_attn(attn_weights.transpose(0, 1), attn_layers,
-                                 seg_attn)
+                                 seg_attn, patch_start=s)
         return refine_lams(lams, agg, caa_threshold, grid_hw)

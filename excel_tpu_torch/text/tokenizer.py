@@ -230,6 +230,21 @@ def get_tokenizer(merges_path: str | None = None) -> ClipTokenizer:
     return ClipTokenizer(merges_path)
 
 
+def require_clip_tokenizer(name: str) -> None:
+    """Raise where a tower's tokenizer (`ClipConfig.tokenizer`) is not
+    CLIP's BPE, the one this module holds: SigLIP's SentencePiece model
+    (spiece.model) is not in the repository, and CLIP's ids would index
+    another vocabulary."""
+    if name == "clip":
+        return
+    raise NotImplementedError(
+        f"the {name!r} tokenizer is not in the repository (SigLIP's "
+        "SentencePiece model, spiece.model): its prompts cannot be "
+        "tokenized, and CLIP's BPE ids would index another vocabulary; "
+        "the text tower runs on token ids (models/clip.text_forward), or "
+        "pass --random-init for a seeded text bank")
+
+
 def tokenize(texts: str | list[str], context_length: int = CONTEXT_LENGTH,
              truncate: bool = False) -> np.ndarray:
     """Batch-tokenize to a fixed [n, context_length] int32 array: SOT + ids

@@ -202,11 +202,11 @@ def _check_attention(kind, q, k, v, mode, acc, ex=None):
 
 
 # ragged and tiny token counts: one key, tails of 1 and 15 rows on either
-# side of the 16-row fragments and the 64-row tiles; D=32 and 64; every mode
+# side of the 16-row fragments and the 64-row tiles; every head dim and mode
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("mode", ["none", "out", "acc"])
 @pytest.mark.parametrize("tokens", [1, 15, 17, 63, 65])
-@pytest.mark.parametrize("d", [32, 64, 80])
+@pytest.mark.parametrize("d", [32, 64, 72, 80])
 def test_attention_kernels_edge_tokens(gen, d, tokens, mode, dtype):
     q, k, v = _qkv(gen, 2, 3, tokens, d, dtype)
     acc = torch.rand((2, tokens, tokens), device="cuda", generator=gen)
@@ -273,6 +273,50 @@ def test_attention_kernels_hd80_deterministic_and_acc_is_out_plus_acc(
     and mode acc equals mode out + the accumulator bit for bit."""
     n = 577
     q, k, v = _qkv(gen, 4, 16, n, 80, dtype)
+    acc = torch.rand((4, n, n), device="cuda", generator=gen)
+    ex = (torch.rand((4, n, n), device="cuda", generator=gen)
+          / n).to(dtype).float() if kind == "surgery" else None
+    first, _ = _attention(kind, q, k, v, "acc", acc, ex)
+    again, _ = _attention(kind, q, k, v, "acc", acc, ex)
+    out, _ = _attention(kind, q, k, v, "out", acc, ex)
+    torch.cuda.synchronize()
+    for a, b2 in zip(first, again):
+        assert torch.equal(a, b2)
+    assert torch.equal(first[0], out[0] + acc)
+    for a, o in zip(first[1:], out[1:]):
+        assert torch.equal(a, o)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode", ["none", "out", "acc"])
+@pytest.mark.parametrize("tokens", [729, 730, 100])
+def test_attention_kernels_hd72_every_mode_with_ex(gen, tokens, mode, dtype):
+    """SigLIP So400m/14's heads (16 of 72, 9 chunks of 16 bytes a row in
+    bf16, held in the tiles as 80 with a zero chunk) at its 729 tokens and
+    at ragged counts: both kernels against their plain versions in every
+    mode, surgery with and without ex, each launch counted under its entry
+    point."""
+    n = tokens
+    q, k, v = _qkv(gen, 2, 16, n, 72, dtype)
+    acc = torch.rand((2, n, n), device="cuda", generator=gen)
+    ex = (torch.rand((2, n, n), device="cuda", generator=gen)
+          / n).to(dtype).float()
+    with launches() as counts:
+        _check_attention("plain", q, k, v, mode, acc)
+        _check_attention("surgery", q, k, v, mode, acc)
+        _check_attention("surgery", q, k, v, mode, acc, ex)
+    assert counts == {build.typed("excel_plain_attention", dtype): 1,
+                      build.typed("excel_surgery_attention", dtype): 2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["plain", "surgery"])
+def test_attention_kernels_hd72_deterministic_and_acc_is_out_plus_acc(
+        gen, kind, dtype):
+    """At D = 72 as at 64 and 80: two launches give the same bits, with ex
+    too, and mode acc equals mode out + the accumulator bit for bit."""
+    n = 729
+    q, k, v = _qkv(gen, 4, 16, n, 72, dtype)
     acc = torch.rand((4, n, n), device="cuda", generator=gen)
     ex = (torch.rand((4, n, n), device="cuda", generator=gen)
           / n).to(dtype).float() if kind == "surgery" else None
@@ -1018,7 +1062,7 @@ def test_upsample_linear_backward_unaligned_side_stream_and_autograd(gen):
 # ragged row count (21: the last block's rows half used) at a width that
 # leaves lanes idle (160: 20 bf16 vectors, 40 fp32)
 LN_SHAPES = [(4, 401, 768), (4, 577, 1280), (8, 197, 768), (8, 901, 768),
-             (3, 7, 160)]
+             (3, 7, 160), (4, 729, 1152), (4, 730, 1152), (3, 7, 144)]
 # the normalised rows against the plain version's on the card, whose mean
 # and variance are PyTorch's reductions in another order: fp32 within 2e-6
 # of the output's largest magnitude; bf16 at most one bf16 ulp of the
@@ -1184,7 +1228,8 @@ def test_vision_forward_launches_the_layer_norm_kernel(gen, tower):
 # and tails of the 64-token tiles at D = 80 and 64 (17, 65 tokens), D = 32
 QKV_SHAPES = [(4, 401, 2304, 12), (4, 577, 3840, 16), (8, 901, 2304, 12),
               (1, 1, 192, 2), (2, 17, 480, 2), (3, 65, 576, 3),
-              (2, 63, 288, 3)]
+              (2, 63, 288, 3), (4, 729, 3456, 16), (2, 17, 432, 2),
+              (3, 65, 216, 1)]
 
 
 def _qkv_inputs(gen, b, n, c3, dtype):
@@ -1463,7 +1508,8 @@ def test_swiglu_gate_kernel_refuses_what_it_does_not_take(gen):
 # (B, N, hidden): ViT-B/16's lam batch, ViT-H/14's, and ragged ones: 7
 # rows at ViT-H's hidden, and a hidden of 33 bf16 / 66 fp32 vectors (no
 # whole number of a block's 128)
-FC_ACT_SHAPES = [(4, 401, 3072), (4, 577, 5120), (1, 7, 5120), (3, 5, 264)]
+FC_ACT_SHAPES = [(4, 401, 3072), (4, 577, 5120), (1, 7, 5120), (3, 5, 264),
+                 (4, 729, 4304), (4, 1, 4304)]
 
 
 def _fc_act_inputs(gen, b, n, hidden, dtype):
@@ -1486,12 +1532,13 @@ def _fc_act_inputs(gen, b, n, hidden, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["fp32", "bf16"])
-@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu", "gelu_tanh"])
 @pytest.mark.parametrize("b,n,hidden", FC_ACT_SHAPES)
 def test_fc_act_kernel_bitwise(gen, b, n, hidden, act, dtype):
     """The kernel against its plain version on the card (PyTorch's bias
     add, then `ACTIVATIONS[act]`: QuickGELU's seven eager passes or
-    F.gelu) bit for bit, one launch a call, the same bits twice."""
+    F.gelu, exact or approximate="tanh") bit for bit, one launch a call,
+    the same bits twice."""
     L, u, bias = _fc_act_inputs(gen, b, n, hidden, dtype)
     with launches() as counts:
         got = L.fc_act_fused(u, bias, act)
@@ -1504,7 +1551,7 @@ def test_fc_act_kernel_bitwise(gen, b, n, hidden, act, dtype):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("act", ["quick_gelu", "gelu"])
+@pytest.mark.parametrize("act", ["quick_gelu", "gelu", "gelu_tanh"])
 def test_fc_act_kernel_bitwise_at_every_bf16_value(gen, act):
     """In bf16 the output is a function of z = T(u + b) alone: with a zero
     bias, every finite bf16 value of u (as a [256, 256] product) gives the
@@ -1599,7 +1646,11 @@ def test_vision_forward_keeps_the_mlp_chains_bits(gen, tower, dtype):
 # a block (12 / 32); EVA-02-L/14: 24 rotating head splits, 19 + 5
 # attention kernels, 24 gates, and 78 LayerNorms (no ln_pre: 2L - 1
 # residual, block 0's ln_1, ln_post, and an ln_inner a context: 19 + 2 x
-# 5), and no fc_act (its SwiGLU's gate takes fc's bias)
+# 5), and no fc_act (its SwiGLU's gate takes fc's bias); SigLIP So400m/14
+# at 16 tokens (no CLS): 27 head splits, 22 + 5 attention kernels, 57
+# LayerNorms (2L - 1 residual, block 0's ln_1, ln_post of both streams and
+# the attention-pooling head's ln) and 28 fc_act passes (27 blocks and the
+# head's MLP over its pooled and patch rows at once)
 PASS_LAUNCHES = {
     "openai-vit-b-16": {"qkv_heads": 12, "plain_attention": 7,
                         "surgery_attention": 5, "layer_norm": 26,
@@ -1610,6 +1661,9 @@ PASS_LAUNCHES = {
     "eva02-clip-l-14-336": {"qkv_heads_rope": 24, "plain_attention": 19,
                             "surgery_attention": 5, "layer_norm": 78,
                             "swiglu_gate": 24},
+    "siglip-so400m-14-384": {"qkv_heads": 27, "plain_attention": 22,
+                             "surgery_attention": 5, "layer_norm": 57,
+                             "fc_act": 28},
 }
 
 
@@ -1619,11 +1673,12 @@ PASS_LAUNCHES = {
 def test_vision_forward_launches_by_entry_point(gen, tower, dtype):
     """One pass at full width and depth on a small image (17 tokens,
     seeded weights served as the CLIs serve them) launches exactly
-    PASS_LAUNCHES[tower] a pass; EVA-02's outputs within 1e-5 (fp32) or
-    0.05 (bf16: the LayerNorms' sums in another order move a bf16 ulp,
-    2^-8, here and there through 24 blocks) of their largest magnitude
-    of the same pass through the plain versions of its two new kernels
-    (bf16 reads 0.021 in `feats`)."""
+    PASS_LAUNCHES[tower] a pass; EVA-02's and SigLIP's outputs within 1e-5
+    (fp32) or 0.05 (bf16: the LayerNorms' sums in another order move a
+    bf16 ulp, 2^-8, here and there through 24 or 27 blocks) of their
+    largest magnitude of the same pass through the plain versions of the
+    head split and of EVA-02's gate or SigLIP's MLP chain (EVA-02's bf16
+    reads 0.021 in `feats`)."""
     import dataclasses
 
     from excel_tpu_torch.config import voc_config, with_backbone
@@ -1632,12 +1687,13 @@ def test_vision_forward_launches_by_entry_point(gen, tower, dtype):
     from excel_tpu_torch.models.params import (cast_matmul_weights,
                                                pad_swiglu)
     from portbench.harness import weights as W
-    from portbench.harness import weights_eva02
+    from portbench.harness import weights_eva02, weights_siglip
 
     cfg = with_backbone(voc_config(), tower).clip
     cfg = dataclasses.replace(cfg, image_size=4 * cfg.patch_size,
                               compute_dtype=dtype)
-    draw = weights_eva02 if cfg.block == "eva02" else W
+    draw = {"eva02": weights_eva02, "siglip": weights_siglip}.get(cfg.block,
+                                                                  W)
     params = pad_swiglu(draw.clip_visual(cfg, 31, "cuda"))
     if dtype == torch.bfloat16:
         params = cast_matmul_weights(params, dtype)
@@ -1648,11 +1704,12 @@ def test_vision_forward_launches_by_entry_point(gen, tower, dtype):
     want_counts = {build.typed("excel_" + k, dtype): v
                    for k, v in PASS_LAUNCHES[tower].items()}
     assert counts == want_counts
-    if cfg.block != "eva02":
+    if cfg.block == "vit":
         return
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(L, "qkv_heads_fused", L.qkv_projection)
         mp.setattr(L, "swiglu_gate_fused", L.swiglu_gate)
+        mp.setattr(clip_mod, "mlp", L.mlp)
         want = clip_mod.vision_forward(params, images, cfg, attn_mode="mean")
     torch.cuda.synchronize()
     tol = 1e-5 if dtype == torch.float32 else 0.05

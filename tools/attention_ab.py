@@ -16,8 +16,9 @@ bits (a digest of every output). The cases are the main paths' shapes
 acc), the calibrated train step's pass (surgery none, N=401, B=4) and the
 MSC batch's token counts at 2 x 4 images (none, N = 197, 577, 901); and
 OpenCLIP ViT-H/14's (H=16, D=80) at its sweep's N=577, B=4 in every mode,
-surgery with ex too (a tree without D=80 kernels leaves those out); in fp32
-and bf16. For plain attention without weights
+surgery with ex too, and SigLIP So400m/14's (H=16, D=72) at N=729, B=4 in
+every mode (a tree without a head dim's kernels leaves its cases out); in
+fp32 and bf16. For plain attention without weights
 `scaled_dot_product_attention` is timed beside the kernel as a yardstick
 (the port never calls it).
 
@@ -57,6 +58,11 @@ CASES += [("plain", m, 577, 4, 16, 80, False) for m in ("none", "out", "acc")]
 CASES += [("surgery", m, 577, 4, 16, 80, False)
           for m in ("acc", "out", "none")]
 CASES += [("surgery", "none", 577, 4, 16, 80, True)]
+# SigLIP So400m/14 at 378 px: the sweep's batch of 4 at 729 tokens, 16
+# heads of 72
+CASES += [("plain", m, 729, 4, 16, 72, False) for m in ("none", "out", "acc")]
+CASES += [("surgery", m, 729, 4, 16, 72, False)
+          for m in ("acc", "out", "none")]
 # the bits D = 32, 64 and 80 must keep: every mode, ragged N, ex
 DIGEST_CASES = [(kind, mode, 197, 2, heads, d, ex)
                 for d, heads in ((32, 3), (64, 12), (80, 4))
