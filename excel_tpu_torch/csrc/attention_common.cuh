@@ -2,7 +2,8 @@
 // attention_surgery.cu; the fp32 kernels of attention_fma.cuh and the bf16
 // tensor-core kernels of attention_mma.cuh).
 //
-// Both types run the same two kernels, each with 128 threads:
+// Both types run the same two kernels, each with 128 threads (but the bf16
+// surgery sums kernel, with 256: attention_mma.cuh):
 //
 //   rows kernel   one block = 64 query rows of one (image, head). The
 //                 softmax is the exact one over the whole row in two passes
@@ -27,7 +28,9 @@
 //                 the same bits every time without atomics or barriers
 //                 around the sums. The patch is written once (mode acc reads
 //                 the accumulator once; ex is read once). ceil(N/64)^2 x B
-//                 blocks: 196 at the train step's B=4, N=401.
+//                 blocks: 196 at the train step's B=4, N=401. In bf16, warps
+//                 whose rows or keys lie wholly beyond N form nothing, so
+//                 the ragged last row and column of patches cost little.
 //
 // The TPU kernels carried the head sums across a sequential grid axis and
 // kept a head's [rows, N] logits in VMEM; here the products are cheap
@@ -36,9 +39,10 @@
 // shared memory for larger tiles and more blocks an SM.
 //
 // Copies are 16-byte `cp.async` with zero fill for rows >= N into a two-stage
-// ring: the next chunk or the next head's tiles load while the current ones
-// are multiplied. Padded keys are masked to -inf before the softmax; padded
-// V rows are zero (0 x garbage would be NaN).
+// ring (the bf16 sums kernel's: the copy engine's, TMA): the next chunk or
+// the next head's tiles load while the current ones are multiplied. Padded
+// keys are masked to -inf before the softmax; padded V rows are zero (0 x
+// garbage would be NaN).
 #pragma once
 
 #include <cuda_runtime.h>

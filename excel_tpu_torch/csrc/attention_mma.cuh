@@ -26,12 +26,17 @@
 // XOR-swizzled by the row, so `ldmatrix` reads 8 rows without a bank
 // conflict and without padding (`swz`: D = 80 splits its rows in two).
 //
-// The rows kernel's ring stage holds the chunk's K, V (and Q for surgery);
-// the sums kernel's holds one head's tiles (q rows and k keys; for the mix
-// also k rows, v rows, q keys, v keys) and keeps both head sums of its
-// 64 x 64 patch in registers.
+// The rows kernel's ring stage holds the chunk's K, V (and Q for surgery),
+// copied by its threads (cp.async). The sums kernel's two stages each hold
+// one head's tiles (q rows and k keys; for the mix also k rows, v rows, q
+// keys, v keys; and surgery's row statistics), copied by the copy engine
+// (TMA, one thread issuing, a barrier a stage), and keep both head sums of
+// its 64 x 64 patch in registers: surgery's in eight warps of 16 rows x 32
+// keys (at D = 80 four warps of 16 x 64 held 255 registers and spilled),
+// plain attention's head-mean in four of 16 x 64.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
@@ -163,18 +168,20 @@ __device__ __forceinline__ void warp_logits(float (&S)[8][4],
   }
 }
 
-// warp_logits with the A fragments (rows [row0, row0 + 16) of the tile At)
-// loaded one k-step at a time, for the sums kernel: at D = 80 all five
-// k-steps held beside both head sums spill (ptxas: 708 bytes), and at D =
-// 32 and 64 it is as fast as holding them. Each S[j] takes the same
+// warp_logits over the kKeys keys [key0, key0 + kKeys) of the tile Bt (S[j]:
+// keys key0 + 8 j ..), with the A fragments (rows [row0, row0 + 16) of the
+// tile At) loaded one k-step at a time, for the sums kernel: at D = 80 all
+// five k-steps held beside both head sums spill (ptxas: 708 bytes), and at
+// D = 32 and 64 it is as fast as holding them. Each S[j] takes the same
 // products in the same k-step order as warp_logits: the same bits.
-template <int D>
-__device__ __forceinline__ void warp_logits_streamed(float (&S)[8][4],
+template <int D, int kKeys>
+__device__ __forceinline__ void warp_logits_streamed(float (&S)[kKeys / 8][4],
                                                      const bf16* At, int row0,
-                                                     const bf16* Bt) {
+                                                     const bf16* Bt,
+                                                     int key0) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < kKeys / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) S[j][e] = 0.f;
 #pragma unroll
@@ -182,8 +189,8 @@ __device__ __forceinline__ void warp_logits_streamed(float (&S)[8][4],
     uint32_t a[4];
     ldsm4(a, At + swz<D>(row0 + (lane & 15), 2 * ks + (lane >> 4)));
 #pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
-      const int key = jp * 16 + (lane & 7) + ((lane >> 4) << 3);
+    for (int jp = 0; jp < kKeys / 16; ++jp) {
+      const int key = key0 + jp * 16 + (lane & 7) + ((lane >> 4) << 3);
       uint32_t b[4];
       ldsm4(b, Bt + swz<D>(key, 2 * ks + ((lane >> 3) & 1)));
       mma16816(S[2 * jp], a, b[0], b[1]);
@@ -388,106 +395,242 @@ __global__ void __launch_bounds__(kThreads)
 // sums_kernel: the [N, N] head sums, one 64 x 64 patch a block
 // ---------------------------------------------------------------------------
 
-// Grid (key tiles, row tiles, B). kAttn: attn = sum_h softmax(q k^T)
-// (x out_scale; mode 2 adds the values already in attn). kMix: mix = sum_h
-// (softmax(q q^T) + softmax(k k^T) + softmax(v v^T)) / 3 + H ex. A stage
-// holds the head's tiles: q rows, k keys (, k rows, v rows, q keys, v keys).
-template <int D, bool kAttn, bool kMix>
-__global__ void __launch_bounds__(kThreads)
-    sums_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                const bf16* __restrict__ v, const float* __restrict__ stats,
+// How a sums kernel block covers its 64 x 64 patch: each warp 16 rows x
+// kWarpKeys (64 or 32) keys, so 4 or 8 warps; the blocks an SM its
+// registers are held to (__launch_bounds__).
+template <int kWarpKeys_, int kBlocks_>
+struct SumsSplit {
+  static constexpr int kWarpKeys = kWarpKeys_;
+  static constexpr int kBlocks = kBlocks_;
+  static constexpr int kThreadsBlock = kThreads * kTile / kWarpKeys;
+};
+
+// The sums kernel's copies: tensor maps of q, k, v ([B H][N][D] bf16; D =
+// 80 and 72 as a box of columns 0-63 and one of 64-79, whose columns >= D
+// the copy zero-fills) and of surgery's row statistics; rows >= N are
+// zero-filled too. The boxes' swizzles lay the tiles out as swz does.
+struct SumsMaps {
+  CUtensorMap qkv[3][2];
+  CUtensorMap stats;
+};
+
+// Tiles a stage: the row tiles q (, k, v) of the patch's 64 rows, then its
+// key tiles k (, q, v).
+template <bool kMix>
+__host__ __device__ constexpr int sums_stage_tiles() {
+  return kMix ? 6 : 2;
+}
+
+// floats of a stage's row statistics: 64 rows x 8 in surgery (plain
+// attention's 2 a row, 8 bytes, make no box: its threads load their own)
+template <bool kMix>
+__host__ __device__ constexpr int sums_stat_floats() {
+  return kMix ? kTile * 8 : 0;
+}
+
+// bytes a stage's copies write
+template <int D, bool kMix>
+__host__ __device__ constexpr int sums_stage_bytes() {
+  return (int)sizeof(bf16) * kTile * tile_dim<D>() * sums_stage_tiles<kMix>() +
+         (int)sizeof(float) * sums_stat_floats<kMix>();
+}
+
+// two stages, their barriers, and 1 KB to align the tiles to the 128-byte
+// swizzle's 1024
+template <int D, bool kMix>
+__host__ __device__ constexpr size_t sums_smem() {
+  return 2 * (sums_stage_bytes<D, kMix>() + sizeof(uint64_t)) + 1024;
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+// Wait for phase `parity` of the barrier; traps rather than hang should the
+// copies never land
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  for (unsigned spins = 0;; ++spins) {
+    unsigned done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 24)) __trap();
+  }
+}
+
+// box (c0, c1, c2) of the map into dst, completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Grid (key tiles, B, row tiles): the ragged last row tile of every image,
+// whose warps below N alone work, comes last and fills the last wave. kAttn:
+// attn = sum_h softmax(q k^T) (x out_scale; mode 2 adds the values already
+// in attn). kMix: mix = sum_h (softmax(q q^T) + softmax(k k^T) + softmax(v
+// v^T)) / 3 + H ex. Every element is one thread's: heads in order, in each
+// head the products by mma.m16n8k16 over the k-steps in order, then acc =
+// fma(2^(S c - m c), w, acc), q k^T into attn, then q q^T, k k^T, v v^T
+// into mix; so the split changes no bit. A head's tiles (and surgery's
+// statistics) arrive by the copy engine into one of two stages: one thread
+// issues them, the stage's barrier counts their bytes, and the next head's
+// land while this one is multiplied. Warps whose rows or keys lie wholly at
+// or beyond N form nothing.
+template <int D, bool kAttn, bool kMix, class Split>
+__global__ void __launch_bounds__(Split::kThreadsBlock, Split::kBlocks)
+    sums_kernel(const __grid_constant__ SumsMaps maps,
+                const float* __restrict__ stats,
                 const float* __restrict__ ex, float* __restrict__ mix,
                 float* attn, int H, int N, int mode, float c,
                 float out_scale) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int T = kTile * tile_dim<D>();
-  constexpr int NT = kMix ? 6 : 2;
+  constexpr int DP = tile_dim<D>();
+  constexpr int T = kTile * DP;
+  constexpr int NR = kMix ? 3 : 1;  // row tiles: q (, k, v)
+  constexpr int NT = sums_stage_tiles<kMix>();
   constexpr int P = kMix ? 4 : 1;
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);
+  constexpr int WK = Split::kWarpKeys;
+  constexpr int SF = sums_stat_floats<kMix>();
+  // both stages' tiles from a 1024-byte boundary, then their statistics,
+  // then their barriers
+  bf16* ring = reinterpret_cast<bf16*>(
+      smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023));
+  float* stat_s = reinterpret_cast<float*>(ring + 2 * NT * T);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(stat_s + 2 * SF);
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int g = lane >> 2;
   const int t = lane & 3;
+  const int row0 = (warp & 3) * 16;  // the warp's rows in the patch
+  const int kw = (warp >> 2) * WK;   // the warp's first key in the patch
   const int k0 = blockIdx.x * kTile;
-  const int r0 = blockIdx.y * kTile;
-  const int b = blockIdx.z;
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.z * kTile;
+  const bool busy = r0 + row0 < N && k0 + kw < N;
 
+  // head h's tiles and statistics into stage h & 1, by thread 0
   auto prefetch = [&](int h) {
+    if (threadIdx.x != 0) return;
     bf16* st = ring + (h & 1) * NT * T;
-    const size_t base = ((size_t)b * H + h) * N * D;
-    load_tile<D>(st, q + base, r0, N);
-    load_tile<D>(st + T, k + base, k0, N);
-    if constexpr (kMix) {
-      load_tile<D>(st + 2 * T, k + base, r0, N);
-      load_tile<D>(st + 3 * T, v + base, r0, N);
-      load_tile<D>(st + 4 * T, q + base, k0, N);
-      load_tile<D>(st + 5 * T, v + base, k0, N);
+    uint64_t* bar = bars + (h & 1);
+    const int bh = b * H + h;
+    mbar_expect_tx(bar, sums_stage_bytes<D, kMix>());
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      // rows q, k, v (maps 0, 1, 2), then keys k, q, v
+      const int m = i < NR ? i : (i == NR ? 1 : i == NR + 1 ? 0 : 2);
+      const int start = i < NR ? r0 : k0;
+      tma_load(st + i * T, &maps.qkv[m][0], 0, start, bh, bar);
+      if constexpr (DP == 80)
+        tma_load(st + i * T + kTile * 64, &maps.qkv[m][1], 64, start, bh,
+                 bar);
     }
-    cp_async_commit();
+    if constexpr (kMix)
+      tma_load(stat_s + (h & 1) * SF, &maps.stats, 0, r0, bh, bar);
   };
 
-  float acc_attn[8][4], acc_mix[8][4];
+  if (threadIdx.x == 0) {
+    mbar_init(bars);
+    mbar_init(bars + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  float acc_attn[WK / 8][4], acc_mix[WK / 8][4];
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < WK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc_attn[j][e] = acc_mix[j][e] = 0.f;
 
-  // acc[j][e] += 2^(S c - m c) * w, the row's statistics in (mc, w)
-  auto add_softmax = [&](float(&acc)[8][4], const float(&S)[8][4],
-                         const float(&mc)[2], const float(&w)[2]) {
+  // acc[j][e] += 2^(S c - m c) * w over the product At . Bt^T of the warp's
+  // rows and keys; x: the rows' statistics (m c, 1 / s) of the softmax, w
+  // = 1 / s (x 1 / 3 in the mix); rows >= N (0, 0)
+  auto add_softmax = [&](float(&acc)[WK / 8][4], const bf16* At,
+                         const bf16* Bt, const float2(&x)[2], bool third) {
+    float S[WK / 8][4];
+    warp_logits_streamed<DP, WK>(S, At, row0, Bt, kw);
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < WK / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        acc[j][e] = fmaf(exp2f(fmaf(S[j][e], c, -mc[e >> 1])), w[e >> 1],
-                         acc[j][e]);
+      for (int e = 0; e < 4; ++e) {
+        const float2 s = x[e >> 1];
+        const float w = third ? s.y * (1.f / 3.f) : s.y;
+        acc[j][e] = fmaf(exp2f(fmaf(S[j][e], c, -s.x)), w, acc[j][e]);
+      }
   };
 
   prefetch(0);
   for (int h = 0; h < H; ++h) {
     if (h + 1 < H) prefetch(h + 1);
-    // this head's row statistics, loaded while the copies land; rows >= N
-    // take (0, 0): p = 0
-    float mc[P][2], w[P][2];
+    mbar_wait(bars + (h & 1), (h >> 1) & 1);
+    if (busy) {
+      const bf16* st = ring + (h & 1) * NT * T;
+      const bf16* kt = st + NR * T;  // the key tiles
+      const float2* sst =
+          reinterpret_cast<const float2*>(stat_s + (h & 1) * SF);
+      // softmax p's statistics of the thread's rows g and g + 8
+      float2 x[2];
+      auto stat = [&](int p) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = r0 + warp * 16 + g + 8 * i;
-      const float2* srow = reinterpret_cast<const float2*>(
-          stats + (((size_t)b * H + h) * N + (row < N ? row : 0)) * (2 * P));
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        const float2 x = row < N ? __ldg(srow + p) : make_float2(0.f, 0.f);
-        mc[p][i] = x.x;
-        w[p][i] = p == 0 ? x.y : x.y * (1.f / 3.f);
+        for (int i = 0; i < 2; ++i) {
+          const int r = row0 + g + 8 * i;
+          if constexpr (kMix)
+            x[i] = sst[r * P + p];
+          else
+            x[i] = r0 + r < N
+                       ? __ldg(reinterpret_cast<const float2*>(stats) +
+                               ((size_t)b * H + h) * N + r0 + r)
+                       : make_float2(0.f, 0.f);
+        }
+      };
+      if constexpr (kAttn) {
+        stat(0);
+        add_softmax(acc_attn, st, kt, x, false);
+      }
+      if constexpr (kMix) {
+        stat(1);
+        add_softmax(acc_mix, st, kt + T, x, true);
+        stat(2);
+        add_softmax(acc_mix, st + T, kt, x, true);
+        stat(3);
+        add_softmax(acc_mix, st + 2 * T, kt + 2 * T, x, true);
       }
     }
-    cp_async_wait_step(h + 1 < H);
-    __syncthreads();
-    const bf16* st = ring + (h & 1) * NT * T;
-    float S[8][4];
-    constexpr int DP = tile_dim<D>();
-    if constexpr (kAttn) {
-      warp_logits_streamed<DP>(S, st, warp * 16, st + T);
-      add_softmax(acc_attn, S, mc[0], w[0]);
-    }
-    if constexpr (kMix) {
-      warp_logits_streamed<DP>(S, st, warp * 16, st + 4 * T);
-      add_softmax(acc_mix, S, mc[1], w[1]);
-      warp_logits_streamed<DP>(S, st + 2 * T, warp * 16, st + T);
-      add_softmax(acc_mix, S, mc[2], w[2]);
-      warp_logits_streamed<DP>(S, st + 3 * T, warp * 16, st + 5 * T);
-      add_softmax(acc_mix, S, mc[3], w[3]);
-    }
+    // every warp is done with this stage before it is filled again
     __syncthreads();
   }
+  if (!busy) return;
 
 #pragma unroll
-  for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < WK / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int row = r0 + warp * 16 + g + 8 * (e >> 1);
-      const int key = k0 + j * 8 + 2 * t + (e & 1);
+      const int row = r0 + row0 + g + 8 * (e >> 1);
+      const int key = k0 + kw + j * 8 + 2 * t + (e & 1);
       if (row >= N || key >= N) continue;
       const size_t i = ((size_t)b * N + row) * N + key;
       if constexpr (kMix)
@@ -522,22 +665,138 @@ cudaError_t launch_rows(const bf16* q, const bf16* k, const bf16* v, bf16* ctx,
   return cudaGetLastError();
 }
 
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link to
+// libcuda); null where the installed CUDA has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return (EncodeTiled) nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A tiled map of the rank-`rank` tensor at p (dims innermost first, byte
+// strides of dims 1..), boxes of `box` elements, zero outside the tensor
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type,
+                       const void* p, int rank, const cuuint64_t* dims,
+                       const cuuint64_t* strides, const cuuint32_t* box,
+                       CUtensorMapSwizzle swizzle) {
+  EncodeTiled fn = tensor_map_encoder();
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return fn != nullptr &&
+         fn(map, type, (cuuint32_t)rank, const_cast<void*>(p), dims, strides,
+            box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The maps of one sums launch: q, k, v as [B H][N][D] in boxes of 64 rows
+// (swz's layout: 128-byte rows swizzled in 1024, D = 80's 32-byte tail in
+// 256, D = 32's 64-byte rows in 512); surgery's statistics as [B H][N][8]
+// in boxes of 64 rows
+template <int D, bool kMix>
+bool sums_maps(SumsMaps* maps, const bf16* q, const bf16* k, const bf16* v,
+               const float* stats, int B, int H, int N) {
+  constexpr int DP = tile_dim<D>();
+  const bf16* src[3] = {q, k, v};
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)N,
+                              (cuuint64_t)B * H};
+  const cuuint64_t strides[2] = {sizeof(bf16) * D,
+                                 sizeof(bf16) * D * (cuuint64_t)N};
+  const cuuint32_t head[3] = {DP == 32 ? 32u : 64u, (cuuint32_t)kTile, 1};
+  const cuuint32_t tail[3] = {16, (cuuint32_t)kTile, 1};
+  const CUtensorMapSwizzle swizzle = DP == 32
+                                         ? CU_TENSOR_MAP_SWIZZLE_64B
+                                         : CU_TENSOR_MAP_SWIZZLE_128B;
+  for (int m = 0; m < 3; ++m) {
+    if (!encode_map(&maps->qkv[m][0], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    src[m], 3, dims, strides, head, swizzle))
+      return false;
+    if (DP == 80 &&
+        !encode_map(&maps->qkv[m][1], CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                    src[m], 3, dims, strides, tail,
+                    CU_TENSOR_MAP_SWIZZLE_32B))
+      return false;
+  }
+  if (!kMix) return true;
+  const cuuint64_t sdims[3] = {8, (cuuint64_t)N, (cuuint64_t)B * H};
+  const cuuint64_t sstrides[2] = {sizeof(float) * 8,
+                                  sizeof(float) * 8 * (cuuint64_t)N};
+  const cuuint32_t sbox[3] = {8, (cuuint32_t)kTile, 1};
+  return encode_map(&maps->stats, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, stats, 3,
+                    sdims, sstrides, sbox, CU_TENSOR_MAP_SWIZZLE_NONE);
+}
+
+// The split's kernel allowed its shared memory; the blocks of it an SM
+// holds into *blocks, where not null
+template <int D, bool kAttn, bool kMix, class Split>
+cudaError_t sums_residency(int* blocks) {
+  auto kern = sums_kernel<D, kAttn, kMix, Split>;
+  constexpr size_t smem = sums_smem<D, kMix>();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess || blocks == nullptr) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kern, Split::kThreadsBlock, smem);
+}
+
+// One launch of the sums kernel in the split Split.
+template <int D, bool kAttn, bool kMix, class Split>
+cudaError_t launch_sums_split(const bf16* q, const bf16* k, const bf16* v,
+                              const float* stats, const float* ex, float* mix,
+                              float* attn, int B, int H, int N, int mode,
+                              float out_scale, cudaStream_t stream) {
+  SumsMaps maps;
+  if (!sums_maps<D, kMix>(&maps, q, k, v, stats, B, H, N))
+    return cudaErrorInvalidValue;
+  cudaError_t err = sums_residency<D, kAttn, kMix, Split>(nullptr);
+  if (err != cudaSuccess) return err;
+  const int nt = (N + kTile - 1) / kTile;
+  sums_kernel<D, kAttn, kMix, Split>
+      <<<dim3(nt, B, nt), Split::kThreadsBlock, sums_smem<D, kMix>(),
+         stream>>>(maps, stats, ex, mix, attn, H, N, mode, scale_log2e(D),
+                   out_scale);
+  return cudaGetLastError();
+}
+
+// Plain attention's head-mean keeps four warps of 16 rows x 64 keys. The
+// surgery sums run eight warps of 16 rows x 32 keys, with every register a
+// thread may take (one block an SM: the two stages take 125 KB at D = 80
+// and 72), or with 128, where the SM's shared memory then holds two blocks
+// (D <= 64: 16 warps an SM); the launch asks the card which holds more.
 template <int D, bool kAttn, bool kMix>
 cudaError_t launch_sums(const bf16* q, const bf16* k, const bf16* v,
                         const float* stats, const float* ex, float* mix,
                         float* attn, int B, int H, int N, int mode,
                         float out_scale, cudaStream_t stream) {
-  auto kern = sums_kernel<D, kAttn, kMix>;
-  const size_t smem =
-      sizeof(bf16) * kTile * tile_dim<D>() * 2 * (kMix ? 6 : 2);
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int nt = (N + kTile - 1) / kTile;
-  dim3 grid(nt, nt, B);
-  kern<<<grid, kThreads, smem, stream>>>(q, k, v, stats, ex, mix, attn, H, N,
-                                         mode, scale_log2e(D), out_scale);
-  return cudaGetLastError();
+  if constexpr (!kMix) {
+    return launch_sums_split<D, kAttn, kMix, SumsSplit<64, 1>>(
+        q, k, v, stats, ex, mix, attn, B, H, N, mode, out_scale, stream);
+  } else {
+    using Wide = SumsSplit<32, 1>;
+    using Two = SumsSplit<32, 2>;
+    int wide = 0, two = 0;
+    cudaError_t err = sums_residency<D, kAttn, kMix, Wide>(&wide);
+    if (err == cudaSuccess) err = sums_residency<D, kAttn, kMix, Two>(&two);
+    if (err != cudaSuccess) return err;
+    if (two > wide)
+      return launch_sums_split<D, kAttn, kMix, Two>(
+          q, k, v, stats, ex, mix, attn, B, H, N, mode, out_scale, stream);
+    return launch_sums_split<D, kAttn, kMix, Wide>(
+        q, k, v, stats, ex, mix, attn, B, H, N, mode, out_scale, stream);
+  }
 }
 
 }  // namespace tc

@@ -331,13 +331,53 @@ def test_attention_kernels_hd72_deterministic_and_acc_is_out_plus_acc(
         assert torch.equal(a, o)
 
 
+# the sums kernel's instantiations: surgery with the head sums of q k^T
+# (<D, true, true>), surgery without (<D, false, true>), each with and
+# without ex, and plain attention with weights (<D, true, false>)
+SUMS_KINDS = [("surgery", "acc", False), ("surgery", "acc", True),
+              ("surgery", "none", False), ("surgery", "none", True),
+              ("plain", "out", False)]
+
+
+@pytest.mark.parametrize("kind,mode,with_ex", SUMS_KINDS)
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("tokens", [1, 63, 64, 65, 577, 729, 730])
+@pytest.mark.parametrize("d", [32, 64, 72, 80])
+def test_attention_sums_kernel_splits(gen, d, tokens, b, kind, mode,
+                                      with_ex):
+    """The sums kernel's block split at the edges it creates: one key,
+    ragged and whole 64-key patches and patch pairs (N = 1, 63, 64, 65 and
+    the sweeps' 577, 729, 730), grids under one wave and over several (B =
+    1, 4, 16), every instantiation and head dim: against the plain versions
+    within the attention tests' bounds, and bit for bit across a repeated
+    launch and a launch on a side stream."""
+    q, k, v = _qkv(gen, b, 3, tokens, d, torch.bfloat16)
+    acc = torch.rand((b, tokens, tokens), device="cuda", generator=gen)
+    ex = (torch.rand((b, tokens, tokens), device="cuda", generator=gen)
+          / tokens).bfloat16().float() if with_ex else None
+    got = _check_attention(kind, q, k, v, mode, acc, ex)
+    again, _ = _attention(kind, q, k, v, mode, acc, ex)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side, _ = _attention(kind, q, k, v, mode, acc, ex)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    for x, y, z in zip(got, again, on_side):
+        assert (x is None) == (y is None) == (z is None)
+        if x is not None:
+            assert torch.equal(x, y) and torch.equal(x, z)
+
+
 def test_attention_kernels_keep_their_recorded_bits(gen):
     """The D = 32 and 64 kernels give the bits they gave before D = 80
-    came, and the D = 80 ones the bits of their [B, H, N, D] context store
-    (the contexts, now stored token-major, hashed in [B, H, N, D] order):
-    tools/attention_ab.py's DIGEST_CASES (every mode, surgery with and
-    without ex, fp32 and bf16, inputs drawn on the CPU from a seed)
-    against the digests recorded from them
+    came, the D = 80 ones the bits of their [B, H, N, D] context store
+    (the contexts, now stored token-major, hashed in [B, H, N, D] order),
+    and D = 72 and one several-wave surgery launch a width (each tower's
+    sweep launch, msc's N = 901) the bits they gave before the sums kernel
+    was re-tiled: tools/attention_ab.py's DIGEST_CASES (every mode, surgery
+    with and without ex, fp32 and bf16, inputs drawn on the CPU from a
+    seed) against the digests recorded from them
     (tests/torch_fixtures/attention_digests.json)."""
     import importlib.util
     import json
